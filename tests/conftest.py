@@ -55,6 +55,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-second quorum/chaos tests; deselect with "
         "-m 'not slow' for a fast local loop")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card and skips without one; run on the card "
+        "with -m gpu")
 
 
 @pytest.fixture(scope="session", autouse=True)

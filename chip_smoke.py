@@ -6,40 +6,56 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and build: the card's name and power limit, then ``nvcc`` builds
-   every kernel from ``src/repro_torch/kernels/csrc`` (``-Xptxas -v``
-   output printed: registers, shared memory, spills).
+1. Card and build: the card's name and power limit, then one ``nvcc``
+   per source of ``src/repro_torch/kernels/csrc``, all started together
+   (``-Xptxas -v`` output printed: registers, shared memory, spills).
 2. Each kernel against its plain PyTorch version on the card, on random
-   inputs: qwen1.5-0.5b attention at a 384-token prefill, a chunk at an
-   offset and (B,) decode, at the launcher demo's short prompts and
-   4-slot decode, and the reference's ATTN_SWEEP, in bf16 and f32 (f32
-   with TF32 off), with the kernel's, the plain version's and one library
-   call's times (CUDA events, warmed up, L2 flushed) beside the least
-   time the card could take (the bound).
-3. Full-width qwen1.5-0.5b served through the port's launcher
-   (``launch.serve --demo``: tcp ``Engine`` + ``ServingGateway``, six
-   prompts through ``gen.submit`` / ``gen.result``).
-4. Sessions: chunked prefill (64 tokens), ``session_cap=4``,
-   ``max_len=1024``; two conversations of three ~384-token turns through
-   ``gen.generate`` with a ``session_id``.  Phases 3 and 4 are the main
-   path: kernel launch counts are zeroed before them and read after, and
-   every (entry point, shape) the kernel was launched at is recorded with
-   the inputs of its last launch.
-5. The main path's own shapes: the kernel against its plain version on
-   those recorded inputs, timed and bounded as in phase 2.  These rows,
-   with the main path's launch counts, make the kernels' JSON summary.
-6. Full-width parity: f32 compute, TF32 off; prefill and 8 decode steps
-   through the kernel against the same through the plain version.
+   inputs.  Attention: qwen1.5-0.5b and granite-moe-3b-a800m heads at a
+   384-token prefill, a chunk at an offset and (B,) decode, the demo's
+   short prompts and 4-slot decode, and the reference's ATTN_SWEEP, in
+   bf16 and f32 (f32 with TF32 off).  Router: T in {4, 5-10, 64, 384} at
+   granite's E 40, k 8, and the reference's (T, E) x k grid; indices
+   exact (a swap of two probabilities within 1e-6 is a tie, reported).
+   Fletcher-64: the CPU test's lengths, byte counts that are no multiple
+   of 4, 155.6 M words (qwen1.5-0.5b's embedding), each with one bit
+   flipped; exactly equal.  The spec shapes are timed (CUDA events,
+   warmed up, L2 flushed) beside the least time the card could take.
+3. The main paths, each driven with the kernels' launch counts set to 0
+   just before it and read just after; every (kernel, entry point,
+   shape) is recorded with the inputs of its last launch:
+   a. qwen1.5-0.5b serving: the launcher's ``--demo`` (tcp ``Engine`` +
+      ``ServingGateway``, six prompts through ``gen.submit`` /
+      ``gen.result``), then sessions (chunked prefill of 64 tokens,
+      ``session_cap=4``, ``max_len=1024``, two conversations of three
+      ~384-token turns through ``gen.generate`` with a ``session_id``).
+      Attention must launch on prefill, chunk and decode.
+   b. granite-moe-3b-a800m serving, the same demo and sessions at full
+      width: attention and the MoE router must launch on each.
+   c. The checkpoint service: full-width qwen1.5-0.5b weights saved from
+      the card through ``CheckpointClient`` to a ``CheckpointServer``
+      over tcp (checksums on the card, verified on the server's card),
+      restored to the card bitwise-equal; a restore from a store with
+      one flipped byte raises CHECKSUM_ERROR; one greedy request served
+      with the restored weights gives the original tokens.  Fletcher-64
+      must launch on save, verify and restore.
+4. The main paths' own shapes: each kernel against its plain version on
+   the recorded inputs, timed and bounded as in phase 2.  These rows,
+   with the main paths' launch counts, make the kernels' JSON summary.
+5. Full-width parity, f32 compute, TF32 off: prefill 2x128 and 8 (B,)
+   decode steps through the kernels against the same through the plain
+   versions, for qwen1.5-0.5b and granite-moe-3b-a800m.
 
-The last two lines of stdout are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``.
+The last three lines of stdout are the card's name and power limit, the
+kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -51,15 +67,23 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.executor import Engine  # noqa: E402
+from repro_torch.core.types import MercuryError, Ret  # noqa: E402
+from repro_torch.kernels import SOURCES  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import fletcher as fl  # noqa: E402
+from repro_torch.kernels import moe_router as kr  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn_layer  # noqa: E402
+from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.services import base as svc_base  # noqa: E402
+from repro_torch.services import checkpoint as ckpt  # noqa: E402
 from repro_torch.services import ServingGateway  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
+MOE_ARCH = "granite-moe-3b-a800m"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
                   torch.float32: 67e12}    # f32 outside the tensor cores
@@ -71,7 +95,11 @@ TOL = {torch.bfloat16: 2e-2,
 # at T=1024), under which a wrong tile could hide in bf16's absolute
 # limit; rounding the output to bf16 alone costs at most 2^-7 here.
 ROW_TOL = 2e-2
-PARITY_TOL = 2e-3   # full-width logits, f32, 24 layers
+PARITY_TOL = 2e-3   # full-width logits, f32, 24 / 32 layers
+# router: w and probs as tests/test_kernels.py holds the Pallas kernel
+# (the kernel's expf and sum order against torch's); indices exact, where
+# two probabilities within TIE_GAP of each other may swap (a tie)
+ROUTER_RTOL, ROUTER_ATOL, TIE_GAP = 1e-5, 1e-6, 1e-6
 # tests/test_kernels.py's ATTN_SWEEP (tests/test_torch_isolation.py keeps
 # the two equal): S, T, Hq, Hkv, D, causal, window, softcap, prefix, dtype
 ATTN_SWEEP = [
@@ -83,6 +111,10 @@ ATTN_SWEEP = [
     (64, 64, 2, 2, 16, False, 0, 0.0, None, "float32"),
     (128, 128, 4, 2, 32, True, 0, 0.0, None, "bfloat16"),
 ]
+# tests/test_kernels.py's router grid: (T, E), k (k > E skipped there)
+ROUTER_GRID = [((T, E), k) for (T, E) in [(32, 8), (100, 16), (256, 40)]
+               for k in (1, 2, 6)]
+QWEN_EMBED_WORDS = 151936 * 1024       # qwen1.5-0.5b's largest shard, f32
 
 
 class PhaseError(RuntimeError):
@@ -92,6 +124,13 @@ class PhaseError(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise PhaseError(what)
+
+
+def free_card() -> None:
+    """Drop what the last phase left on the card (models are freed by
+    their last reference going away)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +163,33 @@ def device_ms(fn, flush, iters: int = 20) -> float:
     return total / iters
 
 
+def host_read_ms(fn, flush, iters: int = 5) -> float:
+    """Mean time of ``fn`` in ms for a function that reads its result
+    back to the host (no graph can hold that): CUDA events around one
+    call each, L2 flushed first; the window includes the read-back."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def bound_of(nbytes: float, ops: float, dtype) -> tuple:
+    """(least ms, "bytes" | "operations"): bytes over 3.35 TB/s or
+    operations over the dtype's peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def visible(S: int, T: int, offsets, causal: bool, window: int, prefix,
             device="cpu") -> torch.Tensor:
     """(B, S, T) mask of the (query, key) pairs the masks leave visible."""
@@ -142,10 +208,9 @@ def visible(S: int, T: int, offsets, causal: bool, window: int, prefix,
 
 
 def bound_ms(q, k, offsets, causal, window, prefix):
-    """The least time the card could take: bytes (q read, the K/V rows
-    some query can see read once, the output written) over 3.35 TB/s, or
-    operations (2·D multiply-adds per visible pair, for Q·Kᵀ and P·V)
-    over the dtype's peak, whichever is larger; counted for this run's
+    """Attention's least time: bytes (q read, the K/V rows some query can
+    see read once, the output written) or operations (2·D multiply-adds
+    per visible pair, for Q·Kᵀ and P·V), counted for this run's
     offsets."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -157,11 +222,7 @@ def bound_ms(q, k, offsets, causal, window, prefix):
         kv_rows += max(last - first, 0)
     nbytes = 2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt
     pairs = int(visible(S, T, offsets, causal, window, prefix).sum())
-    ops = 4 * D * Hq * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound_of(nbytes, 4 * D * Hq * pairs, q.dtype)
 
 
 def sdpa_ms(q, k, v, offsets, causal, window, prefix, flush):
@@ -186,11 +247,11 @@ def offsets_of(q_offset, B: int):
 
 
 # ---------------------------------------------------------------------------
-# phases 2 and 5: kernel against its plain version
+# kernel against its plain version: attention
 # ---------------------------------------------------------------------------
 def check_kernel(name, q, k, v, kw, flush=None):
-    """Kernel against plain on one set of inputs; with ``flush`` (an
-    L2-sized buffer) also the times and the bound."""
+    """Attention kernel against plain on one set of inputs; with
+    ``flush`` (an L2-sized buffer) also the times and the bound."""
     B, S = q.shape[:2]
     T = k.shape[1]
     got = fa.attention(q, k, v, **kw)
@@ -200,7 +261,8 @@ def check_kernel(name, q, k, v, kw, flush=None):
     err = float(diff.max())
     row_err = float((diff.amax(-1)
                      / want.abs().amax(-1).clamp_min(1e-3)).max())
-    row = {"case": name, "shape": f"B{B} S{S} T{T}",
+    row = {"kernel": "flash_attention", "case": name,
+           "shape": f"B{B} S{S} T{T} Hq{q.shape[2]} Hkv{k.shape[2]}",
            "dtype": str(q.dtype).replace("torch.", ""),
            "max_abs_err": err, "tol": TOL[q.dtype], "row_rel_err": row_err,
            "row_tol": ROW_TOL,
@@ -236,7 +298,8 @@ def attention_case(name, B, S, T, Hq, Hkv, D, dtype, *, causal=True,
     return check_kernel(name, q, k, v, kw, flush)
 
 
-QWEN = dict(Hq=16, Hkv=16, D=64)      # qwen1.5-0.5b attention heads
+HEADS = {ARCH: dict(Hq=16, Hkv=16, D=64),      # qwen1.5-0.5b
+         MOE_ARCH: dict(Hq=24, Hkv=8, D=64)}   # granite-moe-3b-a800m
 MAIN_CASES = {
     "prefill": dict(B=1, S=384, T=384),
     "chunk": dict(B=1, S=64, T=1024, offsets=[320]),
@@ -254,22 +317,125 @@ MAIN_CASES = {
 
 
 def assert_all_ok(rows):
-    bad = [f"{r['case']}/{r['dtype']}: {r['max_abs_err']:.3g} "
-           f"(row {r['row_rel_err']:.3g})" for r in rows if not r["ok"]]
+    bad = [f"{r['kernel']}:{r['case']}/{r.get('dtype', '')}: "
+           f"{r['max_abs_err']:.3g}" for r in rows if not r["ok"]]
     check(not bad, f"kernel disagrees with its plain version: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# kernel against its plain version: the MoE router
+# ---------------------------------------------------------------------------
+def router_ties(idx, pidx, pprobs):
+    """Positions where the kernel's expert differs from the plain
+    version's: (token, position, kernel's expert, plain's expert, their
+    two plain probabilities)."""
+    out = []
+    for t, j in (idx != pidx).nonzero().tolist():
+        a, b = int(idx[t, j]), int(pidx[t, j])
+        out.append((t, j, a, b, float(pprobs[t, a]), float(pprobs[t, b])))
+    return out
+
+
+def check_router(name, logits, k, flush=None):
+    """Router kernel against plain on one (T, E) logits tensor: indices
+    exactly equal except ties (two probabilities within TIE_GAP), which
+    are reported; w and probs within rtol/atol."""
+    T, E = logits.shape
+    w, idx, probs = kr.router_topk(logits, k)
+    torch.cuda.synchronize()
+    pw, pidx, pprobs = kr.router_topk_plain(logits, k)
+    swaps = router_ties(idx.cpu(), pidx.cpu(), pprobs.cpu())
+    ties = [s for s in swaps if abs(s[4] - s[5]) <= TIE_GAP]
+    err = max(float((probs - pprobs).abs().max()),
+              0.0 if swaps else float((w - pw).abs().max()))
+    close = bool(torch.allclose(probs, pprobs, rtol=ROUTER_RTOL,
+                                atol=ROUTER_ATOL)) and (
+        bool(swaps) or bool(torch.allclose(w, pw, rtol=ROUTER_RTOL,
+                                           atol=ROUTER_ATOL)))
+    row = {"kernel": "moe_router", "case": name, "shape": f"T{T} E{E} k{k}",
+           "max_abs_err": err, "index_swaps": len(swaps),
+           "ties": ties, "ok": close and len(ties) == len(swaps)}
+    if swaps and len(ties) != len(swaps):
+        row["swaps"] = swaps
+    if flush is not None:
+        row["ms"] = device_ms(lambda: kr.router_topk(logits, k), flush)
+        row["plain_ms"] = device_ms(lambda: kr.router_topk_plain(logits, k),
+                                    flush)
+
+        def library():            # three calls: no one call computes it
+            p = torch.softmax(logits, dim=-1)
+            tw, ti = torch.topk(p, k)
+            return tw / tw.sum(-1, keepdim=True).clamp_min(1e-9), ti, p
+        row["library_ms"] = device_ms(library, flush)
+        row["library"] = "softmax + topk + renormalize (3 calls)"
+        # logits read, probs written, w and idx written; per element a
+        # max, an exp, a sum, a divide and a compare per round
+        row["bound_ms"], row["bound_by"] = bound_of(
+            8 * T * E + 8 * T * k, (4 + 2 * k) * T * E, torch.float32)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def router_case(name, T, E, k, flush=None, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return check_router(name, torch.randn((T, E), generator=gen,
+                                          device="cuda"), k, flush)
+
+
+# ---------------------------------------------------------------------------
+# kernel against its plain version: Fletcher-64
+# ---------------------------------------------------------------------------
+def check_fletcher(name, x, flush=None, flip=True):
+    """Fletcher-64 kernel against plain on one tensor, exactly; with
+    ``flip``, one bit flipped in the middle must change the kernel's
+    checksum to the plain version's of the flipped bytes."""
+    nbytes = x.numel() * x.element_size()
+    got = fl.fletcher64(x)
+    want = fl.fletcher64_plain(x)
+    ok = got == want
+    if flip and nbytes:
+        raw = x.detach().clone().reshape(-1).view(torch.uint8)
+        raw[nbytes // 2] ^= 1 << 5
+        flipped = fl.fletcher64(raw)
+        ok = ok and flipped != got and flipped == fl.fletcher64_plain(raw)
+        del raw
+    row = {"kernel": "fletcher64", "case": name, "shape": f"{nbytes} B",
+           "max_abs_err": 0 if got == want else abs(got - want),
+           "checksum": f"{got:016x}", "ok": ok}
+    if flush is not None:
+        row["ms"] = device_ms(lambda: fl.fletcher64_device(x), flush)
+        row["plain_ms"] = host_read_ms(lambda: fl.fletcher64_plain(x), flush)
+        row["library_ms"] = None
+        # every byte read once, 8 written; two integer multiply-adds a
+        # word (s1 and sum i*w), counted at the CUDA cores' f32 rate
+        row["bound_ms"], row["bound_by"] = bound_of(
+            nbytes + 8, 2 * (nbytes + 3) // 4, torch.float32)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def fletcher_words(n, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                         generator=gen, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("f32 cases run with TF32 off (cuda.matmul and cudnn)")
     rows = []
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for name, shape in MAIN_CASES.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            rows.append(attention_case(name, dtype=dtype, flush=flush,
-                                       **QWEN, **shape))
-    del flush
+    for arch, heads in HEADS.items():
+        for name, shape in MAIN_CASES.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                rows.append(attention_case(f"{arch}:{name}", dtype=dtype,
+                                           flush=flush, **heads, **shape))
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
         Sc = min(24, S // 2)
@@ -284,18 +450,44 @@ def phase_kernels():
             rows.append(attention_case(
                 f"sweep{i}-decode", B=3, S=1, T=T, dtype=dtype,
                 offsets=[0, T // 2, T - 1], **kw))
+
+    # the router at granite's E 40, k 8 (decode 4 slots, the demo's short
+    # prompts, a 64-token chunk, a 384-token prefill), then the grid
+    for T in (4, 64, 384):
+        rows.append(router_case(f"granite-T{T}", T, 40, 8, flush=flush))
+    for T in range(5, 11):
+        rows.append(router_case(f"granite-T{T}", T, 40, 8, seed=T))
+    for (T, E), k in ROUTER_GRID:
+        rows.append(router_case(f"grid-T{T}-E{E}-k{k}", T, E, k, seed=1))
+
+    # Fletcher-64: the CPU test's lengths, odd byte counts (a view at an
+    # odd offset too), and qwen1.5-0.5b's embedding shard
+    rng = np.random.default_rng(0)
+    for n in (0, 1, 2047, 2048, 2049, int(rng.integers(1, 50_000))):
+        rows.append(check_fletcher(f"words-{n}", fletcher_words(n, seed=n)))
+    raw = fletcher_words(1100, seed=9).view(torch.uint8)
+    for nbytes in (1, 2, 3, 5, 6, 7, 1001, 4099):
+        rows.append(check_fletcher(f"bytes-{nbytes}", raw[:nbytes]))
+        rows.append(check_fletcher(f"bytes-{nbytes}-offset1",
+                                   raw[1:nbytes + 1]))
+    rows.append(check_fletcher("qwen-embedding",
+                               fletcher_words(QWEN_EMBED_WORDS, seed=3),
+                               flush=flush))
+    del flush
+    free_card()
     assert_all_ok(rows)
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 class MainPathRecorder:
-    """What the main path gives the kernel.  Wraps the Model entry points
-    (to know which of prefill, chunk or decode is running) and the
-    attention the layers call; for each (entry point, shape) keeps the
-    launches the kernel's wrapper counted (the wrapper alone counts) and
-    a copy of the inputs of the last launch."""
+    """What a main path gives the kernels.  Wraps the Model entry points
+    (to know which of prefill, chunk or decode is running), the attention
+    the layers call and the router the MoE layers call; for each
+    (kernel, entry point, shape) keeps the launches the kernel's wrapper
+    counted (the wrapper alone counts) and a copy of the inputs of the
+    last launch."""
 
     ENTRIES = {"prefill": "prefill", "prefill_chunk": "chunk",
                "decode_step": "decode"}
@@ -317,37 +509,53 @@ class MainPathRecorder:
                     self.kind = outer
             setattr(Model, entry, entered)
         attn_layer.attention = self._attention
+        moe_layer.router_topk = self._router
 
     def uninstall(self):
         for entry, orig in self._orig.items():
             setattr(Model, entry, orig)
         attn_layer.attention = fa.attention
+        moe_layer.router_topk = kr.router_topk
+
+    def _record(self, key, launches, inputs):
+        rec = self.seen.setdefault(key, {"launches": 0})
+        rec["launches"] += launches
+        rec["inputs"] = inputs
 
     def _attention(self, q, k, v, **kw):
         before = fa.attention.launches
         out = fa.attention(q, k, v, **kw)
         B, S, Hq, D = q.shape
-        key = (self.kind, B, S, k.shape[1], Hq, k.shape[2], D, q.dtype)
-        rec = self.seen.setdefault(key, {"launches": 0})
-        rec["launches"] += fa.attention.launches - before
         # an int offset kept as a 0-d device tensor: the same function,
         # and no host-to-device copy when the copy is timed in a graph
         off = torch.as_tensor(kw["q_offset"], device=q.device).clone()
-        rec["inputs"] = (q.clone(), k.clone(), v.clone(),
-                         dict(kw, q_offset=off))
+        self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
+                      k.shape[2], D, q.dtype),
+                     fa.attention.launches - before,
+                     (q.clone(), k.clone(), v.clone(),
+                      dict(kw, q_offset=off)))
         return out
 
-    def by_kind(self):
+    def _router(self, logits, k):
+        before = kr.router_topk.launches
+        out = kr.router_topk(logits, k)
+        self._record(("moe_router", self.kind) + tuple(logits.shape) + (k,),
+                     kr.router_topk.launches - before, (logits.clone(), k))
+        return out
+
+    def by_kind(self, kernel):
         n = {kind: 0 for kind in self.ENTRIES.values()}
         for key, rec in self.seen.items():
-            n[key[0]] = n.get(key[0], 0) + rec["launches"]
+            if key[0] == kernel:
+                n[key[1]] = n.get(key[1], 0) + rec["launches"]
         return n
 
 
-def phase_demo(cfg):
+def phase_demo(arch, cfg):
     t0 = time.monotonic()
-    outs, stats = serve_launcher.main(["--arch", ARCH, "--demo"])
-    print(f"demo: {len(outs)} requests in {time.monotonic() - t0:.2f}s")
+    outs, stats = serve_launcher.main(["--arch", arch, "--demo"])
+    print(f"{arch} demo: {len(outs)} requests in "
+          f"{time.monotonic() - t0:.2f}s (weight init included)")
     check(len(outs) == 6, "demo: expected 6 results")
     check(stats["admitted"] == 6 and stats["shed"] == 0,
           f"demo: admission {stats}")
@@ -358,7 +566,7 @@ def phase_demo(cfg):
               f"demo: token out of vocab {o['tokens']}")
 
 
-def phase_sessions(cfg):
+def phase_sessions(arch, cfg):
     model = Model(cfg)
     params = model.init(1, device="cuda")
     serve = ServeEngine(model, params, max_len=1024, n_slots=4,
@@ -389,35 +597,246 @@ def phase_sessions(cfg):
     finally:
         gw.stop()
         server.shutdown()
-    print(f"sessions: 6 turns, {n_tok} tokens in {dt:.2f}s; prefix_hits "
-          f"{stats['prefix_hits']} misses {stats['prefix_misses']} saved "
-          f"{stats['prefix_tokens_saved']}")
+    print(f"{arch} sessions: 6 turns, {n_tok} tokens in {dt:.2f}s; "
+          f"prefix_hits {stats['prefix_hits']} misses "
+          f"{stats['prefix_misses']} saved {stats['prefix_tokens_saved']}")
     check(stats["prefix_hits"] >= 2, f"sessions: prefix hits {stats}")
 
 
-def phase_main_shapes(recorder):
-    """The kernel against plain, timed and bounded, on the inputs of the
-    last launch of each (entry point, shape) of the main path."""
+def serve_path(arch):
+    """Phase 3a/3b: one model's demo and sessions with the kernels'
+    counts zeroed just before and read just after; returns the
+    recorder."""
+    cfg = configs.get(arch)
+    kernels = {"flash_attention": fa.attention}
+    if cfg.moe.num_experts:
+        kernels["moe_router"] = kr.router_topk
+    recorder = MainPathRecorder()
+    recorder.install()
+    for fn in kernels.values():
+        fn.launches = 0
+    try:
+        phase_demo(arch, cfg)
+        phase_sessions(arch, cfg)
+    finally:
+        recorder.uninstall()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    free_card()
+    for name, n in counts.items():
+        by_kind = recorder.by_kind(name)
+        print(f"{arch} main path: {name} {n} launches, by entry point "
+              f"{by_kind}")
+        check(sum(by_kind.values()) == n and set(by_kind)
+              == set(MainPathRecorder.ENTRIES.values()),
+              f"{arch}: {name} launched outside the Model entry points "
+              f"{by_kind}")
+        check(all(v > 0 for v in by_kind.values()),
+              f"{arch}: {name} was not launched on every entry point "
+              f"{by_kind}")
+    return recorder
+
+
+class CheckpointRecorder:
+    """What the checkpoint path gives Fletcher-64, and where its host
+    time goes.  Wraps the services' checksum (to count launches and keep
+    the inputs of the last launch per (step, bytes)), the three places it
+    runs — the client's save snapshot, the server's verification, the
+    client's restore — and the copies and bulk pulls around them, adding
+    each call's host seconds under (step, what)."""
+
+    KINDS = ("save", "verify", "restore")
+
+    def __init__(self):
+        self.seen = {}
+        self.seconds = {}
+        self._local = threading.local()     # the server verifies on its
+        self._patched = []                  # own handler thread
+
+    def _kind(self):
+        return getattr(self._local, "kind", "outside the service")
+
+    def _within(self, kind, fn):
+        def run(*a, **kw):
+            outer, self._local.kind = self._kind(), kind
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._local.kind = outer
+        return run
+
+    def _timed(self, what, fn, kind=None):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                key = f"{kind or self._kind()}: {what}"
+                self.seconds[key] = (self.seconds.get(key, 0.0)
+                                     + time.perf_counter() - t0)
+        return run
+
+    def _patch(self, owner, attr, new):
+        """Set ``owner.attr``; an instance's method is shadowed, and
+        ``uninstall`` removes the shadow again."""
+        self._patched.append((owner, attr, vars(owner).get(attr)))
+        setattr(owner, attr, new)
+
+    def install(self, server_engine, client_engine):
+        Client = ckpt.CheckpointClient
+        self._patch(Client, "_snapshot", staticmethod(
+            self._within("save", Client._snapshot)))
+        self._patch(Client, "restore", self._within("restore",
+                                                    Client.restore))
+        self._patch(ckpt, "_verify_on", self._within("verify",
+                                                     ckpt._verify_on))
+        self._patch(svc_base, "fletcher64", self._fletcher)
+        self._patch(ckpt, "host_copy",
+                    self._timed("card to host", ckpt.host_copy))
+        self._patch(ckpt, "host_to_tensor",
+                    self._timed("host to card", ckpt.host_to_tensor))
+        # the server pulls a save on its handler thread, before verifying
+        self._patch(server_engine, "pull", self._timed(
+            "bulk pull", server_engine.pull, kind="save"))
+        self._patch(client_engine, "pull", self._timed(
+            "bulk pull", client_engine.pull))
+
+    def uninstall(self):
+        for owner, attr, orig in reversed(self._patched):
+            if orig is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, orig)
+        self._patched = []
+
+    def _fletcher(self, x):
+        before = fl.fletcher64.launches
+        out = self._timed("checksums", fl.fletcher64)(x)
+        nbytes = x.numel() * x.element_size()
+        rec = self.seen.setdefault(("fletcher64", self._kind(), nbytes),
+                                   {"launches": 0})
+        rec["launches"] += fl.fletcher64.launches - before
+        rec["inputs"] = x.detach().clone()
+        return out
+
+    def by_kind(self):
+        n = {kind: 0 for kind in self.KINDS}
+        for key, rec in self.seen.items():
+            n[key[1]] = n.get(key[1], 0) + rec["launches"]
+        return n
+
+
+def greedy_tokens(model, params):
+    serve = ServeEngine(model, params, max_len=64, n_slots=1,
+                        device="cuda")
+    prompt = np.random.default_rng(5).integers(1, model.cfg.vocab, 24)
+    return serve.generate([prompt], max_new=8)[0]
+
+
+def checkpoint_path():
+    """Phase 3c: full-width qwen1.5-0.5b weights through the checkpoint
+    service and back, Fletcher-64 counts zeroed just before and read
+    just after; returns the recorder."""
+    cfg = configs.get(ARCH)
+    model = Model(cfg)
+    params = model.init(3, device="cuda")
+    named = svc_base.flatten_named(params)
+    nbytes = sum(t.numel() * t.element_size() for t in named.values())
+    server_e = Engine("tcp://127.0.0.1:0")
+    client_e = Engine("tcp://127.0.0.1:0")
+    recorder = CheckpointRecorder()
+    recorder.install(server_e, client_e)
+    fl.fletcher64.launches = 0
+    try:
+        server = ckpt.CheckpointServer(server_e)       # verifies on the card
+        client = ckpt.CheckpointClient(client_e, server_e.uri)
+        t0 = time.monotonic()
+        out = client.save("qwen", 1, params)
+        t_save = time.monotonic() - t0
+        check(out["ok"] and out["stored"] == len(named), f"save: {out}")
+        t0 = time.monotonic()
+        restored, step = client.restore("qwen", params)
+        torch.cuda.synchronize()
+        t_restore = time.monotonic() - t0
+        spans = dict(recorder.seconds)
+        check(step == 1, f"restore: step {step}")
+        # one byte flipped in the middle of the largest stored shard
+        key = max(named, key=lambda k: named[k].numel())
+        stored = server.store[("qwen", 1)]["named"][key].reshape(-1).view(
+            np.uint8)
+        stored[stored.size // 2] ^= 0x10
+        try:
+            client.restore("qwen", params)
+            caught = None
+        except MercuryError as e:
+            caught = e
+        check(caught is not None and caught.ret == Ret.CHECKSUM_ERROR,
+              f"a flipped byte in {key} was not caught: {caught!r}")
+        print(f"checkpoint: flipped byte in {key} -> {caught}")
+    finally:
+        recorder.uninstall()
+        client_e.shutdown()
+        server_e.shutdown()
+    launches = fl.fletcher64.launches
+    by_kind = recorder.by_kind()
+    print(f"checkpoint: {len(named)} shards, {nbytes} bytes; save "
+          f"{t_save:.2f}s, restore {t_restore:.2f}s (host wall-clock, tcp "
+          f"on one host); fletcher64 {launches} launches, by step "
+          f"{by_kind}")
+    print("checkpoint: host seconds by step and part (save includes the "
+          "server's pull and verify): "
+          + json.dumps({k: round(v, 4) for k, v in sorted(spans.items())}))
+    check(sum(by_kind.values()) == launches and set(by_kind)
+          == set(CheckpointRecorder.KINDS),
+          f"checkpoint: checksums outside save/verify/restore {by_kind}")
+    check(all(v > 0 for v in by_kind.values()),
+          f"checkpoint: fletcher64 not launched on every step {by_kind}")
+    got = svc_base.flatten_named(restored)
+    for k, t in named.items():
+        check(got[k].device.type == "cuda" and got[k].dtype == t.dtype
+              and torch.equal(got[k], t), f"restore: {k} differs")
+    want_tok = greedy_tokens(model, params)
+    got_tok = greedy_tokens(model, restored)
+    print(f"checkpoint: greedy tokens original {want_tok} restored "
+          f"{got_tok}")
+    check(got_tok == want_tok, "restored weights serve other tokens")
+    return recorder
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main paths' own shapes
+# ---------------------------------------------------------------------------
+def phase_main_shapes(arch, recorder):
+    """Each kernel against plain, timed and bounded, on the inputs of the
+    last launch of each (kernel, entry point, shape) of a main path."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     rows = []
-    for key in sorted(recorder.seen, key=lambda k: k[:7]):
+    for key in sorted(recorder.seen, key=lambda k: tuple(map(str, k))):
         rec = recorder.seen[key]
-        q, k, v, kw = rec.pop("inputs")
-        row = check_kernel(f"main:{key[0]}", q, k, v, kw, flush)
+        inputs = rec.pop("inputs")
+        name = f"{arch}:{key[1]}"
+        if key[0] == "flash_attention":
+            q, k, v, kw = inputs
+            row = check_kernel(name, q, k, v, kw, flush)
+        elif key[0] == "moe_router":
+            row = check_router(name, *inputs, flush=flush)
+        else:
+            row = check_fletcher(name, inputs, flush=flush, flip=False)
         row["launches"] = rec["launches"]
         rows.append(row)
+        del inputs
     del flush
+    free_card()
     assert_all_ok(rows)
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 6: full-width parity, kernel vs plain
+# phase 5: full-width parity, kernels vs plain
 # ---------------------------------------------------------------------------
-def phase_parity(cfg):
+def phase_parity(arch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg.replace(compute_dtype="float32")
+    cfg = configs.get(arch).replace(compute_dtype="float32")
     model = Model(cfg)
     params = model.init(2, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -425,34 +844,89 @@ def phase_parity(cfg):
     B, S, steps = 2, 128, 8
     toks = torch.randint(1, cfg.vocab, (B, S + steps), generator=gen,
                          device="cuda")
+    routes = []             # per run: (idx, probs) of every router call
 
-    def run():
-        logits, cache = model.prefill(params, toks[:, :S],
-                                      cache_len=S + steps)
-        out = [logits]
-        for i in range(steps):
-            pos = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
-            logits, cache = model.decode_step(params, cache,
-                                              toks[:, S + i:S + i + 1], pos)
-            out.append(logits)
+    def spy(router):
+        def run(logits, k):
+            w, idx, probs = router(logits, k)
+            routes[-1].append((idx, probs))
+            return w, idx, probs
+        return run
+
+    def run(router):
+        routes.append([])
+        moe_layer.router_topk = spy(router)
+        try:
+            logits, cache = model.prefill(params, toks[:, :S],
+                                          cache_len=S + steps)
+            out = [logits]
+            for i in range(steps):
+                pos = torch.full((B,), S + i, dtype=torch.int32,
+                                 device="cuda")
+                logits, cache = model.decode_step(
+                    params, cache, toks[:, S + i:S + i + 1], pos)
+                out.append(logits)
+        finally:
+            moe_layer.router_topk = kr.router_topk
         return torch.stack(out)
 
-    before = fa.attention.launches
-    got = run()
-    check(fa.attention.launches - before == cfg.n_layers * (1 + steps),
+    n_moe = sum("moe" in p for p in params["layers"])
+    before = (fa.attention.launches, kr.router_topk.launches)
+    got = run(kr.router_topk)
+    check(fa.attention.launches - before[0] == cfg.n_layers * (1 + steps)
+          and kr.router_topk.launches - before[1] == n_moe * (1 + steps),
           "parity: the kernel path did not launch once per layer and call")
     attn_layer.attention = fa.attention_plain
     try:
-        want = run()
+        want = run(kr.router_topk_plain)
     finally:
         attn_layer.attention = fa.attention
     check(bool(torch.isfinite(got).all()), "parity: non-finite logits")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    print(f"parity: f32 full width, TF32 off, prefill + {steps} decode "
-          f"steps: max |kernel - plain| = {err:.3g} (max |logit| "
-          f"{scale:.3g}, tolerance {PARITY_TOL} * (1 + |logit|))")
-    check(err <= PARITY_TOL * (1 + scale), "parity: logits disagree")
+    # routing decisions that differ between the runs: (call, token,
+    # position, expert of the kernel run, of the plain run, their two
+    # probabilities in the plain run)
+    flips = []
+    for call, ((ia, _), (ib, pb)) in enumerate(zip(*routes)):
+        for t, j, a, b, pa, pb_ in router_ties(ia.cpu(), ib.cpu(),
+                                               pb.cpu()):
+            flips.append({"layer": call % max(n_moe, 1),
+                          "call": call // max(n_moe, 1), "token": t,
+                          "position": j, "experts": [a, b],
+                          "probs": [pa, pb_], "gap": abs(pa - pb_)})
+    print(f"parity {arch}: f32 full width, TF32 off, prefill {B}x{S} + "
+          f"{steps} decode steps: max |kernel - plain| = {err:.3g} (max "
+          f"|logit| {scale:.3g}, tolerance {PARITY_TOL} * (1 + |logit|)); "
+          f"routing differences {len(flips)}"
+          + (f": {json.dumps(flips[:20])}" if flips else ""))
+    del params, model
+    free_card()
+    check(err <= PARITY_TOL * (1 + scale), f"parity {arch}: logits disagree")
+
+
+# ---------------------------------------------------------------------------
+# the summary
+# ---------------------------------------------------------------------------
+SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:96"),
+          "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
+                         "src/repro/kernels/moe_router.py:43"),
+          "fletcher64": ("src/repro_torch/kernels/csrc/fletcher64.cu",
+                         "src/repro/kernels/fletcher.py:101")}
+
+
+def summary_row(r):
+    source, replaces = SOURCE[r["kernel"]]
+    return {"name": f"{r['kernel']}:{r['case']} {r['shape']}",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": r["launches"],
+            # the same number, also under the key earlier summaries used
+            "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
 
 
 def card_line() -> str:
@@ -479,8 +953,9 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    kbuild.build("flash_attention")
-    print(f"build: {time.monotonic() - t0:.1f}s")
+    kbuild.build_all(SOURCES)
+    print(f"build: {time.monotonic() - t0:.1f}s for {len(SOURCES)} "
+          f"sources in parallel")
     for name, log in kbuild.build_logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
@@ -488,42 +963,17 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
 
-    cfg = configs.get(ARCH)
-    recorder = MainPathRecorder()
-    recorder.install()
-    fa.attention.launches = 0
-    try:
-        phase_demo(cfg)
-        phase_sessions(cfg)
-    finally:
-        recorder.uninstall()
-    launches = fa.attention.launches
-    by_kind = recorder.by_kind()
-    print(f"main path: {launches} kernel launches, by entry point "
-          f"{by_kind}")
-    check(sum(by_kind.values()) == launches and set(by_kind)
-          == set(MainPathRecorder.ENTRIES.values()),
-          f"main path: launches outside the Model entry points {by_kind}")
-    check(all(n > 0 for n in by_kind.values()),
-          f"main path: the kernel was not launched on every entry point "
-          f"{by_kind}")
-    main_rows = phase_main_shapes(recorder)
+    rows = []
+    for arch in (ARCH, MOE_ARCH):
+        rows += phase_main_shapes(arch, serve_path(arch))
+    recorder = checkpoint_path()
+    free_card()
+    rows += phase_main_shapes(ARCH, recorder)
+    for arch in (ARCH, MOE_ARCH):
+        phase_parity(arch)
 
-    phase_parity(cfg)
-
-    kernels = [{
-        "name": f"flash_attention:{r['case'][5:]} {r['shape']}",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:96",
-        "launches": r["launches"],
-        # the same number under the chip summary's key and the issue's
-        "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"]} for r in main_rows]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [summary_row(r) for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,4 +2,11 @@
 PyTorch version that the CPU runs and the card is checked against.
 
 ``attention`` (``csrc/flash_attention.cu``) — the attention forward for
-prefill, prefill chunks and decode."""
+prefill, prefill chunks and decode.
+``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing of every
+MoE layer.
+``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksum of
+checkpoint shards."""
+
+# every CUDA source under csrc/, by the name build.build() takes
+SOURCES = ("flash_attention", "moe_router", "fletcher64")

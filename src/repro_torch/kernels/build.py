@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -60,6 +61,14 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, out)                # atomic: concurrent builds agree
     return out
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for done in [pool.submit(build, name) for name in names]:
+            done.result()
 
 
 def load(name: str) -> ctypes.CDLL:

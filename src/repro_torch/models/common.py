@@ -78,8 +78,11 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_params(cfg: ModelConfig, gen: torch.Generator,
+               d_ff: Optional[int] = None) -> dict:
+    """A dense MLP of width ``d_ff`` (default ``cfg.d_ff``): MoE shared
+    experts and deepseek's dense first layer take their own widths."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     p = {}
     if cfg.mlp in ("swiglu", "geglu"):

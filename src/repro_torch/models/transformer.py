@@ -14,8 +14,13 @@ here; ``bridge.params_from_numpy`` unstacks the reference's periods.
 ``prefill`` returns a fresh cache; ``prefill_chunk`` and ``decode_step``
 write the new K/V in place into the cache they are given and return it.
 
-Only attention-family blocks are ported so far: MoE, the recurrent
-families, encoder-decoder and VLM configs raise ``NotImplementedError``.
+A layer's feed-forward half is a dense MLP (``"mlp"``) or, for MoE
+configs, an MoE layer (``"moe"``, ``models/moe.py``); deepseek's dense
+first layer keeps an MLP of ``first_dense_ff``.  Serving runs MoE layers
+dropless and discards their aux losses, as the reference does.
+
+Only attention-family blocks are ported so far: the recurrent families,
+encoder-decoder and VLM configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,14 +33,12 @@ from .attention import (attn_decode, attn_params, attn_prefill,
                         attn_prefill_chunk)
 from .common import (dtype_of, embed_params, embed_tokens, mlp, mlp_params,
                      ones_init, resolve_device, rms_norm, unembed)
+from .moe import moe_apply, moe_params, padded_experts
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run yet,
     naming the ROADMAP item that ports it."""
-    if cfg.moe.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP A7, B3)")
     kinds = {cfg.kind_at(i) for i in range(cfg.n_layers)}
     if not kinds <= set(ATTN_KINDS):
         raise NotImplementedError(
@@ -54,6 +57,11 @@ class Model:
         check_supported(cfg)
         self.cfg = cfg
         self.kinds = tuple(cfg.kind_at(i) for i in range(cfg.n_layers))
+        # deepseek: layer 0 is a dense FFN (the reference's "prefix")
+        self.prefix_count = 1 if (cfg.moe.first_layer_dense
+                                  and cfg.moe.num_experts) else 0
+        self.e_pad = (padded_experts(cfg, 1) if cfg.moe.num_experts
+                      else None)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0, *, device="cuda") -> dict:
@@ -64,10 +72,16 @@ class Model:
         dt = dtype_of(cfg.param_dtype)
         embed = embed_params(cfg, gen)
         layers = []
-        for _ in self.kinds:
+        for i in range(cfg.n_layers):
             p = {"norm1": ones_init(gen, (cfg.d_model,), dt),
-                 "attn": attn_params(cfg, gen),
-                 "mlp": mlp_params(cfg, gen)}
+                 "attn": attn_params(cfg, gen)}
+            if i < self.prefix_count:
+                p["mlp"] = mlp_params(
+                    cfg, gen, d_ff=cfg.moe.first_dense_ff or cfg.d_ff)
+            elif cfg.moe.num_experts:
+                p["moe"] = moe_params(cfg, gen, e_pad=self.e_pad)
+            else:
+                p["mlp"] = mlp_params(cfg, gen)
             if not cfg.parallel_block:
                 p["norm2"] = ones_init(gen, (cfg.d_model,), dt)
             layers.append(p)
@@ -75,6 +89,13 @@ class Model:
                 "final_norm": ones_init(gen, (cfg.d_model,), dt)}
 
     # ----------------------------------------------------------------- block
+    def _ffn(self, p: dict, h):
+        """The feed-forward half: serving runs MoE layers dropless and
+        drops their aux losses."""
+        if "moe" in p:
+            return moe_apply(self.cfg, p["moe"], h, dropless=True)[0]
+        return mlp(self.cfg, p["mlp"], h)
+
     def _block(self, p: dict, x, mix):
         """One pre-norm block; ``mix(attn_params, h)`` is the attention
         half (prefill, chunk or decode)."""
@@ -82,9 +103,9 @@ class Model:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a = mix(p["attn"], h)
         if cfg.parallel_block:
-            return x + a + mlp(cfg, p["mlp"], h)
+            return x + a + self._ffn(p, h)
         x = x + a
-        return x + mlp(cfg, p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps))
 
     def _final(self, params, h):
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
@@ -129,8 +150,8 @@ class Model:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Every config the port accepts is attention-only and continues a
-        prefill at an offset."""
+        """Every config the port accepts is attention-only (MoE included)
+        and continues a prefill at an offset."""
         return True
 
     # ------------------------------------------------------------------ specs

@@ -1,0 +1,115 @@
+"""Data-feed service: a feeder process hosts the token pipeline; trainer
+processes fetch batches over RPC.  Ported from
+``src/repro/services/datafeed.py``: batches are numpy, as there.
+
+Small batches ride inline in the RPC response (eager); large ones go
+through a bulk descriptor the trainer pulls one-sidedly — the
+eager/rendezvous crossover is a constructor knob and is *benchmarked* in
+``benchmarks/bench_bulk.py`` (the paper's bulk-vs-eager trade-off).
+
+The client keeps ``depth`` requests outstanding (async prefetch), so one
+slow feeder response never stalls the training step; combined with
+``replicated_call`` over several feeders it is the datapath side of
+straggler mitigation.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.bulk import BulkDescriptor
+from ..core.executor import Engine
+from .base import alloc_from_manifest, manifest_of, no_registry
+
+EAGER_LIMIT = 256 * 1024
+
+
+class DataFeedServer:
+    def __init__(self, engine: Engine, source, eager_limit: int = EAGER_LIMIT,
+                 keep: int = 8, registry: Optional[str] = None,
+                 service: str = "feed"):
+        self.engine = engine
+        self.source = source                     # needs .batch_at(step)
+        self.eager_limit = eager_limit
+        self._exposed = collections.OrderedDict()  #: guarded-by _lock
+        self._keep = keep
+        self._lock = threading.Lock()
+        if registry is not None:
+            raise no_registry()
+        engine.register("feed.get", self._get)
+        engine.register("feed.spec", self._spec)
+
+    def _spec(self, _req):
+        b = self.source.batch_at(0)
+        return {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                for k, v in b.items()}
+
+    def _get(self, req):
+        step = int(req["step"])
+        batch = self.source.batch_at(step)
+        total = sum(v.nbytes for v in batch.values())
+        if total <= self.eager_limit:
+            return {"mode": "eager", "step": step, "batch": batch}
+        with self._lock:
+            if step not in self._exposed:
+                named = {k: np.ascontiguousarray(v)
+                         for k, v in batch.items()}
+                handle = self.engine.expose(list(named.values()),
+                                            read=True, write=False)
+                self._exposed[step] = (named, handle)
+                while len(self._exposed) > self._keep:
+                    _, (_, old) = self._exposed.popitem(last=False)
+                    old.free()
+            named, handle = self._exposed[step]
+        return {"mode": "bulk", "step": step,
+                "manifest": manifest_of(named),
+                "desc": handle.descriptor().to_bytes(),
+                "origin": self.engine.uri}
+
+
+class DataFeedClient:
+    def __init__(self, engine: Engine, feeders: Optional[List[str]] = None,
+                 depth: int = 2, registry: Optional[str] = None,
+                 service: str = "feed"):
+        """``feeders`` is an explicit URI list."""
+        if registry is not None:
+            raise no_registry()
+        if feeders is None:
+            raise ValueError("need feeders")
+        self.engine = engine
+        self.feeders = feeders
+        self.depth = depth
+        self._pending: Dict[int, object] = {}
+        self._next_issue = 0
+
+    def _issue(self, step: int):
+        feeder = self.feeders[step % len(self.feeders)]
+        self._pending[step] = self.engine.call_async(
+            feeder, "feed.get", {"step": step}, timeout=60.0)
+
+    def get(self, step: int) -> Dict[str, np.ndarray]:
+        # keep the window [step, step+depth) outstanding
+        for s in range(step, step + self.depth):
+            if s not in self._pending and s >= self._next_issue:
+                self._issue(s)
+                self._next_issue = max(self._next_issue, s + 1)
+        fut = self._pending.pop(step, None)
+        if fut is None:
+            self._issue(step)
+            fut = self._pending.pop(step)
+        rsp = fut.result(timeout=120.0)
+        if rsp["mode"] == "eager":
+            return {k: np.asarray(v) for k, v in rsp["batch"].items()}
+        man = rsp["manifest"]
+        named = alloc_from_manifest(man)
+        local = self.engine.expose(list(named.values()), read=False,
+                                   write=True)
+        try:
+            self.engine.pull(rsp["origin"],
+                             BulkDescriptor.from_bytes(rsp["desc"]), local)
+        finally:
+            local.free()
+        return named

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke`` loads neither ``jax`` nor anything of ``repro``, and the
-entry points refuse to run on the CPU unless asked to."""
+``chip_smoke`` loads neither ``jax`` nor anything of ``repro`` nor
+``ml_dtypes`` (the card's machine has none), and the entry points refuse
+to run on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -21,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+                if m in ("jax", "repro", "ml_dtypes")
+                or m.startswith(("jax.", "repro.", "ml_dtypes.")))
 print(len(names), leaked)
 """
 

@@ -22,8 +22,11 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import Model, params_from_numpy  # noqa: E402
 
 TOL = 1e-4
+# MoE: granite (40 routed experts, top-8 at full width), deepseek (shared
+# experts, a dense first layer)
+MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-moe-16b"]
 # gemma3: local/global layers, qk-norm, GeGLU, GQA, embed scaling
-ARCHS = ["qwen1.5-0.5b", "gemma3-12b"]
+ARCHS = ["qwen1.5-0.5b", "gemma3-12b"] + MOE_ARCHS
 # command-r: parallel block; nemotron: squared-ReLU MLP, untied head
 PREFILL_ARCHS = ARCHS + ["command-r-35b", "nemotron-4-340b"]
 B = 2
@@ -78,7 +81,8 @@ def _jkv(jc, plen):
     for name in ("k", "v"):
         per = [np.asarray(p[name]) for p in jc["periods"]]
         n_scan = per[0].shape[0] if per else 0
-        layers = [per[pos][j] for j in range(n_scan) for pos in range(plen)]
+        layers = [np.asarray(p[name]) for p in jc.get("prefix", ())]
+        layers += [per[pos][j] for j in range(n_scan) for pos in range(plen)]
         layers += [np.asarray(t[name]) for t in jc["trailing"]]
         out[name] = np.stack(layers)
     return out
@@ -101,12 +105,7 @@ def test_prefill_matches_reference(pairs, arch):
     _check_cache(pr, tc, jc)
 
 
-@pytest.mark.parametrize("case", ["offset0", "offset16", "clamped"])
-def test_prefill_chunk_matches_reference(pairs, case):
-    """A chunk at offset 0 into an empty cache, one at offset 16 after a
-    16-token chunk, and a padded 8-token chunk at offset 16 of a 20-long
-    cache: the reference clamps that write to start at 12."""
-    pr = pairs("qwen1.5-0.5b")
+def _chunk_parity(pr, case):
     T = 20 if case == "clamped" else 40
     first = 0 if case == "offset0" else 16
     toks = _toks(first + 8, pr.cfg.vocab, seed=1)
@@ -122,6 +121,22 @@ def test_prefill_chunk_matches_reference(pairs, case):
         toks[:, first:]), first)
     _close(tl, jl)
     _check_cache(pr, tc, jc)
+
+
+@pytest.mark.parametrize("case", ["offset0", "offset16", "clamped"])
+def test_prefill_chunk_matches_reference(pairs, case):
+    """A chunk at offset 0 into an empty cache, one at offset 16 after a
+    16-token chunk, and a padded 8-token chunk at offset 16 of a 20-long
+    cache: the reference clamps that write to start at 12."""
+    _chunk_parity(pairs("qwen1.5-0.5b"), case)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("case", ["offset0", "offset16", "clamped"])
+def test_moe_prefill_chunk_matches_reference(pairs, arch, case):
+    """The same three chunks through MoE layers (dropless: an 8-token
+    chunk routes exactly as the reference's)."""
+    _chunk_parity(pairs(arch), case)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -185,8 +200,7 @@ def test_seeded_init_is_reproducible():
                            c["layers"][2]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-1.3b",
-                                  "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
                                   "seamless-m4t-large-v2", "paligemma-3b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

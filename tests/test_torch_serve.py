@@ -109,6 +109,39 @@ def test_greedy_streams_match_reference(models, name):
                                    rtol=1e-4, atol=1e-4)
 
 
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SCENARIOS = ["monolithic", "chunked", "batching", "resume", "stale"]
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """Reduced granite-moe on both sides, with the same weights."""
+    jm = JModel(jconfigs.reduced(MOE_ARCH).replace(compute_dtype="float32"))
+    jp, _ = unzip(jm.init(jax.random.PRNGKey(0)))
+    tm = Model(configs.reduced(MOE_ARCH).replace(compute_dtype="float32"))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("name", MOE_SCENARIOS)
+def test_moe_greedy_streams_match_reference(moe_models, name):
+    """The same scenarios through reduced granite-moe, whose every layer
+    routes through the MoE router (dropless): token streams equal, slot
+    cache within 1e-4 (f32 on both sides)."""
+    jm, jp, tm, tp = moe_models
+    kw, script = SCENARIOS[name]
+    kw = dict({"max_len": 64}, **kw)
+    jeng = JServeEngine(jm, jp, cache_dtype=jnp.float32, **kw)
+    teng = ServeEngine(tm, tp, cache_dtype=torch.float32, device="cpu", **kw)
+    assert script(teng) == script(jeng)
+    want = np.stack([np.asarray(jeng.cache["periods"][0]["k"]),
+                     np.asarray(jeng.cache["periods"][0]["v"])])
+    np.testing.assert_allclose(
+        torch.stack([teng.cache["k"], teng.cache["v"]]).numpy(), want,
+        rtol=1e-4, atol=1e-4)
+
+
 def test_greedy_takes_the_first_maximum(models):
     """As jnp.argmax: ties go to the lowest index."""
     _, _, m, params = models

@@ -12,8 +12,15 @@ Phases, in order; any failure exits non-zero:
 2. Each kernel against its plain PyTorch version on the card, on random
    inputs.  Attention: qwen1.5-0.5b and granite-moe-3b-a800m heads at a
    384-token prefill, a chunk at an offset and (B,) decode, the demo's
-   short prompts and 4-slot decode, and the reference's ATTN_SWEEP, in
-   bf16 and f32 (f32 with TF32 off).  Router: T in {4, 5-10, 64, 384} at
+   short prompts and 4-slot decode, recurrentgemma-9b's (16 q heads, 1
+   kv head of 256, window 2048) at a 2600-token prefill that crosses
+   the window, the demo's prompts and (B,) decode of 4 slots of 3072,
+   and the reference's ATTN_SWEEP, in bf16 and f32 (f32 with TF32 off).
+   SSD: mamba2-1.3b's heads (H 64, P 64, G 1, N 128) at S 5-10, 256 and
+   2600, with and without D and h0, and the reference's SSD_SWEEP.
+   RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600, with and
+   without h0, and the reference's RGLRU_SWEEP.  SSD and RG-LRU in f32
+   and bf16.  Router: T in {4, 5-10, 64, 384} at
    granite's E 40, k 8, and the reference's (T, E) x k grid; indices
    exact (a swap of two probabilities within 1e-6 is a tie, reported).
    Fletcher-64: the CPU test's lengths, byte counts that are no multiple
@@ -38,12 +45,22 @@ Phases, in order; any failure exits non-zero:
       one flipped byte raises CHECKSUM_ERROR; one greedy request served
       with the restored weights gives the original tokens.  Fletcher-64
       must launch on save, verify and restore.
+   d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
+      launcher's ``--demo``, then in place of sessions a long-prompt
+      phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
+      through ``gen.generate`` into 4 slots of 3072, 8 new tokens each,
+      chunking and sessions asked for and turned off by the engine (the
+      models cannot chunk).  SSD (mamba2) and RG-LRU (recurrentgemma)
+      must launch on prefill and nowhere else, decode must run, and
+      attention must launch on prefill and decode (recurrentgemma).
 4. The main paths' own shapes: each kernel against its plain version on
    the recorded inputs, timed and bounded as in phase 2.  These rows,
    with the main paths' launch counts, make the kernels' JSON summary.
-5. Full-width parity, f32 compute, TF32 off: prefill 2x128 and 8 (B,)
-   decode steps through the kernels against the same through the plain
-   versions, for qwen1.5-0.5b and granite-moe-3b-a800m.
+5. Full-width parity, f32 compute, TF32 off: prefill and 8 (B,) decode
+   steps through the kernels against the same through the plain
+   versions: 2x128 for qwen1.5-0.5b and granite-moe-3b-a800m, 2x640 for
+   mamba2-1.3b and recurrentgemma-9b (three of the reference's 256-token
+   SSD chunks, so the state is carried).
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -73,9 +90,12 @@ from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fletcher as fl  # noqa: E402
 from repro_torch.kernels import moe_router as kr  # noqa: E402
+from repro_torch.kernels import rglru as krg  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn_layer  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
+from repro_torch.models import rglru_block, ssd_block  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.services import base as svc_base  # noqa: E402
@@ -84,6 +104,8 @@ from repro_torch.services import ServingGateway  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 MOE_ARCH = "granite-moe-3b-a800m"
+SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "recurrentgemma-9b"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
                   torch.float32: 67e12}    # f32 outside the tensor cores
@@ -95,7 +117,7 @@ TOL = {torch.bfloat16: 2e-2,
 # at T=1024), under which a wrong tile could hide in bf16's absolute
 # limit; rounding the output to bf16 alone costs at most 2^-7 here.
 ROW_TOL = 2e-2
-PARITY_TOL = 2e-3   # full-width logits, f32, 24 / 32 layers
+PARITY_TOL = 2e-3   # full-width logits, f32, 24 / 32 / 48 / 38 layers
 # router: w and probs as tests/test_kernels.py holds the Pallas kernel
 # (the kernel's expf and sum order against torch's); indices exact, where
 # two probabilities within TIE_GAP of each other may swap (a tie)
@@ -111,6 +133,23 @@ ATTN_SWEEP = [
     (64, 64, 2, 2, 16, False, 0, 0.0, None, "float32"),
     (128, 128, 4, 2, 32, True, 0, 0.0, None, "bfloat16"),
 ]
+# SSD and RG-LRU against their plain versions: tests/test_kernels.py's
+# 2e-4 in f32 (sums in another order, the kernel's own 64-token chunks
+# against the plain version's 256); in bf16 the outputs are rounded to
+# bf16 on both sides (2^-8 relative)
+SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# tests/test_kernels.py's SSD_SWEEP: B, S, H, P, G, N, chunk, use_D, use_h0
+SSD_SWEEP = [
+    (2, 64, 4, 8, 2, 16, 32, True, True),
+    (1, 100, 2, 16, 1, 8, 32, False, False),
+    (3, 33, 4, 4, 4, 4, 16, True, False),
+]
+# tests/test_kernels.py's RGLRU_SWEEP: B, S, W, block_t, block_w, use_h0
+RGLRU_SWEEP = [(2, 64, 32, 16, 32, True), (1, 70, 40, 16, 32, False),
+               (3, 128, 8, 64, 8, True)]
+# the long-prompt phase of the recurrent models: prompt lengths, cache
+LONG_PROMPTS = (600, 1100, 2000, 2600)
+LONG_MAX_LEN = 3072
 # tests/test_kernels.py's router grid: (T, E), k (k > E skipped there)
 ROUTER_GRID = [((T, E), k) for (T, E) in [(32, 8), (100, 16), (256, 40)]
                for k in (1, 2, 6)]
@@ -316,6 +355,20 @@ MAIN_CASES = {
 }
 
 
+# recurrentgemma-9b's local attention layers: MQA, 16 q heads and one kv
+# head of 256, window 2048; the long-prompt phase's 2600-token prefill
+# crosses the window, the demo prefills 5-10 tokens, and the long phase
+# decodes its 4 slots of 3072 at the ends of its prompts
+RG_HEADS = dict(Hq=16, Hkv=1, D=256, window=2048)
+RG_CASES = {
+    "prefill-s2600": dict(B=1, S=2600, T=2600),
+    "prefill-s5": dict(B=1, S=5, T=5),
+    "prefill-s10": dict(B=1, S=10, T=10),
+    "decode-b4-t3072": dict(B=4, S=1, T=3072,
+                            offsets=[600, 1100, 2000, 2600]),
+}
+
+
 def assert_all_ok(rows):
     bad = [f"{r['kernel']}:{r['case']}/{r.get('dtype', '')}: "
            f"{r['max_abs_err']:.3g}" for r in rows if not r["ok"]]
@@ -384,6 +437,124 @@ def router_case(name, T, E, k, flush=None, seed=0):
 
 
 # ---------------------------------------------------------------------------
+# kernel against its plain version: SSD and RG-LRU
+# ---------------------------------------------------------------------------
+def _scan_row(kernel, name, shape, got, want, dtype):
+    """A row for outputs ``got`` against ``want`` (pairs of tensors),
+    each within SCAN_TOL of its dtype (atol and rtol)."""
+    tol = SCAN_TOL[dtype]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    ok = all(bool(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+             for a, b in zip(got, want))
+    return {"kernel": kernel, "case": name, "shape": shape,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "tol": tol, "ok": ok}
+
+
+def ssd_bound(x, B, has_D, has_h0):
+    """The SSD's least time: bytes (x, dt, B and C read once, y written,
+    A, D, h0 read and h_final written) or operations of the function,
+    not of an algorithm for it: per token and head, the recurrent form's
+    P.N multiply-adds of the state update and P.N of C.h^T, plus P for
+    the D skip, at 2 operations a multiply-add.  A chunked algorithm's
+    in-chunk C.B^T and score.x products are not counted: they are work
+    that a chunk length chooses (a longer chunk does more of it), not
+    work the function needs."""
+    Bb, S, H, P = x.shape
+    N = B.shape[3]
+    elt = x.element_size()
+    nbytes = (2 * x.numel() + 2 * B.numel()) * elt + 4 * Bb * S * H \
+        + 4 * H * (1 + has_D) + 4 * Bb * H * P * N * (1 + has_h0)
+    fma = Bb * S * H * (2 * P * N + P * has_D)
+    return bound_of(nbytes, 2 * fma, x.dtype)
+
+
+def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None):
+    """SSD kernel against plain (at the model's ``chunk``, the kernel
+    at its own 64) on one set of inputs; with ``flush`` also the times
+    and the bound.  No PyTorch call computes the SSD: library_ms null."""
+    got = kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    want = kssd.ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
+    Bb, S, H, P = x.shape
+    row = _scan_row("ssd", name, f"B{Bb} S{S} H{H} P{P} G{B.shape[2]} "
+                    f"N{B.shape[3]}" + (" D" if D is not None else "")
+                    + (" h0" if h0 is not None else ""), got, want, x.dtype)
+    if flush is not None:
+        row["ms"] = device_ms(lambda: kssd.ssd(x, dt, A, B, C, D, h0,
+                                               chunk=chunk), flush)
+        row["plain_ms"] = device_ms(lambda: kssd.ssd_plain(
+            x, dt, A, B, C, D, h0, chunk=chunk), flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = ssd_bound(
+            x, B, D is not None, h0 is not None)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def ssd_case(name, B, S, H, P, G, N, dtype, *, use_D=True, use_h0=False,
+             chunk=256, flush=None, seed=0):
+    """``check_ssd`` on seeded inputs drawn as tests/test_kernels.py
+    draws them: dt softplus'ed, A = -exp(z/2), B and C 0.3 z, h0 0.1 z."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def z(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, dt = z(B, S, H, P).to(dtype), torch.nn.functional.softplus(z(B, S, H))
+    A = -torch.exp(z(H) * 0.5)
+    Bm, Cm = (z(B, S, G, N) * 0.3).to(dtype), (z(B, S, G, N) * 0.3).to(dtype)
+    D = z(H) if use_D else None
+    h0 = z(B, H, P, N) * 0.1 if use_h0 else None
+    return check_ssd(name, x, dt, A, Bm, Cm, D, h0, chunk, flush)
+
+
+def rglru_bound(x, has_h0):
+    """The RG-LRU's least time: bytes (x and two gates read, h written,
+    lambda and h0 read, h_final written) or operations, 15 an element
+    (two sigmoids of an exp, an add and a divide; three multiplies, two
+    exps, a subtract, a max, a sqrt, a multiply-add)."""
+    Bb, S, W = x.shape
+    nbytes = 4 * x.numel() * x.element_size() + 4 * W \
+        + 4 * Bb * W * (1 + has_h0)
+    return bound_of(nbytes, 15 * x.numel(), x.dtype)
+
+
+def check_rglru(name, x, rg, ig, ll, h0, flush=None):
+    """RG-LRU kernel against plain on one set of inputs; with ``flush``
+    also the times and the bound.  No PyTorch call computes it:
+    library_ms null."""
+    got = krg.rglru(x, rg, ig, ll, h0)
+    torch.cuda.synchronize()
+    want = krg.rglru_plain(x, rg, ig, ll, h0)
+    Bb, S, W = x.shape
+    row = _scan_row("rglru", name, f"B{Bb} S{S} W{W}"
+                    + (" h0" if h0 is not None else ""), got, want, x.dtype)
+    if flush is not None:
+        row["ms"] = device_ms(lambda: krg.rglru(x, rg, ig, ll, h0), flush)
+        row["plain_ms"] = device_ms(lambda: krg.rglru_plain(x, rg, ig, ll,
+                                                            h0), flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = rglru_bound(x, h0 is not None)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def rglru_case(name, B, S, W, dtype, *, use_h0=False, flush=None, seed=0):
+    """``check_rglru`` on seeded normal inputs, h0 scaled by 0.2, as
+    tests/test_kernels.py draws them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def z(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, rg, ig = (z(B, S, W).to(dtype) for _ in range(3))
+    h0 = z(B, W) * 0.2 if use_h0 else None
+    return check_rglru(name, x, rg, ig, z(W), h0, flush)
+
+
+# ---------------------------------------------------------------------------
 # kernel against its plain version: Fletcher-64
 # ---------------------------------------------------------------------------
 def check_fletcher(name, x, flush=None, flip=True):
@@ -436,6 +607,10 @@ def phase_kernels():
             for dtype in (torch.bfloat16, torch.float32):
                 rows.append(attention_case(f"{arch}:{name}", dtype=dtype,
                                            flush=flush, **heads, **shape))
+    for name, shape in RG_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(attention_case(f"{HYBRID_ARCH}:{name}", dtype=dtype,
+                                       flush=flush, **RG_HEADS, **shape))
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
         Sc = min(24, S // 2)
@@ -450,6 +625,37 @@ def phase_kernels():
             rows.append(attention_case(
                 f"sweep{i}-decode", B=3, S=1, T=T, dtype=dtype,
                 offsets=[0, T // 2, T - 1], **kw))
+
+    # SSD at mamba2-1.3b's heads: the demo's prompts, one reference chunk,
+    # and the long phase's longest prompt (41 of the kernel's chunks, the
+    # last ragged), timed; then the reference's sweep
+    mamba = dict(H=64, P=64, G=1, N=128)
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in range(5, 11):
+            rows.append(ssd_case(f"{SSM_ARCH}-s{S}", B=1, S=S, dtype=dtype,
+                                 use_h0=S % 2 == 0, seed=S, **mamba))
+        rows.append(ssd_case(f"{SSM_ARCH}-s256-h0", B=2, S=256, dtype=dtype,
+                             use_h0=True, **mamba))
+        rows.append(ssd_case(f"{SSM_ARCH}-s2600-noD", B=1, S=2600,
+                             dtype=dtype, use_D=False, seed=1, **mamba))
+        rows.append(ssd_case(f"{SSM_ARCH}-s2600", B=1, S=2600, dtype=dtype,
+                             flush=flush, **mamba))
+        for i, (B, S, H, P, G, N, Q, use_D, use_h0) in enumerate(SSD_SWEEP):
+            rows.append(ssd_case(f"ssd-sweep{i}", B=B, S=S, H=H, P=P, G=G,
+                                 N=N, dtype=dtype, use_D=use_D,
+                                 use_h0=use_h0, chunk=Q, seed=i))
+    # RG-LRU at recurrentgemma-9b's width, the same way
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in range(5, 11):
+            rows.append(rglru_case(f"{HYBRID_ARCH}-s{S}", B=1, S=S, W=4096,
+                                   dtype=dtype, use_h0=S % 2 == 0, seed=S))
+        rows.append(rglru_case(f"{HYBRID_ARCH}-s2600-h0", B=2, S=2600,
+                               W=4096, dtype=dtype, use_h0=True, seed=1))
+        rows.append(rglru_case(f"{HYBRID_ARCH}-s2600", B=1, S=2600, W=4096,
+                               dtype=dtype, flush=flush))
+        for i, (B, S, W, _, _, use_h0) in enumerate(RGLRU_SWEEP):
+            rows.append(rglru_case(f"rglru-sweep{i}", B=B, S=S, W=W,
+                                   dtype=dtype, use_h0=use_h0, seed=i))
 
     # the router at granite's E 40, k 8 (decode 4 slots, the demo's short
     # prompts, a 64-token chunk, a 384-token prefill), then the grid
@@ -483,18 +689,23 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 class MainPathRecorder:
     """What a main path gives the kernels.  Wraps the Model entry points
-    (to know which of prefill, chunk or decode is running), the attention
-    the layers call and the router the MoE layers call; for each
-    (kernel, entry point, shape) keeps the launches the kernel's wrapper
-    counted (the wrapper alone counts) and a copy of the inputs of the
-    last launch."""
+    (to know which of prefill, chunk or decode is running, and to count
+    their calls), the attention the layers call, the router the MoE
+    layers call and the SSD and RG-LRU the recurrent blocks call; for
+    each (kernel, entry point, shape) keeps the launches the kernel's
+    wrapper counted (the wrapper alone counts) and a copy of the inputs
+    of the last launch.  A model that cannot chunk its prefill has no
+    chunk entry point."""
 
     ENTRIES = {"prefill": "prefill", "prefill_chunk": "chunk",
                "decode_step": "decode"}
 
-    def __init__(self):
+    def __init__(self, chunkable: bool = True):
+        self.entries = {e: k for e, k in self.ENTRIES.items()
+                        if chunkable or k != "chunk"}
         self.kind = "outside an entry point"
         self.seen = {}
+        self.calls = {kind: 0 for kind in self.ENTRIES.values()}
         self._orig = {}
 
     def install(self):
@@ -503,6 +714,7 @@ class MainPathRecorder:
 
             def entered(*a, _orig=orig, _kind=kind, **kw):
                 outer, self.kind = self.kind, _kind
+                self.calls[_kind] += 1
                 try:
                     return _orig(*a, **kw)
                 finally:
@@ -510,12 +722,16 @@ class MainPathRecorder:
             setattr(Model, entry, entered)
         attn_layer.attention = self._attention
         moe_layer.router_topk = self._router
+        ssd_block.ssd = self._ssd
+        rglru_block.rglru = self._rglru
 
     def uninstall(self):
         for entry, orig in self._orig.items():
             setattr(Model, entry, orig)
         attn_layer.attention = fa.attention
         moe_layer.router_topk = kr.router_topk
+        ssd_block.ssd = kssd.ssd
+        rglru_block.rglru = krg.rglru
 
     def _record(self, key, launches, inputs):
         rec = self.seen.setdefault(key, {"launches": 0})
@@ -543,8 +759,26 @@ class MainPathRecorder:
                      kr.router_topk.launches - before, (logits.clone(), k))
         return out
 
+    def _ssd(self, x, dt, A, B, C, D=None, h0=None, *, chunk=256):
+        before = kssd.ssd.launches
+        out = kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
+        clone = (lambda t: None if t is None else t.clone())
+        self._record(("ssd", self.kind) + tuple(x.shape) + tuple(B.shape[2:])
+                     + (x.dtype,), kssd.ssd.launches - before,
+                     tuple(map(clone, (x, dt, A, B, C, D, h0))) + (chunk,))
+        return out
+
+    def _rglru(self, x, r_gate, i_gate, log_lambda, h0=None):
+        before = krg.rglru.launches
+        out = krg.rglru(x, r_gate, i_gate, log_lambda, h0)
+        clone = (lambda t: None if t is None else t.clone())
+        self._record(("rglru", self.kind) + tuple(x.shape) + (x.dtype,),
+                     krg.rglru.launches - before,
+                     tuple(map(clone, (x, r_gate, i_gate, log_lambda, h0))))
+        return out
+
     def by_kind(self, kernel):
-        n = {kind: 0 for kind in self.ENTRIES.values()}
+        n = {kind: 0 for kind in self.entries.values()}
         for key, rec in self.seen.items():
             if key[0] == kernel:
                 n[key[1]] = n.get(key[1], 0) + rec["launches"]
@@ -603,36 +837,100 @@ def phase_sessions(arch, cfg):
     check(stats["prefix_hits"] >= 2, f"sessions: prefix hits {stats}")
 
 
+def phase_long_prompts(arch, cfg):
+    """In place of the session phase for a model that cannot chunk its
+    prefill: four long prompts at once through ``gen.generate`` into 4
+    slots of LONG_MAX_LEN.  Chunking and sessions are asked for; the
+    engine must turn both off."""
+    model = Model(cfg)
+    params = model.init(1, device="cuda")
+    serve = ServeEngine(model, params, max_len=LONG_MAX_LEN, n_slots=4,
+                        chunk_tokens=64, session_cap=4, device="cuda")
+    rng = np.random.default_rng(1)
+    server = Engine("tcp://127.0.0.1:0")
+    gw = ServingGateway(server, serve)
+    try:
+        with Engine("tcp://127.0.0.1:0") as client:
+            t0 = time.monotonic()
+            futs = [client.call_async(
+                server.uri, "gen.generate",
+                {"tokens": rng.integers(1, cfg.vocab, size=n).tolist(),
+                 "max_new": 8, "session_id": f"long-{n}", "timeout": 600.0},
+                timeout=600.0) for n in LONG_PROMPTS]
+            outs = [f.result(timeout=605.0) for f in futs]
+            dt = time.monotonic() - t0
+            stats = client.call(server.uri, "gen.stats", {})
+    finally:
+        gw.stop()
+        server.shutdown()
+    print(f"{arch} long prompts: {len(outs)} requests of {LONG_PROMPTS} "
+          f"tokens, {sum(len(o['tokens']) for o in outs)} new tokens in "
+          f"{dt:.2f}s; chunk_tokens {stats['chunk_tokens']} "
+          f"session_capacity {stats['session_capacity']}")
+    for n, o in zip(LONG_PROMPTS, outs):
+        check(o["done"] and len(o["tokens"]) == 8
+              and all(0 <= t < cfg.vocab for t in o["tokens"]),
+              f"long prompts: {n}-token request {o}")
+    check(stats["chunk_tokens"] == 0 and stats["session_capacity"] == 0
+          and stats["pinned_sessions"] == 0,
+          f"long prompts: chunking or sessions on for {arch}: {stats}")
+
+
+def path_kernels(model):
+    """The kernels a model's serving path must launch, by name, and the
+    entry points each must launch on: attention and the router on every
+    entry point the model has, the SSD and the RG-LRU on prefill alone
+    (their decode steps are plain torch, as the reference's)."""
+    kinds = set(model.kinds)
+    kernels = {}
+    if "attn" in model.stack_sizes:
+        kernels["flash_attention"] = (fa.attention, None)
+    if model.cfg.moe.num_experts:
+        kernels["moe_router"] = (kr.router_topk, None)
+    if "ssd" in kinds:
+        kernels["ssd"] = (kssd.ssd, ("prefill",))
+    if "rglru" in kinds:
+        kernels["rglru"] = (krg.rglru, ("prefill",))
+    return kernels
+
+
 def serve_path(arch):
-    """Phase 3a/3b: one model's demo and sessions with the kernels'
-    counts zeroed just before and read just after; returns the
-    recorder."""
+    """Phase 3a/3b/3d/3e: one model's demo and sessions (or long
+    prompts, for a model that cannot chunk) with the kernels' counts
+    zeroed just before and read just after; returns the recorder."""
     cfg = configs.get(arch)
-    kernels = {"flash_attention": fa.attention}
-    if cfg.moe.num_experts:
-        kernels["moe_router"] = kr.router_topk
-    recorder = MainPathRecorder()
+    model = Model(cfg)
+    kernels = path_kernels(model)
+    recorder = MainPathRecorder(model.supports_chunked_prefill)
     recorder.install()
-    for fn in kernels.values():
+    for fn, _ in kernels.values():
         fn.launches = 0
     try:
         phase_demo(arch, cfg)
-        phase_sessions(arch, cfg)
+        if model.supports_chunked_prefill:
+            phase_sessions(arch, cfg)
+        else:
+            phase_long_prompts(arch, cfg)
     finally:
         recorder.uninstall()
-    counts = {name: fn.launches for name, fn in kernels.items()}
+    counts = {name: fn.launches for name, (fn, _) in kernels.items()}
     free_card()
+    print(f"{arch} main path: entry point calls {recorder.calls}")
+    check(recorder.calls["decode"] > 0 and recorder.calls["prefill"] > 0,
+          f"{arch}: prefill or decode did not run {recorder.calls}")
     for name, n in counts.items():
         by_kind = recorder.by_kind(name)
         print(f"{arch} main path: {name} {n} launches, by entry point "
               f"{by_kind}")
         check(sum(by_kind.values()) == n and set(by_kind)
-              == set(MainPathRecorder.ENTRIES.values()),
+              == set(recorder.entries.values()),
               f"{arch}: {name} launched outside the Model entry points "
               f"{by_kind}")
-        check(all(v > 0 for v in by_kind.values()),
-              f"{arch}: {name} was not launched on every entry point "
-              f"{by_kind}")
+        where = kernels[name][1] or tuple(recorder.entries.values())
+        check(all(by_kind[k] > 0 for k in where),
+              f"{arch}: {name} was not launched on {where}: {by_kind}")
+        check(all(v == 0 for k, v in by_kind.items() if k not in where),
+              f"{arch}: {name} launched outside {where}: {by_kind}")
     return recorder
 
 
@@ -819,6 +1117,10 @@ def phase_main_shapes(arch, recorder):
             row = check_kernel(name, q, k, v, kw, flush)
         elif key[0] == "moe_router":
             row = check_router(name, *inputs, flush=flush)
+        elif key[0] == "ssd":
+            row = check_ssd(name, *inputs, flush=flush)
+        elif key[0] == "rglru":
+            row = check_rglru(name, *inputs, flush=flush)
         else:
             row = check_fletcher(name, inputs, flush=flush, flip=False)
         row["launches"] = rec["launches"]
@@ -833,7 +1135,10 @@ def phase_main_shapes(arch, recorder):
 # ---------------------------------------------------------------------------
 # phase 5: full-width parity, kernels vs plain
 # ---------------------------------------------------------------------------
-def phase_parity(arch):
+def phase_parity(arch, S):
+    """Prefill 2 x S then 8 (B,) decode steps in f32 with TF32 off,
+    through the kernels and through their plain versions, on the same
+    weights; the logits must agree within PARITY_TOL * (1 + |logit|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(arch).replace(compute_dtype="float32")
@@ -841,7 +1146,7 @@ def phase_parity(arch):
     params = model.init(2, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    B, S, steps = 2, 128, 8
+    B, steps = 2, 8
     toks = torch.randint(1, cfg.vocab, (B, S + steps), generator=gen,
                          device="cuda")
     routes = []             # per run: (idx, probs) of every router call
@@ -853,9 +1158,14 @@ def phase_parity(arch):
             return w, idx, probs
         return run
 
-    def run(router):
+    def run(plain: bool):
         routes.append([])
-        moe_layer.router_topk = spy(router)
+        moe_layer.router_topk = spy(kr.router_topk_plain if plain
+                                    else kr.router_topk)
+        if plain:
+            attn_layer.attention = fa.attention_plain
+            ssd_block.ssd = kssd.ssd_plain
+            rglru_block.rglru = krg.rglru_plain
         try:
             logits, cache = model.prefill(params, toks[:, :S],
                                           cache_len=S + steps)
@@ -868,19 +1178,25 @@ def phase_parity(arch):
                 out.append(logits)
         finally:
             moe_layer.router_topk = kr.router_topk
+            attn_layer.attention = fa.attention
+            ssd_block.ssd = kssd.ssd
+            rglru_block.rglru = krg.rglru
         return torch.stack(out)
 
     n_moe = sum("moe" in p for p in params["layers"])
-    before = (fa.attention.launches, kr.router_topk.launches)
-    got = run(kr.router_topk)
-    check(fa.attention.launches - before[0] == cfg.n_layers * (1 + steps)
-          and kr.router_topk.launches - before[1] == n_moe * (1 + steps),
-          "parity: the kernel path did not launch once per layer and call")
-    attn_layer.attention = fa.attention_plain
-    try:
-        want = run(kr.router_topk_plain)
-    finally:
-        attn_layer.attention = fa.attention
+    sizes = model.stack_sizes
+    kernels = (fa.attention, kr.router_topk, kssd.ssd, krg.rglru)
+    # attention and the router launch on prefill and every decode step,
+    # the SSD and the RG-LRU on prefill alone
+    want_launches = (sizes.get("attn", 0) * (1 + steps), n_moe * (1 + steps),
+                     sizes.get("ssd", 0), sizes.get("rglru", 0))
+    before = [fn.launches for fn in kernels]
+    got = run(plain=False)
+    launched = tuple(fn.launches - b for fn, b in zip(kernels, before))
+    check(launched == want_launches,
+          f"parity: kernel launches {launched}, expected {want_launches} "
+          f"(attention, router, ssd, rglru)")
+    want = run(plain=True)
     check(bool(torch.isfinite(got).all()), "parity: non-finite logits")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -898,6 +1214,7 @@ def phase_parity(arch):
     print(f"parity {arch}: f32 full width, TF32 off, prefill {B}x{S} + "
           f"{steps} decode steps: max |kernel - plain| = {err:.3g} (max "
           f"|logit| {scale:.3g}, tolerance {PARITY_TOL} * (1 + |logit|)); "
+          f"kernel launches (attention, router, ssd, rglru) {launched}; "
           f"routing differences {len(flips)}"
           + (f": {json.dumps(flips[:20])}" if flips else ""))
     del params, model
@@ -914,7 +1231,11 @@ SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
           "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
                          "src/repro/kernels/moe_router.py:43"),
           "fletcher64": ("src/repro_torch/kernels/csrc/fletcher64.cu",
-                         "src/repro/kernels/fletcher.py:101")}
+                         "src/repro/kernels/fletcher.py:101"),
+          "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                  "src/repro/kernels/ssd.py:80"),
+          "rglru": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                    "src/repro/kernels/rglru_scan.py:65")}
 
 
 def summary_row(r):
@@ -969,9 +1290,19 @@ def main(argv=None) -> int:
     recorder = checkpoint_path()
     free_card()
     rows += phase_main_shapes(ARCH, recorder)
-    for arch in (ARCH, MOE_ARCH):
-        phase_parity(arch)
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        rows += phase_main_shapes(arch, serve_path(arch))
+    for arch, S in ((ARCH, 128), (MOE_ARCH, 128), (SSM_ARCH, 640),
+                    (HYBRID_ARCH, 640)):
+        phase_parity(arch, S)
 
+    lost = {}
+    for r in rows:
+        key = f"{r['kernel']}:{r['case']}"
+        lost[key] = lost.get(key, 0.0) + r["launches"] * (r["ms"]
+                                                          - r["bound_ms"])
+    print("lost ms, launches x (ms - bound_ms) by kernel and path: "
+          + json.dumps(dict(sorted(lost.items(), key=lambda kv: -kv[1]))))
     print(card)
     print(json.dumps({"kernels": [summary_row(r) for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,11 @@ prefill, prefill chunks and decode.
 ``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing of every
 MoE layer.
 ``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksum of
-checkpoint shards."""
+checkpoint shards.
+``ssd`` (``csrc/ssd.cu``) — the Mamba2 SSD scan of every SSD layer's
+prefill.
+``rglru`` (``csrc/rglru_scan.cu``) — the RG-LRU recurrence of every
+RG-LRU layer's prefill."""
 
 # every CUDA source under csrc/, by the name build.build() takes
-SOURCES = ("flash_attention", "moe_router", "fletcher64")
+SOURCES = ("flash_attention", "moe_router", "fletcher64", "ssd", "rglru_scan")

@@ -41,7 +41,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

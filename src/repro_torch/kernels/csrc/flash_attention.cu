@@ -31,7 +31,9 @@
 //     every staged key tile serves 16 rows; 32 keys per tile.
 //   * S <= 16 (decode): one query row per block and the four warps split
 //     a 128-key tile, merging their partial softmax states at the end, so
-//     a decode row is not spread over a mostly empty 16-row tile.
+//     a decode row is not spread over a mostly empty 16-row tile.  At
+//     head_dim 256 that tile does not fit in shared memory: there two
+//     warps split a 64-key tile for each of two rows of a block.
 // Simple first: no tensor cores, TMA or split-K across blocks yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -320,7 +322,11 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_rows(const Params& p, cudaStream_t stream) {
-  if (p.S <= 16) return launch<T, D, 1, kWarps>(p, stream);
+  // D = 256: four warps splitting a 128-key tile would stage
+  // 4 * (256 + 128 * 257 + 128 * 256) = 263,680 bytes, over the 232,448 a
+  // block may have; two warps a row on 64-key tiles stage 133,376.
+  constexpr int kSplit = D > 128 ? 2 : kWarps;
+  if (p.S <= 16) return launch<T, D, 1, kSplit>(p, stream);
   return launch<T, D, 4, 1>(p, stream);
 }
 
@@ -331,6 +337,7 @@ cudaError_t launch_dim(int D, const Params& p, cudaStream_t stream) {
     case 32: return launch_rows<T, 32>(p, stream);
     case 64: return launch_rows<T, 64>(p, stream);
     case 128: return launch_rows<T, 128>(p, stream);
+    case 256: return launch_rows<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

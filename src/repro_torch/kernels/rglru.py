@@ -1,0 +1,145 @@
+"""RG-LRU (Griffin / recurrentgemma) recurrence: the hand-written Hopper
+kernel, its plain version and the one-token decode step.
+
+**Replaces** the Pallas TPU kernel ``src/repro/kernels/rglru_scan.py``
+(``rglru_pallas``, body ``_kernel``), which ``ops.rglru`` resolves to on a
+TPU: every RG-LRU layer's prefill runs it.  One kernel,
+``csrc/rglru_scan.cu``.  Decode does not launch it: the reference's
+decode step is ``ops.rglru_decode_step`` outside any Pallas kernel, and
+:func:`rglru_decode_step` here is plain torch too.
+
+Per channel, with the gates given before their sigmoid::
+
+    r, i = σ(r_gate), σ(i_gate)
+    log a = −8·softplus(Λ)·r,   β = √max(1 − exp(2·log a), 1e-12)
+    hₜ = aₜ·hₜ₋₁ + β·i·xₜ
+
+**What bounds it on an H100.**  Three reads and one write per element
+and a dozen operations: bound by bytes.  Channels are independent and
+time is sequential.
+
+**What the design does about it.**  One thread per (batch row,
+channel) carries hₜ in a register through the whole sequence;
+neighbouring threads take neighbouring channels, so every time step's
+loads are coalesced, and each thread keeps the next steps' loads in
+flight while it computes the current ones (``csrc/rglru_scan.cu``).
+
+``rglru`` dispatches on the device of ``x``: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises.  There is no
+fallback.  ``rglru.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+RGLRU_C = 8.0
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _decay(r_gate, log_lambda):
+    """(a, β) from the pre-sigmoid gate and Λ, in f32."""
+    r = torch.sigmoid(r_gate.float())
+    log_a = -RGLRU_C * F.softplus(log_lambda.float()) * r
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return torch.exp(log_a), beta
+
+
+def rglru_plain(x, r_gate, i_gate, log_lambda, h0=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential recurrence of ``ref.rglru_ref``, in f32.
+
+    x, r_gate, i_gate (B,S,W), log_lambda (W,), h0 (B,W) optional →
+    (h (B,S,W) in x's dtype, h_final (B,W) f32)."""
+    Bb, S, W = x.shape
+    a, beta = _decay(r_gate, log_lambda)
+    gated = torch.sigmoid(i_gate.float()) * x.float() * beta
+    h = (torch.zeros((Bb, W), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + gated[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype), h
+
+
+def rglru_decode_step(h, x_t, r_gate_t, i_gate_t, log_lambda
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token, as ``ops.rglru_decode_step``: h (B,W), x_t and gates
+    (B,W) → (h_new in x_t's dtype, h_new f32)."""
+    a, beta = _decay(r_gate_t, log_lambda)
+    h_new = a * h.float() + beta * (torch.sigmoid(i_gate_t.float())
+                                    * x_t.float())
+    return h_new.to(x_t.dtype), h_new
+
+
+def rglru(x, r_gate, i_gate, log_lambda, h0=None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h, h_final) of the RG-LRU; see ``rglru_plain``."""
+    if x.device.type == "cpu":
+        return rglru_plain(x, r_gate, i_gate, log_lambda, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru: no kernel for device {x.device}")
+    return _rglru_cuda(x, r_gate, i_gate, log_lambda, h0)
+
+
+rglru.launches = 0
+
+_fn = None   # the C entry, bound once by _kernel()
+
+
+def _kernel():
+    """The kernel's C entry with its signature set, built and loaded at
+    the first launch.  Two threads racing here bind the same function."""
+    global _fn
+    if _fn is None:
+        from .build import load
+        fn = load("rglru_scan").repro_rglru_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        _fn = fn
+    return _fn
+
+
+def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0):
+    if x.ndim != 3 or r_gate.shape != x.shape or i_gate.shape != x.shape:
+        raise ValueError(f"rglru: x {tuple(x.shape)}, r_gate "
+                         f"{tuple(r_gate.shape)} and i_gate "
+                         f"{tuple(i_gate.shape)} must all be (B,S,W)")
+    Bb, S, W = x.shape
+    if log_lambda.shape != (W,) or (h0 is not None
+                                    and h0.shape != (Bb, W)):
+        raise ValueError(f"rglru: log_lambda must be ({W},) and h0 "
+                         f"({Bb}, {W})")
+    if S < 1:
+        raise ValueError("rglru: the kernel takes S >= 1")
+    if x.dtype not in _DTYPES or r_gate.dtype != x.dtype \
+            or i_gate.dtype != x.dtype:
+        raise ValueError(f"rglru: dtypes {x.dtype}/{r_gate.dtype}/"
+                         f"{i_gate.dtype}; the kernel takes one of "
+                         f"{_DTYPES} for all three")
+    dev = x.device
+    if any(t.device != dev for t in (r_gate, i_gate, log_lambda)) or (
+            h0 is not None and h0.device != dev):
+        raise ValueError("rglru: every input must be on one device")
+    x, r_gate, i_gate = (t.contiguous() for t in (x, r_gate, i_gate))
+    ll = log_lambda.float().contiguous()
+    h0 = None if h0 is None else h0.float().contiguous()
+    out = torch.empty_like(x)
+    hf = torch.empty((Bb, W), dtype=torch.float32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
+                 ll.data_ptr(), None if h0 is None else h0.data_ptr(),
+                 out.data_ptr(), hf.data_ptr(), Bb, S, W,
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    rglru.launches += 1
+    return out, hf

@@ -1,0 +1,162 @@
+"""Mamba2 block (SSD, state-space duality), ported from
+``src/repro/models/ssd_block.py``.
+
+Projections: x → [z, xs, B, C, dt]; depthwise causal conv over
+[xs, B, C]; the SSD scan (:func:`repro_torch.kernels.ssd.ssd`, the
+hand-written kernel on the card); gated RMS-norm with z; output
+projection.
+
+Decode carries two states per layer: the SSD state (B,H,P,N) f32 and
+the conv tail (B, cw-1, channels), both O(1) in sequence length.  The
+conv is written as the reference writes it, ``cw`` shifted
+multiply-adds, not ``F.conv1d``: a float32 convolution goes through
+cuDNN in TF32 by default, and the port holds f32 to the reference.
+
+As in the reference, a prompt shorter than ``cw - 1`` tokens leaves a
+one-row conv tail (``u[:, S-(cw-1):]`` with a negative start); the
+engine writes that row to row 0 of the slot's tail and leaves the
+others as they were.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels.ssd import ssd, ssd_decode_step
+from .common import dense_init, dtype_of, ones_init, rms_norm, zeros_init
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    H = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.ngroups * s.state_dim
+    return d_in, H, s.head_dim, s.ngroups, s.state_dim, s.conv_width, conv_ch
+
+
+def ssd_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Seeded random projections; ``A_log``, ``D`` and ``dt_bias`` take
+    the reference's deterministic values (a decay spread over the heads
+    is what keeps a long prompt's state from vanishing or blowing up)."""
+    dt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    dev = gen.device
+    return {
+        "wz": dense_init(gen, (d, d_in), dt),
+        "wx": dense_init(gen, (d, d_in), dt),
+        "wB": dense_init(gen, (d, G * N), dt),
+        "wC": dense_init(gen, (d, G * N), dt),
+        "wdt": dense_init(gen, (d, H), dt),
+        "dt_bias": zeros_init(gen, (H,), dt),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)).to(dt),
+        "D": ones_init(gen, (H,), dt),
+        "conv_w": dense_init(gen, (cw, conv_ch), dt, in_dim=cw),
+        "conv_b": zeros_init(gen, (conv_ch,), dt),
+        "norm": ones_init(gen, (d_in,), dt),
+        "wo": dense_init(gen, (d_in, d), dt),
+    }
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv. u: (B,S,C); w: (cw,C); b: (C,)."""
+    cw = w.shape[0]
+    S = u.shape[1]
+    pad = F.pad(u, (0, 0, cw - 1, 0))
+    out = b[None, None]
+    for i in range(cw):
+        out = out + pad[:, i:i + S] * w[i][None, None]
+    return out
+
+
+def _conv_step(u_t, tail, w, b):
+    """One conv step. u_t: (B,C); tail: (B,cw-1,C). Returns (y_t,
+    new_tail)."""
+    window = torch.cat([tail, u_t[:, None]], dim=1)             # (B,cw,C)
+    y = (window * w[None]).sum(dim=1) + b     # promotes as jnp.einsum does
+    return y, window[:, 1:]
+
+
+def _split_conv_channels(cfg: ModelConfig, conv_out):
+    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    return (conv_out[..., :d_in], conv_out[..., d_in:d_in + G * N],
+            conv_out[..., d_in + G * N:])
+
+
+def _project(cfg: ModelConfig, p, x):
+    cdt = dtype_of(cfg.compute_dtype)
+    xc = x.to(cdt)
+    z = xc @ p["wz"].to(cdt)
+    u = torch.cat([xc @ p["wx"].to(cdt), xc @ p["wB"].to(cdt),
+                   xc @ p["wC"].to(cdt)], dim=-1)
+    dt_raw = xc @ p["wdt"].to(cdt)
+    return z, u, dt_raw
+
+
+def _finish(cfg, p, y_heads, z, shape):
+    B, S = shape
+    cdt = dtype_of(cfg.compute_dtype)
+    y = y_heads.reshape(B, S, z.shape[-1])
+    y = rms_norm(y, p["norm"], cfg.norm_eps) * \
+        F.silu(z.float()).to(cdt)
+    return y.to(cdt) @ p["wo"].to(cdt)
+
+
+def _decay_inputs(p, dt_raw):
+    """(dt, A) in f32: dt = softplus(dt_raw + dt_bias), A = -exp(A_log)."""
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    return dt, -torch.exp(p["A_log"].float())
+
+
+def ssd_block_apply(cfg: ModelConfig, p: dict, x, *,
+                    want_cache: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None)."""
+    B, S, d = x.shape
+    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    z, u, dt_raw = _project(cfg, p, x)
+    conv_out = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = _split_conv_channels(cfg, conv_out)
+    dt, A = _decay_inputs(p, dt_raw)
+    y, h_fin = ssd(xs.reshape(B, S, H, Pd), dt, A, Bm.reshape(B, S, G, N),
+                   Cm.reshape(B, S, G, N), p["D"], None, chunk=cfg.ssm.chunk)
+    out = _finish(cfg, p, y, z, (B, S))
+    cache = None
+    if want_cache:
+        # a negative start (S < cw - 1) keeps one row, as the reference
+        cache = {"h": h_fin.float(),
+                 "conv": u[:, S - (cw - 1):, :].to(x.dtype)}
+    return out, cache
+
+
+def ssd_block_decode(cfg: ModelConfig, p: dict, x, cache: dict
+                     ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B,1,d); cache {"h", "conv"}.  Returns (out,
+    new {"h", "conv"})."""
+    B = x.shape[0]
+    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    z, u, dt_raw = _project(cfg, p, x)
+    conv_y, new_tail = _conv_step(u[:, 0], cache["conv"].to(u.dtype),
+                                  p["conv_w"], p["conv_b"])
+    xs, Bm, Cm = _split_conv_channels(cfg, F.silu(conv_y))
+    dt, A = _decay_inputs(p, dt_raw[:, 0])
+    y_t, h_new = ssd_decode_step(cache["h"], xs.reshape(B, H, Pd), dt, A,
+                                 Bm.reshape(B, G, N), Cm.reshape(B, G, N),
+                                 p["D"])
+    out = _finish(cfg, p, y_t[:, None], z, (B, 1))
+    return out, {"h": h_new.float(),
+                 "conv": new_tail.to(cache["conv"].dtype)}
+
+
+def ssd_cache_spec(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                   device="cpu") -> dict:
+    """Zeroed decode state: h (B,H,P,N) f32 whatever ``dtype`` is, conv
+    tail (B, cw-1, channels) in ``dtype``."""
+    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    return {"h": torch.zeros((batch, H, Pd, N), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cw - 1, conv_ch), dtype=dtype,
+                                device=device)}

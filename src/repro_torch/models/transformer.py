@@ -1,5 +1,5 @@
-"""The attention-family ``Model``: prefill, prefill chunk, decode step and
-cache specs, ported from ``src/repro/models/transformer.py``.
+"""The ``Model``: prefill, prefill chunk, decode step and cache specs,
+ported from ``src/repro/models/transformer.py``.
 
 Parameters are a plain dict::
 
@@ -7,24 +7,40 @@ Parameters are a plain dict::
      "layers": [per-layer dict, ...],          # n_layers, in order
      "final_norm": (d,)}
 
-and the KV cache is ``{"k": (layers, B, T, Hkv, D), "v": ...}``.  The
-reference's scan over layer *periods* is a plain loop over ``layers``
-here; ``bridge.params_from_numpy`` unstacks the reference's periods.
+The reference's scan over layer *periods* is a plain loop over
+``layers`` here; ``bridge.params_from_numpy`` unstacks the reference's
+periods.
+
+A layer is an attention block (``"attn"``: attn, local, global) or a
+recurrent one (``"rec"``: Mamba2 SSD, ``models/ssd_block.py``, or RG-LRU,
+``models/rglru_block.py``).  The cache holds one stack per kind of
+state, with the batch on dim 1, and each layer keeps its index into its
+kind's stack (``Model.cache_index``)::
+
+    "k", "v"                  (attention layers, B, T, Hkv, D)
+    "ssd_h"                   (SSD layers, B, H, P, N) f32
+    "ssd_conv"                (SSD layers, B, cw-1, conv channels)
+    "rglru_h"                 (RG-LRU layers, B, W) f32
+    "rglru_conv"              (RG-LRU layers, B, cw-1, W)
+
+Only the stacks of kinds the model has are present.  The recurrent ``h``
+stays f32 whatever the cache dtype is, as in the reference.
 
 ``prefill`` returns a fresh cache; ``prefill_chunk`` and ``decode_step``
-write the new K/V in place into the cache they are given and return it.
+write the new K/V and states in place into the cache they are given and
+return it.  A model with a recurrent layer cannot chunk its prefill: its
+state carries no resumable prefill (``supports_chunked_prefill``).
 
 A layer's feed-forward half is a dense MLP (``"mlp"``) or, for MoE
 configs, an MoE layer (``"moe"``, ``models/moe.py``); deepseek's dense
 first layer keeps an MLP of ``first_dense_ff``.  Serving runs MoE layers
 dropless and discards their aux losses, as the reference does.
 
-Only attention-family blocks are ported so far: the recurrent families,
-encoder-decoder and VLM configs raise ``NotImplementedError``.
+Encoder-decoder and VLM configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,16 +50,36 @@ from .attention import (attn_decode, attn_params, attn_prefill,
 from .common import (dtype_of, embed_params, embed_tokens, mlp, mlp_params,
                      ones_init, resolve_device, rms_norm, unembed)
 from .moe import moe_apply, moe_params, padded_experts
+from .rglru_block import (rglru_block_apply, rglru_block_decode,
+                          rglru_cache_spec, rglru_params)
+from .ssd_block import (ssd_block_apply, ssd_block_decode, ssd_cache_spec,
+                        ssd_params)
+
+
+class _Recurrent(NamedTuple):
+    """One recurrent block kind's functions."""
+    params: Callable
+    prefill: Callable
+    decode: Callable
+    cache_spec: Callable
+
+
+_RECURRENT = {
+    "ssd": _Recurrent(ssd_params, ssd_block_apply, ssd_block_decode,
+                      ssd_cache_spec),
+    "rglru": _Recurrent(rglru_params, rglru_block_apply, rglru_block_decode,
+                        rglru_cache_spec),
+}
+
+
+def _group(kind: str) -> str:
+    """The cache stack a layer of ``kind`` keeps its state in."""
+    return "attn" if kind in ATTN_KINDS else kind
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run yet,
     naming the ROADMAP item that ports it."""
-    kinds = {cfg.kind_at(i) for i in range(cfg.n_layers)}
-    if not kinds <= set(ATTN_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds - set(ATTN_KINDS))} blocks are not "
-            f"ported yet (ROADMAP A8, B4, B5)")
     if cfg.n_enc_layers or cfg.frontend != "none" or cfg.prefix_lm:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models are not ported "
@@ -51,12 +87,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Model:
-    """One attention-family architecture, parameterized by its config."""
+    """One architecture, parameterized by its config."""
 
     def __init__(self, cfg: ModelConfig):
         check_supported(cfg)
         self.cfg = cfg
         self.kinds = tuple(cfg.kind_at(i) for i in range(cfg.n_layers))
+        # layer i's index into the cache stack of its kind
+        self.cache_index = []
+        self.stack_sizes = {}
+        for kind in self.kinds:
+            g = _group(kind)
+            self.cache_index.append(self.stack_sizes.get(g, 0))
+            self.stack_sizes[g] = self.cache_index[-1] + 1
         # deepseek: layer 0 is a dense FFN (the reference's "prefix")
         self.prefix_count = 1 if (cfg.moe.first_layer_dense
                                   and cfg.moe.num_experts) else 0
@@ -72,17 +115,21 @@ class Model:
         dt = dtype_of(cfg.param_dtype)
         embed = embed_params(cfg, gen)
         layers = []
-        for i in range(cfg.n_layers):
-            p = {"norm1": ones_init(gen, (cfg.d_model,), dt),
-                 "attn": attn_params(cfg, gen)}
+        for i, kind in enumerate(self.kinds):
+            p = {"norm1": ones_init(gen, (cfg.d_model,), dt)}
+            if kind in ATTN_KINDS:
+                p["attn"] = attn_params(cfg, gen)
+            else:
+                p["rec"] = _RECURRENT[kind].params(cfg, gen)
+            # the feed-forward half (SSD blocks have none: d_ff == 0)
             if i < self.prefix_count:
                 p["mlp"] = mlp_params(
                     cfg, gen, d_ff=cfg.moe.first_dense_ff or cfg.d_ff)
-            elif cfg.moe.num_experts:
+            elif cfg.d_ff > 0 and cfg.moe.num_experts:
                 p["moe"] = moe_params(cfg, gen, e_pad=self.e_pad)
-            else:
+            elif cfg.d_ff > 0:
                 p["mlp"] = mlp_params(cfg, gen)
-            if not cfg.parallel_block:
+            if ("mlp" in p or "moe" in p) and not cfg.parallel_block:
                 p["norm2"] = ones_init(gen, (cfg.d_model,), dt)
             layers.append(p)
         return {"embed": embed, "layers": layers,
@@ -97,11 +144,13 @@ class Model:
         return mlp(self.cfg, p["mlp"], h)
 
     def _block(self, p: dict, x, mix):
-        """One pre-norm block; ``mix(attn_params, h)`` is the attention
-        half (prefill, chunk or decode)."""
+        """One pre-norm block; ``mix(h)`` is the mixing half (attention
+        or recurrence; prefill, chunk or decode)."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        a = mix(p["attn"], h)
+        a = mix(h)
+        if "mlp" not in p and "moe" not in p:
+            return x + a
         if cfg.parallel_block:
             return x + a + self._ffn(p, h)
         x = x + a
@@ -113,53 +162,110 @@ class Model:
     # ------------------------------------------------------------------ serve
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
         """Prompt pass over tokens (B,S). Returns (last-position logits
-        (B,V) f32, cache of length ``cache_len`` in the compute dtype)."""
+        (B,V) f32, cache of length ``cache_len``: K/V in the compute
+        dtype, recurrent ``h`` in f32 and conv tails in the compute
+        dtype)."""
         cfg = self.cfg
         B, S = tokens.shape
+        cdt = dtype_of(cfg.compute_dtype)
         h = embed_tokens(cfg, params["embed"], tokens)
-        cache = self.cache_specs(B, cache_len or S,
-                                 dtype=dtype_of(cfg.compute_dtype),
-                                 device=tokens.device)
+        cache = self._kv_stacks(B, cache_len or S, cdt, tokens.device)
+        states = {g: [] for g in self.stack_sizes if g != "attn"}
+
+        def recurrent(kind, p, x):
+            out, st = _RECURRENT[kind].prefill(cfg, p, x, want_cache=True)
+            states[kind].append(st)
+            return out
+
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
-            h = self._block(p, h, lambda a, x: attn_prefill(
-                cfg, a, x, cache["k"][i], cache["v"][i], kind=kind))
+            j = self.cache_index[i]
+            if kind in ATTN_KINDS:
+                h = self._block(p, h, lambda x: attn_prefill(
+                    cfg, p["attn"], x, cache["k"][j], cache["v"][j],
+                    kind=kind))
+            else:
+                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x))
+        for g, sts in states.items():
+            for name in ("h", "conv"):
+                cache[f"{g}_{name}"] = torch.stack([st[name] for st in sts])
         return unembed(cfg, params["embed"], self._final(params, h)[:, -1]), \
             cache
 
     def prefill_chunk(self, params, cache, tokens, offset: int):
         """One prefill chunk: tokens (B,C) at absolute positions
         ``offset..offset+C-1`` of an existing full-length cache.  Returns
-        (logits (B,C,V), cache)."""
+        (logits (B,C,V), cache).  Requires ``supports_chunked_prefill``."""
+        if not self.supports_chunked_prefill:
+            raise ValueError("chunked prefill requires attention-family "
+                             "blocks (ssd and rglru carry no resumable "
+                             "prefill state)")
         cfg = self.cfg
         h = embed_tokens(cfg, params["embed"], tokens)
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
-            h = self._block(p, h, lambda a, x: attn_prefill_chunk(
-                cfg, a, x, cache["k"][i], cache["v"][i], offset, kind=kind))
+            h = self._block(p, h, lambda x: attn_prefill_chunk(
+                cfg, p["attn"], x, cache["k"][i], cache["v"][i], offset,
+                kind=kind))
         return unembed(cfg, params["embed"], self._final(params, h)), cache
 
     def decode_step(self, params, cache, tokens, pos):
         """One token per row: tokens (B,1); ``pos`` a scalar or a (B,)
-        tensor. Returns (logits (B,V), cache)."""
+        tensor. Returns (logits (B,V), cache), the cache updated in
+        place."""
         cfg = self.cfg
         h = embed_tokens(cfg, params["embed"], tokens)
+
+        def recurrent(kind, p, x, j):
+            h_, conv = cache[f"{kind}_h"][j], cache[f"{kind}_conv"][j]
+            out, st = _RECURRENT[kind].decode(cfg, p, x,
+                                              {"h": h_, "conv": conv})
+            h_.copy_(st["h"])
+            conv.copy_(st["conv"])
+            return out
+
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
-            h = self._block(p, h, lambda a, x: attn_decode(
-                cfg, a, x, cache["k"][i], cache["v"][i], pos, kind=kind))
+            j = self.cache_index[i]
+            if kind in ATTN_KINDS:
+                h = self._block(p, h, lambda x: attn_decode(
+                    cfg, p["attn"], x, cache["k"][j], cache["v"][j], pos,
+                    kind=kind))
+            else:
+                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x,
+                                                          j))
         return unembed(cfg, params["embed"], self._final(params, h))[:, 0], \
             cache
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Every config the port accepts is attention-only (MoE included)
-        and continues a prefill at an offset."""
-        return True
+        """True when every layer is an attention block: those continue a
+        prefill at an offset; the recurrent ones carry no resumable
+        prefill state, as in the reference."""
+        return all(kind in ATTN_KINDS for kind in self.kinds)
 
     # ------------------------------------------------------------------ specs
     def cache_specs(self, batch_size: int, cache_len: int, *,
                     dtype=torch.bfloat16, device="cuda") -> dict:
-        """Zeroed KV cache, {"k", "v"}: (layers, B, T, Hkv, D)."""
+        """Zeroed cache: one stack per kind of state (see the module
+        docstring); recurrent ``h`` in f32, the rest in ``dtype``."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, cache_len, cfg.n_kv_heads, cfg.hd)
         dev = resolve_device(device)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        out = self._kv_stacks(batch_size, cache_len, dtype, dev)
+        for g, n in self.stack_sizes.items():
+            if g == "attn":
+                continue
+            spec = _RECURRENT[g].cache_spec(cfg, batch_size, dtype,
+                                            device=dev)
+            for name, t in spec.items():
+                out[f"{g}_{name}"] = torch.zeros((n,) + tuple(t.shape),
+                                                 dtype=t.dtype, device=dev)
+        return out
+
+    def _kv_stacks(self, batch_size: int, cache_len: int, dtype,
+                   device) -> dict:
+        """Zeroed ``"k"``/``"v"`` stacks over the attention layers
+        (``{}`` for a model without any)."""
+        n = self.stack_sizes.get("attn")
+        if n is None:
+            return {}
+        shape = (n, batch_size, cache_len, self.cfg.n_kv_heads, self.cfg.hd)
+        return {name: torch.zeros(shape, dtype=dtype, device=device)
+                for name in ("k", "v")}

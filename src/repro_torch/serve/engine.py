@@ -2,8 +2,9 @@
 session reuse, ported from ``src/repro/serve/engine.py`` with the same
 step semantics, counters and metric names.
 
-A fixed pool of ``n_slots`` sequence slots shares one (layers, n_slots,
-max_len, Hkv, D) cache.  New requests prefill into a free slot; every
+A fixed pool of ``n_slots`` sequence slots shares one cache: the
+model's stacks of K/V and recurrent states, each with the slot on dim 1
+(``Model.cache_specs``).  New requests prefill into a free slot; every
 ``step()`` decodes *all* slots in lockstep with per-slot positions (the
 (B,) ``pos`` decode path) — free and pinned slots included, whose
 garbage K/V lands at their own position above anything live, as in the
@@ -12,7 +13,10 @@ takes over.
 
 **Chunked prefill** (``chunk_tokens > 0``): the prompt lands one
 fixed-size chunk per ``step()``, interleaved with the decode of every
-other slot; the last chunk is padded to the fixed size.
+other slot; the last chunk is padded to the fixed size.  Chunking and
+sessions need ``model.supports_chunked_prefill``; for a model with
+recurrent layers both are turned off, as in the reference, and
+``stats()`` shows ``chunk_tokens`` and ``session_capacity`` 0.
 
 **KV sessions** (``session_cap > 0``): a finished request that carries a
 ``session_id`` leaves its K/V pinned in its slot.  A follow-up whose
@@ -21,9 +25,9 @@ suffix, at an offset.  Pins are evicted LRU-first whenever a fresh
 request needs a slot or the table exceeds ``session_cap``.
 
 Where the reference builds new cache arrays, this engine updates the
-slot cache in place: the model writes chunk and decode K/V into the
-cache it is given, and slot gather/scatter are copies into and out of
-the slot's ``[:, slot]`` slice.
+slot cache in place: the model writes chunk and decode K/V and states
+into the cache it is given, and slot gather/scatter are copies into and
+out of the slot's ``[:, slot]`` slice of every stack.
 """
 from __future__ import annotations
 
@@ -139,16 +143,25 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ slots
     def _scatter_slot(self, cache1: dict, slot: int) -> None:
-        """Copy a B=1 cache into the slot cache at ``slot`` (in place)."""
-        for name in ("k", "v"):
-            self.cache[name][:, slot].copy_(cache1[name][:, 0])
+        """Copy a B=1 cache into the slot cache at ``slot`` (in place).
+
+        A conv tail lands at the start of the slot's rows, as the
+        reference's ``dynamic_update_slice`` writes it: a tail of one row
+        (a prompt shorter than ``cw - 1`` tokens) overwrites row 0 and
+        leaves the slot's other rows as they were.  Every other entry
+        must match the slot's shape."""
+        for name, src in cache1.items():
+            dst = self.cache[name][:, slot]
+            if name.endswith("_conv"):
+                dst = dst[:, :src.shape[2]]
+            dst.copy_(src[:, 0])
 
     def _gather_slot(self, slot: int) -> dict:
         """A copy of slot ``slot`` as a B=1 cache: the staging cache a
         resumed session's suffix chunks continue into (a copy, because
         the step loop keeps decoding garbage into the slot meanwhile)."""
-        return {name: self.cache[name][:, slot:slot + 1].clone()
-                for name in ("k", "v")}
+        return {name: t[:, slot:slot + 1].clone()
+                for name, t in self.cache.items()}
 
     def submit(self, prompt, max_new: int = 32, temperature: float = 0.0,
                eos_id: int = -1, on_token=None,

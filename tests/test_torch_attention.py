@@ -142,7 +142,8 @@ def _gpu_cases():
     """(name, S, T, Hq, Hkv, D, causal, window, softcap, prefix, offset)
     from the sweep: whole prompt, a short prompt (2 to 16 tokens, which
     the kernel runs one query row per block, as the launcher's demo
-    does), a chunk, and (B,) decode positions."""
+    does), a chunk, and (B,) decode positions; then the same at head_dim
+    256."""
     out = []
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
@@ -156,6 +157,14 @@ def _gpu_cases():
                  prefix, off),
                 (f"decode{i}", 1, T, Hq, Hkv, D, causal, window, softcap,
                  prefix, "vector")]
+    # head_dim 256 at recurrentgemma-9b's MQA (16 q heads, 1 kv head),
+    # with a window the prompt crosses: prefill, a short prompt (the
+    # decode template, which has its own tile at D 256), a chunk, decode
+    mqa = (16, 1, 256, True, 96, 0.0, None)
+    out += [("d256-prefill", 300, 300) + mqa + (0,),
+            ("d256-short", 7, 7) + mqa + (0,),
+            ("d256-chunk", 64, 512) + mqa + (200,),
+            ("d256-decode", 1, 512) + mqa + ("vector",)]
     return out
 
 

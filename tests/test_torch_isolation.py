@@ -2,6 +2,7 @@
 ``chip_smoke`` loads neither ``jax`` nor anything of ``repro`` nor
 ``ml_dtypes`` (the card's machine has none), and the entry points refuse
 to run on the CPU unless asked to."""
+import json
 import os
 import subprocess
 import sys
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -24,8 +25,15 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "repro", "ml_dtypes")
                 or m.startswith(("jax.", "repro.", "ml_dtypes.")))
-print(len(names), leaked)
+print(json.dumps({"names": names, "leaked": leaked}))
 """
+# the kernels and blocks of each slice, which the walk must have reached
+SLICE_MODULES = {
+    "repro_torch.kernels.attention", "repro_torch.kernels.moe_router",
+    "repro_torch.kernels.fletcher", "repro_torch.kernels.ssd",
+    "repro_torch.kernels.rglru", "repro_torch.models.ssd_block",
+    "repro_torch.models.rglru_block", "repro_torch.models.moe",
+    "repro_torch.services.checkpoint"}
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -34,9 +42,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.split(maxsplit=1)
-    assert int(n) >= 30, out.stdout          # every module was imported
-    assert leaked.strip() == "[]", f"port imported {leaked}"
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["names"]) >= 57, got["names"]   # every module imported
+    assert SLICE_MODULES <= set(got["names"])
+    assert got["leaked"] == [], f"port imported {got['leaked']}"
 
 
 def test_chip_smoke_sweep_is_the_reference_sweep():
@@ -46,8 +55,10 @@ def test_chip_smoke_sweep_is_the_reference_sweep():
         import chip_smoke
     finally:
         sys.path.remove(str(ROOT))
-    from test_kernels import ATTN_SWEEP
+    from test_kernels import ATTN_SWEEP, RGLRU_SWEEP, SSD_SWEEP
     assert chip_smoke.ATTN_SWEEP == ATTN_SWEEP
+    assert chip_smoke.SSD_SWEEP == SSD_SWEEP
+    assert chip_smoke.RGLRU_SWEEP == RGLRU_SWEEP
 
 
 def test_entry_points_do_not_fall_back_to_the_cpu():
@@ -62,6 +73,10 @@ def test_entry_points_do_not_fall_back_to_the_cpu():
     params = model.init(0, device="cpu")
     for call in (lambda: model.init(0),
                  lambda: ServeEngine(model, params),
-                 lambda: serve.main(["--reduced", "--demo"])):
+                 lambda: serve.main(["--reduced", "--demo"]),
+                 lambda: serve.main(["--arch", "mamba2-1.3b", "--reduced",
+                                     "--demo"]),
+                 lambda: serve.main(["--arch", "recurrentgemma-9b",
+                                     "--reduced", "--demo"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -1,13 +1,14 @@
-"""The port's attention-family Model against the JAX reference.
+"""The port's Model against the JAX reference.
 
 Reduced configs in f32 compute; the weights come from the reference's
 ``Model.init`` and are carried into the port through numpy
-(``params_from_numpy``) inside this process.  Logits and KV caches of
-``prefill``, ``prefill_chunk`` (offset 0, offset > 0, and a padded chunk
-that crosses the cache end, where the reference clamps the write) and
-``decode_step`` (scalar and (B,) positions, and a (B,) write past the
-cache that the reference drops) must agree to 1e-4 abs/rel: both sides
-are f32 on the CPU, with the operations in another order."""
+(``params_from_numpy``) inside this process.  Logits and caches (K/V,
+and the SSD and RG-LRU states and conv tails) of ``prefill``,
+``prefill_chunk`` (offset 0, offset > 0, and a padded chunk that crosses
+the cache end, where the reference clamps the write) and ``decode_step``
+(scalar and (B,) positions, and a (B,) write past the cache that the
+reference drops) must agree to 1e-4 abs/rel: both sides are f32 on the
+CPU, with the operations in another order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +26,11 @@ TOL = 1e-4
 # MoE: granite (40 routed experts, top-8 at full width), deepseek (shared
 # experts, a dense first layer)
 MOE_ARCHS = ["granite-moe-3b-a800m", "deepseek-moe-16b"]
+# mamba2: SSD layers only; recurrentgemma: RG-LRU and local attention
+# layers (one period of three, two trailing RG-LRU layers)
+RECURRENT_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b"]
 # gemma3: local/global layers, qk-norm, GeGLU, GQA, embed scaling
-ARCHS = ["qwen1.5-0.5b", "gemma3-12b"] + MOE_ARCHS
+ARCHS = ["qwen1.5-0.5b", "gemma3-12b"] + MOE_ARCHS + RECURRENT_ARCHS
 # command-r: parallel block; nemotron: squared-ReLU MLP, untied head
 PREFILL_ARCHS = ARCHS + ["command-r-35b", "nemotron-4-340b"]
 B = 2
@@ -75,22 +79,30 @@ def _close(got, want):
                                rtol=TOL, atol=TOL)
 
 
-def _jkv(jc, plen):
-    """The reference's cache as (layers, B, T, Hkv, D) in layer order."""
+def jstacks(kinds, plen, jc):
+    """The reference's cache in the port's layout: its per-layer entries,
+    in layer order (layer kinds ``kinds``, period length ``plen``),
+    stacked per kind ("k"/"v" over the attention layers, "ssd_h",
+    "ssd_conv", "rglru_h", "rglru_conv" over the recurrent ones)."""
+    per = jc["periods"]
+    n_scan = len(next(iter(per[0].values()))) if per else 0
+    layers = list(jc.get("prefix", ()))
+    layers += [{k: v[j] for k, v in per[pos].items()}
+               for j in range(n_scan) for pos in range(plen)]
+    layers += list(jc["trailing"])
     out = {}
-    for name in ("k", "v"):
-        per = [np.asarray(p[name]) for p in jc["periods"]]
-        n_scan = per[0].shape[0] if per else 0
-        layers = [np.asarray(p[name]) for p in jc.get("prefix", ())]
-        layers += [per[pos][j] for j in range(n_scan) for pos in range(plen)]
-        layers += [np.asarray(t[name]) for t in jc["trailing"]]
-        out[name] = np.stack(layers)
-    return out
+    for kind, c in zip(kinds, layers):
+        for name, v in c.items():
+            key = name if kind in ("attn", "local", "global") \
+                else f"{kind}_{name}"
+            out.setdefault(key, []).append(np.asarray(v))
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def _check_cache(pair, tc, jc):
-    want = _jkv(jc, len(pair.cfg.period))
-    for name in ("k", "v"):
+    want = jstacks(pair.tm.kinds, len(pair.cfg.period), jc)
+    assert set(tc) == set(want)
+    for name in want:
         _close(tc[name], want[name])
 
 
@@ -200,8 +212,98 @@ def test_seeded_init_is_reproducible():
                            c["layers"][2]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
-                                  "seamless-m4t-large-v2", "paligemma-3b"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_decode_matches_prefill(pairs, arch):
+    """Prefill of S tokens then EXT decode steps give the logits and the
+    whole cache (states, conv tails and local K/V) of a prefill of
+    S + EXT tokens."""
+    pr = pairs(arch)
+    S, EXT, T = 24, 4, 32
+    toks = torch.from_numpy(_toks(S + EXT, pr.cfg.vocab, seed=5))
+    lg, cache = pr.tm.prefill(pr.tp, toks[:, :S], cache_len=T)
+    want, want_cache = pr.tm.prefill(pr.tp, toks, cache_len=T)
+    for i in range(EXT):
+        lg, cache = pr.tm.decode_step(pr.tp, cache,
+                                      toks[:, S + i:S + i + 1], S + i)
+    np.testing.assert_allclose(lg.numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    assert set(cache) == set(want_cache)
+    for name in cache:
+        np.testing.assert_allclose(cache[name].numpy(),
+                                   want_cache[name].numpy(), rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_short_prompt_conv_tail_matches_reference(pairs, arch, S):
+    """A prompt under cw - 1 = 3 tokens leaves a one-row conv tail, as
+    the reference's ``u[:, S-(cw-1):]`` slices it (S = 2 keeps the last
+    row); at 3 tokens the tail is whole."""
+    pr = pairs(arch)
+    toks = _toks(S, pr.cfg.vocab, seed=6)
+    jl, jc = pr.jm.prefill(pr.jp, {"tokens": jnp.asarray(toks)},
+                           cache_len=8, impl="xla")
+    tl, tc = pr.tm.prefill(pr.tp, torch.from_numpy(toks), cache_len=8)
+    _close(tl, jl)
+    _check_cache(pr, tc, jc)
+    rows = {f"{k}_conv" for k in pr.tm.stack_sizes} & set(tc)
+    assert {tc[name].shape[2] for name in rows} == {1 if S < 3 else 3}
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_models_do_not_chunk(pairs, arch):
+    """As the reference: no chunked prefill for a recurrent layer."""
+    pr = pairs(arch)
+    assert not pr.tm.supports_chunked_prefill
+    assert not pr.jm.supports_chunked_prefill
+    with pytest.raises(ValueError, match="chunked prefill requires"):
+        pr.tm.prefill_chunk(pr.tp, pr.tcache(16),
+                            torch.from_numpy(_toks(8, pr.cfg.vocab)), 0)
+
+
+def test_recurrent_state_stays_f32_in_a_bf16_cache():
+    """As ``ssd_cache_spec`` / ``rglru_cache_spec``: h is f32 whatever
+    the cache dtype; the conv tails and K/V take it."""
+    for arch in RECURRENT_ARCHS:
+        m = Model(configs.reduced(arch))
+        c = m.cache_specs(2, 16, dtype=torch.bfloat16, device="cpu")
+        for name, t in c.items():
+            want = torch.float32 if name.endswith("_h") else torch.bfloat16
+            assert t.dtype == want, (arch, name, t.dtype)
+            assert t.shape[1] == 2
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paligemma-3b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(configs.reduced(arch))
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_bridge_unstacks_full_depth_in_layer_order(arch):
+    """At full depth — mamba2: one period of 48 SSD layers;
+    recurrentgemma: 12 periods of (rglru, rglru, local) and 2 trailing
+    RG-LRU layers — the reference's stacked periods and trailing layers
+    come out as one list in layer order, each with its kind's block."""
+    cfg = configs.get(arch)
+    kinds = Model(cfg).kinds
+    plen = len(cfg.period)
+    n_scan, rem = divmod(cfg.n_layers, plen)
+
+    def block(kind, idx):
+        key = "attn" if kind in ("attn", "local", "global") else "rec"
+        return {"norm1": idx, key: {"w": idx}}
+    tree = {"embed": {"embedding": np.zeros((2, 2), np.float32)},
+            "periods": tuple(block(kind, np.arange(n_scan) * plen + pos)
+                             for pos, kind in enumerate(cfg.period)),
+            "trailing": tuple(block(cfg.period[i],
+                                    np.asarray(n_scan * plen + i))
+                              for i in range(rem)),
+            "final_norm": np.zeros(2, np.float32)}
+    layers = params_from_numpy(tree, device="cpu")["layers"]
+    assert [int(p["norm1"]) for p in layers] == list(range(cfg.n_layers))
+    assert [("attn" in p) for p in layers] == \
+        [k in ("attn", "local", "global") for k in kinds]
+    assert all(int(next(iter(p.get("attn", p.get("rec")).values()))) == i
+               for i, p in enumerate(layers))

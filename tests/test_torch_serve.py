@@ -5,9 +5,11 @@ Parity: greedy token streams of the port's engine equal the JAX
 reference's ``Model.init`` through numpy) and session ids — monolithic
 prefill, ``chunk_tokens=8``, session resume, stale prefix, continuous
 batching over ``n_slots=2``, and a padded last chunk that crosses the
-cache end — with an f32 cache and f32 compute.  Then port-side mirrors
-of the engine tests of tests/test_serve_sessions.py and of
-``test_gateway_tcp_end_to_end``."""
+cache end — with an f32 cache and f32 compute; and for the recurrent
+models (mamba2, recurrentgemma), whose engines turn chunking and
+sessions off, including prompts shorter than the conv tail.  Then
+port-side mirrors of the engine tests of tests/test_serve_sessions.py
+and of ``test_gateway_tcp_end_to_end``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,6 +142,92 @@ def test_moe_greedy_streams_match_reference(moe_models, name):
     np.testing.assert_allclose(
         torch.stack([teng.cache["k"], teng.cache["v"]]).numpy(), want,
         rtol=1e-4, atol=1e-4)
+
+
+RECURRENT_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b"]
+
+
+def _short_after_long(eng):
+    # one slot: a 19-token prompt, then a 2- and a 1-token prompt, whose
+    # one-row conv tails land in row 0 of the slot's tail with rows 1-2
+    # left as the request before them decoded them
+    return (eng.generate([np.arange(1, 20)], max_new=5)
+            + eng.generate([np.array([7, 9])], max_new=5)
+            + eng.generate([np.array([11])], max_new=5))
+
+
+# chunk_tokens and session_cap are asked for and turned off by both
+# engines: a recurrent layer cannot continue a prefill at an offset
+RECURRENT_SCENARIOS = {
+    "monolithic": (dict(n_slots=2), _mono),
+    "batching": (dict(n_slots=2, chunk_tokens=8), _batching),
+    "sessions": (dict(n_slots=2, chunk_tokens=8, session_cap=4), _resume),
+    "short-after-long": (dict(n_slots=1), _short_after_long),
+}
+
+
+@pytest.fixture(scope="module")
+def recurrent_models():
+    """arch -> reduced mamba2 / recurrentgemma on both sides, with the
+    same weights, built on first use."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jm = JModel(jconfigs.reduced(arch).replace(
+                compute_dtype="float32"))
+            jp, _ = unzip(jm.init(jax.random.PRNGKey(0)))
+            tm = Model(configs.reduced(arch).replace(
+                compute_dtype="float32"))
+            tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   device="cpu")
+            made[arch] = (jm, jp, tm, tp)
+        return made[arch]
+    return get
+
+
+@pytest.mark.parametrize("name", list(RECURRENT_SCENARIOS))
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_greedy_streams_match_reference(recurrent_models, arch,
+                                                  name):
+    """Token streams through reduced mamba2 (SSD layers) and
+    recurrentgemma (RG-LRU and local attention layers), then the whole
+    slot cache: states, conv tails and K/V, which every step also
+    updates for free slots (1e-4: f32 on both sides).  Both engines turn
+    chunking and sessions off."""
+    from test_torch_model import jstacks
+    jm, jp, tm, tp = recurrent_models(arch)
+    kw, script = RECURRENT_SCENARIOS[name]
+    kw = dict({"max_len": 64}, **kw)
+    jeng = JServeEngine(jm, jp, cache_dtype=jnp.float32, **kw)
+    teng = ServeEngine(tm, tp, cache_dtype=torch.float32, device="cpu", **kw)
+    assert script(teng) == script(jeng)
+    for key in ("chunk_tokens", "session_capacity"):
+        assert teng.stats()[key] == jeng.stats()[key] == 0
+    want = jstacks(tm.kinds, len(tm.cfg.period), jeng.cache)
+    assert set(teng.cache) == set(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(teng.cache[key].numpy(), w, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_one_row_conv_tail_keeps_the_slots_other_rows(recurrent_models):
+    """The slot copy of a prefill's one-row conv tail writes row 0 of
+    the slot's tail and nothing else, as ``dynamic_update_slice`` does;
+    the recurrent state is replaced whole."""
+    _, _, tm, tp = recurrent_models("mamba2-1.3b")
+    eng = make_engine(tm, tp, n_slots=2)
+    for t in eng.cache.values():
+        t.fill_(5.0)
+    _, cache1 = tm.prefill(tp, torch.tensor([[7, 9]], dtype=torch.int32),
+                           cache_len=64)
+    assert cache1["ssd_conv"].shape[2] == 1
+    eng._scatter_slot(cache1, 1)
+    conv = eng.cache["ssd_conv"]
+    assert torch.equal(conv[:, 1, :1], cache1["ssd_conv"][:, 0])
+    assert bool((conv[:, 1, 1:] == 5.0).all())
+    assert bool((conv[:, 0] == 5.0).all())
+    assert torch.equal(eng.cache["ssd_h"][:, 1], cache1["ssd_h"][:, 0])
 
 
 def test_greedy_takes_the_first_maximum(models):

@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero:
    short prompts and 4-slot decode, recurrentgemma-9b's (16 q heads, 1
    kv head of 256, window 2048) at a 2600-token prefill that crosses
    the window, the demo's prompts and (B,) decode of 4 slots of 3072,
-   and the reference's ATTN_SWEEP, in bf16 and f32 (f32 with TF32 off).
+   and the reference's ATTN_SWEEP, in bf16 (tensor cores) and f32 (CUDA
+   cores, TF32 off); then bf16 at the bf16 kernel's key splits forced to
+   1 and 2 and at ``plan``'s count, on granite's and qwen's chunks and
+   recurrentgemma's decode and 2600-token prefill.
    SSD: mamba2-1.3b's heads (H 64, P 64, G 1, N 128) at S 5-10, 256 and
    2600, with and without D and h0, and the reference's SSD_SWEEP.
    RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600, with and
@@ -54,8 +57,9 @@ Phases, in order; any failure exits non-zero:
       must launch on prefill and nowhere else, decode must run, and
       attention must launch on prefill and decode (recurrentgemma).
 4. The main paths' own shapes: each kernel against its plain version on
-   the recorded inputs, timed and bounded as in phase 2.  These rows,
-   with the main paths' launch counts, make the kernels' JSON summary.
+   the recorded inputs, timed and bounded as in phase 2 (an attention
+   row names its ``path`` and ``n_split``).  These rows, with the main
+   paths' launch counts, make the kernels' JSON summary.
 5. Full-width parity, f32 compute, TF32 off: prefill and 8 (B,) decode
    steps through the kernels against the same through the plain
    versions: 2x128 for qwen1.5-0.5b and granite-moe-3b-a800m, 2x640 for
@@ -288,12 +292,19 @@ def offsets_of(q_offset, B: int):
 # ---------------------------------------------------------------------------
 # kernel against its plain version: attention
 # ---------------------------------------------------------------------------
-def check_kernel(name, q, k, v, kw, flush=None):
+def check_kernel(name, q, k, v, kw, flush=None, n_split=None):
     """Attention kernel against plain on one set of inputs; with
-    ``flush`` (an L2-sized buffer) also the times and the bound."""
-    B, S = q.shape[:2]
+    ``flush`` (an L2-sized buffer) also the times and the bound.  The row
+    names the kernel's path (``tc``: bf16 on the tensor cores, ``simt``:
+    f32 on the CUDA cores) and its key splits, ``plan``'s unless
+    ``n_split`` forces them."""
+    B, S, Hq, D = q.shape
     T = k.shape[1]
-    got = fa.attention(q, k, v, **kw)
+    path, planned = fa.plan(B, S, T, Hq, k.shape[2], D, q.dtype)
+
+    def kernel():
+        return fa._attention_cuda(q, k, v, n_split=n_split, **kw)
+    got = kernel()
     torch.cuda.synchronize()
     want = fa.attention_plain(q, k, v, **kw).float()
     diff = (got.float() - want).abs()
@@ -302,7 +313,8 @@ def check_kernel(name, q, k, v, kw, flush=None):
                      / want.abs().amax(-1).clamp_min(1e-3)).max())
     row = {"kernel": "flash_attention", "case": name,
            "shape": f"B{B} S{S} T{T} Hq{q.shape[2]} Hkv{k.shape[2]}",
-           "dtype": str(q.dtype).replace("torch.", ""),
+           "dtype": str(q.dtype).replace("torch.", ""), "path": path,
+           "n_split": planned if n_split is None else n_split,
            "max_abs_err": err, "tol": TOL[q.dtype], "row_rel_err": row_err,
            "row_tol": ROW_TOL,
            "ok": err <= TOL[q.dtype] and row_err <= ROW_TOL}
@@ -310,7 +322,7 @@ def check_kernel(name, q, k, v, kw, flush=None):
         offsets = offsets_of(kw["q_offset"], B)
         masks = (kw.get("causal", True), kw.get("window", 0),
                  kw.get("prefix_len"))
-        row["ms"] = device_ms(lambda: fa.attention(q, k, v, **kw), flush)
+        row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(
             lambda: fa.attention_plain(q, k, v, **kw), flush)
         row["library_ms"] = sdpa_ms(q, k, v, offsets, *masks, flush)
@@ -321,7 +333,7 @@ def check_kernel(name, q, k, v, kw, flush=None):
 
 def attention_case(name, B, S, T, Hq, Hkv, D, dtype, *, causal=True,
                    window=0, softcap=0.0, prefix=None, offsets=None,
-                   flush=None, seed=0):
+                   flush=None, seed=0, n_split=None):
     """``check_kernel`` on seeded random inputs of one shape."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -334,7 +346,7 @@ def attention_case(name, B, S, T, Hq, Hkv, D, dtype, *, causal=True,
     off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off,
               prefix_len=prefix)
-    return check_kernel(name, q, k, v, kw, flush)
+    return check_kernel(name, q, k, v, kw, flush, n_split)
 
 
 HEADS = {ARCH: dict(Hq=16, Hkv=16, D=64),      # qwen1.5-0.5b
@@ -366,6 +378,22 @@ RG_CASES = {
     "prefill-s10": dict(B=1, S=10, T=10),
     "decode-b4-t3072": dict(B=4, S=1, T=3072,
                             offsets=[600, 1100, 2000, 2600]),
+}
+
+
+# the bf16 kernel's key splits forced to 1 and 2 beside plan's count, on
+# the main paths' shapes where the grid is short of the card: granite's
+# chunk (G 3: a 64-row tile ends part-way through a query's heads), qwen's
+# chunk, recurrentgemma's decode of 4 slots of 3072 and its 2600-token
+# prefill
+SPLIT_CASES = {
+    f"{MOE_ARCH}:chunk-off400": dict(HEADS[MOE_ARCH], B=1, S=64, T=1024,
+                                     offsets=[400]),
+    f"{ARCH}:chunk-off320": dict(HEADS[ARCH], B=1, S=64, T=1024,
+                                 offsets=[320]),
+    f"{HYBRID_ARCH}:decode-b4-t3072": dict(
+        RG_HEADS, B=4, S=1, T=3072, offsets=[599, 1099, 1999, 2599]),
+    f"{HYBRID_ARCH}:prefill-s2600": dict(RG_HEADS, B=1, S=2600, T=2600),
 }
 
 
@@ -602,6 +630,9 @@ def phase_kernels():
     print("f32 cases run with TF32 off (cuda.matmul and cudnn)")
     rows = []
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    tiny = torch.empty(1, device="cuda")
+    print(f"timing floor: device_ms of a one-element fill "
+          f"{device_ms(lambda: tiny.fill_(1.0), flush)} ms")
     for arch, heads in HEADS.items():
         for name, shape in MAIN_CASES.items():
             for dtype in (torch.bfloat16, torch.float32):
@@ -611,6 +642,11 @@ def phase_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(attention_case(f"{HYBRID_ARCH}:{name}", dtype=dtype,
                                        flush=flush, **RG_HEADS, **shape))
+    for name, shape in SPLIT_CASES.items():
+        for n_split in (1, 2, None):
+            rows.append(attention_case(
+                f"{name}-split{n_split or 'planned'}", dtype=torch.bfloat16,
+                n_split=n_split, seed=3, **shape))
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
         Sc = min(24, S // 2)
@@ -1247,7 +1283,8 @@ def summary_row(r):
             "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]}
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("path", "n_split") if k in r}}
 
 
 def card_line() -> str:

@@ -1,36 +1,48 @@
-"""Attention forward: the hand-written Hopper kernel and its plain version.
+"""Attention forward: the hand-written Hopper kernels and their plain
+versions.
 
 **Replaces** the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_kernel``), and takes over the two call sites
 the reference leaves to XLA because that kernel rejects ``q_offset != 0``:
 a prefill chunk at a scalar offset (``ops._attention_chunked``) and
 decode with one position per batch row (``ops._attention_decode``).  One
-kernel, ``csrc/flash_attention.cu``, serves prefill, chunk and decode.
+source, ``csrc/flash_attention.cu``, serves prefill, chunk and decode.
 
-**What bounds it on an H100.**  Serving runs it at small batch: decode
-reads every live K/V row of the slot cache once per q head for one query
-row, about one operation per byte, far below the ~295 operations per
-byte at which the bf16 tensor cores, not the 3.35 TB/s of device memory,
-become the limit.  Decode is bound by bytes.  Prefill at a few hundred
-tokens does O(S) operations per byte of K/V and would be bound by
-operations on the tensor cores.
+**Which dtype takes which route** (``plan``, from shapes and dtype alone):
 
-**What the design does about it.**  Each block walks the key tiles of one
-(query tile, head, batch row) itself and never loads a tile that every
-row of the block has masked away (past the causal edge or ``q_offset[b]
-+ S - 1``, before a sliding window, past ``T``), so decode reads only the
-live prefix of each slot's cache.  Tiles are staged in shared memory once,
-read 16 bytes at a time with several loads in flight per thread (decode
-runs one 4-warp block per SM, so nothing else hides the memory latency),
-and reused by all query rows of the block (16 for prefill and chunks).
-Decode rows (``S <= 16``) get one row per block with the block's warps
-splitting each key tile, instead of one live row in a 16-row tile.  The
-products run on the CUDA cores in f32, not on the tensor cores: making
-the prefill side fast (``wgmma``, TMA, split-K decode) is later work.
+- bf16, the dtype every serving path runs: ``attn_fwd_tc`` on the tensor
+  cores (path ``"tc"``), split across blocks when the grid is short of
+  the card, its partials merged by ``attn_combine`` in the same call.
+- f32, the parity dtype: ``attn_fwd`` on the CUDA cores (path
+  ``"simt"``), never split.  The tensor cores' f32 route is TF32, whose
+  10 mantissa bits break the card's 1e-4 f32 tolerance.
+
+**What bounds it on an H100.**  Prefill at a few hundred tokens and more
+does O(S) operations per byte of K/V and is bound by the bf16 tensor
+cores (989 TFLOP/s).  Decode and short chunks read every live K/V row
+once for a few query rows: bound by bytes (3.35 TB/s), and at serving
+batch by how few (kv head, batch row) blocks there are for 132 SMs.
+
+**What the design does about it.**  The GQA group is packed into the
+tile's rows (``packed_row``): a block owns one (kv head, batch row) and 64
+rows of (query, q head), so every K/V tile it loads serves all the q
+heads that read it (recurrentgemma's 16 MQA heads read a decode slot once,
+not 16 times); a (kv head, batch row) with at most 16 such rows (decode)
+takes 16-row blocks whose four warps split each key tile.  Both products
+run as ``mma.sync`` bf16 tiles with f32 sums; K/V tiles stream through a
+two-stage ``cp.async`` ring in swizzled bf16 shared memory; tiles that
+every row has masked away are never loaded.  When the grid is short of
+the card, ``plan`` gives ``n_split > 1``: each block takes one contiguous
+range of the key tiles its rows can see (``key_splits``), writes
+unnormalized O, m and l in f32 (``attention_partial_plain``), and
+``attn_combine`` merges them (``combine_plain``).  ``plan`` reads no
+tensor: decode's ``q_offset`` lives on the device and the model promises
+no host sync.
 
 ``attention`` dispatches on the device of ``q``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  There is no
-fallback.  ``attention.launches`` counts kernel launches.
+fallback.  ``attention.launches`` counts one per call on the card,
+split or not (the combine is part of the call).
 """
 from __future__ import annotations
 
@@ -43,6 +55,64 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+SMS = 132             # the H100's streaming multiprocessors
+ROWS = 64             # packed (query, q head) rows of a tensor-core block
+FRAG_ROWS = 16        # rows of one warp's MMA fragment: a block of at
+#                       most this many rows splits its key tiles by warp
+MIN_SPLIT_TILES = 2   # key tiles a split takes at the least
+MAX_SPLITS = 16       # past this, more splits cost more than they save
+
+
+def key_tile(D: int, rows: int) -> int:
+    """Keys a tensor-core block stages a tile (``launch_tc`` in the
+    source), at ``rows`` = S * Hq / Hkv packed rows a (kv head, batch
+    row): 64, but 32 at head_dim 256 for 64-row blocks, whose O
+    accumulator alone is 128 registers a thread.  At most 16 rows (one
+    warp's fragment: decode, short prompts) take 16-row blocks whose four
+    warps split each 64-key tile."""
+    return 32 if D > 128 and rows > FRAG_ROWS else 64
+
+
+def packed_row(r: int, hk: int, G: int):
+    """The (query, q head) of packed row ``r`` of kv head ``hk``'s tiles
+    at G = Hq / Hkv q heads a kv head, as the kernel maps them."""
+    return r // G, hk * G + r % G
+
+
+def plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
+         dtype) -> tuple:
+    """(path, n_split) of a call on the card, from shapes and dtype alone.
+
+    f32 takes the CUDA cores (``"simt"``, one split).  bf16 takes the
+    tensor cores (``"tc"``); when its (row tile, kv head, batch row)
+    blocks fill under half of the card's SMs, the key tiles are split
+    across blocks so that about one block runs on every SM, each split
+    taking at least MIN_SPLIT_TILES of the ``ceil(T / key_tile)`` tiles,
+    and never more than MAX_SPLITS splits: each split adds a block's
+    fixed cost and a partial to merge (on an H100, recurrentgemma's decode
+    of 4 slots of 3072 ran slower at 24, 33 and 48 splits than at 16).
+    Whether the offset is a scalar or a (B,) tensor does not enter: the
+    kernel splits the key range each block can see, read on the device."""
+    if dtype != torch.bfloat16:
+        return "simt", 1
+    rows = S * (Hq // Hkv)
+    blocks = -(-rows // (FRAG_ROWS if rows <= FRAG_ROWS else ROWS)) \
+        * Hkv * B
+    tiles = -(-T // key_tile(D, rows))
+    if 2 * blocks > SMS:
+        return "tc", 1
+    return "tc", max(1, min(-(-SMS // blocks), tiles // MIN_SPLIT_TILES,
+                            MAX_SPLITS))
+
+
+def key_splits(k_begin: int, k_end: int, bk: int, n_split: int):
+    """The kernel's split of keys ``[k_begin, k_end)`` into ``n_split``
+    contiguous ranges of whole ``bk``-key tiles (some empty when there
+    are fewer tiles than splits): a list of (lo, hi)."""
+    n = max(-(-(k_end - k_begin) // bk), 0)
+    return [(min(k_begin + n * z // n_split * bk, k_end),
+             min(k_begin + n * (z + 1) // n_split * bk, k_end))
+            for z in range(n_split)]
 
 
 def _positions(q_offset, B: int, S: int, device) -> torch.Tensor:
@@ -55,6 +125,35 @@ def _positions(q_offset, B: int, S: int, device) -> torch.Tensor:
     return off.reshape(B, 1) + rows[None, :]
 
 
+def _logits(q, k, *, causal, window, softcap, q_offset, prefix_len,
+            key_lo=0, key_hi=None):
+    """f32 logits (B, Hq, S, T) and the (B|1, S, T) mask of the keys each
+    query sees, restricted to keys ``[key_lo, key_hi)``."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), kf) * (
+        1.0 / math.sqrt(D))
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = _positions(q_offset, B, S, q.device)[..., None]   # (B|1,S,1)
+    kpos = torch.arange(T, device=q.device)
+    mask = (kpos >= key_lo) & (kpos < (T if key_hi is None else key_hi))
+    mask = mask.expand(qpos.shape[:2] + (T,))
+    if causal:
+        cm = kpos <= qpos
+        if prefix_len is not None:
+            cm = cm | (kpos < prefix_len)
+        mask = mask & cm
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    return logits, mask
+
+
+def _values(v, Hq):
+    return v.float().repeat_interleave(Hq // v.shape[2], dim=2)
+
+
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset=0,
                     prefix_len: Optional[int] = None) -> torch.Tensor:
@@ -63,36 +162,53 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
     q: (B,S,Hq,D); k, v: (B,T,Hkv,D) with Hq % Hkv == 0 → (B,S,Hq,D) in
     q's dtype."""
-    B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
-    qf = q.float()
-    kf = k.float().repeat_interleave(rep, dim=2)
-    vf = v.float().repeat_interleave(rep, dim=2)
-    logits = torch.einsum("bshd,bthd->bhst", qf, kf) * (1.0 / math.sqrt(D))
-    if softcap > 0.0:
-        logits = torch.tanh(logits / softcap) * softcap
-    qpos = _positions(q_offset, B, S, q.device)[..., None]   # (B|1,S,1)
-    kpos = torch.arange(T, device=q.device)
-    mask = torch.ones(qpos.shape[:2] + (T,), dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        cm = kpos <= qpos
-        if prefix_len is not None:
-            cm = cm | (kpos < prefix_len)
-        mask = mask & cm
-    if window > 0:
-        mask = mask & (kpos > qpos - window)
+    logits, mask = _logits(q, k, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset,
+                           prefix_len=prefix_len)
     logits = torch.where(mask[:, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", p,
+                        _values(v, q.shape[2])).to(q.dtype)
+
+
+def attention_partial_plain(q, k, v, key_lo: int, key_hi: int, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0, q_offset=0,
+                            prefix_len: Optional[int] = None):
+    """One split's partial state over keys ``[key_lo, key_hi)``, as the
+    tensor-core kernel writes it: f32 row max m (B,S,Hq), row sum l and
+    unnormalized O (B,S,Hq,D).  A row that sees no key of the range has
+    m = NEG_INF, l = 0 and O = 0."""
+    logits, mask = _logits(q, k, causal=causal, window=window,
+                           softcap=softcap, q_offset=q_offset,
+                           prefix_len=prefix_len, key_lo=key_lo,
+                           key_hi=key_hi)
+    mask = mask[:, None]                                  # (B|1,1,S,T)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(-1)                                   # (B,Hq,S)
+    p = torch.where(mask, torch.exp(logits - m[..., None]), 0.0)
+    o = torch.einsum("bhst,bthd->bshd", p, _values(v, q.shape[2]))
+    return m.transpose(1, 2), p.sum(-1).transpose(1, 2), o
+
+
+def combine_plain(m, l, o, dtype):
+    """``attn_combine``: merge partials stacked on a leading split axis
+    (m, l (n,B,S,Hq); o (n,B,S,Hq,D)) into the output in ``dtype``:
+    m* = max m_i, out = sum O_i e^(m_i - m*) / max(sum l_i e^(m_i - m*),
+    1e-30)."""
+    w = torch.exp(m - m.amax(0))
+    lt = (l * w).sum(0)
+    out = (o * w[..., None]).sum(0) / lt.clamp_min(1e-30)[..., None]
+    return out.to(dtype)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, q_offset=0,
               prefix_len: Optional[int] = None) -> torch.Tensor:
     """GQA attention forward; ``q_offset`` is an int, a 0-d tensor or a
-    (B,) tensor of absolute positions of each row's first query."""
+    (B,) tensor of absolute positions of each row's first query.  On the
+    card bf16 runs on the tensor cores and f32 on the CUDA cores
+    (``plan``)."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, prefix_len=prefix_len)
     if q.device.type == "cpu":
@@ -115,14 +231,20 @@ def _kernel():
         from .build import load
         fn = load("flash_attention").repro_flash_attention_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p]
         _fwd = fn
     return _fwd
 
 
-def _attention_cuda(q, k, v, *, causal, window, softcap, q_offset,
-                    prefix_len):
+def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset=0,
+                    prefix_len: Optional[int] = None,
+                    n_split: Optional[int] = None):
+    """One launch on the card (two with the combine).  ``n_split`` forces
+    the number of key splits of a bf16 call (tests and the smoke run
+    only); None takes ``plan``'s."""
     B, S, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
@@ -139,6 +261,11 @@ def _attention_cuda(q, k, v, *, causal, window, softcap, q_offset,
                          f"; the kernel takes one of {_DTYPES} for all")
     if k.device != q.device or v.device != q.device:
         raise ValueError("attention: q, k and v must be on one device")
+    path, planned = plan(B, S, T, Hq, Hkv, D, q.dtype)
+    n_split = planned if n_split is None else int(n_split)
+    if n_split < 1 or (path == "simt" and n_split != 1):
+        raise ValueError(f"attention: n_split {n_split} on the {path} path "
+                         f"(f32 runs unsplit)")
     if isinstance(q_offset, torch.Tensor):
         off = q_offset.to(device=q.device, dtype=torch.int32)
         off = off.expand(B) if off.ndim == 0 else off.reshape(B)
@@ -147,20 +274,28 @@ def _attention_cuda(q, k, v, *, causal, window, softcap, q_offset,
                          device=q.device)
     off = off.contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("attention: k and v must be 16-byte aligned (the "
-                         "kernel stages them with 16-byte loads)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("attention: q, k and v must be 16-byte aligned "
+                         "(the kernels stage them 16 bytes at a time)")
     out = torch.empty_like(q)
+    o_part = ml_part = None
+    if n_split > 1:        # the splits' f32 partials, merged on the card
+        o_part = torch.empty((n_split, B, S, Hq, D), dtype=torch.float32,
+                             device=q.device)
+        ml_part = torch.empty((n_split, B, S, Hq, 2), dtype=torch.float32,
+                              device=q.device)
 
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 off.data_ptr(), B, S, T, Hq, Hkv, D,
-                 int(q.dtype == torch.bfloat16), int(bool(causal)),
+                 off.data_ptr(),
+                 None if o_part is None else o_part.data_ptr(),
+                 None if ml_part is None else ml_part.data_ptr(),
+                 B, S, T, Hq, Hkv, D, int(path == "tc"), int(bool(causal)),
                  int(window), float(softcap),
                  -1 if prefix_len is None else int(prefix_len),
-                 1.0 / math.sqrt(D), stream)
+                 1.0 / math.sqrt(D), n_split, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

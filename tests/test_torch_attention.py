@@ -190,3 +190,44 @@ def test_kernel_matches_plain_on_card(case, dt):
     assert attention.launches == before + 1
     _check(got, attention_plain(q, k, v, **kw).float().cpu().numpy(), dt,
            GPU_TOL)
+
+
+# the main paths' bf16 shapes on the tensor-core kernel: (name, B, S, T,
+# Hq, Hkv, D, window, offsets); granite packs G 3 heads a kv head, so a
+# 64-row tile ends part-way through a query's heads
+SPLIT_CASES = [
+    ("granite-chunk", 1, 64, 1024, 24, 8, 64, 0, [400]),
+    ("qwen-chunk", 1, 64, 1024, 16, 16, 64, 0, [320]),
+    ("rg-decode-b4-t3072", 4, 1, 3072, 16, 1, 256, 2048,
+     [599, 1099, 1999, 2599]),
+    ("rg-prefill-s2600", 1, 2600, 2600, 16, 1, 256, 2048, [0]),
+]
+# per output row (one query, one head): its largest error over its
+# largest |value|, as chip_smoke.py's ROW_TOL (rows over long keys
+# average to small values, under which a wrong tile could hide)
+ROW_TOL = 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 2, None], ids=["1", "2", "planned"])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_split_kernel_matches_plain_on_card(case, n_split):
+    """bf16 on the tensor cores at a forced split count and at plan's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.attention import _attention_cuda, plan
+    _, nb, S, T, Hq, Hkv, D, window, offsets = case
+    q, k, v = (_torch(a, "bfloat16", "cuda") for a in _data(
+        6, (nb, S, Hq, D), (nb, T, Hkv, D), (nb, T, Hkv, D)))
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, window=window, softcap=0.0, q_offset=off,
+              prefix_len=None)
+    path, planned = plan(nb, S, T, Hq, Hkv, D, torch.bfloat16)
+    assert path == "tc"
+    got = _attention_cuda(q, k, v, n_split=n_split, **kw)
+    torch.cuda.synchronize()
+    want = attention_plain(q, k, v, **kw).float()
+    _check(got, want.cpu().numpy(), "bfloat16", GPU_TOL)
+    diff = (got.float() - want).abs()
+    row = diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-3)
+    assert float(row.max()) <= ROW_TOL, (n_split or planned, float(row.max()))

@@ -19,11 +19,13 @@ Phases, in order; any failure exits non-zero:
    cores, TF32 off); then bf16 at the bf16 kernel's key splits forced to
    1 and 2 and at ``plan``'s count, on granite's and qwen's chunks and
    recurrentgemma's decode and 2600-token prefill.
-   SSD: mamba2-1.3b's heads (H 64, P 64, G 1, N 128) at S 5-10, 256 and
-   2600, with and without D and h0, and the reference's SSD_SWEEP.
-   RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600, with and
-   without h0, and the reference's RGLRU_SWEEP.  SSD and RG-LRU in f32
-   and bf16.  Router: T in {4, 5-10, 64, 384} at
+   SSD: mamba2-1.3b's heads (H 64, P 64, G 1, N 128) at S 5-10, 256,
+   1000 (B 2) and 2600, with and without D and h0, and the reference's
+   SSD_SWEEP; then B 2 S 1000 at each of the kernels' chunk lengths
+   forced.  RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600
+   (B 1, and B 2 and 3 with h0), with and without h0, and the
+   reference's RGLRU_SWEEP; then B 3 S 2600 at chunk lengths 32, 64 and
+   128 forced.  SSD and RG-LRU in f32 and bf16.  Router: T in {4, 5-10, 64, 384} at
    granite's E 40, k 8, and the reference's (T, E) x k grid; indices
    exact (a swap of two probabilities within 1e-6 is a tie, reported).
    Fletcher-64: the CPU test's lengths, byte counts that are no multiple
@@ -138,9 +140,9 @@ ATTN_SWEEP = [
     (128, 128, 4, 2, 32, True, 0, 0.0, None, "bfloat16"),
 ]
 # SSD and RG-LRU against their plain versions: tests/test_kernels.py's
-# 2e-4 in f32 (sums in another order, the kernel's own 64-token chunks
-# against the plain version's 256); in bf16 the outputs are rounded to
-# bf16 on both sides (2^-8 relative)
+# 2e-4 in f32 (sums in another order, the kernels' own chunks against the
+# plain version's 256); in bf16 the outputs are rounded to bf16 on both
+# sides (2^-8 relative)
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # tests/test_kernels.py's SSD_SWEEP: B, S, H, P, G, N, chunk, use_D, use_h0
 SSD_SWEEP = [
@@ -498,20 +500,26 @@ def ssd_bound(x, B, has_D, has_h0):
     return bound_of(nbytes, 2 * fma, x.dtype)
 
 
-def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None):
-    """SSD kernel against plain (at the model's ``chunk``, the kernel
-    at its own 64) on one set of inputs; with ``flush`` also the times
-    and the bound.  No PyTorch call computes the SSD: library_ms null."""
-    got = kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
+def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None,
+              chunk_len=None):
+    """SSD kernels against plain (at the model's ``chunk``, the kernels
+    at their own, ``plan``'s or ``chunk_len`` forced) on one set of
+    inputs; with ``flush`` also the times and the bound.  No PyTorch call
+    computes the SSD: library_ms null."""
+    Bb, S, H, P = x.shape
+
+    def kernel():
+        return kssd._ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=chunk_len)
+    got = kernel()
     torch.cuda.synchronize()
     want = kssd.ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
-    Bb, S, H, P = x.shape
     row = _scan_row("ssd", name, f"B{Bb} S{S} H{H} P{P} G{B.shape[2]} "
                     f"N{B.shape[3]}" + (" D" if D is not None else "")
                     + (" h0" if h0 is not None else ""), got, want, x.dtype)
+    row["chunk_len"] = (kssd.plan(Bb, S, H) if chunk_len is None
+                        else chunk_len)
     if flush is not None:
-        row["ms"] = device_ms(lambda: kssd.ssd(x, dt, A, B, C, D, h0,
-                                               chunk=chunk), flush)
+        row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(lambda: kssd.ssd_plain(
             x, dt, A, B, C, D, h0, chunk=chunk), flush)
         row["library_ms"] = None
@@ -522,7 +530,7 @@ def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None):
 
 
 def ssd_case(name, B, S, H, P, G, N, dtype, *, use_D=True, use_h0=False,
-             chunk=256, flush=None, seed=0):
+             chunk=256, flush=None, seed=0, chunk_len=None):
     """``check_ssd`` on seeded inputs drawn as tests/test_kernels.py
     draws them: dt softplus'ed, A = -exp(z/2), B and C 0.3 z, h0 0.1 z."""
     gen = torch.Generator(device="cuda")
@@ -535,7 +543,7 @@ def ssd_case(name, B, S, H, P, G, N, dtype, *, use_D=True, use_h0=False,
     Bm, Cm = (z(B, S, G, N) * 0.3).to(dtype), (z(B, S, G, N) * 0.3).to(dtype)
     D = z(H) if use_D else None
     h0 = z(B, H, P, N) * 0.1 if use_h0 else None
-    return check_ssd(name, x, dt, A, Bm, Cm, D, h0, chunk, flush)
+    return check_ssd(name, x, dt, A, Bm, Cm, D, h0, chunk, flush, chunk_len)
 
 
 def rglru_bound(x, has_h0):
@@ -549,18 +557,23 @@ def rglru_bound(x, has_h0):
     return bound_of(nbytes, 15 * x.numel(), x.dtype)
 
 
-def check_rglru(name, x, rg, ig, ll, h0, flush=None):
-    """RG-LRU kernel against plain on one set of inputs; with ``flush``
-    also the times and the bound.  No PyTorch call computes it:
-    library_ms null."""
-    got = krg.rglru(x, rg, ig, ll, h0)
+def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None):
+    """RG-LRU kernels against plain on one set of inputs, at ``plan``'s
+    chunk length or ``chunk_len`` forced; with ``flush`` also the times
+    and the bound.  No PyTorch call computes it: library_ms null."""
+    Bb, S, W = x.shape
+
+    def kernel():
+        return krg._rglru_cuda(x, rg, ig, ll, h0, chunk_len=chunk_len)
+    got = kernel()
     torch.cuda.synchronize()
     want = krg.rglru_plain(x, rg, ig, ll, h0)
-    Bb, S, W = x.shape
     row = _scan_row("rglru", name, f"B{Bb} S{S} W{W}"
                     + (" h0" if h0 is not None else ""), got, want, x.dtype)
+    row["chunk_len"] = (krg.plan(Bb, S, W) if chunk_len is None
+                        else chunk_len)
     if flush is not None:
-        row["ms"] = device_ms(lambda: krg.rglru(x, rg, ig, ll, h0), flush)
+        row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(lambda: krg.rglru_plain(x, rg, ig, ll,
                                                             h0), flush)
         row["library_ms"] = None
@@ -569,7 +582,8 @@ def check_rglru(name, x, rg, ig, ll, h0, flush=None):
     return row
 
 
-def rglru_case(name, B, S, W, dtype, *, use_h0=False, flush=None, seed=0):
+def rglru_case(name, B, S, W, dtype, *, use_h0=False, flush=None, seed=0,
+               chunk_len=None):
     """``check_rglru`` on seeded normal inputs, h0 scaled by 0.2, as
     tests/test_kernels.py draws them."""
     gen = torch.Generator(device="cuda")
@@ -579,7 +593,7 @@ def rglru_case(name, B, S, W, dtype, *, use_h0=False, flush=None, seed=0):
         return torch.randn(shape, generator=gen, device="cuda")
     x, rg, ig = (z(B, S, W).to(dtype) for _ in range(3))
     h0 = z(B, W) * 0.2 if use_h0 else None
-    return check_rglru(name, x, rg, ig, z(W), h0, flush)
+    return check_rglru(name, x, rg, ig, z(W), h0, flush, chunk_len)
 
 
 # ---------------------------------------------------------------------------
@@ -662,9 +676,10 @@ def phase_kernels():
                 f"sweep{i}-decode", B=3, S=1, T=T, dtype=dtype,
                 offsets=[0, T // 2, T - 1], **kw))
 
-    # SSD at mamba2-1.3b's heads: the demo's prompts, one reference chunk,
-    # and the long phase's longest prompt (41 of the kernel's chunks, the
-    # last ragged), timed; then the reference's sweep
+    # SSD at mamba2-1.3b's heads: the demo's prompts (one chunk, one
+    # launch), one reference chunk, many chunks with a ragged tail at B 2,
+    # and the long phase's longest prompt, timed; then the reference's
+    # sweep; then each of the kernels' chunk lengths forced
     mamba = dict(H=64, P=64, G=1, N=128)
     for dtype in (torch.float32, torch.bfloat16):
         for S in range(5, 11):
@@ -672,6 +687,8 @@ def phase_kernels():
                                  use_h0=S % 2 == 0, seed=S, **mamba))
         rows.append(ssd_case(f"{SSM_ARCH}-s256-h0", B=2, S=256, dtype=dtype,
                              use_h0=True, **mamba))
+        rows.append(ssd_case(f"{SSM_ARCH}-b2-s1000-h0", B=2, S=1000,
+                             dtype=dtype, use_h0=True, seed=2, **mamba))
         rows.append(ssd_case(f"{SSM_ARCH}-s2600-noD", B=1, S=2600,
                              dtype=dtype, use_D=False, seed=1, **mamba))
         rows.append(ssd_case(f"{SSM_ARCH}-s2600", B=1, S=2600, dtype=dtype,
@@ -680,6 +697,10 @@ def phase_kernels():
             rows.append(ssd_case(f"ssd-sweep{i}", B=B, S=S, H=H, P=P, G=G,
                                  N=N, dtype=dtype, use_D=use_D,
                                  use_h0=use_h0, chunk=Q, seed=i))
+    for Q in kssd.CHUNKS:
+        rows.append(ssd_case(f"{SSM_ARCH}-b2-s1000-h0-q{Q}", B=2, S=1000,
+                             dtype=torch.float32, use_h0=True, seed=2,
+                             chunk_len=Q, **mamba))
     # RG-LRU at recurrentgemma-9b's width, the same way
     for dtype in (torch.float32, torch.bfloat16):
         for S in range(5, 11):
@@ -687,11 +708,17 @@ def phase_kernels():
                                    dtype=dtype, use_h0=S % 2 == 0, seed=S))
         rows.append(rglru_case(f"{HYBRID_ARCH}-s2600-h0", B=2, S=2600,
                                W=4096, dtype=dtype, use_h0=True, seed=1))
+        rows.append(rglru_case(f"{HYBRID_ARCH}-b3-s2600-h0", B=3, S=2600,
+                               W=4096, dtype=dtype, use_h0=True, seed=3))
         rows.append(rglru_case(f"{HYBRID_ARCH}-s2600", B=1, S=2600, W=4096,
                                dtype=dtype, flush=flush))
         for i, (B, S, W, _, _, use_h0) in enumerate(RGLRU_SWEEP):
             rows.append(rglru_case(f"rglru-sweep{i}", B=B, S=S, W=W,
                                    dtype=dtype, use_h0=use_h0, seed=i))
+    for L in (32, 64, 128):
+        rows.append(rglru_case(f"{HYBRID_ARCH}-b3-s2600-h0-l{L}", B=3,
+                               S=2600, W=4096, dtype=torch.float32,
+                               use_h0=True, seed=3, chunk_len=L))
 
     # the router at granite's E 40, k 8 (decode 4 slots, the demo's short
     # prompts, a 64-token chunk, a 384-token prefill), then the grid
@@ -1284,7 +1311,7 @@ def summary_row(r):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("path", "n_split") if k in r}}
+            **{k: r[k] for k in ("path", "n_split", "chunk_len") if k in r}}
 
 
 def card_line() -> str:

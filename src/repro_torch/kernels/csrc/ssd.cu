@@ -2,62 +2,64 @@
 // port.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd.py (ssd_pallas,
-// body _kernel).  Per (batch row b, head h), with the state h (P, N)
-// carried through the chunks of the sequence in order:
-//   cum_i  = sum_{k<=i} dt_k A          (inclusive, within the chunk)
-//   y_i    = sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i . B_j) x_j   intra-chunk
-//          + exp(cum_i) C_i . h^T                                 inter-chunk
-//          + D x_i                                                (optional)
-//   h     <- exp(cum_last) h + sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
+// body _kernel).  Per (batch row b, head h) and chunk c of Q tokens, with
+// cum_i = sum_{k<=i} dt_k A inclusive within the chunk:
+//   S_c    = sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j    chunk state
+//   h_c    = exp(cum_last) h_{c-1} + S_c                      state passing
+//   y_i    = sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i . B_j) x_j
+//          + exp(cum_i) C_i . h_{c-1}^T + D x_i               chunk scan
 // Head h reads B and C of group h / (H / G).
 //
 // Layouts (all contiguous): x, y (B, S, H, P) f32 or bf16; dt (B, S, H)
 // f32; A, D (H,) f32; B, C (B, S, G, N) in x's type; h0, h_final
-// (B, H, P, N) f32.  P <= 64, N <= 128.  All arithmetic in f32 but the
-// in-chunk cumulative decay (f64, see Masks).
+// (B, H, P, N) f32; the wrapper's scratch: states (B, nc, H, P, N) f32
+// and decay (B, nc, H) f32.  P <= 64, N <= 128, Q 64 or 128.
 //
-// What bounds it on an H100.  A chunk of Q tokens costs Q*Q*N (C.B^T) +
-// Q*Q*P (scores.x) + 2*Q*P*N (C.h^T, state update) multiply-adds on
-// Q*(P + 2N) values read and Q*P written: ~Q/2 operations a byte, so at
-// mamba2's P 64, N 128 it is bound by operations.  The products run in
-// f32 on the CUDA cores, not in TF32 on the tensor cores, because the
-// port holds f32 logits to the plain version within 2e-4.
+// What bounds it on an H100.  The function needs 2 P N + P multiply-adds
+// a token and head (the recurrent form) on (P + 2 N / rep) values read:
+// bound by operations in f32 at mamba2's P 64, N 128.  The chunked form
+// does more, Q/2 (N + P) in-chunk multiply-adds a token on the causal
+// half, plus 2 P N for the state, all in f32 on the CUDA cores (the port
+// holds f32 logits to the plain version within 2e-4, which TF32 misses).
 //
-// Design.  The TPU kernel's grid runs (b, h, chunk) with the chunk axis
-// sequential and keeps a Q x Q score tile in VMEM at Q = 256.  Here one
-// block of 256 threads per (h, b) loops over the chunks itself (that loop
-// replaces the sequential grid axis), and the state never leaves the
-// chip: each thread keeps an 8 x 4 tile of h in registers for the update
-// and mirrors it into shared memory for the C.h^T reads.
+// Design.  The TPU kernel runs its chunk axis in order with the state in
+// VMEM.  One block per (head, row) walking the chunks in order left most
+// of the card idle at prefill's batch of 1 (64 heads, 132 SMs) and ran
+// the chunks in series.  Here the chunk axis is parallel, in three
+// launches, each block one (head, chunk, row):
+//   1. ssd_chunk_state: S_c from a zero state, and exp(cum_last), into
+//      the scratch;
+//   2. ssd_state_passing: one thread per (row, head, state element) walks
+//      the chunks in order, overwriting S_c with the state entering chunk
+//      c, and writes h_final;
+//   3. ssd_chunk_scan: y from the chunk's own tokens and its entering
+//      state.
+// A sequence of one chunk (the demo's short prompts) takes one launch of
+// the scan, which starts from h0 and also writes h_final.  The products
+// run on register tiles (4 x 4 to 8 x 8 a thread) fed by 16-byte
+// shared-memory loads; the C.B^T tiles above the diagonal or past the
+// chunk's rows are not computed, nor the score.x terms j > i.
 //
-// Chunk length.  The kernel uses Q = 64 whatever chunk length the caller
-// asked for.  At Q = 256 the f32 score tile alone is 256 KB, over the
-// 227 KB a block may have; at Q = 64 the block holds B and C (2 x 33 KB),
-// h (33 KB), x (16 KB) and the scores (16.6 KB): ~130 KB.  The SSD is
-// chunk-invariant (tests/test_kernels.py::test_ssd_chunk_invariance), so
-// y and h_final agree with any chunking to rounding.  Q = 64 also fixes
-// the thread tiles below (16 x 16 threads of 4 x 4 outputs).
-//
-// Masks.  Only the i >= j differences are exponentiated (cum decreases,
-// so they are <= 0); the others are set to 0 without an exp.  cum is
-// summed and differenced in f64 (64 values a chunk): in f32 the
-// difference of two cumulative sums of ~800 (mamba2's A reaches -16)
-// would lose ~5e-5 of every exponent.  The ragged
-// last chunk is read by bounds: its missing rows get x = B = C = 0 and
-// dt = 0, an identity step for the state, and their y is never written.
+// Rounding of the reassociation.  The state is summed per chunk from
+// zero, then passed: h_c = decay_c h_{c-1} + S_c in f32, where the
+// sequential form adds each token into the running state.  The per-chunk
+// sums keep every exponent at or below 0.  cum is summed and differenced
+// in f64 (Q values a chunk): in f32 the difference of two cumulative sums
+// of ~800 (mamba2's A reaches -16) would lose ~5e-5 of every exponent.
+// Only the j <= i differences are exponentiated (cum decreases, so they
+// are <= 0); the others are set to 0 without an exp.  The ragged last
+// chunk is read by bounds: its missing rows get x = B = C = 0 and dt = 0,
+// an identity step for the state, and their y is never written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kQ = 64;          // tokens a chunk
 constexpr int kThreads = 256;
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
+constexpr int kP = 64;   // head-dim tile: P <= kP, zero-padded
+constexpr int kN = 128;  // state-dim tile: N <= kN, zero-padded
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kQ == 64 && kThreads == 256,
-              "the thread tiles below assume Q = 64 and 256 threads");
 
 struct Params {
   const void* x;
@@ -69,7 +71,9 @@ struct Params {
   const float* h0;  // null: zero state
   void* y;
   float* hf;
-  int B, S, H, P, G, N;
+  float* states;  // (B, nc, H, P, N): chunk states, then entering states
+  float* decay;   // (B, nc, H): exp(cum_last) of each chunk
+  int B, S, H, P, G, N, nc;
 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -81,266 +85,385 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// dst[r * ld + c] = src[r * stride + c] for r < nr, c < ncol; zero
+// elsewhere in [0, R) x [0, CM).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_fwd(Params p) {
-  const int P = p.P, N = p.N, S = p.S, H = p.H;
-  const int NS = N + 1;      // padded row stride of B, C and h
-  constexpr int QS = kQ + 1;  // padded row stride of the scores
-
-  extern __shared__ double smem_d[];
-  double* cum = smem_d;                                // [kQ]
-  float* Bs = reinterpret_cast<float*>(cum + kQ);      // [kQ][NS]
-  float* Cs = Bs + kQ * NS;                            // [kQ][NS]
-  float* hs = Cs + kQ * NS;                            // [P][NS]
-  float* xs = hs + P * NS;                             // [kQ][P]
-  float* ss = xs + kQ * P;                             // [kQ][QS]
-  float* dts = ss + kQ * QS;                           // [kQ]
-  float* wts = dts + kQ;                               // [kQ]
-
-  const T* x = static_cast<const T*>(p.x);
-  const T* Bm = static_cast<const T*>(p.Bm);
-  const T* Cm = static_cast<const T*>(p.Cm);
-  T* y = static_cast<T*>(p.y);
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = h / (H / p.G);
-  const float A = p.A[h];
-  const float Dh = p.D ? p.D[h] : 0.f;
-  const int tid = threadIdx.x;
-
-  // this thread's state tile: rows tp + 8a (a < 8), columns tn + 32c (c < 4)
-  const int tp = tid >> 5;
-  const int tn = tid & 31;
-  float hreg[8][4];
-  const size_t hbase = ((size_t)b * H + h) * P * N;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int pp = tp + 8 * a;
-      const int nn = tn + 32 * c;
-      float v = 0.f;
-      if (pp < P && nn < N) {
-        if (p.h0) v = p.h0[hbase + (size_t)pp * N + nn];
-        hs[pp * NS + nn] = v;
-      }
-      hreg[a][c] = v;
-    }
-  }
-
-  // this thread's score and output tiles: rows ti + 16a (a < 4), columns
-  // tj + 16c (c < 4): keys j for the scores, head columns for y
-  const int ti = tid >> 4;
-  const int tj = tid & 15;
-
-  const int nchunks = (S + kQ - 1) / kQ;
-  for (int ch = 0; ch < nchunks; ++ch) {
-    const int s0 = ch * kQ;
-    const int rows = min(kQ, S - s0);
-    __syncthreads();  // the last chunk's reads of B, C, x and h are done
-
-    for (int e = tid; e < kQ * N; e += kThreads) {
-      const int i = e / N;
-      const int n = e - i * N;
-      float bv = 0.f, cv = 0.f;
-      if (i < rows) {
-        const size_t gi = (((size_t)b * S + s0 + i) * p.G + g) * N + n;
-        bv = load_f32(Bm + gi);
-        cv = load_f32(Cm + gi);
-      }
-      Bs[i * NS + n] = bv;
-      Cs[i * NS + n] = cv;
-    }
-    for (int e = tid; e < kQ * P; e += kThreads) {
-      const int i = e / P;
-      const int pp = e - i * P;
-      xs[e] = i < rows
-          ? load_f32(x + (((size_t)b * S + s0 + i) * H + h) * P + pp)
-          : 0.f;
-    }
-    if (tid < kQ)
-      dts[tid] = tid < rows ? p.dt[((size_t)b * S + s0 + tid) * H + h] : 0.f;
-    __syncthreads();
-
-    // inclusive prefix sum of dt*A over the chunk, in f64: one warp, two
-    // per lane
-    if (tid < 32) {
-      double v0 = (double)(dts[tid] * A);
-      double v1 = (double)(dts[tid + 32] * A);
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const double u0 = __shfl_up_sync(kFull, v0, o);
-        const double u1 = __shfl_up_sync(kFull, v1, o);
-        if (tid >= o) {
-          v0 += u0;
-          v1 += u1;
-        }
-      }
-      v1 += __shfl_sync(kFull, v0, 31);
-      cum[tid] = v0;
-      cum[tid + 32] = v1;
-    }
-    __syncthreads();
-    const double total = cum[kQ - 1];
-    if (tid < kQ) wts[tid] = expf((float)(total - cum[tid])) * dts[tid];
-
-    // scores[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i
-    {
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = Cs[(ti + 16 * a) * NS + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = Bs[(tj + 16 * c) * NS + n];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(cv[a], bv[c], acc[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = ti + 16 * a;
-          const int j = tj + 16 * c;
-          ss[i * QS + j] =
-              i >= j ? acc[a][c] * expf((float)(cum[i] - cum[j])) * dts[j]
-                     : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // y = scores . x + exp(cum_i) C_i . h^T + D x, with h entering the chunk
-    {
-      float yi[4][4], yh[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) yi[a][c] = yh[a][c] = 0.f;
-      for (int j = 0; j < rows; ++j) {
-        float sv[4], xv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) sv[a] = ss[(ti + 16 * a) * QS + j];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int pp = tj + 16 * c;
-          xv[c] = pp < P ? xs[j * P + pp] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) yi[a][c] = fmaf(sv[a], xv[c], yi[a][c]);
-      }
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = Cs[(ti + 16 * a) * NS + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int pp = tj + 16 * c;
-          hv[c] = pp < P ? hs[pp * NS + n] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) yh[a][c] = fmaf(cv[a], hv[c], yh[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ti + 16 * a;
-        if (i >= rows) continue;
-        const float ei = expf((float)cum[i]);
-        T* yrow = y + (((size_t)b * S + s0 + i) * H + h) * P;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int pp = tj + 16 * c;
-          if (pp < P)
-            store_f32(yrow + pp,
-                      yi[a][c] + ei * yh[a][c] + Dh * xs[i * P + pp]);
-        }
-      }
-    }
-    __syncthreads();  // every read of h entering the chunk is done
-
-    // h <- exp(total) h + sum_j w_j x_j (x) B_j
-    const float dec = expf((float)total);
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) hreg[a][c] *= dec;
-    for (int j = 0; j < rows; ++j) {
-      const float w = wts[j];
-      float xv[8], bv[4];
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int pp = tp + 8 * a;
-        xv[a] = pp < P ? xs[j * P + pp] * w : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int nn = tn + 32 * c;
-        bv[c] = nn < N ? Bs[j * NS + nn] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) hreg[a][c] = fmaf(xv[a], bv[c], hreg[a][c]);
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int pp = tp + 8 * a;
-        const int nn = tn + 32 * c;
-        if (pp < P && nn < N) hs[pp * NS + nn] = hreg[a][c];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int pp = tp + 8 * a;
-      const int nn = tn + 32 * c;
-      if (pp < P && nn < N) p.hf[hbase + (size_t)pp * N + nn] = hreg[a][c];
-    }
+__device__ void load_rows(float* dst, int ld, const T* src, size_t stride,
+                          int R, int CM, int nr, int ncol) {
+  for (int e = threadIdx.x; e < R * CM; e += kThreads) {
+    const int r = e / CM;
+    const int c = e - r * CM;
+    dst[r * ld + c] =
+        r < nr && c < ncol ? load_f32(src + (size_t)r * stride + c) : 0.f;
   }
 }
 
+// dst[c * ld + r] = src[r * stride + c], the transpose, with the same
+// bounds; four rows a thread, so that neighbouring threads read
+// neighbouring columns and each store is 16 bytes.  R % 4 == 0, ld % 4 == 0.
 template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int NS = p.N + 1;
-  const size_t smem = sizeof(double) * kQ +
-                      sizeof(float) * ((size_t)2 * kQ * NS + p.P * NS +
-                                       kQ * p.P + kQ * (kQ + 1) + 2 * kQ);
-  auto kernel = ssd_fwd<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+__device__ void load_transposed(float* dst, int ld, const T* src,
+                                size_t stride, int R, int CM, int nr,
+                                int ncol) {
+  for (int e = threadIdx.x; e < (R / 4) * CM; e += kThreads) {
+    const int c = e % CM;
+    const int r = (e / CM) * 4;
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = r + k < nr && c < ncol
+                 ? load_f32(src + (size_t)(r + k) * stride + c)
+                 : 0.f;
+    *reinterpret_cast<float4*>(dst + c * ld + r) =
+        make_float4(v[0], v[1], v[2], v[3]);
   }
-  kernel<<<dim3(p.H, p.B), kThreads, smem, stream>>>(p);
+}
+
+// acc[a][b] += sum_{k0 <= k < k1} A[k][m(a)] Bm[k][n(b)], both operands
+// k-major in shared memory, where this thread's rows are m(4u + v) =
+// m0 + u MG + v and its columns n(4u + v) = n0 + u NG + v: TM / 4 and
+// TN / 4 float4 loads feed TM x TN FMAs.
+template <int TM, int TN, int MG, int NG>
+__device__ __forceinline__ void outer_acc(float (&acc)[TM][TN],
+                                          const float* __restrict__ A,
+                                          int lda, int m0,
+                                          const float* __restrict__ Bm,
+                                          int ldb, int n0, int k0, int k1) {
+#pragma unroll 2
+  for (int k = k0; k < k1; ++k) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int u = 0; u < TM / 4; ++u) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(A + k * lda + m0 + u * MG);
+      a[4 * u] = v.x;
+      a[4 * u + 1] = v.y;
+      a[4 * u + 2] = v.z;
+      a[4 * u + 3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < TN / 4; ++u) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(Bm + k * ldb + n0 + u * NG);
+      b[4 * u] = v.x;
+      b[4 * u + 1] = v.y;
+      b[4 * u + 2] = v.z;
+      b[4 * u + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// dt of the chunk's rows (0 past `rows`) into dts, then cum, the
+// inclusive prefix sum of dt A over the chunk in f64, by warp 0; ends
+// with every thread past a barrier.
+template <int Q>
+__device__ void chunk_cum(const Params& p, int b, int h, int s0, int rows,
+                          float A, float* dts, double* cum) {
+  const int tid = threadIdx.x;
+  if (tid < Q)
+    dts[tid] = tid < rows ? p.dt[((size_t)b * p.S + s0 + tid) * p.H + h]
+                          : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    double carry = 0.0;
+#pragma unroll
+    for (int s = 0; s < Q / 32; ++s) {
+      double v = (double)(dts[s * 32 + tid] * A);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double u = __shfl_up_sync(kFull, v, o);
+        if (tid >= o) v += u;
+      }
+      v += carry;
+      cum[s * 32 + tid] = v;
+      carry = __shfl_sync(kFull, v, 31);
+    }
+  }
+  __syncthreads();
+}
+
+// the chunk state's 4 x 8 tile of this thread, rows p = 4 (tid / 16) + a
+// and columns n = 4 (tid % 16) + 64 u + v: acc = sum_{j < rows} xw[j][p]
+// Bs[j][n], with xw (Q, kP) and Bs (Q, kN) row-major in shared memory
+__device__ __forceinline__ void state_tile(float (&acc)[4][8],
+                                           const float* xw, const float* Bs,
+                                           int rows) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+  outer_acc<4, 8, 4, 64>(acc, xw, kP, 4 * (tid >> 4), Bs, kN, 4 * (tid & 15),
+                         0, rows);
+}
+
+__device__ __forceinline__ int state_p(int a) {
+  return 4 * (threadIdx.x >> 4) + a;
+}
+__device__ __forceinline__ int state_n(int c) {
+  return 4 * (threadIdx.x & 15) + 64 * (c >> 2) + (c & 3);
+}
+
+// 1. the state of chunk blockIdx.y from a zero state, and its decay
+template <typename T, int Q>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cum = reinterpret_cast<double*>(smem);   // [Q]
+  float* dts = reinterpret_cast<float*>(cum + Q);  // [Q]
+  float* wts = dts + Q;                            // [Q]
+  float* xw = wts + Q;                             // [Q][kP]
+  float* Bs = xw + Q * kP;                         // [Q][kN]
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int S = p.S, H = p.H, P = p.P, N = p.N;
+  const int s0 = c * Q;
+  const int rows = min(Q, S - s0);
+  const int g = h / (H / p.G);
+  const int tid = threadIdx.x;
+
+  load_rows(xw, kP,
+            static_cast<const T*>(p.x) + ((size_t)b * S + s0) * H * P +
+                (size_t)h * P,
+            (size_t)H * P, Q, kP, rows, P);
+  load_rows(Bs, kN,
+            static_cast<const T*>(p.Bm) + ((size_t)b * S + s0) * p.G * N +
+                (size_t)g * N,
+            (size_t)p.G * N, Q, kN, rows, N);
+  chunk_cum<Q>(p, b, h, s0, rows, p.A[h], dts, cum);
+  const double last = cum[Q - 1];
+  if (tid < Q) wts[tid] = expf((float)(last - cum[tid])) * dts[tid];
+  __syncthreads();
+  for (int e = tid; e < Q * kP; e += kThreads) xw[e] *= wts[e / kP];
+  __syncthreads();
+
+  float acc[4][8];
+  state_tile(acc, xw, Bs, rows);
+  float* out = p.states + (((size_t)b * p.nc + c) * H + h) * P * N;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc)
+      if (state_p(a) < P && state_n(cc) < N)
+        out[(size_t)state_p(a) * N + state_n(cc)] = acc[a][cc];
+  if (tid == 0)
+    p.decay[((size_t)b * p.nc + c) * H + h] = expf((float)last);
+}
+
+// 2. the state entering each chunk, in place over the chunk states, and
+// h_final: one thread per (row, head, state element), chunks in order
+__global__ void __launch_bounds__(kThreads) ssd_state_passing(Params p) {
+  const size_t PN = (size_t)p.P * p.N;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)p.B * p.H * PN) return;
+  const size_t bh = e / PN;  // b * H + h
+  const int b = (int)(bh / p.H);
+  const int h = (int)(bh - (size_t)b * p.H);
+  const size_t cs = (size_t)p.H * PN;  // one chunk's states
+  float* st = p.states + (size_t)b * p.nc * cs + (size_t)h * PN + (e % PN);
+  const float* dec = p.decay + (size_t)b * p.nc * p.H + h;
+  float hv = p.h0 ? p.h0[e] : 0.f;
+  float next = st[0];
+  for (int c = 0; c < p.nc; ++c) {
+    const float s = next;
+    if (c + 1 < p.nc) next = st[(size_t)(c + 1) * cs];
+    st[(size_t)c * cs] = hv;
+    hv = fmaf(dec[(size_t)c * p.H], hv, s);
+  }
+  p.hf[e] = hv;
+}
+
+// 3. y of chunk blockIdx.y from its tokens and the state entering it
+// (from the scratch, or h0 when kFinal).  kFinal: the sequence is this one
+// chunk, and the block also writes h_final = exp(cum_last) h0 + S_0.
+template <typename T, int Q, bool kFinal>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_scan(Params p) {
+  constexpr int TM = Q / 16;                  // a thread's tile rows
+  constexpr int LQ = Q + (Q == 64 ? 4 : 0);   // row stride of Ct, Bt, st
+  constexpr int LP = kP + 4;                  // row stride of ht
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cum = reinterpret_cast<double*>(smem);   // [Q]
+  float* dts = reinterpret_cast<float*>(cum + Q);  // [Q]
+  float* wts = dts + Q;                            // [Q]
+  float* Ct = wts + Q;                             // [kN][LQ]: C^T
+  float* Bt = Ct + kN * LQ;  // [kN][LQ]: B^T; then ht [kN][LP]: h^T;
+                             // then (kFinal) B [Q][kN]
+  float* xs = Bt + kN * LQ;  // [Q][kP]; (kFinal) then x w
+  float* st = xs + Q * kP;   // [Q][LQ]: scores^T, st[j][i]
+
+  const T* x = static_cast<const T*>(p.x);
+  const T* Bm = static_cast<const T*>(p.Bm);
+  T* y = static_cast<T*>(p.y);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int S = p.S, H = p.H, P = p.P, N = p.N, G = p.G;
+  const int s0 = c * Q;
+  const int rows = min(Q, S - s0);
+  const int g = h / (H / G);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t bc_off = ((size_t)b * S + s0) * G * N + (size_t)g * N;
+  const size_t x_off = ((size_t)b * S + s0) * H * P + (size_t)h * P;
+
+  load_transposed(Ct, LQ, static_cast<const T*>(p.Cm) + bc_off,
+                  (size_t)G * N, Q, kN, rows, N);
+  load_transposed(Bt, LQ, Bm + bc_off, (size_t)G * N, Q, kN, rows, N);
+  load_rows(xs, kP, x + x_off, (size_t)H * P, Q, kP, rows, P);
+  chunk_cum<Q>(p, b, h, s0, rows, p.A[h], dts, cum);
+
+  // scores^T: st[j][i] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i.
+  // Tiles of TM x TM; warp w covers tile rows 4 (w / 2) + lane / 8 and
+  // tile columns 8 (w % 2) + lane % 8.
+  {
+    const int i0 = TM * (4 * (warp >> 1) + (lane >> 3));
+    const int j0 = TM * (8 * (warp & 1) + (lane & 7));
+    float acc[TM][TM];
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int cc = 0; cc < TM; ++cc) acc[a][cc] = 0.f;
+    const bool live = j0 <= i0 + TM - 1 && j0 < rows && i0 < rows;
+    if (live) outer_acc<TM, TM, 4, 4>(acc, Ct, LQ, i0, Bt, LQ, j0, 0, N);
+#pragma unroll
+    for (int cc = 0; cc < TM; ++cc) {
+      const int j = j0 + cc;
+      const float dj = dts[j];
+      float v[TM];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) {
+        const int i = i0 + a;
+        v[a] = live && i >= j ? acc[a][cc] * expf((float)(cum[i] - cum[j])) *
+                                    dj
+                              : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < TM / 4; ++u)
+        *reinterpret_cast<float4*>(st + j * LQ + i0 + 4 * u) =
+            make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+    }
+  }
+  __syncthreads();  // scores done; B^T is dead
+
+  // the entering state, transposed, over B^T
+  const bool has_h = kFinal ? p.h0 != nullptr : (c > 0 || p.h0 != nullptr);
+  float* ht = Bt;
+  const float* hin =
+      !has_h ? nullptr
+      : kFinal ? p.h0 + ((size_t)b * H + h) * P * N
+               : p.states + (((size_t)b * p.nc + c) * H + h) * P * N;
+  if (has_h) load_transposed(ht, LP, hin, (size_t)N, kP, kN, P, N);
+
+  // y tiles of TM rows x 4 columns: warp w covers tile rows 2 w + lane / 16,
+  // columns 4 (lane % 16); the intra-chunk sum runs over j <= i < rows
+  const int yi0 = TM * (2 * warp + (lane >> 4));
+  const int p0 = 4 * (lane & 15);
+  float yi[TM][4], yh[TM][4];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) yi[a][cc] = yh[a][cc] = 0.f;
+  if (yi0 < rows)
+    outer_acc<TM, 4, 4, 4>(yi, st, LQ, yi0, xs, kP, p0, 0,
+                           min(yi0 + TM, rows));
+  __syncthreads();  // h^T is in
+  if (has_h && yi0 < rows)
+    outer_acc<TM, 4, 4, 4>(yh, Ct, LQ, yi0, ht, LP, p0, 0, N);
+  const float Dh = p.D ? p.D[h] : 0.f;
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+    const int i = yi0 + a;
+    if (i >= rows) continue;
+    const float ei = expf((float)cum[i]);
+    T* yrow = y + x_off + (size_t)i * H * P;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int pp = p0 + cc;
+      if (pp < P)
+        store_f32(yrow + pp, yi[a][cc] + ei * yh[a][cc] + Dh * xs[i * kP + pp]);
+    }
+  }
+  if (!kFinal) return;
+
+  // h_final = exp(cum_last) h0 + sum_j w_j x_j (x) B_j
+  __syncthreads();  // every read of h^T and x is done
+  const double last = cum[Q - 1];
+  if (tid < Q) wts[tid] = expf((float)(last - cum[tid])) * dts[tid];
+  float* Bs = Bt;
+  load_rows(Bs, kN, Bm + bc_off, (size_t)G * N, Q, kN, rows, N);
+  __syncthreads();
+  for (int e = tid; e < Q * kP; e += kThreads) xs[e] *= wts[e / kP];
+  __syncthreads();
+  float acc[4][8];
+  state_tile(acc, xs, Bs, rows);
+  const float dec = expf((float)last);
+  float* hf = p.hf + ((size_t)b * H + h) * P * N;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc) {
+      const int pp = state_p(a), nn = state_n(cc);
+      if (pp < P && nn < N) {
+        const size_t k = (size_t)pp * N + nn;
+        hf[k] = has_h ? fmaf(dec, hin[k], acc[a][cc]) : acc[a][cc];
+      }
+    }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T, int Q>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  constexpr int LQ = Q + (Q == 64 ? 4 : 0);
+  const size_t scan_smem = sizeof(double) * Q +
+                           sizeof(float) * (2 * Q + 2 * kN * LQ + Q * kP +
+                                            Q * LQ);
+  cudaError_t e;
+  if (p.nc == 1) {
+    auto scan = ssd_chunk_scan<T, Q, true>;
+    if ((e = allow_smem(scan, scan_smem)) != cudaSuccess) return e;
+    scan<<<dim3(p.H, 1, p.B), kThreads, scan_smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  const size_t state_smem =
+      sizeof(double) * Q + sizeof(float) * (2 * Q + Q * kP + Q * kN);
+  auto state = ssd_chunk_state<T, Q>;
+  if ((e = allow_smem(state, state_smem)) != cudaSuccess) return e;
+  state<<<dim3(p.H, p.nc, p.B), kThreads, state_smem, stream>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const size_t elems = (size_t)p.B * p.H * p.P * p.N;
+  ssd_state_passing<<<(unsigned)((elems + kThreads - 1) / kThreads),
+                      kThreads, 0, stream>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  auto scan = ssd_chunk_scan<T, Q, false>;
+  if ((e = allow_smem(scan, scan_smem)) != cudaSuccess) return e;
+  scan<<<dim3(p.H, p.nc, p.B), kThreads, scan_smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the launch's cudaGetLastError() (0 = launched).
+// One call of the SSD: one launch when the sequence is one chunk of Q
+// tokens, else three.  states (B, nc, H, P, N) and decay (B, nc, H) are
+// the caller's f32 scratch, nc = ceil(S / Q); unused (may be null) when
+// nc == 1.  Returns the first non-zero cudaGetLastError() (0 = launched).
 extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, const float* D,
-                             const float* h0, void* y, float* hf, int B,
-                             int S, int H, int P, int G, int N, int is_bf16,
+                             const float* h0, void* y, float* hf,
+                             float* states, float* decay, int B, int S,
+                             int H, int P, int G, int N, int Q, int is_bf16,
                              void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
-      P > kMaxP || N <= 0 || N > kMaxN)
+      P > kP || N <= 0 || N > kN || (Q != 64 && Q != 128))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -352,13 +475,20 @@ extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
   p.h0 = h0;
   p.y = y;
   p.hf = hf;
+  p.states = states;
+  p.decay = decay;
   p.B = B;
   p.S = S;
   p.H = H;
   p.P = P;
   p.G = G;
   p.N = N;
+  p.nc = (S + Q - 1) / Q;
+  if (p.nc > 65535 || (p.nc > 1 && (states == nullptr || decay == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)launch<__nv_bfloat16>(p, st);
-  return (int)launch<float>(p, st);
+  if (is_bf16)
+    return (int)(Q == 64 ? launch<__nv_bfloat16, 64>(p, st)
+                         : launch<__nv_bfloat16, 128>(p, st));
+  return (int)(Q == 64 ? launch<float, 64>(p, st) : launch<float, 128>(p, st));
 }

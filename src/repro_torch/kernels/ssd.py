@@ -1,28 +1,41 @@
-"""Mamba2 SSD (state-space duality): the hand-written Hopper kernel, its
-plain version and the one-token decode step.
+"""Mamba2 SSD (state-space duality): the hand-written Hopper kernels,
+their plain versions and the one-token decode step.
 
 **Replaces** the Pallas TPU kernel ``src/repro/kernels/ssd.py``
 (``ssd_pallas``, body ``_kernel``), which ``ops.ssd`` resolves to on a
-TPU: every SSD layer's prefill runs it.  One kernel, ``csrc/ssd.cu``.
-Decode does not launch it: the reference computes a decode step outside
-any Pallas kernel (``ops.ssd_decode_step``), and so does
+TPU: every SSD layer's prefill runs it.  Kernels in ``csrc/ssd.cu``.
+Decode does not launch them: the reference computes a decode step
+outside any Pallas kernel (``ops.ssd_decode_step``), and so does
 :func:`ssd_decode_step` here.
 
-**What bounds it on an H100.**  Per (batch row, head) and chunk of Q
-tokens the SSD does Q²·N multiply-adds for C·Bᵀ, Q²·P for the scores
-times x, and 2·Q·P·N for the state read and update, on (Q, P) of x and
-(Q, N) of B and C: about Q/2 operations per byte, so at mamba2's
-P 64, N 128 it is bound by operations, in f32 on the CUDA cores.
+**What bounds it on an H100.**  The function needs 2·P·N + P
+multiply-adds a token and head (the recurrent form) on P + 2·N/rep
+values read: at mamba2's P 64, N 128 it is bound by operations, in f32
+on the CUDA cores (TF32 misses the port's 2e-4).
 
-**What the design does about it.**  One block per (batch row, head)
-walks the chunks in order, which on Hopper replaces the TPU grid's
-sequential chunk axis; the (P, N) state stays on chip for the whole
-sequence.  The kernel picks its own chunk of 64 tokens whatever
-``chunk`` says (the SSD is chunk-invariant): see ``csrc/ssd.cu``.
+**What the design does about it.**  The chunk axis, sequential on the
+TPU, is parallel here: a call is three launches, each block one (head,
+chunk of Q tokens, row), so that prefill's batch of 1 fills the card:
+``ssd_chunk_state`` sums each chunk's own state from zero,
+``ssd_state_passing`` walks the chunks in order per state element and
+turns them into the states entering each chunk (and h_final), and
+``ssd_chunk_scan`` computes y from a chunk's tokens (the causal half of
+C·Bᵀ only) and its entering state.  A sequence of one chunk (the demo's
+short prompts) is one launch of the scan from h0, which also writes
+h_final.  ``plan`` picks Q from shapes alone.  Their plain
+counterparts, held against :func:`ssd_plain` on the CPU:
+:func:`ssd_chunk_states_plain`, :func:`ssd_state_passing_plain`,
+:func:`ssd_chunk_scan_plain`.
+
+**Rounding of the reassociation.**  Each chunk's state is summed from
+zero and then passed, h_c = decay_c·h_{c−1} + S_c, where the
+sequential form adds every token into the running state; the in-chunk
+cumulative decay is summed and differenced in f64.
 
 ``ssd`` dispatches on the device of ``x``: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.  There is no
-fallback.  ``ssd.launches`` counts kernel launches.
+version, a CUDA tensor launches the kernels or raises.  There is no
+fallback.  ``ssd.launches`` counts calls (one per layer's prefill) that
+launched the kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ import torch.nn.functional as F
 
 MAX_P = 64       # head dim the kernel's state tile covers
 MAX_N = 128      # state dim the kernel's shared memory holds
+CHUNKS = (64, 128)   # the kernel's chunk lengths Q
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -101,6 +115,78 @@ def ssd_plain(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
     return y.to(x.dtype), h
 
 
+def _cut(t, Q: int, rep: int = 1):
+    """(Bb,S,K,*tail) as f32 (Bb,nc,Q,K·rep,*tail), zero past S (dt = 0
+    is an identity step); rep repeats each group for its heads."""
+    t = t.float().repeat_interleave(rep, dim=2)
+    pad = (-t.shape[1]) % Q
+    t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+    return t.reshape(t.shape[0], -1, Q, *t.shape[2:])
+
+
+def _cum(dt, A, Q: int):
+    """cum (Bb,nc,Q,H): the inclusive in-chunk sum of dt·A, the products
+    in f32 and the sum in f64, as the kernels take it."""
+    return torch.cumsum((_cut(dt, Q) * A.float()).double(), dim=2)
+
+
+def ssd_chunk_states_plain(x, dt, A, B, *, chunk: int = 64
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each chunk's own end state from a zero state and its decay, as
+    ``ssd_chunk_state`` computes them: states (Bb,nc,H,P,N) =
+    Σ_j exp(cum_last − cum_j)·dt_j·x_j ⊗ B_j, decay (Bb,nc,H) =
+    exp(cum_last), in f32."""
+    rep = x.shape[2] // B.shape[2]
+    xf, dtf, Bf = _cut(x, chunk), _cut(dt, chunk), _cut(B, chunk, rep)
+    cum = _cum(dt, A, chunk)
+    last = cum[:, :, -1:]
+    w = torch.exp((last - cum).float()) * dtf
+    states = torch.einsum("bcjhp,bcjhn->bchpn", xf * w[..., None], Bf)
+    return states, torch.exp(last[:, :, 0].float())
+
+
+def ssd_state_passing_plain(states, decay, h0=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The state entering each chunk, h_c = decay_c·h_{c−1} + S_c from h0
+    (or zero), as ``ssd_state_passing`` computes them in place: →
+    (entering (Bb,nc,H,P,N), h_final (Bb,H,P,N)), f32."""
+    Bb, nc, H, P, N = states.shape
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32,
+                     device=states.device) if h0 is None else h0.float())
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = decay[:, c, :, None, None] * h + states[:, c]
+    return torch.stack(entering, dim=1), h
+
+
+def ssd_chunk_scan_plain(x, dt, A, B, C, entering, D=None, *,
+                         chunk: int = 64) -> torch.Tensor:
+    """y of every chunk from its own tokens and the state entering it, as
+    ``ssd_chunk_scan`` computes it: Σ_{j≤i} exp(cum_i − cum_j)·dt_j·
+    (C_i·B_j)·x_j + exp(cum_i)·C_i·h_enterᵀ + D·x_i, in x's dtype."""
+    Bb, S, H, P = x.shape
+    rep = H // B.shape[2]
+    xf, dtf = _cut(x, chunk), _cut(dt, chunk)
+    Bf, Cf = _cut(B, chunk, rep), _cut(C, chunk, rep)
+    cum = _cum(dt, A, chunk)
+    Q = chunk
+    above = torch.triu(torch.ones(Q, Q, dtype=torch.bool, device=x.device),
+                       diagonal=1)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # b,c,i,j,h
+    decay = torch.exp(diff.float().masked_fill(
+        above[None, None, :, :, None], float("-inf")))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * decay \
+        * dtf[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
+    y = y + torch.exp(cum.float())[..., None] * torch.einsum(
+        "bcihn,bchpn->bcihp", Cf, entering.float())
+    y = y.reshape(Bb, -1, H, P)[:, :S]
+    if D is not None:
+        y = y + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype)
+
+
 def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token, as ``ops.ssd_decode_step``: h (B,H,P,N), x_t (B,H,P),
@@ -120,9 +206,17 @@ def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
     return y.to(x_t.dtype), h_new
 
 
+def plan(B: int, S: int, H: int) -> int:
+    """The kernels' chunk length Q for a call on the card, from shapes
+    alone."""
+    return 64
+
+
 def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, h_final) of the chunked SSD; see ``ssd_plain``."""
+    """(y, h_final) of the chunked SSD; see ``ssd_plain``.  On the card
+    the kernels take their own chunk length (``plan``) whatever ``chunk``
+    says: the SSD is chunk-invariant."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
     if x.device.type != "cuda":
@@ -136,20 +230,23 @@ _fn = None   # the C entry, bound once by _kernel()
 
 
 def _kernel():
-    """The kernel's C entry with its signature set, built and loaded at
+    """The kernels' C entry with its signature set, built and loaded at
     the first launch.  Two threads racing here bind the same function."""
     global _fn
     if _fn is None:
         from .build import load
         fn = load("ssd").repro_ssd_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         _fn = fn
     return _fn
 
 
-def _ssd_cuda(x, dt, A, B, C, D, h0):
+def _ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=None):
+    """One call on the card: one launch if the sequence is one chunk,
+    else three.  ``chunk_len`` forces Q (one of ``CHUNKS``; tests and the
+    smoke run only); None takes ``plan``'s."""
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "
                          f"B {tuple(B.shape)} / C {tuple(C.shape)} (B,S,G,N)")
@@ -181,16 +278,26 @@ def _ssd_cuda(x, dt, A, B, C, D, h0):
     A = A.float().contiguous()
     D = None if D is None else D.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
+    Q = plan(Bb, S, H) if chunk_len is None else int(chunk_len)
+    if Q not in CHUNKS:
+        raise ValueError(f"ssd: chunk_len {Q} not in {CHUNKS}")
+    nc = -(-S // Q)
     y = torch.empty_like(x)
     hf = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
+    states = decay = None
+    if nc > 1:          # the chunk states, then the entering states
+        states = torch.empty((Bb, nc, H, P, N), dtype=torch.float32,
+                             device=dev)
+        decay = torch.empty((Bb, nc, H), dtype=torch.float32, device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                  C.data_ptr(), None if D is None else D.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                 hf.data_ptr(), Bb, S, H, P, G, N,
-                 int(x.dtype == torch.bfloat16), stream)
+                 hf.data_ptr(), None if states is None else states.data_ptr(),
+                 None if decay is None else decay.data_ptr(), Bb, S, H, P,
+                 G, N, Q, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1

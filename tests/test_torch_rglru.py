@@ -115,12 +115,17 @@ def test_cpu_tensors_take_the_plain_version():
 
 def _gpu_cases():
     """(name, B, S, W, use_h0): the sweep, then recurrentgemma-9b's
-    width (W 4096) at demo prompts and a long prompt, whose time steps
-    do not fill the kernel's last group of in-flight loads."""
+    width (W 4096) at demo prompts (one chunk: one launch) and long
+    prompts over many chunks with a ragged tail (two launches), whose
+    time steps do not fill the kernels' last group of in-flight loads;
+    the longest at B 3 with h0; and an odd width (bf16 one channel a
+    thread)."""
     out = [(f"sweep{i}", B, S, W, use_h0)
            for i, (B, S, W, _, _, use_h0) in enumerate(RGLRU_SWEEP)]
     out += [("rg9b-s5", 1, 5, 4096, False), ("rg9b-s10-h0", 2, 10, 4096, True),
-            ("rg9b-s1001", 1, 1001, 4096, True)]
+            ("rg9b-s1001", 1, 1001, 4096, True),
+            ("rg9b-b3-s2600-h0", 3, 2600, 4096, True),
+            ("odd-width", 2, 77, 33, True)]
     return out
 
 
@@ -144,3 +149,22 @@ def test_kernel_matches_plain_on_card(case, dt):
     tol = 2e-4 if dt == "float32" else 2e-2
     _close(h, want_h.float().cpu().numpy(), tol)
     _close(hf, want_f.cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [32, 64, 128])
+@pytest.mark.parametrize("case", [c for c in _gpu_cases() if c[0] in (
+    "sweep1", "rg9b-s10-h0", "rg9b-s1001")], ids=lambda c: c[0])
+def test_kernel_at_each_chunk_length_matches_plain_on_card(case, L):
+    """Chunk lengths forced, whatever ``plan`` would choose: one chunk,
+    several, many with a ragged tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.rglru import _rglru_cuda
+    _, B, S, W, use_h0 = case
+    args = _torch(rglru_inputs(B, S, W, use_h0, seed=L), "cuda")
+    h, hf = _rglru_cuda(*args, chunk_len=L)
+    torch.cuda.synchronize()
+    want_h, want_f = rglru_plain(*args)
+    _close(h, want_h.cpu().numpy(), 2e-4)
+    _close(hf, want_f.cpu().numpy(), 2e-4)

@@ -144,14 +144,16 @@ def test_cpu_tensors_take_the_plain_version():
 
 def _gpu_cases():
     """(name, B, S, H, P, G, N, use_D, use_h0): the sweep, mamba2-1.3b's
-    heads (H 64, P 64, G 1, N 128) at a demo prompt and across several
-    of the kernel's 64-token chunks with a ragged tail, and grouped heads
-    with N and P below the kernel's tiles."""
+    heads (H 64, P 64, G 1, N 128) at a demo prompt (one chunk: one
+    launch) and across several of the kernels' chunks with a ragged tail
+    (three launches; many chunks at B 2 with h0), and grouped heads with N
+    and P below the kernels' tiles."""
     out = [(f"sweep{i}", B, S, H, P, G, N, use_D, use_h0)
            for i, (B, S, H, P, G, N, _, use_D, use_h0) in
            enumerate(SSD_SWEEP)]
     out += [("mamba2-s7", 1, 7, 64, 64, 1, 128, True, False),
             ("mamba2-s200-h0", 2, 200, 64, 64, 1, 128, True, True),
+            ("mamba2-b2-s1000-h0", 2, 1000, 64, 64, 1, 128, True, True),
             ("groups", 2, 130, 8, 32, 4, 64, False, True)]
     return out
 
@@ -175,3 +177,25 @@ def test_kernel_matches_plain_on_card(case, dt):
     tol = TOL if dt == "float32" else 2e-2
     _close(y, want_y.float().cpu().numpy(), tol)
     _close(hf, want_h.cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [64, 128])
+@pytest.mark.parametrize("case", [c for c in _gpu_cases() if c[0] in (
+    "sweep1", "mamba2-s7", "mamba2-b2-s1000-h0", "groups")],
+    ids=lambda c: c[0])
+def test_kernel_at_each_chunk_length_matches_plain_on_card(case, Q):
+    """Each of the kernels' chunk lengths forced once, whatever ``plan``
+    would choose: one chunk, many with a ragged tail, grouped heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ssd import CHUNKS, _ssd_cuda
+    assert Q in CHUNKS
+    _, B, S, H, P, G, N, use_D, use_h0 = case
+    args = _torch(ssd_inputs(B, S, H, P, G, N, use_D, use_h0, seed=Q),
+                  "cuda")
+    y, hf = _ssd_cuda(*args, chunk_len=Q)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_plain(*args)
+    _close(y, want_y.cpu().numpy())
+    _close(hf, want_h.cpu().numpy())

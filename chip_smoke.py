@@ -21,8 +21,7 @@ Phases, in order; any failure exits non-zero:
    recurrentgemma's decode and 2600-token prefill.
    SSD: mamba2-1.3b's heads (H 64, P 64, G 1, N 128) at S 5-10, 256,
    1000 (B 2) and 2600, with and without D and h0, and the reference's
-   SSD_SWEEP; then B 2 S 1000 at each of the kernels' chunk lengths
-   forced.  RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600
+   SSD_SWEEP.  RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600
    (B 1, and B 2 and 3 with h0), with and without h0, and the
    reference's RGLRU_SWEEP; then B 3 S 2600 at chunk lengths 32, 64 and
    128 forced.  SSD and RG-LRU in f32 and bf16.  Router: T in {4, 5-10, 64, 384} at
@@ -115,6 +114,7 @@ HYBRID_ARCH = "recurrentgemma-9b"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
                   torch.float32: 67e12}    # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12                    # dense TF32 tensor cores
 TOL = {torch.bfloat16: 2e-2,
        # looser than the CPU's 2e-5: the kernel sums in another order
        torch.float32: 1e-4}
@@ -226,11 +226,12 @@ def host_read_ms(fn, flush, iters: int = 5) -> float:
     return total / iters
 
 
-def bound_of(nbytes: float, ops: float, dtype) -> tuple:
+def bound_of(nbytes: float, ops: float, dtype, peak=None) -> tuple:
     """(least ms, "bytes" | "operations"): bytes over 3.35 TB/s or
-    operations over the dtype's peak, whichever is larger."""
+    operations over ``peak`` (default the dtype's), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    t_ops = ops / (PEAK_OPS_PER_S[dtype] if peak is None else peak)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -490,34 +491,33 @@ def ssd_bound(x, B, has_D, has_h0):
     the D skip, at 2 operations a multiply-add.  A chunked algorithm's
     in-chunk C.B^T and score.x products are not counted: they are work
     that a chunk length chooses (a longer chunk does more of it), not
-    work the function needs."""
+    work the function needs.  The kernels' products run on the tensor
+    cores in 3xTF32 (f32 and bf16 inputs alike), so the operations count
+    at TF32's peak."""
     Bb, S, H, P = x.shape
     N = B.shape[3]
     elt = x.element_size()
     nbytes = (2 * x.numel() + 2 * B.numel()) * elt + 4 * Bb * S * H \
         + 4 * H * (1 + has_D) + 4 * Bb * H * P * N * (1 + has_h0)
     fma = Bb * S * H * (2 * P * N + P * has_D)
-    return bound_of(nbytes, 2 * fma, x.dtype)
+    return bound_of(nbytes, 2 * fma, x.dtype, peak=TF32_OPS_PER_S)
 
 
-def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None,
-              chunk_len=None):
+def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None):
     """SSD kernels against plain (at the model's ``chunk``, the kernels
-    at their own, ``plan``'s or ``chunk_len`` forced) on one set of
-    inputs; with ``flush`` also the times and the bound.  No PyTorch call
-    computes the SSD: library_ms null."""
+    at their own 64) on one set of inputs; with ``flush`` also the times
+    and the bound.  No PyTorch call computes the SSD: library_ms null."""
     Bb, S, H, P = x.shape
 
     def kernel():
-        return kssd._ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=chunk_len)
+        return kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
     got = kernel()
     torch.cuda.synchronize()
     want = kssd.ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
     row = _scan_row("ssd", name, f"B{Bb} S{S} H{H} P{P} G{B.shape[2]} "
                     f"N{B.shape[3]}" + (" D" if D is not None else "")
                     + (" h0" if h0 is not None else ""), got, want, x.dtype)
-    row["chunk_len"] = (kssd.plan(Bb, S, H) if chunk_len is None
-                        else chunk_len)
+    row["chunk_len"] = kssd.CHUNK
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(lambda: kssd.ssd_plain(
@@ -530,7 +530,7 @@ def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None,
 
 
 def ssd_case(name, B, S, H, P, G, N, dtype, *, use_D=True, use_h0=False,
-             chunk=256, flush=None, seed=0, chunk_len=None):
+             chunk=256, flush=None, seed=0):
     """``check_ssd`` on seeded inputs drawn as tests/test_kernels.py
     draws them: dt softplus'ed, A = -exp(z/2), B and C 0.3 z, h0 0.1 z."""
     gen = torch.Generator(device="cuda")
@@ -543,7 +543,7 @@ def ssd_case(name, B, S, H, P, G, N, dtype, *, use_D=True, use_h0=False,
     Bm, Cm = (z(B, S, G, N) * 0.3).to(dtype), (z(B, S, G, N) * 0.3).to(dtype)
     D = z(H) if use_D else None
     h0 = z(B, H, P, N) * 0.1 if use_h0 else None
-    return check_ssd(name, x, dt, A, Bm, Cm, D, h0, chunk, flush, chunk_len)
+    return check_ssd(name, x, dt, A, Bm, Cm, D, h0, chunk, flush)
 
 
 def rglru_bound(x, has_h0):
@@ -679,7 +679,7 @@ def phase_kernels():
     # SSD at mamba2-1.3b's heads: the demo's prompts (one chunk, one
     # launch), one reference chunk, many chunks with a ragged tail at B 2,
     # and the long phase's longest prompt, timed; then the reference's
-    # sweep; then each of the kernels' chunk lengths forced
+    # sweep
     mamba = dict(H=64, P=64, G=1, N=128)
     for dtype in (torch.float32, torch.bfloat16):
         for S in range(5, 11):
@@ -697,10 +697,6 @@ def phase_kernels():
             rows.append(ssd_case(f"ssd-sweep{i}", B=B, S=S, H=H, P=P, G=G,
                                  N=N, dtype=dtype, use_D=use_D,
                                  use_h0=use_h0, chunk=Q, seed=i))
-    for Q in kssd.CHUNKS:
-        rows.append(ssd_case(f"{SSM_ARCH}-b2-s1000-h0-q{Q}", B=2, S=1000,
-                             dtype=torch.float32, use_h0=True, seed=2,
-                             chunk_len=Q, **mamba))
     # RG-LRU at recurrentgemma-9b's width, the same way
     for dtype in (torch.float32, torch.bfloat16):
         for S in range(5, 11):

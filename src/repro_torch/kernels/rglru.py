@@ -139,8 +139,11 @@ def rglru_decode_step(h, x_t, r_gate_t, i_gate_t, log_lambda
 
 def plan(B: int, S: int, W: int) -> int:
     """The kernels' chunk length L for a call on the card, from shapes
-    alone."""
-    return 64
+    alone: 32 steps.  Timed at recurrentgemma-9b's W 4096, B 1, S
+    600-2600 against L 16-256 (``tools/scan_tuning.py``), 32 was the
+    fastest or within a few per cent of it at every S: shorter chunks put
+    more warps in flight, longer ones fewer summaries to fold."""
+    return 32
 
 
 def rglru(x, r_gate, i_gate, log_lambda, h0=None

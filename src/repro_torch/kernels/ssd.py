@@ -10,20 +10,21 @@ outside any Pallas kernel (``ops.ssd_decode_step``), and so does
 
 **What bounds it on an H100.**  The function needs 2·P·N + P
 multiply-adds a token and head (the recurrent form) on P + 2·N/rep
-values read: at mamba2's P 64, N 128 it is bound by operations, in f32
-on the CUDA cores (TF32 misses the port's 2e-4).
+values read.  The kernels' products run on the tensor cores in 3xTF32
+(each f32 operand split into two TF32 parts, three products: about f32
+accuracy, where plain TF32 misses the port's 2e-4), at whose 495 TFLOP/s
+peak the bound at mamba2's P 64, N 128 is the bytes.
 
 **What the design does about it.**  The chunk axis, sequential on the
 TPU, is parallel here: a call is three launches, each block one (head,
-chunk of Q tokens, row), so that prefill's batch of 1 fills the card:
+chunk of 64 tokens, row), so that prefill's batch of 1 fills the card:
 ``ssd_chunk_state`` sums each chunk's own state from zero,
 ``ssd_state_passing`` walks the chunks in order per state element and
 turns them into the states entering each chunk (and h_final), and
 ``ssd_chunk_scan`` computes y from a chunk's tokens (the causal half of
 C·Bᵀ only) and its entering state.  A sequence of one chunk (the demo's
 short prompts) is one launch of the scan from h0, which also writes
-h_final.  ``plan`` picks Q from shapes alone.  Their plain
-counterparts, held against :func:`ssd_plain` on the CPU:
+h_final.  Their plain counterparts, held against :func:`ssd_plain` on the CPU:
 :func:`ssd_chunk_states_plain`, :func:`ssd_state_passing_plain`,
 :func:`ssd_chunk_scan_plain`.
 
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 
 MAX_P = 64       # head dim the kernel's state tile covers
 MAX_N = 128      # state dim the kernel's shared memory holds
-CHUNKS = (64, 128)   # the kernel's chunk lengths Q
+CHUNK = 64       # the kernels' chunk length
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -206,16 +207,10 @@ def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
     return y.to(x_t.dtype), h_new
 
 
-def plan(B: int, S: int, H: int) -> int:
-    """The kernels' chunk length Q for a call on the card, from shapes
-    alone."""
-    return 64
-
-
 def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, h_final) of the chunked SSD; see ``ssd_plain``.  On the card
-    the kernels take their own chunk length (``plan``) whatever ``chunk``
+    the kernels take their own chunk length, ``CHUNK``, whatever ``chunk``
     says: the SSD is chunk-invariant."""
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
@@ -237,16 +232,15 @@ def _kernel():
         from .build import load
         fn = load("ssd").repro_ssd_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         _fn = fn
     return _fn
 
 
-def _ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=None):
+def _ssd_cuda(x, dt, A, B, C, D, h0):
     """One call on the card: one launch if the sequence is one chunk,
-    else three.  ``chunk_len`` forces Q (one of ``CHUNKS``; tests and the
-    smoke run only); None takes ``plan``'s."""
+    else three."""
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "
                          f"B {tuple(B.shape)} / C {tuple(C.shape)} (B,S,G,N)")
@@ -278,10 +272,7 @@ def _ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=None):
     A = A.float().contiguous()
     D = None if D is None else D.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
-    Q = plan(Bb, S, H) if chunk_len is None else int(chunk_len)
-    if Q not in CHUNKS:
-        raise ValueError(f"ssd: chunk_len {Q} not in {CHUNKS}")
-    nc = -(-S // Q)
+    nc = -(-S // CHUNK)
     y = torch.empty_like(x)
     hf = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
     states = decay = None
@@ -297,7 +288,7 @@ def _ssd_cuda(x, dt, A, B, C, D, h0, chunk_len=None):
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  hf.data_ptr(), None if states is None else states.data_ptr(),
                  None if decay is None else decay.data_ptr(), Bb, S, H, P,
-                 G, N, Q, int(x.dtype == torch.bfloat16), stream)
+                 G, N, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1

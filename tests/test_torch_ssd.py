@@ -178,24 +178,3 @@ def test_kernel_matches_plain_on_card(case, dt):
     _close(y, want_y.float().cpu().numpy(), tol)
     _close(hf, want_h.cpu().numpy(), tol)
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("Q", [64, 128])
-@pytest.mark.parametrize("case", [c for c in _gpu_cases() if c[0] in (
-    "sweep1", "mamba2-s7", "mamba2-b2-s1000-h0", "groups")],
-    ids=lambda c: c[0])
-def test_kernel_at_each_chunk_length_matches_plain_on_card(case, Q):
-    """Each of the kernels' chunk lengths forced once, whatever ``plan``
-    would choose: one chunk, many with a ragged tail, grouped heads."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.ssd import CHUNKS, _ssd_cuda
-    assert Q in CHUNKS
-    _, B, S, H, P, G, N, use_D, use_h0 = case
-    args = _torch(ssd_inputs(B, S, H, P, G, N, use_D, use_h0, seed=Q),
-                  "cuda")
-    y, hf = _ssd_cuda(*args, chunk_len=Q)
-    torch.cuda.synchronize()
-    want_y, want_h = ssd_plain(*args)
-    _close(y, want_y.cpu().numpy())
-    _close(hf, want_h.cpu().numpy())

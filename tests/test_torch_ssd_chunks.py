@@ -8,10 +8,10 @@ must equal ``ssd_plain`` at 1e-5 in f32 at the kernels' chunk lengths and
 others, on sequences shorter than, equal to and longer than a chunk, with
 a ragged last chunk, with and without h0 and D, at G 1 and 2; each piece
 must equal the JAX oracle ``ref.ssd_ref`` on the same numpy inputs at
-tests/test_kernels.py's 2e-4; ``plan`` must choose from shapes alone.
-Last, the accuracy question of putting the products on the tensor cores,
-answered by emulation: 3xTF32 keeps a mamba2-width SSD within the smoke
-run's SCAN_TOL, plain TF32 does not."""
+tests/test_kernels.py's 2e-4.  Last, the accuracy question of putting
+the products on the tensor cores, answered by emulation: 3xTF32 (what
+the kernels run) keeps a mamba2-width SSD within the smoke run's
+SCAN_TOL, plain TF32 does not."""
 from types import SimpleNamespace
 
 import numpy as np
@@ -46,8 +46,9 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("length", ["below", "equal", "whole", "ragged"])
 @pytest.mark.parametrize("Q", [16, 64, 128])
 def test_composition_equals_plain(Q, length, G, use_h0, use_D):
-    """below: S < Q (the kernels' one-launch path); equal: S = Q; whole:
-    three full chunks; ragged: two and a part."""
+    """Q 64 is the kernels' chunk; 16 and 128 check that the algebra does
+    not lean on it.  below: S < Q (the kernels' one-launch path); equal:
+    S = Q; whole: three full chunks; ragged: two and a part."""
     S = {"below": Q // 2 + 1, "equal": Q, "whole": 3 * Q,
          "ragged": 2 * Q + 5}[length]
     args = _torch(ssd_inputs(2, S, 4, 8, G, 16, use_D, use_h0, seed=S + G))
@@ -103,17 +104,11 @@ def test_each_piece_matches_the_oracle(case, Q, ref):
     _close(y, want_y, REF_TOL)
 
 
-def test_plan_chooses_a_kernel_chunk_from_shapes():
-    for B, S, H in [(1, 5, 64), (1, 600, 64), (1, 2600, 64), (4, 2600, 64),
-                    (2, 1000, 64), (3, 33, 4)]:
-        Q = kssd.plan(B, S, H)
-        assert Q in kssd.CHUNKS and Q == kssd.plan(B, S, H)
-
-
 # --- the tensor-core question, by emulation --------------------------------
 def _tf32(t):
-    """t with the 13 low mantissa bits zeroed: what a TF32 operand of
-    mma.sync keeps of an f32 register."""
+    """t with the 13 low mantissa bits zeroed: a TF32 operand cut from
+    an f32 value, as the kernels cut theirs (``split_tf32`` in
+    ``csrc/ssd.cu``)."""
     return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Time the SSD's and the RG-LRU's chunk lengths on one NVIDIA card.
 
-    python3 tools/scan_tuning.py
+    python3 tools/scan_tuning.py            # both parts
+    python3 tools/scan_tuning.py --passes   # part 2 only
 
 1. Chunk lengths: ``chip_smoke.py``'s SSD check (the kernels against
    their plain version, timed in a CUDA graph with the L2 flushed, beside
    the bound) at mamba2-1.3b's heads (H 64, P 64, G 1, N 128) in f32 at
-   B 1 and the main paths' S (5, 600, 1100, 2000, 2600), at each of the
-   kernels' chunk lengths Q forced and at ``plan``'s; the RG-LRU check at
-   recurrentgemma-9b's width 4096, the same S, at L 16-256 forced and at
-   ``plan``'s.
+   B 1 and the main paths' S (5, 600, 1100, 2000, 2600), at the kernels'
+   chunk of 64; the RG-LRU check at recurrentgemma-9b's width 4096, the
+   same S, at L 16-256 forced and at ``plan``'s.
 2. The passes apart: ``torch.profiler`` over 10 calls of each at S 600
-   and 2600 at ``plan``'s chunk length, device time by kernel name (the
-   L2 is not flushed between these calls).
+   and 2600, device time by kernel name (the L2 is not flushed between
+   these calls).
 
 Each timing is one line ``TUNING {json}`` on stdout.
 """
@@ -41,12 +41,10 @@ def emit(**row):
 
 def chunk_lengths(flush):
     for S in LENGTHS:
-        for Q in cs.kssd.CHUNKS + (None,):
-            r = cs.ssd_case(f"ssd-s{S}", B=1, S=S, dtype=torch.float32,
-                            flush=flush, chunk_len=Q, **MAMBA)
-            emit(kernel="ssd", S=S, chunk_len=r["chunk_len"],
-                 planned=Q is None, ms=r["ms"], bound_ms=r["bound_ms"],
-                 ok=r["ok"])
+        r = cs.ssd_case(f"ssd-s{S}", B=1, S=S, dtype=torch.float32,
+                        flush=flush, **MAMBA)
+        emit(kernel="ssd", S=S, chunk_len=r["chunk_len"], ms=r["ms"],
+             bound_ms=r["bound_ms"], ok=r["ok"])
         for L in RGLRU_CHUNKS + (None,):
             r = cs.rglru_case(f"rglru-s{S}", B=1, S=S, W=W,
                               dtype=torch.float32, flush=flush,
@@ -80,6 +78,11 @@ def passes(fn, what, S, calls=10):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--passes", action="store_true",
+                    help="part 2 only: the passes timed apart")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("scan_tuning: no CUDA device", file=sys.stderr)
         return 1
@@ -87,8 +90,9 @@ def main() -> int:
     cs.kbuild.build_all(["ssd", "rglru_scan"])
     for name, log in cs.kbuild.build_logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    chunk_lengths(flush)
+    if not args.passes:
+        chunk_lengths(torch.empty(256 << 20, dtype=torch.uint8,
+                                  device="cuda"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 

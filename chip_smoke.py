@@ -558,7 +558,7 @@ def rglru_bound(x, has_h0):
 
 
 def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None):
-    """RG-LRU kernels against plain on one set of inputs, at ``plan``'s
+    """RG-LRU kernels against plain on one set of inputs, at the kernels'
     chunk length or ``chunk_len`` forced; with ``flush`` also the times
     and the bound.  No PyTorch call computes it: library_ms null."""
     Bb, S, W = x.shape
@@ -570,8 +570,7 @@ def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None):
     want = krg.rglru_plain(x, rg, ig, ll, h0)
     row = _scan_row("rglru", name, f"B{Bb} S{S} W{W}"
                     + (" h0" if h0 is not None else ""), got, want, x.dtype)
-    row["chunk_len"] = (krg.plan(Bb, S, W) if chunk_len is None
-                        else chunk_len)
+    row["chunk_len"] = krg.CHUNK if chunk_len is None else chunk_len
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(lambda: krg.rglru_plain(x, rg, ig, ll,

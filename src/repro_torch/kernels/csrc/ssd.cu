@@ -32,9 +32,10 @@
 // launches, each block one (head, chunk, row):
 //   1. ssd_chunk_state: S_c from a zero state, and exp(cum_last), into
 //      the scratch;
-//   2. ssd_state_passing: one thread per (row, head, state element) walks
-//      the chunks in order, overwriting S_c with the state entering chunk
-//      c, and writes h_final;
+//   2. ssd_state_passing: one thread per (row, head, four state elements)
+//      walks the chunks in order, four chunks' loads in flight,
+//      overwriting S_c with the state entering chunk c, and writes
+//      h_final;
 //   3. ssd_chunk_scan: y from the chunk's own tokens and its entering
 //      state.
 // The state's round trip through device memory (86 MB at S 2600, H 64)

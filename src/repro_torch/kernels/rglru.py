@@ -18,8 +18,8 @@ Per channel, with the gates given before their sigmoid::
 and a dozen operations: bound by bytes.  Channels are independent and
 time is a chain of (a, b) pairs, which compose associatively.
 
-**What the design does about it.**  Time is cut into chunks of L steps
-(``plan``) and each (row, chunk, channel) is a thread, so that prefill's
+**What the design does about it.**  Time is cut into chunks of
+``CHUNK`` steps and each (row, chunk, channel) is a thread, so that prefill's
 batch of 1 puts tens of warps on every SM: ``rglru_chunk_summary`` runs
 each chunk from h = 0 and writes its pair (A_c = Π aₜ, end state e_c);
 ``rglru_chunk_apply`` folds the pairs of the chunks before its own into
@@ -47,6 +47,11 @@ import torch
 import torch.nn.functional as F
 
 RGLRU_C = 8.0
+# The kernels' chunk length L.  Timed at recurrentgemma-9b's W 4096, B 1,
+# S 600-2600 against L 16-256 (tools/scan_tuning.py), 32 was the fastest
+# or within a few per cent of it at every S: shorter chunks put more
+# warps in flight, longer ones leave fewer pairs to fold.
+CHUNK = 32
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -137,15 +142,6 @@ def rglru_decode_step(h, x_t, r_gate_t, i_gate_t, log_lambda
     return h_new.to(x_t.dtype), h_new
 
 
-def plan(B: int, S: int, W: int) -> int:
-    """The kernels' chunk length L for a call on the card, from shapes
-    alone: 32 steps.  Timed at recurrentgemma-9b's W 4096, B 1, S
-    600-2600 against L 16-256 (``tools/scan_tuning.py``), 32 was the
-    fastest or within a few per cent of it at every S: shorter chunks put
-    more warps in flight, longer ones fewer summaries to fold."""
-    return 32
-
-
 def rglru(x, r_gate, i_gate, log_lambda, h0=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h, h_final) of the RG-LRU; see ``rglru_plain``."""
@@ -178,7 +174,7 @@ def _kernel():
 def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None):
     """One call on the card: one launch if the sequence is one chunk,
     else two.  ``chunk_len`` forces L (tests and the smoke run only);
-    None takes ``plan``'s."""
+    None takes ``CHUNK``."""
     if x.ndim != 3 or r_gate.shape != x.shape or i_gate.shape != x.shape:
         raise ValueError(f"rglru: x {tuple(x.shape)}, r_gate "
                          f"{tuple(r_gate.shape)} and i_gate "
@@ -202,7 +198,7 @@ def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None):
     x, r_gate, i_gate = (t.contiguous() for t in (x, r_gate, i_gate))
     ll = log_lambda.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
-    L = plan(Bb, S, W) if chunk_len is None else int(chunk_len)
+    L = CHUNK if chunk_len is None else int(chunk_len)
     if L < 1:
         raise ValueError(f"rglru: chunk_len {L} must be >= 1")
     nc = -(-S // L)

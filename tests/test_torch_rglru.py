@@ -156,8 +156,8 @@ def test_kernel_matches_plain_on_card(case, dt):
 @pytest.mark.parametrize("case", [c for c in _gpu_cases() if c[0] in (
     "sweep1", "rg9b-s10-h0", "rg9b-s1001")], ids=lambda c: c[0])
 def test_kernel_at_each_chunk_length_matches_plain_on_card(case, L):
-    """Chunk lengths forced, whatever ``plan`` would choose: one chunk,
-    several, many with a ragged tail."""
+    """Chunk lengths forced, whatever ``CHUNK`` is: one chunk, several,
+    many with a ragged tail."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from repro_torch.kernels.rglru import _rglru_cuda

@@ -146,15 +146,17 @@ def _gpu_cases():
     """(name, B, S, H, P, G, N, use_D, use_h0): the sweep, mamba2-1.3b's
     heads (H 64, P 64, G 1, N 128) at a demo prompt (one chunk: one
     launch) and across several of the kernels' chunks with a ragged tail
-    (three launches; many chunks at B 2 with h0), and grouped heads with N
-    and P below the kernels' tiles."""
+    (three launches; many chunks at B 2 with h0), grouped heads with N
+    and P below the kernels' tiles, and P and N that are no multiple of 4
+    (element-wise loads and state passing, odd P's stores)."""
     out = [(f"sweep{i}", B, S, H, P, G, N, use_D, use_h0)
            for i, (B, S, H, P, G, N, _, use_D, use_h0) in
            enumerate(SSD_SWEEP)]
     out += [("mamba2-s7", 1, 7, 64, 64, 1, 128, True, False),
             ("mamba2-s200-h0", 2, 200, 64, 64, 1, 128, True, True),
             ("mamba2-b2-s1000-h0", 2, 1000, 64, 64, 1, 128, True, True),
-            ("groups", 2, 130, 8, 32, 4, 64, False, True)]
+            ("groups", 2, 130, 8, 32, 4, 64, False, True),
+            ("odd-dims", 2, 150, 2, 5, 1, 7, True, True)]
     return out
 
 

@@ -12,8 +12,9 @@
 //
 // Layouts (all contiguous): x, y (B, S, H, P) f32 or bf16; dt (B, S, H)
 // f32; A, D (H,) f32; B, C (B, S, G, N) in x's type; h0, h_final
-// (B, H, P, N) f32; the wrapper's scratch: states (B, nc, H, P, N) f32
-// and decay (B, nc, H) f32, nc = ceil(S / 64).  P <= 64, N <= 128.
+// (B, H, P, N) f32; the wrapper's scratch: states (B, nc, H, P, N),
+// decay (B, nc, H) and C.B^T (B, nc, G, 64, 64), f32, nc = ceil(S / 64).
+// P <= 64, N <= 128.
 //
 // What bounds it on an H100.  The function needs 2 P N + P multiply-adds
 // a token and head (the recurrent form) on (P + 2 N / rep) values read.
@@ -28,8 +29,11 @@
 // Design.  The TPU kernel runs its chunk axis in order with the state in
 // VMEM.  One block per (head, row) walking the chunks in order left most
 // of the card idle at prefill's batch of 1 (64 heads, 132 SMs) and ran
-// the chunks in series.  Here the chunk axis is parallel, in three
-// launches, each block one (head, chunk, row):
+// the chunks in series.  Here the chunk axis is parallel, in four
+// launches, each block one (head or group, chunk, row):
+//   0. ssd_chunk_cb: the chunk's C.B^T, which does not depend on the head,
+//      once per group, so that the group's heads (all 64 of mamba2's,
+//      G = 1) share one product;
 //   1. ssd_chunk_state: S_c from a zero state, and exp(cum_last), into
 //      the scratch;
 //   2. ssd_state_passing: one thread per (row, head, four state elements)
@@ -49,10 +53,10 @@
 // computed, nor the score.x terms past the strip's last row.  A block's
 // tiles are fetched into registers all at once and put into shared
 // memory after (one memory latency, not one a tile), and the entering
-// state is fetched while C.B^T runs.  Q = 64: Q = 128 halves the state
-// traffic but doubles the in-chunk work, and was slower at every S on the
-// CUDA cores; with the padded tiles its scan no longer fits a block's
-// shared memory.
+// state is fetched while the scores are formed.  Q = 64: Q = 128 halves
+// the state traffic but doubles the in-chunk work, and was slower at
+// every S on the CUDA cores; with the padded tiles its scan no longer
+// fits a block's shared memory.
 //
 // Rounding of the reassociation.  The state is summed per chunk from
 // zero, then passed: h_c = decay_c h_{c-1} + S_c in f32, where the
@@ -97,6 +101,7 @@ struct Params {
   float* hf;
   float* states;  // (B, nc, H, P, N): chunk states, then entering states
   float* decay;   // (B, nc, H): exp(cum_last) of each chunk
+  float* cb;      // (B, nc, G, kQ, kQ): C_i . B_j of each chunk and group
   int B, S, H, P, G, N, nc;
 };
 
@@ -278,6 +283,34 @@ __device__ void chunk_cum(float A, const float* dts, double* cum) {
   __syncthreads();
 }
 
+// C.B^T for this warp's strip of the chunk's 64 x 64: rows i from
+// m0 = 16 (warp / 2), columns j from n0 = 32 (warp % 2), accumulated over
+// n < K with C(i, n) at Cs[i * lc + n] and B(j, n) at Bs[j * lb + n].
+// The 16 x 8 fragments wholly above the diagonal or past the chunk's rows
+// are left as they are (zero).
+__device__ __forceinline__ void cb_strip(float (&acc)[4][4], const float* Cs,
+                                         int lc, const float* Bs, int lb,
+                                         int K, int rows) {
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+  const int live =
+      m0 < rows ? min(min(ceil8(m0 + 16 - n0), ceil8(rows - n0)) / 8, 4) : 0;
+  if (live > 0) warp_mma3<4>(acc, Cs, lc, 1, m0, Bs, 1, lb, n0, K, live);
+}
+
+// this warp's strip of acc (as cb_strip lays it out) into dst[i * ld + j]
+__device__ __forceinline__ void store_strip(const float (&acc)[4][4],
+                                            float* dst, int ld) {
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp >> 1), n0 = 32 * (warp & 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2)
+      store2(dst + (m0 + frag_row(e)) * ld + n0 + frag_col(j, e),
+             acc[j][e], acc[j][e + 1]);
+}
+
 // The chunk state's 64 x 128 tile over the 8 warps, each 16 rows (p) by
 // 64 columns (n): acc = sum_{j < rows} xw[j][p] Bs[j][n], xw (kQ, kLX)
 // and Bs (kQ, ldb) row-major in shared memory.
@@ -298,6 +331,35 @@ __device__ __forceinline__ int state_p(int e) {
 }
 __device__ __forceinline__ int state_n(int j, int e) {
   return 64 * ((threadIdx.x >> 5) & 1) + frag_col(j, e);
+}
+
+// 0. C.B^T of chunk blockIdx.y and group blockIdx.x, which every head of
+// the group shares: raw products, the fragments above the diagonal or past
+// the chunk's rows left zero
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_chunk_cb(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Cs = reinterpret_cast<float*>(smem);  // [kQ][kLN]
+  float* Bs = Cs + kQ * kLN;                   // [kQ][kLN]
+  const int g = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int s0 = c * kQ;
+  const int rows = min(kQ, p.S - s0);
+  const size_t off = ((size_t)b * p.S + s0) * p.G * p.N + (size_t)g * p.N;
+  {
+    Tile<kQ, kN> ct, bt;
+    ct.fetch(static_cast<const T*>(p.Cm) + off, (size_t)p.G * p.N, rows, p.N);
+    bt.fetch(static_cast<const T*>(p.Bm) + off, (size_t)p.G * p.N, rows, p.N);
+    ct.put(Cs, kLN);
+    bt.put(Bs, kLN);
+  }
+  __syncthreads();
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  cb_strip(acc, Cs, kLN, Bs, kLN, ceil8(p.N), rows);
+  store_strip(acc, p.cb + (((size_t)b * p.nc + c) * p.G + g) * kQ * kQ, kQ);
 }
 
 // 1. the state of chunk blockIdx.y from a zero state, and its decay
@@ -432,7 +494,7 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan(Params p) {
   float* dts = reinterpret_cast<float*>(cum + kQ);  // [kQ]
   float* wts = dts + kQ;                            // [kQ]
   float* Cs = wts + kQ;                             // [kQ][kLN]
-  float* Bs = Cs + kQ * kLN;  // [kQ][kLN]; then h [kP][kLN]; then
+  float* Bs = Cs + kQ * kLN;  // [kQ][kLN]: (kFinal) B; h [kP][kLN];
                               // (kFinal) B again
   float* xs = Bs + kQ * kLN;  // [kQ][kLX]; (kFinal) then x w
   float* st = xs + kQ * kLX;  // [kQ][kLS]: scores, st[i][j]
@@ -456,50 +518,51 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_scan(Params p) {
       : kFinal ? p.h0 + ((size_t)b * H + h) * P * N
                : p.states + (((size_t)b * p.nc + c) * H + h) * P * N;
 
+  // C, x and C.B^T (from the scratch; kFinal: B, to compute it) fetched
+  // at once
   {
-    Tile<kQ, kN> ct, bt;
+    Tile<kQ, kN> ct;
     Tile<kQ, kP> xt;
     ct.fetch(static_cast<const T*>(p.Cm) + bc_off, (size_t)G * N, rows, N);
-    bt.fetch(Bm + bc_off, (size_t)G * N, rows, N);
     xt.fetch(static_cast<const T*>(p.x) + x_off, (size_t)H * P, rows, P);
+    if constexpr (kFinal) {
+      Tile<kQ, kN> bt;
+      bt.fetch(Bm + bc_off, (size_t)G * N, rows, N);
+      bt.put(Bs, kLN);
+    } else {
+      Tile<kQ, kQ> cbt;
+      cbt.fetch(p.cb + (((size_t)b * p.nc + c) * G + g) * kQ * kQ,
+                (size_t)kQ, kQ, kQ);
+      cbt.put(st, kLS);
+    }
     if (tid < kQ) dts[tid] = chunk_dt(p, b, h, s0, rows);
     ct.put(Cs, kLN);
-    bt.put(Bs, kLN);
     xt.put(xs, kLX);
   }
   __syncthreads();
   chunk_cum(p.A[h], dts, cum);
 
-  // the entering state is fetched while C.B^T runs, and put over B after
+  // the entering state is fetched now and put over B once B is dead
   Tile<kP, kN> ht;
   if (has_h) ht.fetch(hin, (size_t)N, P, N);
-
-  // scores: st[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i;
-  // fragments wholly above the diagonal or past the rows are not computed
-  {
+  if constexpr (kFinal) {
     float acc[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    const int live =
-        m0 < rows ? min(min(ceil8(m0 + 16 - n0), ceil8(rows - n0)) / 8, 4)
-                  : 0;
-    if (live > 0)
-      warp_mma3<4>(acc, Cs, kLN, 1, m0, Bs, 1, kLN, n0, ceil8(N), live);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = m0 + frag_row(e);
-        const int jj = n0 + frag_col(j, e);
-        st[i * kLS + jj] =
-            j < live && i >= jj
-                ? acc[j][e] * expf((float)(cum[i] - cum[jj])) * dts[jj]
-                : 0.f;
-      }
+    cb_strip(acc, Cs, kLN, Bs, kLN, ceil8(N), rows);
+    store_strip(acc, st, kLS);
+    __syncthreads();  // C.B^T is in; B is dead
   }
-  __syncthreads();  // scores done; B is dead
+
+  // scores: st[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i
+  for (int e = tid; e < kQ * kQ; e += kThreads) {
+    const int i = e / kQ, j = e % kQ;
+    float* v = st + i * kLS + j;
+    *v = j <= i ? *v * expf((float)(cum[i] - cum[j])) * dts[j] : 0.f;
+  }
+  __syncthreads();  // scores done
   if (has_h) ht.put(Bs, kLN);
   const float* hs = Bs;
 
@@ -588,6 +651,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     scan<<<dim3(p.H, 1, p.B), kThreads, scan_smem, stream>>>(p);
     return cudaGetLastError();
   }
+  const size_t cb_smem = sizeof(float) * 2 * kQ * kLN;
+  auto cbk = ssd_chunk_cb<T>;
+  if ((e = allow_smem(cbk, cb_smem)) != cudaSuccess) return e;
+  cbk<<<dim3(p.G, p.nc, p.B), kThreads, cb_smem, stream>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
   const size_t state_smem =
       sizeof(double) * kQ + sizeof(float) * (2 * kQ + kQ * kLX + kQ * kLB);
   auto state = ssd_chunk_state<T>;
@@ -613,13 +682,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // One call of the SSD: one launch when the sequence is one chunk of 64
-// tokens, else three.  states (B, nc, H, P, N) and decay (B, nc, H) are
-// the caller's f32 scratch, nc = ceil(S / 64); unused (may be null) when
-// nc == 1.  Returns the first non-zero cudaGetLastError() (0 = launched).
+// tokens, else four.  states (B, nc, H, P, N), decay (B, nc, H) and cb
+// (B, nc, G, 64, 64) are the caller's f32 scratch, nc = ceil(S / 64);
+// unused (may be null) when nc == 1.  Returns the first non-zero cudaGetLastError() (0 = launched).
 extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, const float* D,
                              const float* h0, void* y, float* hf,
-                             float* states, float* decay, int B, int S,
+                             float* states, float* decay, float* cb, int B,
+                             int S,
                              int H, int P, int G, int N, int is_bf16,
                              void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
@@ -637,6 +707,7 @@ extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
   p.hf = hf;
   p.states = states;
   p.decay = decay;
+  p.cb = cb;
   p.B = B;
   p.S = S;
   p.H = H;
@@ -645,7 +716,7 @@ extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
   p.N = N;
   p.nc = (S + kQ - 1) / kQ;
   if (p.nc > 65535 || B > 65535 ||
-      (p.nc > 1 && (states == nullptr || decay == nullptr)))
+      (p.nc > 1 && (states == nullptr || decay == nullptr || cb == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return (int)launch<__nv_bfloat16>(p, st);

@@ -16,9 +16,11 @@ accuracy, where plain TF32 misses the port's 2e-4), at whose 495 TFLOP/s
 peak the bound at mamba2's P 64, N 128 is the bytes.
 
 **What the design does about it.**  The chunk axis, sequential on the
-TPU, is parallel here: a call is three launches, each block one (head,
-chunk of 64 tokens, row), so that prefill's batch of 1 fills the card:
-``ssd_chunk_state`` sums each chunk's own state from zero,
+TPU, is parallel here: a call is four launches, each block one (head or
+group, chunk of 64 tokens, row), so that prefill's batch of 1 fills the
+card: ``ssd_chunk_cb`` forms each chunk's C·Bᵀ once for the heads of a
+group, which share it; ``ssd_chunk_state`` sums each chunk's own state
+from zero,
 ``ssd_state_passing`` walks the chunks in order per state element and
 turns them into the states entering each chunk (and h_final), and
 ``ssd_chunk_scan`` computes y from a chunk's tokens (the causal half of
@@ -232,7 +234,7 @@ def _kernel():
         from .build import load
         fn = load("ssd").repro_ssd_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         _fn = fn
     return _fn
@@ -240,7 +242,7 @@ def _kernel():
 
 def _ssd_cuda(x, dt, A, B, C, D, h0):
     """One call on the card: one launch if the sequence is one chunk,
-    else three."""
+    else four."""
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "
                          f"B {tuple(B.shape)} / C {tuple(C.shape)} (B,S,G,N)")
@@ -275,11 +277,14 @@ def _ssd_cuda(x, dt, A, B, C, D, h0):
     nc = -(-S // CHUNK)
     y = torch.empty_like(x)
     hf = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
-    states = decay = None
+    states = decay = cb = None
     if nc > 1:          # the chunk states, then the entering states
         states = torch.empty((Bb, nc, H, P, N), dtype=torch.float32,
                              device=dev)
         decay = torch.empty((Bb, nc, H), dtype=torch.float32, device=dev)
+        # each chunk's C·Bᵀ, shared by the heads of a group
+        cb = torch.empty((Bb, nc, G, CHUNK, CHUNK), dtype=torch.float32,
+                         device=dev)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -287,8 +292,9 @@ def _ssd_cuda(x, dt, A, B, C, D, h0):
                  C.data_ptr(), None if D is None else D.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  hf.data_ptr(), None if states is None else states.data_ptr(),
-                 None if decay is None else decay.data_ptr(), Bb, S, H, P,
-                 G, N, int(x.dtype == torch.bfloat16), stream)
+                 None if decay is None else decay.data_ptr(),
+                 None if cb is None else cb.data_ptr(), Bb, S, H, P, G, N,
+                 int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1

@@ -146,7 +146,7 @@ def _gpu_cases():
     """(name, B, S, H, P, G, N, use_D, use_h0): the sweep, mamba2-1.3b's
     heads (H 64, P 64, G 1, N 128) at a demo prompt (one chunk: one
     launch) and across several of the kernels' chunks with a ragged tail
-    (three launches; many chunks at B 2 with h0), grouped heads with N
+    (four launches; many chunks at B 2 with h0), grouped heads with N
     and P below the kernels' tiles, and P and N that are no multiple of 4
     (element-wise loads and state passing, odd P's stores)."""
     out = [(f"sweep{i}", B, S, H, P, G, N, use_D, use_h0)

@@ -1,7 +1,8 @@
 """The SSD kernels' chunk-parallel decomposition, on the CPU.
 
-On the card the SSD is three launches (``csrc/ssd.cu``): each chunk's
-own state from zero (``ssd_chunk_state``), the states entering each chunk
+On the card the SSD is four launches (``csrc/ssd.cu``): each chunk's
+C·Bᵀ once per group of heads (``ssd_chunk_cb``; the plain scan forms it
+per head), each chunk's own state from zero (``ssd_chunk_state``), the states entering each chunk
 (``ssd_state_passing``), and y from a chunk's tokens and its entering
 state (``ssd_chunk_scan``).  Here their plain counterparts: composed, they
 must equal ``ssd_plain`` at 1e-5 in f32 at the kernels' chunk lengths and

@@ -19,8 +19,8 @@ and a dozen operations: bound by bytes.  Channels are independent and
 time is a chain of (a, b) pairs, which compose associatively.
 
 **What the design does about it.**  Time is cut into chunks of
-``CHUNK`` steps and each (row, chunk, channel) is a thread, so that prefill's
-batch of 1 puts tens of warps on every SM: ``rglru_chunk_summary`` runs
+``CHUNK`` steps and each (row, chunk, channel) is a thread, so that
+prefill's batch of 1 puts tens of warps on every SM: ``rglru_chunk_summary`` runs
 each chunk from h = 0 and writes its pair (A_c = Π aₜ, end state e_c);
 ``rglru_chunk_apply`` folds the pairs of the chunks before its own into
 the entering state from h0 and runs its chunk again from there, writing
@@ -94,7 +94,7 @@ def _chunked_steps(x, r_gate, i_gate, log_lambda, L: int):
 
 
 def rglru_chunk_summary_plain(x, r_gate, i_gate, log_lambda, *,
-                              chunk: int = 64
+                              chunk: int = CHUNK
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each chunk's pair, as ``rglru_chunk_summary`` computes it: (A
     (Bb,nc,W) = Π aₜ over the chunk, e (Bb,nc,W) = its end state from
@@ -109,7 +109,7 @@ def rglru_chunk_summary_plain(x, r_gate, i_gate, log_lambda, *,
 
 
 def rglru_chunk_apply_plain(x, r_gate, i_gate, log_lambda, A, e, h0=None,
-                            *, chunk: int = 64
+                            *, chunk: int = CHUNK
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second pass, as ``rglru_chunk_apply`` computes it: each chunk's
     entering state folded from h0 (or zero) over the earlier chunks'

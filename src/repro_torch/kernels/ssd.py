@@ -133,7 +133,7 @@ def _cum(dt, A, Q: int):
     return torch.cumsum((_cut(dt, Q) * A.float()).double(), dim=2)
 
 
-def ssd_chunk_states_plain(x, dt, A, B, *, chunk: int = 64
+def ssd_chunk_states_plain(x, dt, A, B, *, chunk: int = CHUNK
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each chunk's own end state from a zero state and its decay, as
     ``ssd_chunk_state`` computes them: states (Bb,nc,H,P,N) =
@@ -164,7 +164,7 @@ def ssd_state_passing_plain(states, decay, h0=None
 
 
 def ssd_chunk_scan_plain(x, dt, A, B, C, entering, D=None, *,
-                         chunk: int = 64) -> torch.Tensor:
+                         chunk: int = CHUNK) -> torch.Tensor:
     """y of every chunk from its own tokens and the state entering it, as
     ``ssd_chunk_scan`` computes it: Σ_{j≤i} exp(cum_i − cum_j)·dt_j·
     (C_i·B_j)·x_j + exp(cum_i)·C_i·h_enterᵀ + D·x_i, in x's dtype."""

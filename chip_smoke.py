@@ -24,13 +24,21 @@ Phases, in order; any failure exits non-zero:
    SSD_SWEEP.  RG-LRU: recurrentgemma-9b's width 4096 at S 5-10 and 2600
    (B 1, and B 2 and 3 with h0), with and without h0, and the
    reference's RGLRU_SWEEP; then B 3 S 2600 at chunk lengths 32, 64 and
-   128 forced.  SSD and RG-LRU in f32 and bf16.  Router: T in {4, 5-10, 64, 384} at
-   granite's E 40, k 8, and the reference's (T, E) x k grid; indices
-   exact (a swap of two probabilities within 1e-6 is a tie, reported).
-   Fletcher-64: the CPU test's lengths, byte counts that are no multiple
-   of 4, 155.6 M words (qwen1.5-0.5b's embedding), each with one bit
-   flipped; exactly equal.  The spec shapes are timed (CUDA events,
-   warmed up, L2 flushed) beside the least time the card could take.
+   128 forced.  SSD and RG-LRU in f32 and bf16.  Router (routing and
+   dispatch in one launch): T in {4, 5-10, 64, 384, 2600} at granite's E
+   40, k 8, dropless; T 64 with a capacity that drops, 48 experts of
+   which 40 are real, deepseek's E 64 k 6 with 60 real and drops; then
+   the reference's (T, E) x k grid through ``router_topk``.  Indices
+   exact (a swap of two probabilities within 1e-6 is a tie, reported);
+   w, probs and the aux sums within tolerance; slots, slot tokens and
+   loads exactly equal to the plain dispatch (both forms) of the
+   kernel's own indices.  Fletcher-64: the CPU test's lengths, byte
+   counts that are no multiple of 4, 155.6 M words (qwen1.5-0.5b's
+   embedding), each with one bit flipped, and a mixed batch (4 KB, 1-3
+   bytes, a view at offset 1, 4 MB, 11.5 MB, empty) in one launch where
+   a flipped byte changes its own shard's checksum only; exactly equal.
+   The spec shapes are timed (CUDA events, warmed up, L2 flushed) beside
+   the least time the card could take.
 3. The main paths, each driven with the kernels' launch counts set to 0
    just before it and read just after; every (kernel, entry point,
    shape) is recorded with the inputs of its last launch:
@@ -41,14 +49,22 @@ Phases, in order; any failure exits non-zero:
       ~384-token turns through ``gen.generate`` with a ``session_id``).
       Attention must launch on prefill, chunk and decode.
    b. granite-moe-3b-a800m serving, the same demo and sessions at full
-      width: attention and the MoE router must launch on each.
+      width: attention and the MoE router must launch on each.  Then one
+      MoE layer at granite's width on a decode step's 4 tokens and a
+      chunk's 64: it must make no host sync (``torch.cuda``'s sync debug
+      mode set to "error"), its output must equal bit for bit that of
+      the eager-dispatch layer the port ran before (kept here as a
+      yardstick), and ``torch.profiler`` counts both layers' launches
+      around the router matmul and the expert products.
    c. The checkpoint service: full-width qwen1.5-0.5b weights saved from
       the card through ``CheckpointClient`` to a ``CheckpointServer``
       over tcp (checksums on the card, verified on the server's card),
       restored to the card bitwise-equal; a restore from a store with
       one flipped byte raises CHECKSUM_ERROR; one greedy request served
       with the restored weights gives the original tokens.  Fletcher-64
-      must launch on save, verify and restore.
+      must launch on save, verify and restore: one batch for the save's
+      manifest and one for each restore, one for each group of shards
+      the server verifies.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -75,10 +91,12 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -86,6 +104,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.executor import Engine  # noqa: E402
@@ -102,6 +121,7 @@ from repro_torch.models import attention as attn_layer  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import rglru_block, ssd_block  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.services import base as svc_base  # noqa: E402
 from repro_torch.services import checkpoint as ckpt  # noqa: E402
@@ -420,51 +440,75 @@ def router_ties(idx, pidx, pprobs):
     return out
 
 
-def check_router(name, logits, k, flush=None):
-    """Router kernel against plain on one (T, E) logits tensor: indices
-    exactly equal except ties (two probabilities within TIE_GAP), which
-    are reported; w and probs within rtol/atol."""
+def check_router(name, logits, k, n_real=None, capacity=None, flush=None):
+    """Routing kernel against plain on one (T, E) logits tensor, with
+    ``n_real`` real experts (default E) and capacity C (default T,
+    dropless): indices exactly equal except ties (two probabilities
+    within TIE_GAP), which are reported; w, probs, prob_sum and z_sum
+    within rtol/atol (w only without ties); slots, slot tokens and loads
+    exactly equal to the plain dispatch, both forms, of the kernel's own
+    indices.  At n_real = E and C = T, ``router_topk`` must return the
+    same (w, idx, probs): it launches the same kernel."""
     T, E = logits.shape
-    w, idx, probs = kr.router_topk(logits, k)
+    n_real = E if n_real is None else n_real
+    capacity = T if capacity is None else capacity
+    kw = dict(n_real=n_real, capacity=capacity)
+    r = kr.router_dispatch(logits, k, **kw)
     torch.cuda.synchronize()
-    pw, pidx, pprobs = kr.router_topk_plain(logits, k)
-    swaps = router_ties(idx.cpu(), pidx.cpu(), pprobs.cpu())
+    p = kr.router_dispatch_plain(logits, k, **kw)
+    swaps = router_ties(r.idx.cpu(), p.idx.cpu(), p.probs.cpu())
     ties = [s for s in swaps if abs(s[4] - s[5]) <= TIE_GAP]
-    err = max(float((probs - pprobs).abs().max()),
-              0.0 if swaps else float((w - pw).abs().max()))
-    close = bool(torch.allclose(probs, pprobs, rtol=ROUTER_RTOL,
-                                atol=ROUTER_ATOL)) and (
-        bool(swaps) or bool(torch.allclose(w, pw, rtol=ROUTER_RTOL,
-                                           atol=ROUTER_ATOL)))
-    row = {"kernel": "moe_router", "case": name, "shape": f"T{T} E{E} k{k}",
-           "max_abs_err": err, "index_swaps": len(swaps),
-           "ties": ties, "ok": close and len(ties) == len(swaps)}
+    near = ("probs", "prob_sum", "z_sum") + (() if swaps else ("w",))
+    err = max(float((getattr(r, n) - getattr(p, n)).abs().max())
+              for n in near)
+    close = all(bool(torch.allclose(getattr(r, n), getattr(p, n),
+                                    rtol=ROUTER_RTOL, atol=ROUTER_ATOL))
+                for n in near)
+    exact = all(torch.equal(a, b) for form in ("sort", "cumsum")
+                for a, b in zip((r.slot, r.src, r.load),
+                                kr.dispatch_plain(r.idx, E, capacity, form)))
+    if n_real == E and capacity == T:
+        exact = exact and all(torch.equal(a, b) for a, b in
+                              zip(kr.router_topk(logits, k), r[:3]))
+    row = {"kernel": "moe_router", "case": name,
+           "shape": f"T{T} E{E} k{k} real{n_real} C{capacity}",
+           "max_abs_err": err, "index_swaps": len(swaps), "ties": ties,
+           "dropped": int((r.slot == E * capacity).sum()),
+           "dispatch_exact": exact,
+           "ok": close and exact and len(ties) == len(swaps)}
     if swaps and len(ties) != len(swaps):
         row["swaps"] = swaps
     if flush is not None:
-        row["ms"] = device_ms(lambda: kr.router_topk(logits, k), flush)
-        row["plain_ms"] = device_ms(lambda: kr.router_topk_plain(logits, k),
-                                    flush)
+        row["ms"] = device_ms(lambda: kr.router_dispatch(logits, k, **kw),
+                              flush)
+        row["plain_ms"] = device_ms(
+            lambda: kr.router_dispatch_plain(logits, k, **kw), flush)
+        # no one PyTorch call routes and dispatches; the top-k part alone
+        # takes three (the earlier yardstick, kept beside it)
+        row["library_ms"] = None
 
-        def library():            # three calls: no one call computes it
-            p = torch.softmax(logits, dim=-1)
-            tw, ti = torch.topk(p, k)
-            return tw / tw.sum(-1, keepdim=True).clamp_min(1e-9), ti, p
-        row["library_ms"] = device_ms(library, flush)
-        row["library"] = "softmax + topk + renormalize (3 calls)"
-        # logits read, probs written, w and idx written; per element a
-        # max, an exp, a sum, a divide and a compare per round
+        def topk_library():
+            pr = torch.softmax(logits, dim=-1)
+            tw, ti = torch.topk(pr, k)
+            return tw / tw.sum(-1, keepdim=True).clamp_min(1e-9), ti, pr
+        row["topk_library_ms"] = device_ms(topk_library, flush)
+        # logits read; probs, w, idx, slot, src, load, prob_sum and z_sum
+        # written; per element a max, an exp, a sum, a divide and a
+        # compare per round
         row["bound_ms"], row["bound_by"] = bound_of(
-            8 * T * E + 8 * T * k, (4 + 2 * k) * T * E, torch.float32)
+            8 * T * E + 12 * T * k + 4 * E * capacity + 8 * E + 4,
+            (4 + 2 * k) * T * E, torch.float32)
     print("kernel-check", json.dumps(row))
     return row
 
 
-def router_case(name, T, E, k, flush=None, seed=0):
+def router_case(name, T, E, k, flush=None, seed=0, n_real=None,
+                capacity=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     return check_router(name, torch.randn((T, E), generator=gen,
-                                          device="cuda"), k, flush)
+                                          device="cuda"), k, n_real,
+                        capacity, flush)
 
 
 # ---------------------------------------------------------------------------
@@ -598,31 +642,40 @@ def rglru_case(name, B, S, W, dtype, *, use_h0=False, flush=None, seed=0,
 # ---------------------------------------------------------------------------
 # kernel against its plain version: Fletcher-64
 # ---------------------------------------------------------------------------
-def check_fletcher(name, x, flush=None, flip=True):
-    """Fletcher-64 kernel against plain on one tensor, exactly; with
-    ``flip``, one bit flipped in the middle must change the kernel's
-    checksum to the plain version's of the flipped bytes."""
-    nbytes = x.numel() * x.element_size()
-    got = fl.fletcher64(x)
-    want = fl.fletcher64_plain(x)
+def check_fletcher(name, xs, flush=None, flips=()):
+    """Fletcher-64 kernel against plain on a batch of tensors, exactly;
+    for each index in ``flips``, one bit flipped in the middle of that
+    shard must change its checksum, to the plain version's of the
+    flipped bytes, and no other shard's."""
+    nbytes = sum(x.numel() * x.element_size() for x in xs)
+    got = fl.fletcher64_many(xs)
+    want = fl.fletcher64_many_plain(xs)
     ok = got == want
-    if flip and nbytes:
-        raw = x.detach().clone().reshape(-1).view(torch.uint8)
-        raw[nbytes // 2] ^= 1 << 5
-        flipped = fl.fletcher64(raw)
-        ok = ok and flipped != got and flipped == fl.fletcher64_plain(raw)
+    for i in flips:
+        raw = xs[i].detach().clone().reshape(-1).view(torch.uint8)
+        raw[raw.numel() // 2] ^= 1 << 5
+        again = fl.fletcher64_many(xs[:i] + [raw] + xs[i + 1:])
+        ok = ok and again[i] != got[i] and \
+            again[i] == fl.fletcher64_plain(raw) and \
+            again[:i] + again[i + 1:] == got[:i] + got[i + 1:]
         del raw
-    row = {"kernel": "fletcher64", "case": name, "shape": f"{nbytes} B",
-           "max_abs_err": 0 if got == want else abs(got - want),
-           "checksum": f"{got:016x}", "ok": ok}
+    row = {"kernel": "fletcher64", "case": name,
+           "shape": f"{len(xs)} shards, {nbytes} B",
+           "max_abs_err": max(abs(a - b) for a, b in zip(got, want)),
+           "checksums": [f"{c:016x}" for c in got[:4]], "ok": ok}
     if flush is not None:
-        row["ms"] = device_ms(lambda: fl.fletcher64_device(x), flush)
-        row["plain_ms"] = host_read_ms(lambda: fl.fletcher64_plain(x), flush)
+        batch = fl.Batch(xs)        # its table copied before the capture
+        row["ms"] = device_ms(batch.launch, flush)
+        row["plain_ms"] = host_read_ms(lambda: fl.fletcher64_many_plain(xs),
+                                       flush)
         row["library_ms"] = None
-        # every byte read once, 8 written; two integer multiply-adds a
-        # word (s1 and sum i*w), counted at the CUDA cores' f32 rate
+        # every byte and the table (3 words a shard and one) read once,
+        # 8 bytes a shard written; two integer multiply-adds a word (s1
+        # and sum i*w), counted at the CUDA cores' f32 rate
+        words = sum((x.numel() * x.element_size() + 3) // 4 for x in xs)
         row["bound_ms"], row["bound_by"] = bound_of(
-            nbytes + 8, 2 * (nbytes + 3) // 4, torch.float32)
+            nbytes + 32 * len(xs) + 8, 2 * words, torch.float32)
+        del batch
     print("kernel-check", json.dumps(row))
     return row
 
@@ -715,12 +768,20 @@ def phase_kernels():
                                S=2600, W=4096, dtype=torch.float32,
                                use_h0=True, seed=3, chunk_len=L))
 
-    # the router at granite's E 40, k 8 (decode 4 slots, the demo's short
-    # prompts, a 64-token chunk, a 384-token prefill), then the grid
-    for T in (4, 64, 384):
+    # the router at granite's E 40, k 8, dropless (decode 4 slots, the
+    # demo's short prompts, a 64-token chunk, a 384-token and a 2600-token
+    # prefill); capacities that drop (granite's T·k/E is 12.8 at T 64) and
+    # padded experts; then the grid through router_topk
+    for T in (4, 64, 384, 2600):
         rows.append(router_case(f"granite-T{T}", T, 40, 8, flush=flush))
     for T in range(5, 11):
         rows.append(router_case(f"granite-T{T}", T, 40, 8, seed=T))
+    rows.append(router_case("granite-T64-C6", 64, 40, 8, seed=2, capacity=6))
+    rows.append(router_case("granite-T64-E48-real40-C13", 64, 48, 8, seed=3,
+                            n_real=40, capacity=13))
+    rows.append(router_case("deepseek-T300-E64-real60-C15", 300, 64, 6,
+                            seed=4, n_real=60, capacity=15))
+    check(any(r["dropped"] for r in rows[-3:]), "router: no case dropped")
     for (T, E), k in ROUTER_GRID:
         rows.append(router_case(f"grid-T{T}-E{E}-k{k}", T, E, k, seed=1))
 
@@ -728,15 +789,24 @@ def phase_kernels():
     # odd offset too), and qwen1.5-0.5b's embedding shard
     rng = np.random.default_rng(0)
     for n in (0, 1, 2047, 2048, 2049, int(rng.integers(1, 50_000))):
-        rows.append(check_fletcher(f"words-{n}", fletcher_words(n, seed=n)))
+        rows.append(check_fletcher(f"words-{n}", [fletcher_words(n, seed=n)],
+                                   flips=(0,) if n else ()))
     raw = fletcher_words(1100, seed=9).view(torch.uint8)
     for nbytes in (1, 2, 3, 5, 6, 7, 1001, 4099):
-        rows.append(check_fletcher(f"bytes-{nbytes}", raw[:nbytes]))
+        rows.append(check_fletcher(f"bytes-{nbytes}", [raw[:nbytes]],
+                                   flips=(0,)))
         rows.append(check_fletcher(f"bytes-{nbytes}-offset1",
-                                   raw[1:nbytes + 1]))
+                                   [raw[1:nbytes + 1]], flips=(0,)))
+    # a mixed batch in one launch: a 4 KB norm, 1-3 bytes, a view at
+    # offset 1, qwen's 4 MB and 11.5 MB shards, an empty one
+    mixed = [fletcher_words(1024, seed=11), raw[:1], raw[:2], raw[:3],
+             raw[1:4100], fletcher_words(1 << 20, seed=12),
+             fletcher_words(1024 * 2816, seed=13), raw[:0]]
+    rows.append(check_fletcher("mixed-batch", mixed, flush=flush,
+                               flips=(0, 2, 4, 6)))
     rows.append(check_fletcher("qwen-embedding",
-                               fletcher_words(QWEN_EMBED_WORDS, seed=3),
-                               flush=flush))
+                               [fletcher_words(QWEN_EMBED_WORDS, seed=3)],
+                               flush=flush, flips=(0,)))
     del flush
     free_card()
     assert_all_ok(rows)
@@ -779,7 +849,7 @@ class MainPathRecorder:
                     self.kind = outer
             setattr(Model, entry, entered)
         attn_layer.attention = self._attention
-        moe_layer.router_topk = self._router
+        moe_layer.router_dispatch = self._router
         ssd_block.ssd = self._ssd
         rglru_block.rglru = self._rglru
 
@@ -787,7 +857,7 @@ class MainPathRecorder:
         for entry, orig in self._orig.items():
             setattr(Model, entry, orig)
         attn_layer.attention = fa.attention
-        moe_layer.router_topk = kr.router_topk
+        moe_layer.router_dispatch = kr.router_dispatch
         ssd_block.ssd = kssd.ssd
         rglru_block.rglru = krg.rglru
 
@@ -810,11 +880,14 @@ class MainPathRecorder:
                       dict(kw, q_offset=off)))
         return out
 
-    def _router(self, logits, k):
-        before = kr.router_topk.launches
-        out = kr.router_topk(logits, k)
-        self._record(("moe_router", self.kind) + tuple(logits.shape) + (k,),
-                     kr.router_topk.launches - before, (logits.clone(), k))
+    def _router(self, logits, k, *, n_real, capacity, dispatch="sort"):
+        before = kr.router_dispatch.launches
+        out = kr.router_dispatch(logits, k, n_real=n_real, capacity=capacity,
+                                 dispatch=dispatch)
+        self._record(("moe_router", self.kind) + tuple(logits.shape)
+                     + (k, n_real, capacity),
+                     kr.router_dispatch.launches - before,
+                     (logits.clone(), k, n_real, capacity))
         return out
 
     def _ssd(self, x, dt, A, B, C, D=None, h0=None, *, chunk=256):
@@ -944,7 +1017,7 @@ def path_kernels(model):
     if "attn" in model.stack_sizes:
         kernels["flash_attention"] = (fa.attention, None)
     if model.cfg.moe.num_experts:
-        kernels["moe_router"] = (kr.router_topk, None)
+        kernels["moe_router"] = (kr.router_dispatch, None)
     if "ssd" in kinds:
         kernels["ssd"] = (kssd.ssd, ("prefill",))
     if "rglru" in kinds:
@@ -992,6 +1065,157 @@ def serve_path(arch):
     return recorder
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: one MoE layer call, its launches and host syncs
+# ---------------------------------------------------------------------------
+def eager_moe_local(cfg, params, x2d, *, e_pad, capacity_factor,
+                    dropless=False):
+    """The eager-dispatch MoE layer (``models/moe.py`` before routing and
+    dispatch became one launch), kept here as a yardstick of launches,
+    host syncs and outputs only: the aux sums and the sort dispatch in
+    eager PyTorch around ``router_topk``, and boolean-mask indexing,
+    which makes the host wait for the card."""
+    T, d = x2d.shape
+    E_real, k = cfg.moe.num_experts, cfg.moe.top_k
+    cdt = dtype_of(cfg.compute_dtype)
+    dev = x2d.device
+    logits = (x2d.to(cdt) @ params["router"].to(cdt)).float()
+    if e_pad > E_real:
+        pad_mask = torch.arange(e_pad, device=dev) >= E_real
+        logits = torch.where(pad_mask[None], kr.NEG_INF, logits)
+    w, idx, probs = kr.router_topk(logits, k)
+    load_sum = F.one_hot(idx.long(), e_pad).float().sum(1).sum(0)
+    prob_sum = probs.sum(0)
+    z_sum = torch.square(torch.logsumexp(logits, dim=-1)).sum()
+    C = T if dropless else max(
+        int(math.ceil(T * k / max(E_real, 1) * capacity_factor)), 1)
+    flat_e = idx.reshape(-1).long()
+    flat_pos = torch.argsort(flat_e, stable=True)
+    se = flat_e[flat_pos]
+    seg_start = torch.searchsorted(se, torch.arange(e_pad, device=dev))
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
+    keep = pos_in_e < C
+    ke, kc, kp = se[keep], pos_in_e[keep], flat_pos[keep]
+    buf = torch.zeros((e_pad, C, d), dtype=x2d.dtype, device=dev)
+    buf.index_put_((ke, kc), x2d[kp // k])
+    out_buf = moe_layer._expert_ffn(cfg, params, buf)
+    del buf
+    vals = torch.zeros((T * k, d), dtype=out_buf.dtype, device=dev)
+    vals[kp] = out_buf[ke, kc] * w.reshape(-1)[kp][:, None].to(vals.dtype)
+    return vals.view(T, k, d).sum(1), (load_sum, prob_sum, z_sum, float(T))
+
+
+def device_events(fn) -> list:
+    """Names of the device activities (kernels, copies, fills) one call
+    of ``fn`` puts on the card, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def host_syncs(fn) -> int:
+    """How often one call of ``fn`` makes the host wait for the card, by
+    ``torch.cuda``'s sync debug mode set to warn."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def call_ms(fns, iters: int = 20) -> list:
+    """Host wall-clock of one call of each function, ending in a
+    synchronise, in ms: means of ``iters`` calls, the functions in turns
+    (a, b, b, a) to share the host's noise."""
+    total = [0.0] * len(fns)
+    order = list(range(len(fns)))
+    for it in range(iters):
+        for i in (order if it % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[i]()
+            torch.cuda.synchronize()
+            total[i] += time.perf_counter() - t0
+    return [t / iters * 1e3 for t in total]
+
+
+def moe_layer_check():
+    """One MoE layer at granite's width (40 experts, top-8, d 1536, bf16
+    compute, f32 weights), dropless as serving runs it, on a decode
+    step's 4 tokens and a 64-token chunk: no host sync (sync debug mode
+    "error"), output equal to the eager-dispatch layer's bit for bit and
+    aux sums within the router's tolerance; launches from the router
+    matmul's output to y (the layer's device activities less the router
+    matmul's and the expert products') beside the eager layer's."""
+    cfg = configs.get(MOE_ARCH)
+    cdt = dtype_of(cfg.compute_dtype)
+    e_pad = moe_layer.padded_experts(cfg, 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    params = moe_layer.moe_params(cfg, gen, e_pad=e_pad)
+    kw = dict(e_pad=e_pad, capacity_factor=cfg.moe.capacity_factor,
+              dropless=True)
+    rows = []
+    for name, T in (("decode", 4), ("chunk", 64)):
+        x2d = torch.randn((T, cfg.d_model), generator=gen,
+                          device="cuda").to(cdt)
+
+        def layer():
+            return moe_layer._moe_local(cfg, params, x2d, **kw)
+
+        def eager():
+            return eager_moe_local(cfg, params, x2d, **kw)
+        (y, aux), (y0, aux0) = layer(), eager()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            layer()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        buf = x2d.new_zeros((e_pad, T, cfg.d_model))
+        around = [device_events(lambda: (x2d.to(cdt) @ params["router"].to(
+                      cdt)).float()),
+                  device_events(lambda: moe_layer._expert_ffn(cfg, params,
+                                                              buf))]
+        events, events0 = device_events(layer), device_events(eager)
+        n_around = sum(map(len, around))
+        ms0, ms = call_ms([eager, layer])
+        row = {"case": f"{MOE_ARCH}:{name}", "T": T,
+               "launches": len(events) - n_around,
+               "eager_launches": len(events0) - n_around,
+               "host_syncs": host_syncs(layer),
+               "eager_host_syncs": host_syncs(eager),
+               "router_matmul_and_expert_launches": [len(a) for a in around],
+               "call_ms": ms, "eager_call_ms": ms0,
+               "y_equal_eager": bool(torch.equal(y, y0)),
+               "aux_ok": all(bool(torch.allclose(a, b, rtol=ROUTER_RTOL,
+                                                 atol=ROUTER_ATOL))
+                             for a, b in zip(aux[:3], aux0[:3]))}
+        print("moe-layer", json.dumps(row))
+        print(f"moe-layer {name} device activities: {events}")
+        print(f"moe-layer {name} the eager layer's: {events0}")
+        check(row["y_equal_eager"] and row["aux_ok"],
+              f"moe layer {name}: differs from the eager layer {row}")
+        check(row["host_syncs"] == 0 and row["eager_host_syncs"] > 0,
+              f"moe layer {name}: host syncs {row}")
+        check(0 < row["launches"] < row["eager_launches"],
+              f"moe layer {name}: launches {row}")
+        rows.append(row)
+    del params
+    free_card()
+    return rows
+
+
 class CheckpointRecorder:
     """What the checkpoint path gives Fletcher-64, and where its host
     time goes.  Wraps the services' checksum (to count launches and keep
@@ -1005,6 +1229,7 @@ class CheckpointRecorder:
     def __init__(self):
         self.seen = {}
         self.seconds = {}
+        self.batches = {}                   # checksum calls, by step
         self._local = threading.local()     # the server verifies on its
         self._patched = []                  # own handler thread
 
@@ -1045,7 +1270,7 @@ class CheckpointRecorder:
                                                     Client.restore))
         self._patch(ckpt, "_verify_on", self._within("verify",
                                                      ckpt._verify_on))
-        self._patch(svc_base, "fletcher64", self._fletcher)
+        self._patch(svc_base, "fletcher64_many", self._fletcher_many)
         self._patch(ckpt, "host_copy",
                     self._timed("card to host", ckpt.host_copy))
         self._patch(ckpt, "host_to_tensor",
@@ -1064,14 +1289,16 @@ class CheckpointRecorder:
                 setattr(owner, attr, orig)
         self._patched = []
 
-    def _fletcher(self, x):
+    def _fletcher_many(self, xs):
         before = fl.fletcher64.launches
-        out = self._timed("checksums", fl.fletcher64)(x)
-        nbytes = x.numel() * x.element_size()
-        rec = self.seen.setdefault(("fletcher64", self._kind(), nbytes),
+        out = self._timed("checksums", fl.fletcher64_many)(xs)
+        nbytes = sum(x.numel() * x.element_size() for x in xs)
+        kind = self._kind()
+        self.batches[kind] = self.batches.get(kind, 0) + 1
+        rec = self.seen.setdefault(("fletcher64", kind, len(xs), nbytes),
                                    {"launches": 0})
         rec["launches"] += fl.fletcher64.launches - before
-        rec["inputs"] = x.detach().clone()
+        rec["inputs"] = [x.detach().clone() for x in xs]
         return out
 
     def by_kind(self):
@@ -1136,8 +1363,11 @@ def checkpoint_path():
     by_kind = recorder.by_kind()
     print(f"checkpoint: {len(named)} shards, {nbytes} bytes; save "
           f"{t_save:.2f}s, restore {t_restore:.2f}s (host wall-clock, tcp "
-          f"on one host); fletcher64 {launches} launches, by step "
-          f"{by_kind}")
+          f"on one host); fletcher64 {launches} launches (one a batch), by "
+          f"step {by_kind}, checksum batches by step {recorder.batches} "
+          f"(1 save, 2 restores: the second with a flipped byte; the "
+          f"server verifies in groups of up to {ckpt.VERIFY_GROUP_BYTES} "
+          f"bytes)")
     print("checkpoint: host seconds by step and part (save includes the "
           "server's pull and verify): "
           + json.dumps({k: round(v, 4) for k, v in sorted(spans.items())}))
@@ -1146,6 +1376,11 @@ def checkpoint_path():
           f"checkpoint: checksums outside save/verify/restore {by_kind}")
     check(all(v > 0 for v in by_kind.values()),
           f"checkpoint: fletcher64 not launched on every step {by_kind}")
+    check(by_kind == recorder.batches and by_kind["save"] == 1
+          and by_kind["restore"] == 2 and by_kind["verify"] < len(named),
+          f"checkpoint: expected one launch a batch, one batch a save and "
+          f"a restore and fewer than a shard's each to verify: launches "
+          f"{by_kind}, batches {recorder.batches}")
     got = svc_base.flatten_named(restored)
     for k, t in named.items():
         check(got[k].device.type == "cuda" and got[k].dtype == t.dtype
@@ -1180,7 +1415,7 @@ def phase_main_shapes(arch, recorder):
         elif key[0] == "rglru":
             row = check_rglru(name, *inputs, flush=flush)
         else:
-            row = check_fletcher(name, inputs, flush=flush, flip=False)
+            row = check_fletcher(name, inputs, flush=flush)
         row["launches"] = rec["launches"]
         rows.append(row)
         del inputs
@@ -1210,16 +1445,16 @@ def phase_parity(arch, S):
     routes = []             # per run: (idx, probs) of every router call
 
     def spy(router):
-        def run(logits, k):
-            w, idx, probs = router(logits, k)
-            routes[-1].append((idx, probs))
-            return w, idx, probs
+        def run(logits, k, **kw):
+            r = router(logits, k, **kw)
+            routes[-1].append((r.idx, r.probs))
+            return r
         return run
 
     def run(plain: bool):
         routes.append([])
-        moe_layer.router_topk = spy(kr.router_topk_plain if plain
-                                    else kr.router_topk)
+        moe_layer.router_dispatch = spy(kr.router_dispatch_plain if plain
+                                        else kr.router_dispatch)
         if plain:
             attn_layer.attention = fa.attention_plain
             ssd_block.ssd = kssd.ssd_plain
@@ -1235,7 +1470,7 @@ def phase_parity(arch, S):
                     params, cache, toks[:, S + i:S + i + 1], pos)
                 out.append(logits)
         finally:
-            moe_layer.router_topk = kr.router_topk
+            moe_layer.router_dispatch = kr.router_dispatch
             attn_layer.attention = fa.attention
             ssd_block.ssd = kssd.ssd
             rglru_block.rglru = krg.rglru
@@ -1243,7 +1478,7 @@ def phase_parity(arch, S):
 
     n_moe = sum("moe" in p for p in params["layers"])
     sizes = model.stack_sizes
-    kernels = (fa.attention, kr.router_topk, kssd.ssd, krg.rglru)
+    kernels = (fa.attention, kr.router_dispatch, kssd.ssd, krg.rglru)
     # attention and the router launch on prefill and every decode step,
     # the SSD and the RG-LRU on prefill alone
     want_launches = (sizes.get("attn", 0) * (1 + steps), n_moe * (1 + steps),
@@ -1346,6 +1581,7 @@ def main(argv=None) -> int:
     rows = []
     for arch in (ARCH, MOE_ARCH):
         rows += phase_main_shapes(arch, serve_path(arch))
+    moe_layer_check()
     recorder = checkpoint_path()
     free_card()
     rows += phase_main_shapes(ARCH, recorder)

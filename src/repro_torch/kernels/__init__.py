@@ -3,10 +3,10 @@ PyTorch version that the CPU runs and the card is checked against.
 
 ``attention`` (``csrc/flash_attention.cu``) — the attention forward for
 prefill, prefill chunks and decode.
-``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing of every
-MoE layer.
-``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksum of
-checkpoint shards.
+``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing and the
+capacity dispatch of every MoE layer call, in one launch.
+``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksums of a
+batch of checkpoint shards, in one launch pair.
 ``ssd`` (``csrc/ssd.cu``) — the Mamba2 SSD scan of every SSD layer's
 prefill.
 ``rglru`` (``csrc/rglru_scan.cu``) — the RG-LRU recurrence of every

@@ -1,12 +1,13 @@
-// Fletcher-64 checksum for Hopper (sm_90a), written by hand for the PyTorch
-// port.
+// Fletcher-64 checksums of a batch of buffers for Hopper (sm_90a), written
+// by hand for the PyTorch port.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fletcher.py
 // (fletcher64_pallas, body _kernel): Fletcher-64 over little-endian uint32
 // words, both sums mod M = 2^32 - 1, the result (s2 << 32) | s1 with
-// canonical residues in [0, M).  The input is a byte buffer; a last
+// canonical residues in [0, M).  Each input is a byte buffer; a last
 // partial word is read as zero-padded, as the reference pads the bytes
-// to a u32 boundary.
+// to a u32 boundary.  One launch pair checksums n buffers (a checkpoint's
+// shards) and writes n results.
 //
 // Math.  Over n words w_0..w_{n-1}:
 //   s1 = sum_i w_i                        (mod M)
@@ -16,24 +17,30 @@
 // 2^32 = 1 (mod M): a 64-bit x reduces as (x >> 32) + (x & 0xffffffff).
 //
 // What bounds it on an H100.  A few integer operations per 4-byte word
-// against 3.35 TB/s: the 155.6 M-word (622 MB) embedding shard of
-// qwen1.5-0.5b needs 0.19 ms to read, and it is bound by bytes.
+// against 3.35 TB/s: bound by bytes (qwen1.5-0.5b's 1.86 GB of shards
+// need 0.55 ms to read).  A checkpoint's shards are mostly small (4 KB
+// norms), where a launch, not bytes, is the floor: hence one launch pair
+// for the whole batch, not one per shard.
 //
 // Design.  Hopper has 64-bit integers, so the TPU kernel's end-around
 // carries and 16-bit half sums (fletcher.py:4-8) are not carried over.
-// Pass 1: a grid-stride loop; each thread reads 16 bytes (four words) per
-// load with four loads in flight, and keeps sum w and sum i*w (each
-// product folded once to < 2^33) in 64-bit registers; the block reduces
-// its threads by warp shuffles and shared memory and writes its two
-// partial sums mod M.  Pass 2: one block folds the partials and forms
-// (s2 << 32) | s1.  The wrapper allocates the partials' scratch.
+// The caller passes a device table: the n buffers' addresses, their byte
+// counts, and a prefix table of pass-1 blocks per buffer (in proportion
+// to bytes, at least one each).  Pass 1: each block finds its buffer by a
+// binary search over the prefix table and runs a stride loop over its
+// share of it; each thread reads 16 bytes (four words) per load with four
+// loads in flight, and keeps sum w and sum i*w (i counted from the
+// buffer's start, each product folded once to < 2^33) in 64-bit
+// registers; the block reduces its threads by warp shuffles and shared
+// memory and writes its two partial sums mod M.  Pass 2: a warp per
+// buffer folds that buffer's partials and forms (s2 << 32) | s1.  The
+// wrapper allocates the partials' scratch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;  // 8 blocks per SM of an H100
 constexpr int kUnroll = 4;
 constexpr uint64_t kMod = 0xffffffffull;
 constexpr unsigned kFull = 0xffffffffu;
@@ -50,7 +57,7 @@ __device__ __forceinline__ uint64_t modm(uint64_t x) {
 __device__ __forceinline__ void add_word(uint64_t i, uint32_t w,
                                          uint64_t& s1, uint64_t& siw) {
   s1 += w;
-  // i < 2^32 - 1 (the launcher checks nbytes): one 32x32 -> 64 multiply
+  // i < 2^32 - 1 (the wrapper checks each size): one 32x32 -> 64 multiply
   siw += fold((uint64_t)(uint32_t)i * w);
 }
 
@@ -68,14 +75,37 @@ __device__ uint64_t block_sum(uint64_t x, uint64_t* smem) {
   return total;
 }
 
+// The table's three parts: addresses, byte counts, block prefix (n + 1).
+struct Table {
+  const uint64_t* addr;
+  const uint64_t* nbytes;
+  const uint64_t* prefix;
+  __device__ Table(const uint64_t* t, int n)
+      : addr(t), nbytes(t + n), prefix(t + 2 * n) {}
+};
+
 __global__ void __launch_bounds__(kThreads)
-fletcher_partial(const uint8_t* __restrict__ bytes, uint64_t nbytes,
+fletcher_partial(const uint64_t* __restrict__ table, int n,
                  uint64_t* __restrict__ partial) {
   __shared__ uint64_t smem[kThreads / 32];
+  const Table tab(table, n);
+  // the buffer: the last s with prefix[s] <= blockIdx.x (every buffer has
+  // at least one block, so the prefix rises strictly)
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.prefix[mid] <= blockIdx.x) lo = mid; else hi = mid - 1;
+  }
+  const uint64_t first = tab.prefix[lo];
+  const uint64_t nblocks = tab.prefix[lo + 1] - first;
+  const uint64_t block = blockIdx.x - first;
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(tab.addr[lo]);
+  const uint64_t nbytes = tab.nbytes[lo];
+
   const uint64_t n_vec = nbytes / 16;
   const uint4* vec = reinterpret_cast<const uint4*>(bytes);
-  const uint64_t stride = (uint64_t)gridDim.x * kThreads;
-  uint64_t v = (uint64_t)blockIdx.x * kThreads + threadIdx.x;
+  const uint64_t stride = nblocks * kThreads;
+  uint64_t v = block * kThreads + threadIdx.x;
   uint64_t s1 = 0, siw = 0;
 
   for (; v + (kUnroll - 1) * stride < n_vec; v += kUnroll * stride) {
@@ -100,8 +130,8 @@ fletcher_partial(const uint8_t* __restrict__ bytes, uint64_t nbytes,
     add_word(i + 3, r.w, s1, siw);
   }
   // the tail after the last whole 16 bytes: up to 3 whole words and one
-  // partial word, zero-padded, read byte by byte by block 0
-  if (blockIdx.x == 0 && threadIdx.x < 4) {
+  // partial word, zero-padded, read byte by byte by the buffer's block 0
+  if (block == 0 && threadIdx.x < 4) {
     const uint64_t start = n_vec * 16 + 4 * threadIdx.x;
     if (start < nbytes) {
       uint32_t w = 0;
@@ -121,50 +151,51 @@ fletcher_partial(const uint8_t* __restrict__ bytes, uint64_t nbytes,
 }
 
 __global__ void __launch_bounds__(kThreads)
-fletcher_finish(const uint64_t* __restrict__ partial, int nblocks,
-                uint64_t n_words, uint64_t* __restrict__ out) {
-  __shared__ uint64_t smem[kThreads / 32];
-  uint64_t s1 = 0, siw = 0;  // each term < 2^32, at most 4 per thread
-  for (int i = threadIdx.x; i < nblocks; i += kThreads) {
+fletcher_finish(const uint64_t* __restrict__ table, int n,
+                const uint64_t* __restrict__ partial,
+                uint64_t* __restrict__ out) {
+  const Table tab(table, n);
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (s >= n) return;  // whole warps leave together
+  // each partial < 2^32; a buffer has at most 132 * 8 blocks (the
+  // wrapper's cap), so a lane sums at most 34 and the warp < 2^43
+  uint64_t s1 = 0, siw = 0;
+  for (uint64_t i = tab.prefix[s] + lane; i < tab.prefix[s + 1]; i += 32) {
     s1 += partial[2 * i];
     siw += partial[2 * i + 1];
   }
-  s1 = modm(block_sum(modm(s1), smem));
-  siw = modm(block_sum(modm(siw), smem));
-  if (threadIdx.x == 0) {
-    const uint64_t ns1 = modm(modm(n_words) * s1);  // < 2^64
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    s1 += __shfl_xor_sync(kFull, s1, d);
+    siw += __shfl_xor_sync(kFull, siw, d);
+  }
+  if (lane == 0) {
+    s1 = modm(s1);
+    siw = modm(siw);
+    const uint64_t n_words = (tab.nbytes[s] + 3) / 4;
+    const uint64_t ns1 = modm(modm(n_words) * s1);  // product < 2^64
     const uint64_t s2 = ns1 >= siw ? ns1 - siw : ns1 + kMod - siw;
-    out[0] = (s2 << 32) | s1;
+    out[s] = (s2 << 32) | s1;
   }
 }
 
 }  // namespace
 
-// Number of pass-1 blocks for nbytes, i.e. the partials' scratch the
-// caller provides: 2 * blocks uint64 words.
-extern "C" int repro_fletcher64_blocks(uint64_t nbytes) {
-  const uint64_t per_block = (uint64_t)kThreads * 16 * kUnroll;
-  uint64_t nb = (nbytes + per_block - 1) / per_block;
-  if (nb < 1) nb = 1;
-  if (nb > (uint64_t)kMaxBlocks) nb = kMaxBlocks;
-  return (int)nb;
-}
-
-// bytes: 16-byte aligned device buffer of nbytes (< 4 * (2^32 - 1));
-// partial: 2 * repro_fletcher64_blocks(nbytes) uint64; out: one uint64.
-extern "C" int repro_fletcher64(const void* bytes, uint64_t nbytes,
-                                uint64_t* partial, uint64_t* out,
-                                void* stream) {
+// table: 3n + 1 uint64 on the device — n addresses (each 16-byte aligned),
+// n byte counts (each < 4 * (2^32 - 1)), and the n + 1 prefix sums of
+// pass-1 blocks per buffer, from 0 to nblocks, each buffer at least one;
+// partial: 2 * nblocks uint64; out: n uint64.
+extern "C" int repro_fletcher64_many(const uint64_t* table, int n,
+                                     int nblocks, uint64_t* partial,
+                                     uint64_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (reinterpret_cast<uintptr_t>(bytes) % 16 != 0 ||
-      nbytes / 4 >= kMod)
-    return (int)cudaErrorInvalidValue;
-  const int nb = repro_fletcher64_blocks(nbytes);
-  fletcher_partial<<<nb, kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(bytes), nbytes, partial);
+  if (n < 1 || nblocks < n) return (int)cudaErrorInvalidValue;
+  fletcher_partial<<<nblocks, kThreads, 0, st>>>(table, n, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fletcher_finish<<<1, kThreads, 0, st>>>(partial, nb, (nbytes + 3) / 4,
-                                          out);
+  const int warps = kThreads / 32;
+  fletcher_finish<<<(n + warps - 1) / warps, kThreads, 0, st>>>(
+      table, n, partial, out);
   return (int)cudaGetLastError();
 }

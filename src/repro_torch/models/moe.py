@@ -1,16 +1,18 @@
 """Mixture-of-Experts layer, ported from ``src/repro/models/moe.py`` for
 one device (the reference's ``spmd=None`` path).
 
-Per call: router logits (padded experts masked to -1e30), top-k routing
-through the router kernel's wrapper, then capacity dispatch of the T·k
-assignments into an (E, C, d) buffer in (token, choice) order — by a
-stable sort over experts (``dispatch="sort"``) or a running count per
-expert (``"cumsum"``) — the experts' SwiGLU FFNs as batched products, and
-each token's k weighted expert outputs gathered back and summed.  Assignments past an
-expert's capacity C = ceil(T·k/E · cf) are dropped and contribute zero;
-serving runs dropless (C = T: an expert can receive each token at most
-once).  The expert products stay ``torch.bmm``, as the reference leaves
-its einsums to XLA.
+Per call: router logits, then one call of the routing kernel's wrapper
+(``router_dispatch``: padded experts masked to -1e30, top-k routing, each
+of the T·k assignments' capacity slot in (token, choice) order — the
+reference's stable sort over experts, ``dispatch="sort"``, or running
+count, ``"cumsum"`` — and the aux sums), a gather of the token rows into
+an (E, C, d) buffer, the experts' SwiGLU FFNs as batched products, and
+each token's k weighted expert outputs gathered back and summed.
+Assignments past an expert's capacity C = ceil(T·k/E · cf) are dropped
+and contribute zero; serving runs dropless (C = T: an expert can receive
+each token at most once).  Every shape is fixed, so a layer call makes
+the host wait for nothing.  The expert products stay ``torch.bmm``, as
+the reference leaves its einsums to XLA.
 
 The expert-parallel ``shard_map`` path (``MoESpmd``) is not ported yet
 (ROADMAP A10).
@@ -24,10 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.moe_router import router_topk
+from ..kernels.moe_router import router_dispatch
 from .common import dense_init, dtype_of, mlp, mlp_params
-
-NEG_INF = -1e30
 
 
 def padded_experts(cfg: ModelConfig, n_shards: int) -> int:
@@ -69,57 +69,37 @@ def _expert_ffn(cfg: ModelConfig, p: dict, buf):
 def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
                capacity_factor: float, dropless: bool = False):
     """Dispatch + expert FFN over x2d: (T, d).  Returns y (T, d) and the
-    aux sums (load per expert, prob per expert, router z, T)."""
+    aux sums (load per expert, prob per expert, router z, T).  Every
+    shape is fixed by T, k, E and C: nothing waits for the card."""
     T, d = x2d.shape
     E_real, k = cfg.moe.num_experts, cfg.moe.top_k
     cdt = dtype_of(cfg.compute_dtype)
-    dev = x2d.device
 
     logits = (x2d.to(cdt) @ params["router"].to(cdt)).float()   # (T, E)
-    if e_pad > E_real:
-        pad_mask = torch.arange(e_pad, device=dev) >= E_real
-        logits = torch.where(pad_mask[None], NEG_INF, logits)
-    w, idx, probs = router_topk(logits, k)                      # (T, k)
-
-    load_sum = F.one_hot(idx.long(), e_pad).float().sum(1).sum(0)  # (E,)
-    prob_sum = probs.sum(0)
-    z_sum = torch.square(torch.logsumexp(logits, dim=-1)).sum()
-
     if dropless:
         C = T
     else:
         C = max(int(math.ceil(T * k / max(E_real, 1) * capacity_factor)), 1)
+    r = router_dispatch(logits, k, n_real=E_real, capacity=C,
+                        dispatch=cfg.moe.dispatch)
 
-    flat_e = idx.reshape(-1).long()              # (T*k,), (t, j) order
-    if cfg.moe.dispatch == "cumsum":
-        # position in expert = earlier assignments to the same expert
-        ohf = (flat_e[:, None] == torch.arange(e_pad, device=dev)[None, :]
-               ).float()                                        # (T*k, E)
-        prior = torch.cumsum(ohf, dim=0) - ohf
-        pos_in_e = (prior * ohf).sum(1).long()
-        flat_pos = torch.arange(T * k, device=dev)
-        se = flat_e
-    else:
-        flat_pos = torch.argsort(flat_e, stable=True)
-        se = flat_e[flat_pos]
-        seg_start = torch.searchsorted(se, torch.arange(e_pad, device=dev))
-        pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
-    # over-capacity assignments are dropped: the reference scatters them
-    # out of bounds with mode="drop"; torch indexing needs them removed
-    keep = pos_in_e < C
-    ke, kc, kp = se[keep], pos_in_e[keep], flat_pos[keep]
-
-    buf = torch.zeros((e_pad, C, d), dtype=x2d.dtype, device=dev)
-    buf.index_put_((ke, kc), x2d[kp // k])
+    # each capacity slot's token row, a zero row where the slot is empty
+    x_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
+    buf = x_pad.index_select(0, r.src).view(e_pad, C, d)
     out_buf = _expert_ffn(cfg, params, buf)                     # (E, C, d)
-    del buf
+    del buf, x_pad
 
     # each token's k weighted expert outputs, summed in choice order (no
-    # atomics: the same inputs give the same sum on the card)
-    vals = torch.zeros((T * k, d), dtype=out_buf.dtype, device=dev)
-    vals[kp] = out_buf[ke, kc] * w.reshape(-1)[kp][:, None].to(vals.dtype)
-    y = vals.view(T, k, d).sum(1)
-    return y, (load_sum, prob_sum, z_sum, float(T))
+    # atomics: the same inputs give the same sum on the card); a dropped
+    # assignment reads a zero row and contributes nothing, as the
+    # reference's out-of-bounds gather with mode="fill".  Dropless, none
+    # is dropped (C = T, and a token picks an expert once): no zero row.
+    out_flat = out_buf.view(e_pad * C, d)
+    if not dropless:
+        out_flat = torch.cat([out_flat, out_flat.new_zeros((1, d))])
+    vals = out_flat.index_select(0, r.slot.view(-1)).view(T, k, d)
+    y = (vals * r.w[..., None].to(vals.dtype)).sum(1)
+    return y, (r.load, r.prob_sum, r.z_sum, float(T))
 
 
 def _aux_from_stats(cfg: ModelConfig, load_sum, prob_sum, z_sum, t_total):

@@ -8,8 +8,9 @@ Names are the strings ``jax.tree_util.keystr`` gives for the same nested
 dict / list / tuple (dict keys in sorted order, ``['layers'][0]['attn']
 ['wq']``), so a manifest written by either package names the same
 leaves.  A leaf is a torch tensor, on any device, or anything numpy
-takes.  Checksums run where the leaf lies: the Fletcher-64 kernel for a
-tensor on the card, its plain version for a CPU tensor or a numpy array.
+takes.  Checksums run where the leaf lies: the Fletcher-64 kernel for
+tensors on the card (all of a tree's in one batch), its plain version
+for a CPU tensor or a numpy array.
 
 Manifests carry numpy's dtype names; ``"bfloat16"`` shards (numpy has no
 bf16 of its own, and the port does not use ``ml_dtypes``) travel as raw
@@ -25,7 +26,7 @@ import torch
 
 from ..core.executor import Engine
 from ..core.types import MercuryError, Ret
-from ..kernels.fletcher import fletcher64
+from ..kernels.fletcher import fletcher64_many
 
 # numpy's name for a dtype whose host buffer numpy cannot hold itself,
 # and the same-width type that holds its bytes
@@ -118,7 +119,7 @@ def host_to_tensor(buf: np.ndarray, name: str, device) -> torch.Tensor:
 def checksum_of(x) -> int:
     """Fletcher-64 over the leaf's raw bytes (padded to a u32 boundary),
     on the leaf's device."""
-    return fletcher64(x)
+    return fletcher64_many([x])[0]
 
 
 def manifest_of(named: Dict[str, Any]) -> dict:
@@ -130,7 +131,9 @@ def manifest_of(named: Dict[str, Any]) -> dict:
                    if isinstance(v, torch.Tensor) else int(v.nbytes)
                    for v in named.values()],
         # hex (Fletcher-64 exceeds the signed-i64 wire int)
-        "checksums": [f"{checksum_of(v):016x}" for v in named.values()],
+        # the card's leaves in one batch
+        "checksums": [f"{c:016x}"
+                      for c in fletcher64_many(list(named.values()))],
     }
 
 
@@ -143,12 +146,12 @@ def alloc_from_manifest(man: dict) -> Dict[str, np.ndarray]:
 
 def verify_manifest(man: dict, named: Dict[str, Any]) -> None:
     """Raise ``CHECKSUM_ERROR`` for the first shard whose bytes do not
-    match; each checksum runs on the shard's device."""
-    for k, want in zip(man["keys"], man["checksums"]):
-        got = f"{checksum_of(named[k]):016x}"
-        if got != want:
+    match; the checksums run on the shards' devices, in one batch."""
+    got = fletcher64_many([named[k] for k in man["keys"]])
+    for k, g, want in zip(man["keys"], got, man["checksums"]):
+        if f"{g:016x}" != want:
             raise MercuryError(Ret.CHECKSUM_ERROR,
-                               f"shard {k}: {got} != {want}")
+                               f"shard {k}: {g:016x} != {want}")
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ Save path (client → server):
      + manifest (shapes/dtypes/Fletcher-64 checksums),
   4. the server pulls the payload one-sidedly (pipelined chunks) into
      host buffers, verifies the checksums on its device (the card, or
-     the CPU with ``device="cpu"``), stores, responds.
+     the CPU with ``device="cpu"``) in groups of shards of up to
+     ``VERIFY_GROUP_BYTES``, stores, responds.
 The RPC itself stays tiny no matter how many GB the checkpoint is —
 exactly the paper's bulk/eager split (C3).
 
@@ -43,13 +44,33 @@ from .base import (alloc_from_manifest, flatten_named, host_copy,
                    unflatten_named, verify_manifest)
 
 
+# the most bytes of shards the server copies to its device at once to
+# verify them (a larger shard goes alone): one checksum batch a group
+VERIFY_GROUP_BYTES = 256 << 20
+
+
 def _verify_on(device, man: dict, host: dict) -> None:
-    """Verify host buffers against the manifest on ``device``, one shard
-    at a time (only one shard's device copy is alive at once)."""
-    for key, name, want in zip(man["keys"], man["dtypes"],
-                               man["checksums"]):
-        verify_manifest({"keys": [key], "checksums": [want]},
-                        {key: host_to_tensor(host[key], name, device)})
+    """Verify host buffers against the manifest on ``device``, a group of
+    shards at a time (only one group's device copies are alive at once);
+    raises for the first bad shard."""
+    group, size = [], 0
+
+    def verify(shards):
+        verify_manifest(
+            {"keys": [key for key, _, _ in shards],
+             "checksums": [want for _, _, want in shards]},
+            {key: host_to_tensor(host[key], name, device)
+             for key, name, _ in shards})
+
+    for shard in zip(man["keys"], man["dtypes"], man["checksums"]):
+        nbytes = host[shard[0]].nbytes
+        if group and size + nbytes > VERIFY_GROUP_BYTES:
+            verify(group)
+            group, size = [], 0
+        group.append(shard)
+        size += nbytes
+    if group:
+        verify(group)
 
 
 class CheckpointServer:

@@ -3,15 +3,19 @@ the named-buffer codecs and manifests (repro_torch.services.base), the
 checkpoint and datafeed services, and ``replicated_call``.
 
 On the CPU: ``fletcher64_plain`` equals ``ref.fletcher64_ref`` and
-``ops.fletcher64(impl="xla")`` exactly, and a manifest of one numpy tree
+``ops.fletcher64(impl="xla")`` exactly, so does the batch's plain
+version shard by shard on a mixed list, and a manifest of one numpy tree
 is identical in both packages (keys, shapes, dtypes, byte counts,
-checksums); port-side mirrors of tests/test_services.py's checkpoint,
+checksums); the server verifies in groups under its byte budget and
+names the first bad shard; port-side mirrors of tests/test_services.py's checkpoint,
 datafeed and replicated-call tests; a bf16 leaf survives a round trip
 bit for bit; and checkpoints cross between the packages over tcp — the
 reference's client saves reduced-qwen weights to the port's server, the
 port's client restores them and the port's logits equal the reference's
 (1e-4, f32 on both sides).  On the card (``-m gpu``): the Fletcher-64
-kernel against the plain version, and a save/restore through the card.
+kernel against the plain version, one buffer and a mixed batch (a
+flipped byte changes its own shard's checksum only), and a save/restore
+through the card, one batch a step.
 
 The card's machine has no JAX, so JAX is imported inside the tests that
 hold the port against the reference, not at the top."""
@@ -25,7 +29,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.executor import Engine, RemoteError  # noqa: E402
 from repro_torch.core.types import MercuryError, Ret  # noqa: E402
 from repro_torch.kernels.fletcher import (fletcher64,  # noqa: E402
+                                          fletcher64_many,
+                                          fletcher64_many_plain,
                                           fletcher64_plain)
+from repro_torch.services import base as svc_base  # noqa: E402
+from repro_torch.services import checkpoint as ckpt  # noqa: E402
 from repro_torch.services import (CheckpointClient,  # noqa: E402
                                   CheckpointServer, DataFeedClient,
                                   DataFeedServer, checksum_of,
@@ -108,6 +116,44 @@ def test_fletcher_dispatch_by_device():
     assert fletcher64.launches == before
     with pytest.raises(ValueError, match="no kernel for device"):
         fletcher64(x.to("meta"))
+
+
+def _mixed_batch(as_torch, device="cpu"):
+    """Shards of every kind a batch meets: empty, 1-3 bytes, 4 KB, a
+    view at an odd offset, bf16; with the bytes each one holds.  Torch
+    leaves lie on ``device`` (the view is taken there)."""
+    rng = np.random.default_rng(11)
+    raw = rng.integers(0, 256, size=1002, dtype=np.uint8)
+    bf = rng.standard_normal((33, 17)).astype(np.float32)
+    leaves = [np.empty(0, np.uint8), raw[:1], raw[:2], raw[:3],
+              rng.integers(0, 2 ** 32, 1024, dtype=np.uint32)]
+    want = [x.tobytes() for x in leaves]
+    if as_torch:
+        leaves = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
+                                   else x).to(device) for x in leaves]
+    view = torch.from_numpy(raw).to(device)[1:1002]
+    bf16 = torch.from_numpy(bf).to(torch.bfloat16).to(device)
+    want += [raw[1:1002].tobytes(),
+             bf16.view(torch.int16).cpu().numpy().tobytes()]
+    return leaves + [view, bf16], want
+
+
+def _ref_checksum(ref_mod, data: bytes) -> int:
+    buf = np.frombuffer(data + bytes(-len(data) % 4), np.uint32)
+    return ref_mod.fletcher64_ref(buf)
+
+
+@pytest.mark.parametrize("as_torch", [False, True], ids=["numpy", "torch"])
+def test_fletcher_many_plain_matches_reference(ref, as_torch):
+    """The batch's plain version, and the batch entry on the CPU, equal
+    the reference's oracle shard by shard; the CPU counts no launch."""
+    _, ref_mod = ref
+    leaves, data = _mixed_batch(as_torch)
+    want = [_ref_checksum(ref_mod, d) for d in data]
+    before = fletcher64.launches
+    assert fletcher64_many_plain(leaves) == want
+    assert fletcher64_many(leaves) == want
+    assert fletcher64.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +249,44 @@ def test_checkpoint_checksum_detects_corruption(tcp_pair):
     list(entry["named"].values())[0][17] = 1e9
     with pytest.raises(MercuryError) as e:
         cli.restore("m", {"x": torch.zeros(1000)}, device="cpu")
+    assert e.value.ret == Ret.CHECKSUM_ERROR
+
+
+def test_server_verifies_in_groups_under_its_byte_budget(tcp_pair,
+                                                        monkeypatch):
+    """The server copies shards to its device in groups of at most
+    ``VERIFY_GROUP_BYTES`` (a larger shard alone), one checksum batch a
+    group; save and restore checksum the whole tree in one batch each.
+    A bad group names its first bad shard."""
+    srv, cli_e = tcp_pair
+    CheckpointServer(srv, device="cpu")
+    cli = CheckpointClient(cli_e, srv.uri)
+    monkeypatch.setattr(ckpt, "VERIFY_GROUP_BYTES", 1000)
+    batches = []
+    orig = svc_base.fletcher64_many
+
+    def spy(xs):
+        batches.append(len(xs))
+        return orig(xs)
+    monkeypatch.setattr(svc_base, "fletcher64_many", spy)
+    sizes = {"a": 100, "b": 100, "c": 100, "d": 500, "e": 25}  # f32 words
+    tree = {k: np.arange(n, dtype=np.float32) + i
+            for i, (k, n) in enumerate(sizes.items())}
+    assert cli.save("g", 1, tree)["ok"]
+    # the manifest (5 shards), then the server's groups: 400 + 400 bytes,
+    # 400, the 2000-byte shard alone, 100
+    assert batches == [5, 2, 1, 1, 1]
+    out, _ = cli.restore("g", tree, device="cpu")
+    assert batches[-1] == 5
+    for k in tree:
+        np.testing.assert_array_equal(out[k].numpy(), tree[k])
+    # two bad shards in one group: the first is named
+    man = svc_base.manifest_of(svc_base.flatten_named(tree))
+    host = {k: v.copy() for k, v in svc_base.flatten_named(tree).items()}
+    host["['b']"][3] += 1.0
+    host["['a']"][7] += 1.0
+    with pytest.raises(MercuryError, match=r"shard \['a'\]") as e:
+        ckpt._verify_on(torch.device("cpu"), man, host)
     assert e.value.ret == Ret.CHECKSUM_ERROR
 
 
@@ -456,10 +540,34 @@ def test_checkpoint_through_the_card(card, tcp_pair):
     before = fletcher64.launches
     cli.save("g", 1, tree)
     out, _ = cli.restore("g", tree)
-    assert fletcher64.launches - before == 6      # save, verify, restore
+    assert fletcher64.launches - before == 3      # save, verify, restore
     for k in tree:
         assert out[k].device.type == "cuda"
         assert torch.equal(out[k].view(torch.int16 if k == "b" else
                                        torch.int32),
                            tree[k].view(torch.int16 if k == "b" else
                                         torch.int32))
+
+
+@pytest.mark.gpu
+def test_fletcher_batch_matches_plain_on_card(card):
+    """A mixed batch (the CPU test's shards plus 4 MB and 11.5 MB ones)
+    is one launch; each checksum equals the plain version's, and a byte
+    flipped in one shard changes that shard's checksum only."""
+    xs, _ = _mixed_batch(as_torch=True, device=card)
+    assert xs[5].data_ptr() % 16                # the view at an odd offset
+    xs += [torch.from_numpy(_words(n, seed=n).view(np.int32)).to(card)
+           for n in (1 << 20, 2_875_000)]
+    want = fletcher64_many_plain([x.cpu() for x in xs])
+    before = fletcher64.launches
+    got = fletcher64_many(xs)
+    assert fletcher64.launches == before + 1
+    assert got == want
+    for i in (3, 5, len(xs) - 1):
+        flipped = list(xs)
+        raw = xs[i].clone().reshape(-1).view(torch.uint8)
+        raw[raw.numel() // 2] ^= 1 << 6
+        flipped[i] = raw
+        again = fletcher64_many(flipped)
+        assert again[i] != got[i] and again[i] == fletcher64_plain(raw.cpu())
+        assert again[:i] + again[i + 1:] == got[:i] + got[i + 1:]

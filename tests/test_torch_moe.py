@@ -147,17 +147,18 @@ def test_padded_experts_masked():
     p = moe.moe_params(cfg, torch.Generator().manual_seed(0), e_pad=8)
     x = torch.from_numpy(_x(1, 16, seed=5))
     seen = []
-    orig = moe.router_topk
+    orig = moe.router_dispatch
 
-    def spy(logits, k):
-        out = orig(logits, k)
-        seen.append(out[1])
+    def spy(logits, k, **kw):
+        out = orig(logits, k, **kw)
+        seen.append(out)
         return out
-    moe.router_topk = spy
+    moe.router_dispatch = spy
     try:
         y, _ = moe.moe_apply(cfg, p, x, dropless=True)
     finally:
-        moe.router_topk = orig
-    # routing never selects padded experts 5..7
-    assert int(seen[0].max()) < 5
+        moe.router_dispatch = orig
+    # routing never selects padded experts 5..7, and none is loaded
+    assert int(seen[0].idx.max()) < 5
+    assert float(seen[0].load[5:].sum()) == 0.0
     assert bool(torch.isfinite(y).all())

@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero:
 2. Each kernel against its plain PyTorch version on the card, on random
    inputs.  Attention: qwen1.5-0.5b and granite-moe-3b-a800m heads at a
    384-token prefill, a chunk at an offset and (B,) decode, the demo's
-   short prompts and 4-slot decode, recurrentgemma-9b's (16 q heads, 1
+   short prompts and 4-slot decode, qwen's in bf16 at phase 3f's 32-token
+   chunks at offsets 384 and 416 into 512 and decode of 4 slots of 512,
+   recurrentgemma-9b's (16 q heads, 1
    kv head of 256, window 2048) at a 2600-token prefill that crosses
    the window, the demo's prompts and (B,) decode of 4 slots of 3072,
    and the reference's ATTN_SWEEP, in bf16 (tensor cores) and f32 (CUDA
@@ -48,6 +50,24 @@ Phases, in order; any failure exits non-zero:
       ``session_cap=4``, ``max_len=1024``, two conversations of three
       ~384-token turns through ``gen.generate`` with a ``session_id``).
       Attention must launch on prefill, chunk and decode.
+   f. (run next) Multi-turn sessions through the fabric, the reference's
+      serve_session scenario at its full size: a ``RegistryService`` in
+      this process and 3 replica subprocesses, each full-width
+      qwen1.5-0.5b on this one card (the kernels built here first)
+      behind a ``ServingGateway`` that registers with it (4 slots of 512,
+      32-token chunks, 8 sessions).  A ``ServicePool`` sends 8
+      conversations of 6 greedy turns (384-token first prompts, 2 new
+      tokens, 4 fresh a turn): naive, then through ``SessionAffinity``,
+      then affine again with replica 0 SIGKILLed before turn 2.  Every
+      turn must complete, the surviving replicas must show prefix reuse,
+      a session must be re-homed.  Each replica warms up as the
+      reference's worker (one warm turn, one session resume), then sets
+      attention's count to 0 and records its launches as phase 3a does;
+      each surviving replica must have launched attention on chunk and
+      decode and nowhere outside the Model entry points (the engine
+      chunks every prompt, so this path has no monolithic prefill).
+      Tokens/s, follow-up TTFT p50/p99 and whether the reference's >= 2x
+      held are printed, not enforced.
    b. granite-moe-3b-a800m serving, the same demo and sessions at full
       width: attention and the MoE router must launch on each.  Then one
       MoE layer at granite's width on a decode step's 4 tokens and a
@@ -76,7 +96,9 @@ Phases, in order; any failure exits non-zero:
 4. The main paths' own shapes: each kernel against its plain version on
    the recorded inputs, timed and bounded as in phase 2 (an attention
    row names its ``path`` and ``n_split``).  These rows, with the main
-   paths' launch counts, make the kernels' JSON summary.
+   paths' launch counts, make the kernels' JSON summary; phase 3f's
+   surviving replicas each check their own recorded inputs before they
+   exit and send the rows back.
 5. Full-width parity, f32 compute, TF32 off: prefill and 8 (B,) decode
    steps through the kernels against the same through the plain
    versions: 2x128 for qwen1.5-0.5b and granite-moe-3b-a800m, 2x640 for
@@ -92,12 +114,15 @@ import argparse
 import gc
 import json
 import math
+import queue
 import subprocess
 import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -387,6 +412,16 @@ MAIN_CASES = {
     "decode-b4-t128": dict(B=4, S=1, T=128, offsets=[0, 41, 90, 127]),
     # the session phase's: 4 slots of 1024
     "decode-b4-t1024": dict(B=4, S=1, T=1024, offsets=[3, 400, 777, 1023]),
+}
+
+
+# phase 3f's (qwen1.5-0.5b, bf16): 32-token chunks at an offset into
+# 512-long slots, and decode of 4 slots of 512
+FABRIC_CASES = {
+    "fabric-chunk-off384": dict(B=1, S=32, T=512, offsets=[384]),
+    "fabric-chunk-off416": dict(B=1, S=32, T=512, offsets=[416]),
+    "fabric-decode-b4-t512": dict(B=4, S=1, T=512,
+                                  offsets=[384, 420, 466, 511]),
 }
 
 
@@ -704,6 +739,9 @@ def phase_kernels():
             for dtype in (torch.bfloat16, torch.float32):
                 rows.append(attention_case(f"{arch}:{name}", dtype=dtype,
                                            flush=flush, **heads, **shape))
+    for name, shape in FABRIC_CASES.items():
+        rows.append(attention_case(f"{ARCH}:{name}", dtype=torch.bfloat16,
+                                   flush=flush, **HEADS[ARCH], **shape))
     for name, shape in RG_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(attention_case(f"{HYBRID_ARCH}:{name}", dtype=dtype,
@@ -810,6 +848,7 @@ def phase_kernels():
     del flush
     free_card()
     assert_all_ok(rows)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -870,9 +909,8 @@ class MainPathRecorder:
         before = fa.attention.launches
         out = fa.attention(q, k, v, **kw)
         B, S, Hq, D = q.shape
-        # an int offset kept as a 0-d device tensor: the same function,
-        # and no host-to-device copy when the copy is timed in a graph
-        off = torch.as_tensor(kw["q_offset"], device=q.device).clone()
+        off = kw["q_offset"]
+        off = off.clone() if torch.is_tensor(off) else off
         self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
                       k.shape[2], D, q.dtype),
                      fa.attention.launches - before,
@@ -1063,6 +1101,300 @@ def serve_path(arch):
         check(all(v == 0 for k, v in by_kind.items() if k not in where),
               f"{arch}: {name} launched outside {where}: {by_kind}")
     return recorder
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: multi-turn sessions through the fabric
+# ---------------------------------------------------------------------------
+# the reference's serve_session scenario (benchmarks/bench_core.py,
+# bench_serve_session, its full-size values): 3 replicas, 8 conversations
+# of 6 turns, a 384-token first prompt, 2 new tokens a turn (greedy), each
+# turn appending its tokens and 4 fresh ones; 4 slots of 512, 32-token
+# chunks, 8 pinned sessions a replica
+FABRIC = dict(replicas=3, conversations=8, turns=6, prompt_len=384,
+              max_new=2, fresh=4, max_len=512, n_slots=4, chunk=32,
+              session_cap=8, kill_at=2)
+FABRIC_SERVICE = "gen-sess"
+FABRIC_SEED = 3             # one model: every replica holds the same weights
+FABRIC_START_S = 600.0      # a replica's import, weight init and warm-up
+FABRIC_CHECK_S = 300.0      # a replica's phase 4 check after serving
+
+
+def fabric_replica(registry_uri: str) -> int:
+    """One replica of phase 3f, in a process of its own: full-width
+    qwen1.5-0.5b on the card behind a ``ServingGateway`` registered with
+    ``registry_uri`` as FABRIC_SERVICE.  It warms up as the reference's
+    worker (one warm turn, one session resume), then sets attention's
+    count to 0 and installs a MainPathRecorder, prints "URI <uri>" and
+    serves until its stdin closes.  Then it checks that attention
+    launched nowhere outside the Model entry points, holds the kernel
+    against plain on the inputs it recorded (phase 4) and prints
+    "LAUNCHES <json>": the entry points' calls, attention's launches by
+    entry point and those rows."""
+    F = FABRIC
+    model = Model(configs.get(ARCH))
+    params = model.init(FABRIC_SEED, device="cuda")
+    serve = ServeEngine(model, params, max_len=F["max_len"],
+                        n_slots=F["n_slots"], chunk_tokens=F["chunk"],
+                        session_cap=F["session_cap"], device="cuda")
+    w = serve.generate([np.arange(8, dtype=np.int32)], max_new=2,
+                       session_ids=["warm"])[0]
+    p2 = np.concatenate([np.arange(8), np.asarray(w),
+                         np.zeros(2)]).astype(np.int32)
+    serve.generate([p2], max_new=2, session_ids=["warm"])
+    recorder = MainPathRecorder(model.supports_chunked_prefill)
+    recorder.install()
+    fa.attention.launches = 0
+    try:
+        with Engine("tcp://127.0.0.1:0") as e:
+            gw = ServingGateway(e, serve, registry=registry_uri,
+                                service=FABRIC_SERVICE, report_interval=0.2,
+                                shed_enabled=False)
+            print("URI " + e.uri, flush=True)
+            sys.stdin.read()
+            gw.close()
+    finally:
+        recorder.uninstall()
+    n = fa.attention.launches
+    by_kind = recorder.by_kind("flash_attention")
+    check(sum(by_kind.values()) == n,
+          f"fabric replica: attention launched outside the Model entry "
+          f"points ({n} launches, by entry point {by_kind})")
+    del serve, params, model
+    free_card()
+    rows = phase_main_shapes(ARCH, recorder)
+    print("LAUNCHES " + json.dumps({"calls": recorder.calls,
+                                    "by_kind": by_kind, "rows": rows}),
+          flush=True)
+    return 0
+
+
+class Replica:
+    """A replica subprocess (this script with ``--fabric-replica``); its
+    stdout read by a thread into a queue, so the parent can wait on it
+    with a deadline."""
+
+    def __init__(self, registry_uri: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--fabric-replica", registry_uri],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.lines: "queue.Queue[Optional[str]]" = queue.Queue()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+        self.lines.put(None)                 # EOF
+
+    def line(self, prefix: str, timeout: float) -> str:
+        """The first line starting with ``prefix``; fails the phase at
+        EOF or after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                raise PhaseError(f"fabric: no {prefix!r} line from replica "
+                                 f"pid {self.proc.pid} in {timeout}s")
+            if line is None:
+                raise PhaseError(f"fabric: replica pid {self.proc.pid} "
+                                 f"ended (rc {self.proc.wait()}) before "
+                                 f"{prefix!r}")
+            if line.startswith(prefix):
+                return line[len(prefix):]
+            print(f"fabric replica pid {self.proc.pid}: {line}")
+
+    def stop(self) -> Optional[dict]:
+        """Close stdin and read the launch counts a live replica prints
+        as it exits; None for a replica that is already dead."""
+        if self.proc.poll() is not None:
+            return None
+        self.proc.stdin.close()
+        try:
+            return json.loads(self.line("LAUNCHES ", FABRIC_CHECK_S))
+        finally:
+            self.proc.wait(timeout=60)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def _pct(xs, q):
+    s = sorted(xs)
+    return s[min(int(len(s) * q), len(s) - 1)]
+
+
+def fabric_turns(pool, replicas, affine: bool, tag: str, kill_at=None):
+    """One pass of FABRIC's conversations (all of a turn at once, one
+    thread each) through ``pool``, or with ``affine`` through a
+    SessionAffinity over it with a session id a conversation.  With
+    ``kill_at`` replica 0 is SIGKILLed before that turn.  Every turn must
+    complete with max_new tokens."""
+    from repro_torch.fabric import SessionAffinity
+    F = FABRIC
+    rng = np.random.default_rng(7)
+    aff = SessionAffinity(pool) if affine else None
+    hist = [rng.integers(1, 500, F["prompt_len"]).tolist()
+            for _ in range(F["conversations"])]
+    ttft_follow, done, new_tokens = [], 0, 0
+
+    def one_turn(ci):
+        sid = f"{tag}-conv{ci}"
+        arg = {"tokens": hist[ci], "max_new": F["max_new"],
+               "session_id": sid if affine else None}
+        if affine:
+            return aff.call_routed(sid, "gen.generate", arg, timeout=180.0)[0]
+        return pool.call("gen.generate", arg, timeout=180.0)
+
+    t0 = time.perf_counter()
+    for t in range(F["turns"]):
+        if kill_at is not None and t == kill_at:
+            replicas[0].kill()                 # replica death mid-dialogue
+        with ThreadPoolExecutor(F["conversations"]) as tp:
+            futs = [tp.submit(one_turn, ci)
+                    for ci in range(F["conversations"])]
+            for ci, f in enumerate(futs):
+                res = f.result(timeout=300)
+                check(res["done"] and len(res["tokens"]) == F["max_new"],
+                      f"fabric {tag}: turn {t} conversation {ci}: {res}")
+                hist[ci] = (hist[ci] + list(res["tokens"])
+                            + rng.integers(1, 500, F["fresh"]).tolist())
+                new_tokens += len(res["tokens"])
+                done += 1
+                if t > 0:
+                    ttft_follow.append(res["ttft_ms"])
+    wall = time.perf_counter() - t0
+    return {"turns_completed": done,
+            "turns_expected": F["turns"] * F["conversations"],
+            "tokens_per_s": new_tokens / wall, "wall_s": wall,
+            "follow_ttft_p50_ms": _pct(ttft_follow, 0.5),
+            "follow_ttft_p99_ms": _pct(ttft_follow, 0.99),
+            "affinity": aff.stats() if aff else None}
+
+
+def prefix_counters(pool) -> dict:
+    """Each live replica's gen.stats prefix counters, by instance id."""
+    out = {}
+    for rep in pool.replicas():
+        try:
+            st = pool.call_on(rep.iid, "gen.stats", {}, timeout=10.0)
+        except Exception:
+            continue          # the killed replica, until its TTL runs out
+        out[rep.iid] = {k: st[k] for k in ("prefix_hits", "prefix_misses",
+                                           "prefix_tokens_saved")}
+    return out
+
+
+def phase_fabric(card: str) -> list:
+    """Phase 3f: a registry in this process, FABRIC's replicas (each a
+    full-width qwen1.5-0.5b on this one card, registered as
+    FABRIC_SERVICE), and conversations through a ServicePool: naive, then
+    session-affine, then affine with replica 0 SIGKILLed before turn
+    ``kill_at``.  Returns the kernel rows the surviving replicas checked
+    on their own inputs, with their launches."""
+    from repro_torch.fabric import RegistryService, RetryPolicy, ServicePool
+    F = FABRIC
+    t_start = time.monotonic()
+    reg_engine = Engine("tcp://127.0.0.1:0")
+    registry = RegistryService(reg_engine, instance_ttl=3.0)
+    replicas = []
+    try:
+        replicas = [Replica(reg_engine.uri) for _ in range(F["replicas"])]
+        for i, r in enumerate(replicas):
+            print(f"fabric replica {i}: pid {r.proc.pid} at "
+                  f"{r.line('URI ', FABRIC_START_S)}")
+        print(f"fabric: {F['replicas']} replicas up in "
+              f"{time.monotonic() - t_start:.2f}s (weight init and warm-up "
+              f"included); the {F['replicas']} replicas share one card")
+        with Engine("tcp://127.0.0.1:0") as cli:
+            # rr and fixed credits, as the reference's scenario: a turn
+            # fans every conversation out at once, and gen.generate holds
+            # its call open for a whole generation
+            pool = ServicePool(cli, reg_engine.uri, FABRIC_SERVICE,
+                               balancer="rr", credits_per_target=8,
+                               adaptive_credits=False,
+                               policy=RetryPolicy(attempts=4,
+                                                  rpc_timeout=120.0))
+            pool.call("gen.stats", {}, timeout=30.0)
+            check(len(pool.replicas()) == F["replicas"],
+                  f"fabric: {len(pool.replicas())} replicas registered")
+            base = prefix_counters(pool)
+            check(len(base) == F["replicas"], f"fabric: stats of {base}")
+            out = {"naive": fabric_turns(pool, replicas, False, "naive"),
+                   "affine": fabric_turns(pool, replicas, True, "affine")}
+            mid = prefix_counters(pool)
+            out["kill"] = fabric_turns(pool, replicas, True, "kill",
+                                       kill_at=F["kill_at"])
+            end = prefix_counters(pool)
+            check(len(end) == F["replicas"] - 1,
+                  f"fabric: stats after the kill of {end}")
+        launches = [r.stop() for r in replicas[1:]]
+    finally:
+        for r in replicas:
+            r.kill()
+        registry.close()
+        reg_engine.shutdown()
+
+    def delta(a, b, key):
+        return sum(b[i][key] - a.get(i, {}).get(key, 0) for i in b)
+    for name in ("naive", "affine", "kill"):
+        ph = out[name]
+        print(f"fabric {name}: {ph['turns_completed']}/"
+              f"{ph['turns_expected']} turns, {ph['tokens_per_s']} tokens/s "
+              f"({ph['wall_s']} s), follow-up TTFT p50 "
+              f"{ph['follow_ttft_p50_ms']} ms p99 "
+              f"{ph['follow_ttft_p99_ms']} ms; affinity {ph['affinity']}")
+        check(ph["turns_completed"] == ph["turns_expected"],
+              f"fabric {name}: turns lost")
+    affine_prefix = {k: delta(base, mid, k) for k in (
+        "prefix_hits", "prefix_misses", "prefix_tokens_saved")}
+    survivors = {k: delta(base, end, k) for k in (
+        "prefix_hits", "prefix_misses", "prefix_tokens_saved")}
+    kill_misses = delta(mid, end, "prefix_misses")
+    speedup = out["affine"]["tokens_per_s"] / out["naive"]["tokens_per_s"]
+    p99_lower = (out["affine"]["follow_ttft_p99_ms"]
+                 < out["naive"]["follow_ttft_p99_ms"])
+    print(f"fabric prefix counters (warm-ups excluded): naive + affine on "
+          f"all replicas {affine_prefix}; surviving replicas after the "
+          f"kill phase {survivors}; kill-phase misses {kill_misses}")
+    print(f"fabric: affine / naive tokens/s {speedup} (the reference's >= 2x "
+          f"{'met' if speedup >= 2 else 'missed'}); follow-up TTFT p99 "
+          f"lower {'met' if p99_lower else 'missed'}; {card}; the "
+          f"{F['replicas']} replicas share one card")
+    check(survivors["prefix_hits"] > 0
+          and survivors["prefix_tokens_saved"] > 0,
+          f"fabric: no prefix reuse on the surviving replicas {survivors}")
+    moves = out["kill"]["affinity"]["moves"]
+    check(moves > 0 or kill_misses > F["conversations"],
+          f"fabric: no session re-homed after the kill (moves {moves}, "
+          f"misses {kill_misses})")
+    check(all(ln is not None for ln in launches),
+          "fabric: a surviving replica died")
+    total = {"prefill": 0, "chunk": 0, "decode": 0}
+    rows = []
+    for i, ln in enumerate(launches, start=1):
+        by_kind = ln["by_kind"]
+        print(f"fabric replica {i}: entry point calls {ln['calls']}, "
+              f"attention launches by entry point {by_kind} (counted from "
+              f"the end of its warm-up)")
+        check(by_kind["chunk"] > 0 and by_kind["decode"] > 0,
+              f"fabric replica {i}: attention not launched on chunk and "
+              f"decode {by_kind}")
+        for k in total:
+            total[k] += by_kind[k]
+        for r in ln["rows"]:
+            kind = r["case"].split(":", 1)[1]
+            rows.append(dict(r, case=f"{ARCH}:fabric-r{i}-{kind}"))
+    print("fabric " + json.dumps(dict(
+        out, speedup_tokens_per_s=speedup, prefix_affine=affine_prefix,
+        prefix_survivors=survivors, kill_misses=kill_misses,
+        launches_survivors=total, card=card, replicas_share_one_card=True)))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1407,6 +1739,10 @@ def phase_main_shapes(arch, recorder):
         name = f"{arch}:{key[1]}"
         if key[0] == "flash_attention":
             q, k, v, kw = inputs
+            # an int offset as a 0-d device tensor: the same function, and
+            # no host-to-device copy when the call is timed in a graph
+            kw = dict(kw, q_offset=torch.as_tensor(
+                kw["q_offset"], device=q.device).clone())
             row = check_kernel(name, q, k, v, kw, flush)
         elif key[0] == "moe_router":
             row = check_router(name, *inputs, flush=flush)
@@ -1557,11 +1893,16 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1-2 only: build, check and time the "
                          "kernels (no serving, no final ok line)")
+    ap.add_argument("--fabric-replica", metavar="REGISTRY_URI",
+                    help="run one replica of phase 3f, registered with "
+                         "REGISTRY_URI (phase 3f starts these itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if args.fabric_replica:
+        return fabric_replica(args.fabric_replica)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -1578,9 +1919,9 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
 
-    rows = []
-    for arch in (ARCH, MOE_ARCH):
-        rows += phase_main_shapes(arch, serve_path(arch))
+    rows = phase_main_shapes(ARCH, serve_path(ARCH))
+    rows += phase_fabric(card)
+    rows += phase_main_shapes(MOE_ARCH, serve_path(MOE_ARCH))
     moe_layer_check()
     recorder = checkpoint_path()
     free_card()

@@ -245,6 +245,10 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     """One launch on the card (two with the combine).  ``n_split`` forces
     the number of key splits of a bf16 call (tests and the smoke run
     only); None takes ``plan``'s."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("attention: the kernel has no backward (ROADMAP "
+                           "A9); inputs that need a gradient would get "
+                           "none")
     B, S, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:

@@ -243,6 +243,11 @@ def _kernel():
 def _ssd_cuda(x, dt, A, B, C, D, h0):
     """One call on the card: one launch if the sequence is one chunk,
     else four."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, D, h0)):
+        raise RuntimeError("ssd: the kernel has no backward (ROADMAP A9); "
+                           "inputs that need a gradient would get none")
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "
                          f"B {tuple(B.shape)} / C {tuple(C.shape)} (B,S,G,N)")

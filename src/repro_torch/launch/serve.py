@@ -10,6 +10,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --demo
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --demo --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --listen tcp://0.0.0.0:7777
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --registry tcp://127.0.0.1:7700 --member-id gw-0   # routable by name
 """
 from __future__ import annotations
 
@@ -41,13 +43,22 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--demo", action="store_true")
     ap.add_argument("--registry", default=None, metavar="URI[,URI...]",
-                    help="fabric registry to self-register with (not "
-                         "ported yet: raises)")
+                    help="fabric registry to self-register with (service "
+                         "'gen'): replicas started this way are routable "
+                         "through a ServicePool.  For a replicated "
+                         "registry pass the whole comma-separated quorum "
+                         "address set; registration and heartbeats fail "
+                         "over between the replicas (DESIGN.md §8)")
     ap.add_argument("--service", default="gen",
                     help="service name to register under (with --registry)")
     ap.add_argument("--member-id", default=None,
                     help="join the control plane's membership service "
-                         "under this id (not ported yet: raises)")
+                         "(mem.*, served by the same registry quorum) "
+                         "under this id and bind the registration to "
+                         "it: if this node dies, member expiry reaps "
+                         "the instance without waiting for the "
+                         "instance TTL (requires the registry to run "
+                         "with its membership plane on — the default)")
     ap.add_argument("--trace-sample", type=float, default=None,
                     metavar="P",
                     help="head-sampling probability for distributed "
@@ -73,7 +84,11 @@ def main(argv=None):
         server.shutdown()
         raise
     print(f"serving {cfg.name} on {device} at {server.uri} "
-          f"({args.slots} slots, max_len {args.max_len})")
+          f"({args.slots} slots, max_len {args.max_len})"
+          + (f", registered with {args.registry} as {args.service!r}"
+             if args.registry else "")
+          + (f", member {args.member_id!r}" if args.member_id else ""),
+          flush=True)
 
     if not args.demo:
         try:

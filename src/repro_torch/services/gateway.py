@@ -26,9 +26,13 @@ RPCs:
                    piggybacked balancing signal) + admission stats
 
 A background thread drives ``ServeEngine.step()`` whenever work exists
-(woken by the engine's work event — no idle polling).  Self-registration
-with a fabric registry (``registry=``, ``member_id=``) is not ported yet
-and raises ``NotImplementedError``.
+(woken by the engine's work event — no idle polling); with ``registry=``
+(one endpoint or the comma-separated replica set of a registry quorum —
+see DESIGN.md §8) the gateway self-registers as an instance of service
+``service`` and reports its load, making it routable through a
+:class:`~repro_torch.fabric.pool.ServicePool`; with ``member_id=`` it
+also joins the control plane's membership service and binds the
+registration to it.
 
 **Deadline-aware admission control**: every submit path (``gen.submit``,
 ``gen.submit_bulk``, ``gen.generate``) runs through a shared
@@ -68,13 +72,10 @@ _M_SERVICE_MS = _metrics.histogram("service.gateway.service_ms")
 class ServingGateway:
     def __init__(self, engine: Engine, serve: ServeEngine,
                  registry: Optional[str] = None, service: str = "gen",
+                 report_interval: float = 0.5,
                  admission: Optional[AdmissionController] = None,
                  shed_enabled: bool = True,
                  member_id: Optional[str] = None):
-        if registry is not None or member_id is not None:
-            raise NotImplementedError(
-                "fabric registration (registry=/member_id=) is not ported "
-                "yet: the port's fabric/ is a later slice")
         self.engine = engine
         self.serve = serve
         self.service = service
@@ -90,6 +91,26 @@ class ServingGateway:
         engine.register("gen.result", self._result, pass_handle=True)
         engine.register("gen.generate", self._generate, pass_handle=True)
         engine.register("gen.stats", self._stats)
+        self.instance = None
+        self.member = None
+        if registry is not None:
+            # lazy import (like checkpoint/datafeed): services must not
+            # hard-depend on fabric, keeping the layering acyclic
+            from ..fabric.registry import ServiceInstance
+            if member_id is not None:
+                # the unified control plane serves mem.* from the same
+                # quorum address set: join the membership plane and bind
+                # the registration to it, so a dead gateway node is
+                # reaped by member expiry (not just the instance TTL)
+                from .membership import MembershipClient
+                self.member = MembershipClient(engine, registry, member_id,
+                                               heartbeat_interval=(
+                                                   report_interval))
+                self.member.join({"role": "gateway", "service": service})
+            self.instance = ServiceInstance(
+                engine, registry, service, capacity=serve.n_slots,
+                load_fn=self._load, report_interval=report_interval,
+                member_id=member_id)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -279,9 +300,14 @@ class ServingGateway:
                     self.serve.work.wait(0.05)
 
     def close(self):
-        """Graceful stop: join the step loop (idempotent)."""
+        """Graceful stop: deregister from the fabric and join the step
+        loop (idempotent)."""
         if self._stop.is_set():
             return
+        if self.instance is not None:
+            self.instance.close()
+        if self.member is not None:
+            self.member.leave()
         self._stop.set()
         self.serve.work.set()            # wake a parked step loop
         self._thread.join(timeout=2.0)

@@ -231,3 +231,20 @@ def test_split_kernel_matches_plain_on_card(case, n_split):
     diff = (got.float() - want).abs()
     row = diff.amax(-1) / want.abs().amax(-1).clamp_min(1e-3)
     assert float(row.max()) <= ROW_TOL, (n_split or planned, float(row.max()))
+
+
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_kernel_refuses_inputs_that_need_grad(needs_grad):
+    """The kernel has no backward: its wrapper raises for inputs that need
+    a gradient, before it builds or binds the kernel (so the check runs
+    here, on CPU tensors handed to the card's path).  With gradients off
+    the check passes and validation goes on."""
+    from repro_torch.kernels import attention as fa
+    q, k, v = (torch.randn(1, 4, 2, 24) for _ in range(3))
+    {"q": q, "k": k, "v": v}[needs_grad].requires_grad_()
+    built = fa._fwd
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa._attention_cuda(q, k, v)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim 24"):
+        fa._attention_cuda(q, k, v)
+    assert fa._fwd is built                 # nothing was bound

@@ -168,3 +168,26 @@ def test_kernel_at_each_chunk_length_matches_plain_on_card(case, L):
     want_h, want_f = rglru_plain(*args)
     _close(h, want_h.cpu().numpy(), 2e-4)
     _close(hf, want_f.cpu().numpy(), 2e-4)
+
+
+@pytest.mark.parametrize("needs_grad", ["x", "r_gate", "i_gate",
+                                        "log_lambda", "h0"])
+def test_kernel_refuses_inputs_that_need_grad(needs_grad):
+    """The kernels have no backward: the wrapper raises for inputs that
+    need a gradient, before it builds or binds anything (so the check
+    runs here, on CPU tensors handed to the card's path).  With gradients
+    off the check passes and validation goes on."""
+    from repro_torch.kernels import rglru as krg
+    Bb, S, W = 1, 5, 8
+    t = {"x": torch.randn(Bb, S, W), "r_gate": torch.rand(Bb, S, W),
+         "i_gate": torch.rand(Bb, S, W), "log_lambda": -torch.rand(W),
+         "h0": torch.randn(Bb, W)}
+    t[needs_grad].requires_grad_()
+    built = krg._fn
+    with pytest.raises(RuntimeError, match="no backward"):
+        krg._rglru_cuda(t["x"], t["r_gate"], t["i_gate"], t["log_lambda"],
+                        t["h0"])
+    with torch.no_grad(), pytest.raises(ValueError, match="log_lambda"):
+        krg._rglru_cuda(t["x"], t["r_gate"], t["i_gate"],
+                        t["log_lambda"][:-1], t["h0"])
+    assert krg._fn is built                 # nothing was bound

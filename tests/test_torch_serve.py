@@ -435,8 +435,30 @@ def test_reference_client_reaches_the_port_over_tcp(models):
 
 
 def test_gateway_fabric_registration_is_not_ported(models):
+    """Fabric registration is ported (the name is historical): a gateway
+    given ``registry=`` registers with the port's RegistryService, and
+    ``gen.stats`` is routable by service name through a ServicePool;
+    ``close()`` deregisters it."""
+    from repro_torch.fabric import (RegistryClient, RegistryService,
+                                    ServicePool)
     _, _, m, params = models
-    with Engine("tcp://127.0.0.1:0") as srv:
-        with pytest.raises(NotImplementedError, match="fabric"):
-            ServingGateway(srv, make_engine(m, params),
-                           registry="tcp://127.0.0.1:1")
+    with Engine("tcp://127.0.0.1:0") as reg_e, \
+            Engine("tcp://127.0.0.1:0") as srv, \
+            Engine("tcp://127.0.0.1:0") as cli:
+        reg = RegistryService(reg_e)
+        gw = ServingGateway(srv, make_engine(m, params, n_slots=2),
+                            registry=reg_e.uri, service="gen-port",
+                            report_interval=0.1)
+        try:
+            view = RegistryClient(cli, reg_e.uri).resolve("gen-port")
+            uris = [";".join(i["uris"]) for i in view["instances"]]
+            assert uris == [srv.uri]
+            assert view["instances"][0]["capacity"] == 2
+            pool = ServicePool(cli, reg_e.uri, "gen-port")
+            st = pool.call("gen.stats", {}, timeout=10.0)
+            assert st["n_slots"] == 2 and st["uris"] == srv.uri
+        finally:
+            gw.close()
+        assert RegistryClient(cli, reg_e.uri).resolve(
+            "gen-port")["instances"] == []
+        reg.close()

@@ -180,3 +180,26 @@ def test_kernel_matches_plain_on_card(case, dt):
     _close(y, want_y.float().cpu().numpy(), tol)
     _close(hf, want_h.cpu().numpy(), tol)
 
+
+
+@pytest.mark.parametrize("needs_grad", ["x", "dt", "A", "B", "C", "D", "h0"])
+def test_kernel_refuses_inputs_that_need_grad(needs_grad):
+    """The kernels have no backward: the wrapper raises for inputs that
+    need a gradient, before it builds or binds anything (so the check
+    runs here, on CPU tensors handed to the card's path).  With gradients
+    off the check passes and validation goes on."""
+    from repro_torch.kernels import ssd as kssd
+    Bb, S, H, P, G, N = 1, 5, 2, 4, 1, 4
+    t = {"x": torch.randn(Bb, S, H, P), "dt": torch.rand(Bb, S, H),
+         "A": -torch.rand(H), "B": torch.randn(Bb, S, G, N),
+         "C": torch.randn(Bb, S, G, N), "D": torch.randn(H),
+         "h0": torch.randn(Bb, H, P, N)}
+    t[needs_grad].requires_grad_()
+    built = kssd._fn
+    with pytest.raises(RuntimeError, match="no backward"):
+        kssd._ssd_cuda(t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"],
+                       t["h0"])
+    with torch.no_grad(), pytest.raises(ValueError, match="shapes"):
+        kssd._ssd_cuda(t["x"], t["dt"][:, :-1], t["A"], t["B"], t["C"],
+                       t["D"], t["h0"])
+    assert kssd._fn is built                # nothing was bound

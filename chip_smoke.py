@@ -39,6 +39,11 @@ Phases, in order; any failure exits non-zero:
    embedding), each with one bit flipped, and a mixed batch (4 KB, 1-3
    bytes, a view at offset 1, 4 MB, 11.5 MB, empty) in one launch where
    a flipped byte changes its own shard's checksum only; exactly equal.
+   The attention backward (``attn_bwd_pre``, ``attn_bwd_dkdv``,
+   ``attn_bwd_dq``) against ``attention_bwd_plain`` on the CPU tests' cases
+   (GQA 1, 3 and 16 at head dims 64 and 256; causal, window, softcap,
+   prefix, full) at 160 tokens in bf16 and f32, with the forward's row lse
+   unsplit and (bf16) at 2 key splits against ``attention_fwd_plain``.
    The spec shapes are timed (CUDA events, warmed up, L2 flushed) beside
    the least time the card could take.
 3. The main paths, each driven with the kernels' launch counts set to 0
@@ -85,6 +90,23 @@ Phases, in order; any failure exits non-zero:
       must launch on save, verify and restore: one batch for the save's
       manifest and one for each restore, one for each group of shards
       the server verifies.
+   g. (run next) Training: ``launch.train.main`` on full-width
+      qwen1.5-0.5b at the launcher's defaults (8 x 128, 20 steps, AdamW, a
+      checkpoint every 10, bf16 compute, remat "none") through its
+      services: batches over RPC from a ``DataFeedServer``, a
+      ``MembershipServer`` joined and left, async saves of the state on
+      the card (params, m, v) to a ``CheckpointServer`` that verifies on
+      the card.  The loss must be finite at every step and the mean of
+      the last 5 below the first; attention's forward must launch 24
+      times a step inside ``Model.loss_fn`` and its backward 24 times a
+      step in the step's autograd, and nowhere else; Fletcher-64 one
+      batch a save and the server's verify groups; the router, the SSD
+      and the RG-LRU never.  Then one step at 4 x 1024 with remat
+      "block" (the forward launches again in the backward: 48 a step),
+      then the restart check: 6 steps straight against 3, a save, a
+      restore into a fresh state (seed 42) and 3 more, the parameters
+      equal to rtol 1e-5 / atol 1e-6.  Steps/s and tokens/s printed,
+      not enforced.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -95,7 +117,9 @@ Phases, in order; any failure exits non-zero:
       attention must launch on prefill and decode (recurrentgemma).
 4. The main paths' own shapes: each kernel against its plain version on
    the recorded inputs, timed and bounded as in phase 2 (an attention
-   row names its ``path`` and ``n_split``).  These rows, with the main
+   row names its ``path`` and ``n_split``); phase 3g's attention
+   backward rows also time SDPA's backward (forward + backward less the
+   forward) as the library yardstick.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -103,7 +127,9 @@ Phases, in order; any failure exits non-zero:
    steps through the kernels against the same through the plain
    versions: 2x128 for qwen1.5-0.5b and granite-moe-3b-a800m, 2x640 for
    mamba2-1.3b and recurrentgemma-9b (three of the reference's 256-token
-   SSD chunks, so the state is carried).
+   SSD chunks, so the state is carried).  Then qwen1.5-0.5b's training
+   loss and every gradient leaf at 2x128 in f32: attention's forward and
+   backward kernels against autograd through the plain version.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -141,7 +167,10 @@ from repro_torch.kernels import fletcher as fl  # noqa: E402
 from repro_torch.kernels import moe_router as kr  # noqa: E402
 from repro_torch.kernels import rglru as krg  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
+from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention as attn_layer  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import rglru_block, ssd_block  # noqa: E402
@@ -151,6 +180,8 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.services import base as svc_base  # noqa: E402
 from repro_torch.services import checkpoint as ckpt  # noqa: E402
 from repro_torch.services import ServingGateway  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 MOE_ARCH = "granite-moe-3b-a800m"
@@ -160,9 +191,14 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
                   torch.float32: 67e12}    # f32 outside the tensor cores
 TF32_OPS_PER_S = 495e12                    # dense TF32 tensor cores
+# attention's error, element by element: |got - want| <= TOL + ULP *
+# |want|.  Both sides round the output to its dtype, so they may part by
+# one unit in the last place, 2^-7 of the value in bf16: past |want| = 4
+# (training's activations reach 4-8) that unit alone exceeds TOL
 TOL = {torch.bfloat16: 2e-2,
        # looser than the CPU's 2e-5: the kernel sums in another order
        torch.float32: 1e-4}
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 # Also per output row (one query, one head): its largest error over its
 # largest |value|.  Rows over long keys average to small values (~0.05
 # at T=1024), under which a wrong tile could hide in bf16's absolute
@@ -205,6 +241,29 @@ LONG_MAX_LEN = 3072
 ROUTER_GRID = [((T, E), k) for (T, E) in [(32, 8), (100, 16), (256, 40)]
                for k in (1, 2, 6)]
 QWEN_EMBED_WORDS = 151936 * 1024       # qwen1.5-0.5b's largest shard, f32
+# the attention backward against its plain version: the largest error of
+# dq, dk and dv over its largest |entry| (bf16: inputs and outputs rounded
+# to bf16 on both sides; f32: sums in another order); the
+# forward's row lse in absolute terms (logits summed in another order)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+LSE_TOL = 1e-3
+# tests/test_torch_attention_bwd.py's CASES: Hq, Hkv, D, causal, window,
+# softcap, prefix (GQA groups of 1, 3 and 16 at head dims 64 and 256)
+BWD_SWEEP = [
+    (4, 4, 64, True, 0, 0.0, None), (6, 2, 64, True, 7, 0.0, None),
+    (16, 1, 64, True, 0, 30.0, None), (2, 2, 256, True, 5, 20.0, None),
+    (3, 1, 256, True, 0, 0.0, None), (16, 1, 256, True, 9, 0.0, None),
+    (6, 2, 64, True, 0, 0.0, 6), (4, 4, 64, False, 0, 0.0, None),
+]
+# phase 3g: the launcher's defaults (8 x 128, 20 steps, a checkpoint every
+# 10), then one step at 4 x 1024 with remat "block", then the restart
+# check at the launcher's shape
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY = 20, 8, 128, 10
+LONG_TRAIN = dict(batch=4, seq=1024)
+# f32 full width: each gradient leaf's largest error over its largest
+# |entry|, and the loss's relative error, at tests/test_torch_train.py's
+# per-leaf 1e-4 (there against the reference; here kernels against plain)
+TRAIN_PARITY_TOL = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -357,15 +416,18 @@ def check_kernel(name, q, k, v, kw, flush=None, n_split=None):
     want = fa.attention_plain(q, k, v, **kw).float()
     diff = (got.float() - want).abs()
     err = float(diff.max())
+    out_max = float(want.abs().max())
+    past_ulp = float((diff - ULP[q.dtype] * want.abs()).max())
     row_err = float((diff.amax(-1)
                      / want.abs().amax(-1).clamp_min(1e-3)).max())
     row = {"kernel": "flash_attention", "case": name,
            "shape": f"B{B} S{S} T{T} Hq{q.shape[2]} Hkv{k.shape[2]}",
            "dtype": str(q.dtype).replace("torch.", ""), "path": path,
            "n_split": planned if n_split is None else n_split,
-           "max_abs_err": err, "tol": TOL[q.dtype], "row_rel_err": row_err,
-           "row_tol": ROW_TOL,
-           "ok": err <= TOL[q.dtype] and row_err <= ROW_TOL}
+           "max_abs_err": err, "past_ulp_err": past_ulp,
+           "tol": TOL[q.dtype], "out_max": out_max,
+           "row_rel_err": row_err, "row_tol": ROW_TOL,
+           "ok": past_ulp <= TOL[q.dtype] and row_err <= ROW_TOL}
     if flush is not None:
         offsets = offsets_of(kw["q_offset"], B)
         masks = (kw.get("causal", True), kw.get("window", 0),
@@ -395,6 +457,114 @@ def attention_case(name, B, S, T, Hq, Hkv, D, dtype, *, causal=True,
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off,
               prefix_len=prefix)
     return check_kernel(name, q, k, v, kw, flush, n_split)
+
+
+def attn_bwd_bound(q, k, kw):
+    """The backward's least time: bytes (q, k, v, o, dO and lse read once,
+    dq, dk and dv written once) or operations (2.5x the forward's 4·D
+    multiply-adds per visible pair), at the dtype's peak."""
+    B, S, Hq, D = q.shape
+    elt = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + B * Hq * S * 4
+    pairs = int(visible(S, k.shape[1], [0] * B, kw["causal"], kw["window"],
+                        kw["prefix_len"]).sum())
+    return bound_of(nbytes, 2.5 * 4 * D * Hq * pairs, q.dtype)
+
+
+def sdpa_bwd_ms(q, k, v, do, kw, flush):
+    """SDPA's backward on the same inputs and masks, as a yardstick only
+    (the port never calls it): forward + backward less the forward, each
+    timed by ``device_ms``.  A causal mask without window or prefix goes
+    as ``is_causal`` (the flash backend), any other as a boolean mask."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qt, kt, vt, dot = (x.detach().transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
+    if Hq != Hkv:
+        kt = kt.repeat_interleave(Hq // Hkv, dim=1)
+        vt = vt.repeat_interleave(Hq // Hkv, dim=1)
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+    causal = (kw["causal"] and not kw["window"] and kw["prefix_len"] is None
+              and S == T)
+    mask = None if causal else visible(
+        S, T, [0] * B, kw["causal"], kw["window"], kw["prefix_len"],
+        "cuda")[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        return sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    return device_ms(fwd_bwd, flush) - device_ms(fwd, flush)
+
+
+def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
+    """The backward kernels (``attn_bwd_pre``, ``attn_bwd_dkdv``,
+    ``attn_bwd_dq``, one call) against ``attention_bwd_plain`` on the same
+    o and lse; with ``flush`` also the times, the bound and SDPA's
+    backward."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+
+    def kernel():
+        return fa._attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)]
+    grad_max = [float(w.float().abs().max()) for w in want]
+    differing = sum(int((g != w).sum()) for g, w in zip(got, want))
+    # each gradient's largest error over its own largest |entry| (a
+    # training step's are ~1e-5 at init: no absolute floor)
+    scaled = max(e / m if m > 0 else (0.0 if e == 0 else math.inf)
+                 for e, m in zip(errs, grad_max))
+    row = {"kernel": "flash_attention_bwd", "case": name,
+           "shape": f"B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D}",
+           "dtype": str(q.dtype).replace("torch.", ""),
+           "max_abs_err": max(errs), "dq_dk_dv_err": errs,
+           "dq_dk_dv_max": grad_max, "elements_differing": differing,
+           "scaled_err": scaled, "tol": BWD_TOL[q.dtype],
+           "ok": scaled <= BWD_TOL[q.dtype]}
+    if flush is not None:
+        row["ms"] = device_ms(kernel, flush)
+        row["plain_ms"] = device_ms(
+            lambda: fa.attention_bwd_plain(q, k, v, o, lse, do, **kw), flush)
+        row["library_ms"] = sdpa_bwd_ms(q, k, v, do, kw, flush)
+        row["bound_ms"], row["bound_by"] = attn_bwd_bound(q, k, kw)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
+             dtype, seed=0):
+    """The forward kernel's lse (unsplit, and at 2 key splits in bf16,
+    where ``attn_combine`` writes it) against ``attention_fwd_plain``,
+    then ``check_bwd`` on the unsplit forward's o and lse."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((B, S, Hq, D), (B, S, Hkv, D),
+                                 (B, S, Hkv, D), (B, S, Hq, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix)
+    want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
+    lse_err = {}
+    for n_split in ((1, 2) if dtype == torch.bfloat16 else (1,)):
+        o, lse = fa._attention_cuda(q, k, v, n_split=n_split, with_lse=True,
+                                    **kw)
+        torch.cuda.synchronize()
+        lse_err[n_split] = float((lse - want_lse).abs().max())
+        check(float((o.float() - want_o.float()).abs().max()) <= TOL[dtype],
+              f"{name}: forward o at {n_split} splits disagrees")
+        if n_split == 1:
+            o1, lse1 = o, lse
+    row = check_bwd(name, q, k, v, o1, lse1, do, kw)
+    row["lse_err"] = lse_err
+    row["ok"] = row["ok"] and max(lse_err.values()) <= LSE_TOL
+    print("kernel-check lse", name, json.dumps(lse_err))
+    return row
 
 
 HEADS = {ARCH: dict(Hq=16, Hkv=16, D=64),      # qwen1.5-0.5b
@@ -765,6 +935,13 @@ def phase_kernels():
             rows.append(attention_case(
                 f"sweep{i}-decode", B=3, S=1, T=T, dtype=dtype,
                 offsets=[0, T // 2, T - 1], **kw))
+
+    # the attention backward (and the forward's row lse), the CPU tests'
+    # cases at 160 tokens (ragged tiles), in bf16 and f32
+    for i, case in enumerate(BWD_SWEEP):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(bwd_case(f"bwd-sweep{i}", 2, 160, *case,
+                                 dtype=dtype, seed=i))
 
     # SSD at mamba2-1.3b's heads: the demo's prompts (one chunk, one
     # launch), one reference chunk, many chunks with a ragged tail at B 2,
@@ -1594,7 +1771,9 @@ class CheckpointRecorder:
         self._patched.append((owner, attr, vars(owner).get(attr)))
         setattr(owner, attr, new)
 
-    def install(self, server_engine, client_engine):
+    def install(self, server_engine=None, client_engine=None):
+        """Without engines (the trainer's, which it makes itself, and
+        only saves) every engine's bulk pull is timed as the save's."""
         Client = ckpt.CheckpointClient
         self._patch(Client, "_snapshot", staticmethod(
             self._within("save", Client._snapshot)))
@@ -1607,6 +1786,10 @@ class CheckpointRecorder:
                     self._timed("card to host", ckpt.host_copy))
         self._patch(ckpt, "host_to_tensor",
                     self._timed("host to card", ckpt.host_to_tensor))
+        if server_engine is None:
+            self._patch(Engine, "pull", self._timed("bulk pull", Engine.pull,
+                                                    kind="save"))
+            return
         # the server pulls a save on its handler thread, before verifying
         self._patch(server_engine, "pull", self._timed(
             "bulk pull", server_engine.pull, kind="save"))
@@ -1726,6 +1909,256 @@ def checkpoint_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: training
+# ---------------------------------------------------------------------------
+class TrainRecorder:
+    """What the training path gives attention's forward and backward.
+    Wraps ``Model.loss_fn`` (the forward, kind "forward") and the train
+    step's ``loss_and_grads`` (around it: autograd's backward, with the
+    forward recomputed there under remat, kind "backward"), the attention
+    the layers call and the backward launcher ``AttentionFunction``
+    reaches; keeps the launches the wrappers counted per (kernel, kind,
+    shape), the inputs of the last launch, and each step's launches."""
+
+    def __init__(self):
+        self.kind = "outside the train step"
+        self.seen = {}
+        self.per_step = []              # (forward, backward) launches
+        self._orig = {}
+
+    def install(self):
+        self._orig = {"loss_fn": Model.loss_fn,
+                      "loss_and_grads": train_step.loss_and_grads}
+
+        def within(kind, fn):
+            def run(*a, **kw):
+                outer, self.kind = self.kind, kind
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.kind = outer
+            return run
+
+        step = within("backward", self._orig["loss_and_grads"])
+
+        def counted_step(*a, **kw):
+            before = (fa.attention.launches, fa.attention_bwd.launches)
+            out = step(*a, **kw)
+            self.per_step.append((fa.attention.launches - before[0],
+                                  fa.attention_bwd.launches - before[1]))
+            return out
+        Model.loss_fn = within("forward", self._orig["loss_fn"])
+        train_step.loss_and_grads = counted_step
+        attn_layer.attention = self._attention
+        fa._attention_bwd_cuda = self._bwd
+
+    def uninstall(self):
+        Model.loss_fn = self._orig["loss_fn"]
+        train_step.loss_and_grads = self._orig["loss_and_grads"]
+        attn_layer.attention = fa.attention
+        fa._attention_bwd_cuda = _ATTENTION_BWD_CUDA
+
+    def _record(self, key, launches, inputs):
+        rec = self.seen.setdefault(key, {"launches": 0})
+        rec["launches"] += launches
+        rec["inputs"] = inputs
+
+    def _attention(self, q, k, v, **kw):
+        before = fa.attention.launches
+        out = fa.attention(q, k, v, **kw)
+        B, S, Hq, D = q.shape
+        self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
+                      k.shape[2], D, q.dtype), fa.attention.launches - before,
+                     tuple(x.detach().clone() for x in (q, k, v)) + (kw,))
+        return out
+
+    def _bwd(self, q, k, v, o, lse, do, **kw):
+        before = fa.attention_bwd.launches
+        out = _ATTENTION_BWD_CUDA(q, k, v, o, lse, do, **kw)
+        B, S, Hq, D = q.shape
+        self._record(("flash_attention_bwd", self.kind, B, S, k.shape[1], Hq,
+                      k.shape[2], D, q.dtype),
+                     fa.attention_bwd.launches - before,
+                     tuple(x.detach().clone() for x in (q, k, v, o, lse, do))
+                     + (kw,))
+        return out
+
+    def by_kind(self, kernel):
+        n = {"forward": 0, "backward": 0}
+        for key, rec in self.seen.items():
+            if key[0] == kernel:
+                n[key[1]] = n.get(key[1], 0) + rec["launches"]
+        return n
+
+
+_ATTENTION_BWD_CUDA = fa._attention_bwd_cuda
+OTHER_KERNELS = (kr.router_dispatch, kssd.ssd, krg.rglru)
+
+
+def check_train_launches(tag, recorder, n_steps, remat):
+    """Attention's forward and backward launched on every step and
+    nowhere outside the step: forward 24 a step in ``loss_fn`` (and 24
+    more recomputed in the backward under remat "block"), backward 24 a
+    step; the router, the SSD and the RG-LRU not at all."""
+    layers = configs.get(ARCH).n_layers
+    fwd, bwd = (recorder.by_kind(k) for k in ("flash_attention",
+                                              "flash_attention_bwd"))
+    want_fwd = {"forward": layers * n_steps,
+                "backward": layers * n_steps if remat == "block" else 0}
+    print(f"{tag}: attention launches, forward {fwd}, backward {bwd}; per "
+          f"step (forward, backward) {sorted(set(recorder.per_step))}")
+    check(fwd == want_fwd, f"{tag}: forward launches {fwd}, expected "
+          f"{want_fwd}")
+    check(bwd == {"forward": 0, "backward": layers * n_steps},
+          f"{tag}: backward launches {bwd}")
+    check(len(recorder.per_step) == n_steps and set(recorder.per_step)
+          == {(want_fwd["forward"] // n_steps
+               + want_fwd["backward"] // n_steps, layers)},
+          f"{tag}: a step without attention's launches "
+          f"{recorder.per_step}")
+    others = [fn.launches for fn in OTHER_KERNELS]
+    check(others == [0, 0, 0], f"{tag}: router, ssd, rglru launched "
+          f"{others}")
+
+
+def train_batch(source, step):
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in source.batch_at(step).items()}
+
+
+def train_path():
+    """Phase 3g: full-width qwen1.5-0.5b training through the launcher
+    and its services, then one 4 x 1024 step with remat "block", then the
+    restart check.  Returns the recorder of the two training runs
+    (attention's forward and backward rows for phase 4) and the
+    checkpoint recorder (Fletcher's)."""
+    recorder, ckrec = TrainRecorder(), CheckpointRecorder()
+    recorder.install()
+    ckrec.install()
+    for fn in (fa.attention, fa.attention_bwd, fl.fletcher64) \
+            + OTHER_KERNELS:
+        fn.launches = 0
+    try:
+        out = train_launcher.main(["--arch", ARCH])
+        fletcher = fl.fletcher64.launches
+    finally:
+        ckrec.uninstall()
+        recorder.uninstall()
+    losses = out["losses"]
+    # steps without a save, the first (warm-up) left out
+    plain_steps = [t for i, t in enumerate(out["step_seconds"])
+                   if i and (i + 1) % TRAIN_CKPT_EVERY]
+    step_s = float(np.median(plain_steps))
+    print(f"train: {len(losses)} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"losses {losses}; {out['seconds']:.3f} s, "
+          f"{len(losses) / out['seconds']:.4f} steps/s, "
+          f"{out['tokens'] / out['seconds']:.1f} tokens/s (host "
+          f"wall-clock, checkpoints included; information only); a step "
+          f"without a save: median {step_s * 1e3:.2f} ms "
+          f"({TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s), first "
+          f"{out['step_seconds'][0] * 1e3:.1f} ms; step seconds "
+          f"{out['step_seconds']}")
+    print("train: save host seconds by part (snapshot on the trainer; "
+          "pull and verify on the server's handler thread): "
+          + json.dumps({k: round(v, 4)
+                        for k, v in sorted(ckrec.seconds.items())}))
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train: non-finite loss {losses}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"train: the loss did not fall {losses}")
+    check_train_launches("train", recorder, TRAIN_STEPS, "none")
+    saves = TRAIN_STEPS // TRAIN_CKPT_EVERY
+    by_kind = ckrec.by_kind()
+    print(f"train: fletcher64 {fletcher} launches, by step {by_kind}, "
+          f"checksum batches {ckrec.batches}; checkpoints "
+          f"{[c['step'] for c in out['checkpoints']]}")
+    check(by_kind["save"] == saves and by_kind["verify"] >= saves
+          and by_kind["restore"] == 0 and sum(by_kind.values()) == fletcher,
+          f"train: expected a checksum batch a save ({saves}) and the "
+          f"server's verify groups: {by_kind}")
+    check([c["step"] for c in out["checkpoints"]]
+          == [TRAIN_CKPT_EVERY * (i + 1) for i in range(saves)],
+          f"train: checkpoints {out['checkpoints']}")
+    free_card()
+
+    # one step at 4 x 1024, remat "block"
+    cfg = configs.get(ARCH)
+    model = Model(cfg)
+    long_rec = TrainRecorder()
+    long_rec.install()
+    for fn in (fa.attention, fa.attention_bwd):
+        fn.launches = 0
+    try:
+        ocfg = optim.OptConfig(warmup=5, decay_steps=TRAIN_STEPS)
+        state = train_step.init_state(model, ocfg, 0, device="cuda")
+        step = train_step.make_train_step(model, ocfg,
+                                          ParallelConfig(remat="block"))
+        batch = train_batch(SyntheticSource(cfg.vocab, LONG_TRAIN["seq"],
+                                            LONG_TRAIN["batch"]), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.monotonic() - t0
+    finally:
+        long_rec.uninstall()
+    toks = LONG_TRAIN["batch"] * LONG_TRAIN["seq"]
+    long_tag = f"train {LONG_TRAIN['batch']}x{LONG_TRAIN['seq']}"
+    print(f"{long_tag} remat block: one step {dt:.3f} s ({toks / dt:.1f} "
+          f"tokens/s, host wall-clock, first call), loss {loss}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(math.isfinite(loss), f"{long_tag}: loss {loss}")
+    check_train_launches(long_tag, long_rec, 1, "block")
+    del state, batch
+    free_card()
+    restart_check(model)
+    for key, rec in long_rec.seen.items():
+        recorder.seen[key[:1] + ("remat-" + key[1],) + key[2:]] = rec
+    return recorder, ckrec
+
+
+def restart_check(model):
+    """Train 6 steps straight == train 3, save, restore into a fresh state
+    of seed 42, train 3 more (the reference's
+    test_checkpoint_restart_determinism, at full width on the card)."""
+    ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=100)
+    step = train_step.make_train_step(model, ocfg,
+                                      ParallelConfig(remat="none"))
+    source = SyntheticSource(model.cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=7)
+    state = train_step.init_state(model, ocfg, 0, device="cuda")
+    for i in range(6):
+        state, _ = step(state, train_batch(source, i))
+    direct = svc_base.flatten_named(state["params"])
+    del state
+    with Engine(None) as e:
+        ckpt.CheckpointServer(e, device="cuda")
+        client = ckpt.CheckpointClient(e, e.uri)
+        state = train_step.init_state(model, ocfg, 0, device="cuda")
+        for i in range(3):
+            state, _ = step(state, train_batch(source, i))
+        client.save("restart", 3, state)
+        del state
+        fresh = train_step.init_state(model, ocfg, 42, device="cuda")
+        restored, at = client.restore("restart", fresh, device="cuda")
+        del fresh
+        check(at == 3 and int(restored["opt"]["count"]) == 3,
+              f"restart: restored step {at}")
+        for i in range(3, 6):
+            restored, _ = step(restored, train_batch(source, i))
+    got = svc_base.flatten_named(restored["params"])
+    worst = 0.0
+    for key, want in direct.items():
+        diff = (got[key] - want).abs() - 1e-5 * want.abs()
+        worst = max(worst, float(diff.max()))
+    print(f"restart: 6 steps straight against 3 + save + restore (seed 42) "
+          f"+ 3: max(|diff| - 1e-5 |want|) = {worst:.3g} (atol 1e-6)")
+    check(worst <= 1e-6, "restart: parameters differ")
+    del direct, got, restored
+    free_card()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main paths' own shapes
 # ---------------------------------------------------------------------------
 def phase_main_shapes(arch, recorder):
@@ -1744,6 +2177,8 @@ def phase_main_shapes(arch, recorder):
             kw = dict(kw, q_offset=torch.as_tensor(
                 kw["q_offset"], device=q.device).clone())
             row = check_kernel(name, q, k, v, kw, flush)
+        elif key[0] == "flash_attention_bwd":
+            row = check_bwd(name, *inputs, flush=flush)
         elif key[0] == "moe_router":
             row = check_router(name, *inputs, flush=flush)
         elif key[0] == "ssd":
@@ -1851,12 +2286,65 @@ def phase_parity(arch, S):
     check(err <= PARITY_TOL * (1 + scale), f"parity {arch}: logits disagree")
 
 
+def phase_train_parity(B: int = 2, S: int = 128):
+    """qwen1.5-0.5b's loss and every gradient leaf at B x S in f32 with
+    TF32 off, through attention's forward and backward kernels against
+    autograd through its plain version, on the same weights and batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(ARCH).replace(compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(2, device="cuda")
+    batch = train_batch(SyntheticSource(cfg.vocab, S, B, seed=2), 0)
+
+    def run(plain: bool):
+        before = (fa.attention.launches, fa.attention_bwd.launches)
+        if plain:
+            attn_layer.attention = fa.attention_plain
+        try:
+            loss, _, grads = train_step.loss_and_grads(model, params, batch,
+                                                       remat="none")
+        finally:
+            attn_layer.attention = fa.attention
+        launched = (fa.attention.launches - before[0],
+                    fa.attention_bwd.launches - before[1])
+        return float(loss), svc_base.flatten_named(grads), launched
+
+    loss, grads, launched = run(plain=False)
+    want_loss, want, plain_launched = run(plain=True)
+    check(launched == (cfg.n_layers, cfg.n_layers) and plain_launched
+          == (0, 0), f"train parity: launches {launched} / {plain_launched}")
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    worst, where = 0.0, None
+    for key, w in want.items():
+        g = grads[key]
+        check(bool(torch.isfinite(g).all()), f"train parity: {key} "
+              f"not finite")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if err >= worst:
+            worst, where = err, key
+    print(f"train parity {ARCH}: f32 full width, TF32 off, {B}x{S}: loss "
+          f"{loss} / plain {want_loss} (relative {loss_err:.3g}); "
+          f"{len(want)} gradient leaves, worst max|kernel - plain| / "
+          f"max|plain| = {worst:.3g} at {where} (tolerance "
+          f"{TRAIN_PARITY_TOL}); launches (forward, backward) {launched}")
+    del params, grads, want
+    free_card()
+    check(loss_err <= TRAIN_PARITY_TOL and worst <= TRAIN_PARITY_TOL,
+          "train parity: the kernels' loss or gradients disagree")
+
+
 # ---------------------------------------------------------------------------
 # the summary
 # ---------------------------------------------------------------------------
 SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
                               "flash_attention.cu",
                               "src/repro/kernels/flash_attention.py:96"),
+          # no Pallas backward: the reference differentiates ops.attention
+          # with XLA's autodiff
+          "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                                  "flash_attention_bwd.cu",
+                                  "src/repro/kernels/ops.py:43"),
           "moe_router": ("src/repro_torch/kernels/csrc/moe_router.cu",
                          "src/repro/kernels/moe_router.py:43"),
           "fletcher64": ("src/repro_torch/kernels/csrc/fletcher64.cu",
@@ -1926,11 +2414,15 @@ def main(argv=None) -> int:
     recorder = checkpoint_path()
     free_card()
     rows += phase_main_shapes(ARCH, recorder)
+    train_rec, train_ckpt = train_path()
+    rows += phase_main_shapes(f"{ARCH} train", train_rec)
+    rows += phase_main_shapes(f"{ARCH} train", train_ckpt)
     for arch in (SSM_ARCH, HYBRID_ARCH):
         rows += phase_main_shapes(arch, serve_path(arch))
     for arch, S in ((ARCH, 128), (MOE_ARCH, 128), (SSM_ARCH, 640),
                     (HYBRID_ARCH, 640)):
         phase_parity(arch, S)
+    phase_train_parity()
 
     lost = {}
     for r in rows:

@@ -2,7 +2,8 @@
 PyTorch version that the CPU runs and the card is checked against.
 
 ``attention`` (``csrc/flash_attention.cu``) — the attention forward for
-prefill, prefill chunks and decode.
+prefill, prefill chunks and decode; (``csrc/flash_attention_bwd.cu``) its
+backward, for training.
 ``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing and the
 capacity dispatch of every MoE layer call, in one launch.
 ``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksums of a
@@ -13,4 +14,5 @@ prefill.
 RG-LRU layer's prefill."""
 
 # every CUDA source under csrc/, by the name build.build() takes
-SOURCES = ("flash_attention", "moe_router", "fletcher64", "ssd", "rglru_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "moe_router",
+           "fletcher64", "ssd", "rglru_scan")

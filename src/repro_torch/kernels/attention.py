@@ -43,6 +43,16 @@ no host sync.
 plain version, a CUDA tensor launches the kernel or raises.  There is no
 fallback.  ``attention.launches`` counts one per call on the card,
 split or not (the combine is part of the call).
+
+**The gradient.**  The reference has no backward kernel (it trains
+through XLA's autodiff of ``ops.attention``); here the forward is a
+hand-written kernel, so its gradient is one too.  When an input needs a
+gradient (training, ``q_offset`` 0), ``attention`` goes through
+``AttentionFunction``: its forward also keeps the row log-sum-exp
+(``attention_fwd``: the kernels write it beside O), its backward is
+``attention_bwd`` — FlashAttention-2's backward, ``attention_bwd_plain``
+on the CPU and ``csrc/flash_attention_bwd.cu`` on the card (three
+launches, ``attention_bwd.launches`` counts one per call).
 """
 from __future__ import annotations
 
@@ -117,9 +127,12 @@ def key_splits(k_begin: int, k_end: int, bk: int, n_split: int):
 
 def _positions(q_offset, B: int, S: int, device) -> torch.Tensor:
     """Absolute query positions, (1, S) for a scalar offset or (B, S)
-    for a (B,) one."""
-    off = torch.as_tensor(q_offset, device=device)
+    for a (B,) one.  An int offset copies nothing from the host (the
+    plain versions run inside CUDA graphs when they are timed)."""
     rows = torch.arange(S, device=device)
+    if not isinstance(q_offset, torch.Tensor):
+        return (rows + int(q_offset))[None, :]
+    off = q_offset.to(device)
     if off.ndim == 0:
         return (rows + off)[None, :]
     return off.reshape(B, 1) + rows[None, :]
@@ -202,13 +215,128 @@ def combine_plain(m, l, o, dtype):
     return out.to(dtype)
 
 
+def attention_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        prefix_len: Optional[int] = None):
+    """(o, lse) at ``q_offset`` 0, as the kernels write them for training:
+    o (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32 = m + log l over the
+    scaled and soft-capped logits, -1e30 (NEG_INF) for a row that sees no
+    key (whose o is 0)."""
+    m, l, o = attention_partial_plain(q, k, v, 0, k.shape[1], causal=causal,
+                                      window=window, softcap=softcap,
+                                      prefix_len=prefix_len)
+    o = o / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), NEG_INF)
+    return o.to(q.dtype), lse.transpose(1, 2)
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        prefix_len: Optional[int] = None):
+    """(dq, dk, dv) in the inputs' dtypes: FlashAttention-2's backward
+    algebra written out in f32 (not autograd), from the forward's o and
+    lse, as ``attn_bwd_*`` compute it::
+
+        P = exp(x - lse)  (0 where masked or lse is NEG_INF)
+        dV = P^T dO    dP = dO V^T    Delta = rowsum(dO * o)
+        dZ = P (dP - Delta) (1 - tanh^2)    dQ = scale dZ K
+        dK = scale dZ^T Q
+
+    x is the scaled, soft-capped logit; the (1 - tanh^2) factor is the
+    softcap's (absent without one).  A kv head's gradient sums its GQA
+    group's q heads."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    x, mask = _logits(q, k, causal=causal, window=window, softcap=softcap,
+                      q_offset=0, prefix_len=prefix_len)
+    live = mask[:, None] & (lse > NEG_INF / 10)[..., None]
+    lse_safe = torch.where(lse > NEG_INF / 10, lse, 0.0)
+    p = torch.where(live, torch.exp(x - lse_safe[..., None]), 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)     # (B,Hq,S)
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dp = torch.einsum("bshd,bthd->bhst", dof, _values(v, Hq))
+    dz = p * (dp - delta[..., None])
+    if softcap > 0.0:
+        dz = dz * (1.0 - torch.square(x / softcap))
+    kf = k.float().repeat_interleave(G, dim=2)
+    dq = torch.einsum("bhst,bthd->bshd", dz, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", dz, q.float()) * scale
+    T = k.shape[1]
+    dk = dk.reshape(B, T, Hkv, G, D).sum(3)
+    dv = dv.reshape(B, T, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, prefix_len: Optional[int] = None):
+    """(o, lse) at ``q_offset`` 0, for the backward: the plain version on
+    the CPU, the forward kernel (which then also writes lse) on the
+    card."""
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    if q.device.type == "cpu":
+        return attention_fwd_plain(q, k, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: no kernel for device {q.device}")
+    return _attention_cuda(q, k, v, q_offset=0, with_lse=True, **kw)
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                  window: int = 0, softcap: float = 0.0,
+                  prefix_len: Optional[int] = None):
+    """(dq, dk, dv): ``attention_bwd_plain`` on the CPU, the backward
+    kernels on the card; no fallback."""
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: no kernel for device {q.device}")
+    return _attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+
+attention_bwd.launches = 0
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention at ``q_offset`` 0 with its gradient: ``attention_fwd``
+    forward (o and the row lse kept), ``attention_bwd`` backward, each
+    dispatching on the device as ``attention`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, prefix_len):
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      prefix_len=prefix_len)
+        o, lse = attention_fwd(q, k, v, **ctx.kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                   **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, q_offset=0,
               prefix_len: Optional[int] = None) -> torch.Tensor:
     """GQA attention forward; ``q_offset`` is an int, a 0-d tensor or a
     (B,) tensor of absolute positions of each row's first query.  On the
     card bf16 runs on the tensor cores and f32 on the CUDA cores
-    (``plan``)."""
+    (``plan``).  When q, k or v needs a gradient the call goes through
+    ``AttentionFunction``, which takes ``q_offset`` 0 only (training)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if isinstance(q_offset, torch.Tensor) or q_offset != 0:
+            raise RuntimeError("attention: the backward takes q_offset 0 "
+                               "(full-sequence training); inputs that need "
+                               "a gradient came with an offset")
+        return AttentionFunction.apply(q, k, v, causal, window, softcap,
+                                       prefix_len)
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, prefix_len=prefix_len)
     if q.device.type == "cpu":
@@ -220,7 +348,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 attention.launches = 0
 
-_fwd = None   # the C entry, bound once by _kernel()
+_fwd = None   # the C entries, bound once by _kernel() / _bwd_kernel()
+_bwd = None
 
 
 def _kernel():
@@ -231,24 +360,40 @@ def _kernel():
         from .build import load
         fn = load("flash_attention").repro_flash_attention_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p]
         _fwd = fn
     return _fwd
 
 
+def _bwd_kernel():
+    """The backward's C entry (``csrc/flash_attention_bwd.cu``), bound at
+    its first launch."""
+    global _bwd
+    if _bwd is None:
+        from .build import load
+        fn = load("flash_attention_bwd").repro_flash_attention_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        _bwd = fn
+    return _bwd
+
+
 def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset=0,
                     prefix_len: Optional[int] = None,
-                    n_split: Optional[int] = None):
+                    n_split: Optional[int] = None, with_lse: bool = False):
     """One launch on the card (two with the combine).  ``n_split`` forces
     the number of key splits of a bf16 call (tests and the smoke run
-    only); None takes ``plan``'s."""
+    only); None takes ``plan``'s.  ``with_lse`` returns (out, lse), lse
+    (B,Hq,S) f32 written by the same launches."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("attention: the kernel has no backward (ROADMAP "
-                           "A9); inputs that need a gradient would get "
-                           "none")
+        raise RuntimeError("attention: this raw launch has no backward; "
+                           "inputs that need a gradient go through "
+                           "attention(), whose AttentionFunction carries "
+                           "it")
     B, S, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
@@ -282,6 +427,8 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("attention: q, k and v must be 16-byte aligned "
                          "(the kernels stage them 16 bytes at a time)")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     o_part = ml_part = None
     if n_split > 1:        # the splits' f32 partials, merged on the card
         o_part = torch.empty((n_split, B, S, Hq, D), dtype=torch.float32,
@@ -296,6 +443,7 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                  off.data_ptr(),
                  None if o_part is None else o_part.data_ptr(),
                  None if ml_part is None else ml_part.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, S, T, Hq, Hkv, D, int(path == "tc"), int(bool(causal)),
                  int(window), float(softcap),
                  -1 if prefix_len is None else int(prefix_len),
@@ -304,4 +452,54 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+BWD_HEAD_DIMS = (64, 128, 256)
+
+
+def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        prefix_len: Optional[int] = None):
+    """The backward on the card: ``attn_bwd_pre``, ``attn_bwd_dkdv`` and
+    ``attn_bwd_dq``, one ``attention_bwd.launches`` a call."""
+    B, S, Hq, D = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)} disagree")
+    T, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"attention_bwd: Hq={Hq} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"attention_bwd: head_dim {D} not in "
+                         f"{BWD_HEAD_DIMS}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, o, do)):
+        raise ValueError(f"attention_bwd: q, k, v, o and do must share one "
+                         f"of {_DTYPES}")
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32:
+        raise ValueError(f"attention_bwd: lse must be (B, Hq, S) f32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if any(t.device != q.device for t in (k, v, o, lse, do)):
+        raise ValueError("attention_bwd: all inputs must be on one device")
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, S, T, Hq, Hkv, D, int(q.dtype == torch.bfloat16),
+                 int(bool(causal)), int(window), float(softcap),
+                 -1 if prefix_len is None else int(prefix_len),
+                 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    attention_bwd.launches += 1
+    return dq, dk, dv

@@ -16,6 +16,11 @@
 //   window:  t > p - window.
 // Numerics: f32 m, l and acc; scale 1/sqrt(D) before the tanh softcap;
 // out = acc / max(l, 1e-30).
+// Row log-sum-exp (training): given a non-null lse, (B, Hq, S) f32, every
+// path also writes lse = m + log l of each (b, h, s) row, in the domain of
+// the scaled and soft-capped logits that the backward
+// (flash_attention_bwd.cu) recomputes; a row that saw no key gets -1e30.
+// Serving passes null and nothing more is written.
 //
 // Two routes, chosen by dtype (the wrapper's plan()), never by failure:
 //
@@ -96,6 +101,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // null, or (B, Hq, S) row log-sum-exp
   const int* q_offset;
   int B, S, T, Hq, Hkv;
   int causal, window, prefix_len;  // prefix_len < 0: no prefix
@@ -315,6 +321,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
             if (D % 32 == 0 || d < D) at[u] += as[(g * BQ + row) * D + d] * c;
           }
         }
+        m[i] = mt;
         l[i] = lt;
 #pragma unroll
         for (int u = 0; u < U; ++u) acc[i][u] = at[u];
@@ -328,6 +335,9 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
     const int s = q0 + rg * R + i;
     if (s >= p.S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((size_t)b * p.Hq + h) * p.S + s] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
     T* orow = o + (((size_t)b * p.S + s) * p.Hq + h) * D;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -390,6 +400,7 @@ struct TcParams {
   bf16* o;           // n_split == 1: the normalized output
   float* o_part;     // n_split > 1: (n_split, B, S, Hq, D) unnormalized O
   float2* ml_part;   //              (n_split, B, S, Hq) of (m, l)
+  float* lse;        // null, or (B, Hq, S) row log-sum-exp
   const int* q_offset;
   int B, S, T, Hq, Hkv, G, n_split;
   int causal, window, prefix_len;  // prefix_len < 0: no prefix
@@ -742,6 +753,9 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_tc(TcParams p) {
     const size_t row =
         ((size_t)b * p.S + r / G) * p.Hq + hk * G + r % G;
     if (p.n_split == 1) {
+      if (p.lse != nullptr && tq == 0)
+        p.lse[((size_t)b * p.Hq + hk * G + r % G) * p.S + r / G] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
       bf16* orow = p.o + row * D + 2 * tq;
 #pragma unroll
@@ -761,9 +775,11 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_tc(TcParams p) {
 }
 
 // Merges the n_split partials of every (b, s, h) row: one thread an
-// output element.  A partial with l = 0 saw no key and is skipped.
+// output element.  A partial with l = 0 saw no key and is skipped.  With a
+// non-null lse the row's first thread writes the merged m + log l.
 __global__ void attn_combine(const float* o_part, const float2* ml_part,
-                             bf16* o, int n_split, size_t rows, int D) {
+                             bf16* o, float* lse, int n_split, size_t rows,
+                             int D, int S, int Hq) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rows * D) return;
   const size_t row = idx / D;
@@ -783,6 +799,11 @@ __global__ void attn_combine(const float* o_part, const float2* ml_part,
     }
   }
   o[idx] = __float2bfloat16(a / fmaxf(lt, 1e-30f));
+  if (lse != nullptr && idx % D == 0) {
+    const size_t h = row % Hq;
+    const size_t bs = row / Hq;  // b * S + s
+    lse[(bs / S * Hq + h) * S + bs % S] = lt > 0.f ? mt + logf(lt) : kNegInf;
+  }
 }
 
 template <int D, int BK, bool WS>
@@ -804,7 +825,7 @@ cudaError_t launch_tc_tiles(const TcParams& p, cudaStream_t stream) {
   const size_t rows = (size_t)p.B * p.S * p.Hq;
   const size_t n = rows * D;
   attn_combine<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      p.o_part, p.ml_part, p.o, p.n_split, rows, D);
+      p.o_part, p.ml_part, p.o, p.lse, p.n_split, rows, D, p.S, p.Hq);
   return cudaGetLastError();
 }
 
@@ -834,10 +855,11 @@ cudaError_t launch_tc(int D, const TcParams& p, cudaStream_t stream) {
 // Returns the launches' cudaGetLastError() (0 = launched).  bf16 takes the
 // tensor-core kernel (with attn_combine when n_split > 1; o_part and
 // ml_part are then the wrapper's f32 scratch), f32 the CUDA-core one
-// (n_split must be 1).
+// (n_split must be 1).  lse is null (serving) or (B, Hq, S) f32.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
-    const int* q_offset, void* o_part, void* ml_part, int B, int S, int T,
+    const int* q_offset, void* o_part, void* ml_part, void* lse, int B,
+    int S, int T,
     int Hq, int Hkv, int D, int is_bf16, int causal, int window,
     float softcap, int prefix_len, float scale, int n_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -852,6 +874,7 @@ extern "C" int repro_flash_attention_fwd(
     p.o = static_cast<bf16*>(o);
     p.o_part = static_cast<float*>(o_part);
     p.ml_part = static_cast<float2*>(ml_part);
+    p.lse = static_cast<float*>(lse);
     p.q_offset = q_offset;
     p.B = B;
     p.S = S;
@@ -872,6 +895,7 @@ extern "C" int repro_flash_attention_fwd(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.q_offset = q_offset;
   p.B = B;
   p.S = S;

@@ -174,7 +174,7 @@ def _router_dispatch_cuda(logits, k: int, *, n_real: int,
     built or bound."""
     if torch.is_grad_enabled() and logits.requires_grad:
         raise RuntimeError("router_dispatch: the kernel has no backward "
-                           "(ROADMAP A9); logits that need a gradient "
+                           "(ROADMAP A9b); logits that need a gradient "
                            "would get none")
     if logits.ndim != 2:
         raise ValueError(f"router_dispatch: logits must be (T, E), got "

@@ -178,7 +178,7 @@ def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, r_gate, i_gate, log_lambda, h0)):
-        raise RuntimeError("rglru: the kernel has no backward (ROADMAP A9); "
+        raise RuntimeError("rglru: the kernel has no backward (ROADMAP A9b); "
                            "inputs that need a gradient would get none")
     if x.ndim != 3 or r_gate.shape != x.shape or i_gate.shape != x.shape:
         raise ValueError(f"rglru: x {tuple(x.shape)}, r_gate "

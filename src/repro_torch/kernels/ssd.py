@@ -246,7 +246,7 @@ def _ssd_cuda(x, dt, A, B, C, D, h0):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, B, C, D, h0)):
-        raise RuntimeError("ssd: the kernel has no backward (ROADMAP A9); "
+        raise RuntimeError("ssd: the kernel has no backward (ROADMAP A9b); "
                            "inputs that need a gradient would get none")
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
         raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "

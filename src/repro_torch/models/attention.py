@@ -1,6 +1,7 @@
-"""GQA self-attention sub-layer: params, prefill, prefill chunk, decode.
+"""GQA self-attention sub-layer: params, training, prefill, prefill chunk,
+decode.
 
-Ports ``src/repro/models/attention.py`` (``attn_prefill``,
+Ports ``src/repro/models/attention.py`` (``attn_apply``, ``attn_prefill``,
 ``attn_prefill_chunk``, ``attn_decode``) for the attention family: GQA,
 RoPE (per-kind theta), sliding-window ("local") blocks, tanh logit
 soft-capping, qk RMS-norm and QKV biases.  All three run on one kernel,
@@ -81,6 +82,16 @@ def _attend(cfg, q, k, v, kind, q_offset):
     return attention(q, k, v, causal=True,
                      window=cfg.window if kind == "local" else 0,
                      softcap=cfg.attn_softcap, q_offset=q_offset)
+
+
+def attn_train(cfg: ModelConfig, p: dict, x, *, kind: str = "attn"):
+    """Full-sequence self-attention for training, as the reference's
+    ``attn_apply``: positions 0..S-1, no cache.  ``attention`` carries the
+    gradient (``AttentionFunction``)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project(cfg, p, x, positions, kind)
+    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0))
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, cache_k, cache_v, *,

@@ -1,5 +1,6 @@
-"""Model substrate: device choice, seeded init, norms, RoPE, MLPs and
-embeddings, as ``src/repro/models/common.py`` computes them.
+"""Model substrate: device choice, seeded init, norms, RoPE, MLPs,
+embeddings and the chunked cross-entropy, as
+``src/repro/models/common.py`` computes them.
 
 Parameters are plain dicts of tensors.  The numerics follow the
 reference: weights are kept in ``cfg.param_dtype`` and cast to
@@ -13,6 +14,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 
@@ -138,3 +141,46 @@ def unembed(cfg: ModelConfig, p: dict, h):
     if cfg.logit_softcap > 0.0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy (chunked over the sequence)
+# ---------------------------------------------------------------------------
+def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
+                    chunk: int = 512, z_coef: float = 1e-4,
+                    ignore_id: int = -1):
+    """Softmax CE + z-loss without holding (B,S,V) logits at once, as the
+    reference's ``chunked_ce_loss``.
+
+    h: (B,S,d) final hidden states; targets: (B,S) integers, ``ignore_id``
+    where a position has no target.  Each sequence chunk's (B,c,V) f32
+    logits are formed, reduced and dropped: the chunk runs under
+    ``torch.utils.checkpoint``, so autograd keeps only its (B,c,d) input
+    and recomputes the logits in the backward.  Returns (loss, {"ce",
+    "z_loss", "tokens"})."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=ignore_id)
+
+    def body(hc, tc):
+        logits = unembed(cfg, p, hc)                      # (B,c,V) f32
+        lse = torch.logsumexp(logits, dim=-1)             # (B,c)
+        tgt = logits.gather(-1, tc.clamp_min(0).long()[..., None])[..., 0]
+        valid = tc != ignore_id
+        nll = torch.where(valid, lse - tgt, 0.0)
+        zl = torch.where(valid, torch.square(lse), 0.0)
+        return nll.sum(), zl.sum()
+
+    loss_sum = z_sum = 0.0
+    for i in range(0, S + pad, c):
+        hc, tc = h[:, i:i + c], targets[:, i:i + c]
+        nll, zl = checkpoint(body, hc, tc, use_reentrant=False)
+        loss_sum = loss_sum + nll
+        z_sum = z_sum + zl
+    n = (targets != ignore_id).sum().clamp_min(1)
+    ce = loss_sum / n
+    z = z_sum / n
+    return ce + z_coef * z, {"ce": ce, "z_loss": z, "tokens": n}

@@ -1,5 +1,5 @@
-"""The ``Model``: prefill, prefill chunk, decode step and cache specs,
-ported from ``src/repro/models/transformer.py``.
+"""The ``Model``: the training loss, prefill, prefill chunk, decode step
+and cache specs, ported from ``src/repro/models/transformer.py``.
 
 Parameters are a plain dict::
 
@@ -36,6 +36,10 @@ configs, an MoE layer (``"moe"``, ``models/moe.py``); deepseek's dense
 first layer keeps an MLP of ``first_dense_ff``.  Serving runs MoE layers
 dropless and discards their aux losses, as the reference does.
 
+``loss_fn`` is the teacher-forced LM loss of training (the reference's
+``loss_fn``) for the attention family without experts; MoE and recurrent
+layers need their kernels' backwards (ROADMAP A9b) and raise.
+
 Encoder-decoder and VLM configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -43,12 +47,14 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_KINDS, ModelConfig
 from .attention import (attn_decode, attn_params, attn_prefill,
-                        attn_prefill_chunk)
-from .common import (dtype_of, embed_params, embed_tokens, mlp, mlp_params,
-                     ones_init, resolve_device, rms_norm, unembed)
+                        attn_prefill_chunk, attn_train)
+from .common import (chunked_ce_loss, dtype_of, embed_params, embed_tokens,
+                     mlp, mlp_params, ones_init, resolve_device, rms_norm,
+                     unembed)
 from .moe import moe_apply, moe_params, padded_experts
 from .rglru_block import (rglru_block_apply, rglru_block_decode,
                           rglru_cache_spec, rglru_params)
@@ -106,6 +112,15 @@ class Model:
         self.e_pad = (padded_experts(cfg, 1) if cfg.moe.num_experts
                       else None)
 
+    def stacked_layers(self) -> list:
+        """The layers whose weights the reference holds stacked along a
+        leading axis (its scan over periods): one list of layer indices
+        for each position in the period."""
+        plen = len(self.cfg.period)
+        n_scan = (self.cfg.n_layers - self.prefix_count) // plen
+        return [[self.prefix_count + j * plen + pos for j in range(n_scan)]
+                for pos in range(plen)] if n_scan else []
+
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0, *, device="cuda") -> dict:
         """Seeded random weights on ``device``."""
@@ -158,6 +173,40 @@ class Model:
 
     def _final(self, params, h):
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+
+    # ------------------------------------------------------------------ train
+    def loss_fn(self, params, batch, *, remat: str = "block",
+                z_coef: float = 1e-4, ce_chunk: int = 512):
+        """Teacher-forced LM loss, as the reference's ``loss_fn``.  batch:
+        ``tokens`` and ``targets`` (B,S) (-1: no target).  ``remat``:
+        ``"block"`` wraps each layer in ``torch.utils.checkpoint`` (its
+        activations are recomputed in the backward; the reference wraps
+        each period in ``jax.checkpoint``), ``"none"`` keeps them.
+        Returns (loss, {"ce", "z_loss", "tokens", "loss"})."""
+        cfg = self.cfg
+        if cfg.moe.num_experts or any(k not in ATTN_KINDS
+                                      for k in self.kinds):
+            raise NotImplementedError(
+                f"{cfg.name}: training MoE and recurrent layers needs the "
+                f"router's, SSD's and RG-LRU's backwards (ROADMAP A9b)")
+        if remat not in ("none", "block"):
+            raise ValueError(f"remat {remat!r}: 'none' or 'block'")
+
+        def layer(p, h, kind):
+            return self._block(p, h, lambda x: attn_train(
+                cfg, p["attn"], x, kind=kind))
+
+        h = embed_tokens(cfg, params["embed"], batch["tokens"])
+        for p, kind in zip(params["layers"], self.kinds):
+            if remat == "block":
+                h = checkpoint(layer, p, h, kind, use_reentrant=False)
+            else:
+                h = layer(p, h, kind)
+        loss, metrics = chunked_ce_loss(
+            cfg, params["embed"], self._final(params, h), batch["targets"],
+            z_coef=z_coef, chunk=ce_chunk)
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ------------------------------------------------------------------ serve
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None):

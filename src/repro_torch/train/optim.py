@@ -1,0 +1,246 @@
+"""Optimizers: AdamW and Adafactor, with state-dtype policies, ported from
+``src/repro/train/optim.py``.
+
+The math is the reference's, in f32: the warmup-cosine schedule, the clip
+from the global gradient norm, bias correction at ``count``, weight decay
+only on tensors of two or more dimensions, and ``state_dtype`` for m/v.
+Trees are the port's parameter trees (nested dicts and lists of tensors);
+the step ``count`` is a 0-d int32 tensor beside them, on their device,
+so a step reads nothing back to the host.
+
+The rules read a tensor's dimensions, and the reference stacks the
+layers of a period along a leading axis where the port keeps a list of
+layers.  So the updates take ``stacks``: groups of leaf positions (in
+``leaves`` order) that the reference holds as one stacked tensor.  A
+leaf in a group counts one dimension more: a layer's norm scale is
+(layers, d) there, so it takes weight decay, and Adafactor factors its
+second moment into a row per layer and a column shared by the group.
+With no ``stacks`` every leaf stands for itself.
+
+Where the reference returns new trees, the updates here write the
+parameters and the optimizer state **in place** (a full-width state is
+three copies of the parameters; a functional update would hold a fourth)
+and return the same trees.  Everything runs under ``torch.no_grad``.
+This is plain PyTorch: the reference has no kernel here either.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List, Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    name: str = "adamw"             # adamw | adafactor
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"    # m/v dtype
+    warmup: int = 100
+    decay_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of dicts and lists, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of
+    ``rest``) in ``leaves`` order, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def schedule(cfg: OptConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay, f32; ``step`` an int or a tensor."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(cfg.warmup, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup)
+                       / max(cfg.decay_steps - cfg.warmup, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1.0 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def _ref_ndims(params, stacks: Sequence[Sequence[int]] = ()) -> List[int]:
+    """Each leaf's number of dimensions in the reference's layout: one
+    more for a leaf of ``stacks``."""
+    stacked = {i for group in stacks for i in group}
+    return [p.ndim + (i in stacked) for i, p in enumerate(leaves(params))]
+
+
+def _count(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+def adamw_init(params) -> dict:
+    """m and v as f32 zeros shaped like the parameters, and the count."""
+    zeros = (lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device))
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "count": _count(params)}
+
+
+def cast_state(opt_state, dtype) -> dict:
+    """m and v in ``dtype`` (a name or a torch dtype); the count stays."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def cast(x):
+        return x if x.ndim == 0 else x.to(dt)
+
+    return {"m": tree_map(cast, opt_state["m"]),
+            "v": tree_map(cast, opt_state["v"]),
+            "count": opt_state["count"]}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in leaves(tree)))
+
+
+def _clip(cfg: OptConfig, gn):
+    if cfg.grad_clip <= 0:
+        return 1.0
+    return torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+@torch.no_grad()
+def adamw_update(cfg: OptConfig, params, grads, m, v, count, stacks=()):
+    """One AdamW step; writes ``params``, ``m`` and ``v`` in place.
+    Returns (params, m, v, count + 1, {"grad_norm", "lr"})."""
+    count = count + 1
+    lr = schedule(cfg, count)
+    gn = global_norm(grads)
+    clip = _clip(cfg, gn)
+    cf = count.float()
+    c1 = 1 - cfg.b1 ** cf
+    c2 = 1 - cfg.b2 ** cf
+    for p, g, m_, v_, nd in zip(leaves(params), leaves(grads), leaves(m),
+                                leaves(v), _ref_ndims(params, stacks)):
+        g = g.float() * clip
+        m_new = cfg.b1 * m_.float() + (1 - cfg.b1) * g
+        v_new = cfg.b2 * v_.float() + (1 - cfg.b2) * torch.square(g)
+        step = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+        if cfg.weight_decay > 0 and nd >= 2:
+            step = step + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * step)
+        m_.copy_(m_new)
+        v_.copy_(v_new)
+    return params, m, v, count, {"grad_norm": gn, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment for >= 2-D tensors)
+# ---------------------------------------------------------------------------
+def _zeros(shape, like) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=like.device)
+
+
+def adafactor_init(params, stacks=()) -> dict:
+    """Per leaf {"row", "col"} for a tensor of 2 or more dimensions in
+    the reference's layout, else {"v"}.  A stacked 1-D leaf keeps its
+    layer's row (0-d) and a copy of the group's column."""
+    nds = iter(_ref_ndims(params, stacks))
+
+    def state_for(p):
+        if next(nds) < 2:
+            return {"v": _zeros(p.shape, p)}
+        if p.ndim < 2:
+            return {"row": _zeros((), p), "col": _zeros(p.shape, p)}
+        return {"row": _zeros(p.shape[:-1], p),
+                "col": _zeros(p.shape[:-2] + p.shape[-1:], p)}
+
+    return {"f": tree_map(state_for, params), "count": _count(params)}
+
+
+def _states(params, fstate) -> list:
+    """The factored state dict of each parameter, in ``leaves`` order."""
+    if isinstance(params, dict):
+        return [x for k in sorted(params)
+                for x in _states(params[k], fstate[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for p, f in zip(params, fstate) for x in _states(p, f)]
+    return [fstate]
+
+
+def _factored(decay, g2, row, col):
+    """The reference's factored second moment of ``g2`` (..., r, c):
+    (vhat, new row, new col)."""
+    row = decay * row + (1 - decay) * g2.mean(-1)
+    col = decay * col + (1 - decay) * g2.mean(-2)
+    rmean = row.mean(-1, keepdim=True)
+    vhat = (row / torch.clamp(rmean, min=1e-30))[..., None] * \
+        col[..., None, :]
+    return vhat, row, col
+
+
+@torch.no_grad()
+def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
+                     stacks=()):
+    """One Adafactor step; writes ``params`` and ``fstate`` in place.
+    Returns (params, fstate, count + 1, {"grad_norm", "lr"})."""
+    count = count + 1
+    lr = schedule(cfg, count)
+    decay = 1.0 - (count.float() + 1.0) ** -0.8
+    gn = global_norm(grads)
+    clip = _clip(cfg, gn)
+    ps, gs, sts = leaves(params), leaves(grads), _states(params, fstate)
+    nds = _ref_ndims(params, stacks)
+
+    def apply(i, g, vhat):
+        step = g / torch.sqrt(vhat + cfg.eps)
+        if cfg.weight_decay > 0 and nds[i] >= 2:
+            step = step + cfg.weight_decay * ps[i].float()
+        ps[i].copy_(ps[i].float() - lr * step)
+
+    grouped = set()
+    for group in stacks:
+        if ps[group[0]].ndim != 1:
+            continue
+        # one (layers, d) tensor in the reference: its column is a mean
+        # over the group's layers, so the group updates together
+        grouped.update(group)
+        st = [sts[i] for i in group]
+        g = torch.stack([gs[i].float() for i in group]) * clip
+        vhat, row, col = _factored(decay, torch.square(g) + 1e-30,
+                                   torch.stack([s["row"] for s in st]),
+                                   st[0]["col"])
+        for i, s, gi, r, vi in zip(group, st, g, row, vhat):
+            s["row"].copy_(r)
+            s["col"].copy_(col)
+            apply(i, gi, vi)
+    for i, (g, st) in enumerate(zip(gs, sts)):
+        if i in grouped:
+            continue
+        g = g.float() * clip
+        g2 = torch.square(g) + 1e-30
+        if nds[i] >= 2:
+            vhat, row, col = _factored(decay, g2, st["row"], st["col"])
+            st["row"].copy_(row)
+            st["col"].copy_(col)
+        else:
+            vhat = decay * st["v"] + (1 - decay) * g2
+            st["v"].copy_(vhat)
+        apply(i, g, vhat)
+    return params, fstate, count, {"grad_norm": gn, "lr": lr}

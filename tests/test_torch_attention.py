@@ -235,8 +235,9 @@ def test_split_kernel_matches_plain_on_card(case, n_split):
 
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
 def test_kernel_refuses_inputs_that_need_grad(needs_grad):
-    """The kernel has no backward: its wrapper raises for inputs that need
-    a gradient, before it builds or binds the kernel (so the check runs
+    """The raw launch has no backward (``attention`` carries the gradient
+    through ``AttentionFunction``): it raises for inputs that need a
+    gradient, before it builds or binds the kernel (so the check runs
     here, on CPU tensors handed to the card's path).  With gradients off
     the check passes and validation goes on."""
     from repro_torch.kernels import attention as fa

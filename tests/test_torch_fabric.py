@@ -53,7 +53,7 @@ COPIES = ["fabric/policy.py", "fabric/balancer.py", "fabric/flow.py",
           "fabric/replication.py", "fabric/sharding.py",
           "fabric/registry.py", "fabric/pool.py", "fabric/affinity.py",
           "services/membership.py", "launch/registry.py",
-          "analysis/lockdep.py"]
+          "analysis/lockdep.py", "data/pipeline.py"]
 # The lines (1-based; in the port's file, in the reference's) where a copy
 # may differ once ``repro_torch`` reads ``repro``: the docstring's first
 # line; in lockdep also its docstring's opening paragraph (how the port's

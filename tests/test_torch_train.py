@@ -1,0 +1,441 @@
+"""The port's training plane against the JAX reference, on the CPU.
+
+Reduced qwen1.5-0.5b in f32 compute, the same weights on both sides
+(the reference's ``Model.init`` carried over by ``params_from_numpy``)
+and the same numpy batches:
+
+- ``Model.loss_fn``'s loss and every gradient leaf against
+  ``jax.value_and_grad`` of the reference's ``loss_fn(impl="xla",
+  remat="none")``, with the port's ``remat`` "none" and "block": the loss
+  to 1e-5 relative, each leaf to 1e-4 of its largest entry (f32 on both
+  sides, summed in another order);
+- ``train.optim`` against the reference's ``optim``, mirroring
+  ``tests/test_optim.py``: the schedule, an AdamW and an Adafactor
+  update, the clip and the state dtype;
+- 5-step AdamW and Adafactor trajectories against the reference's
+  jitted ``make_train_step``: the loss and gradient norm at every step,
+  every parameter leaf after the last;
+- microbatches 4 against 1 and against the reference's microbatches 4
+  (the loss, the gradient norm and AdamW's m, which holds the mean
+  gradient), the checkpoint restart determinism of
+  ``tests/test_serve_and_train.py`` through the port's
+  ``CheckpointClient``, and the launcher on the CPU.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.configs.base import ParallelConfig as JParallelConfig  # noqa: E402
+from repro.models import Model as JModel  # noqa: E402
+from repro.models import unzip  # noqa: E402
+from repro.train import optim as joptim  # noqa: E402
+from repro.train.step import init_state as jinit_state  # noqa: E402
+from repro.train.step import make_train_step as jmake_train_step  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.core.executor import Engine  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import Model, params_from_numpy  # noqa: E402
+from repro_torch.services import (CheckpointClient,  # noqa: E402
+                                  CheckpointServer)
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train.optim import leaves, tree_map  # noqa: E402
+from repro_torch.train.step import (init_state, loss_and_grads,  # noqa: E402
+                                    make_train_step, stack_groups)
+
+ARCH = "qwen1.5-0.5b"
+B, S = 4, 32
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _port(tree):
+    """A reference tree (params or gradients) as the port's tree."""
+    return params_from_numpy(_np_tree(tree), device="cpu")
+
+
+def _batch(seed, vocab, b=B, s=S):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jcfg = jconfigs.reduced(ARCH).replace(compute_dtype="float32")
+    cfg = configs.reduced(ARCH).replace(compute_dtype="float32")
+    jm = JModel(jcfg)
+    jp, _ = unzip(jm.init(jax.random.PRNGKey(0)))
+    return jm, jp, Model(cfg), _port(jp)
+
+
+def _leaf_close(got, want, rel=1e-4):
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.shape == w.shape
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= rel * max(scale, 1e-30), (tuple(g.shape), err, scale)
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_loss_and_gradients_match_reference(pair, remat):
+    jm, jp, tm, tp = pair
+    batch = _batch(0, tm.cfg.vocab)
+    batch["targets"][0, :5] = -1            # ignored positions count too
+
+    def jloss(params):
+        return jm.loss_fn(params, {k: jnp.asarray(v) for k, v in
+                                   batch.items()}, impl="xla", remat="none")
+    (jl, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    loss, metrics, grads = loss_and_grads(tm, tp, _tbatch(batch),
+                                          remat=remat)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    for key in ("ce", "z_loss"):
+        np.testing.assert_allclose(float(metrics[key]), float(jmet[key]),
+                                   rtol=1e-5)
+    assert int(metrics["tokens"]) == int(jmet["tokens"]) == B * S - 5
+    # the tied embedding takes gradient from the gather and the unembed
+    _leaf_close(grads, _port(jg))
+
+
+def test_loss_fn_refuses_what_needs_other_backwards():
+    for arch in ("granite-moe-3b-a800m", "mamba2-1.3b",
+                 "recurrentgemma-9b"):
+        m = Model(configs.reduced(arch))
+        batch = _tbatch(_batch(0, m.cfg.vocab, b=1, s=8))
+        with pytest.raises(NotImplementedError, match="A9b"):
+            m.loss_fn(None, batch)
+
+
+# ---------------------------------------------------------------------------
+# optim, mirroring tests/test_optim.py
+# ---------------------------------------------------------------------------
+def _toy(seed=0):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((8, 4)).astype(np.float32),
+            "b": rng.standard_normal(4).astype(np.float32),
+            "stack": [rng.standard_normal((2, 3)).astype(np.float32)]}
+
+
+def _jtoy(tree):
+    return {"w": jnp.asarray(tree["w"]), "b": jnp.asarray(tree["b"]),
+            "stack": (jnp.asarray(tree["stack"][0]),)}
+
+
+def _ttoy(tree):
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def _jleaves(tree):
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+
+def test_schedule_matches_reference():
+    cfg = dict(lr=1e-3, warmup=10, decay_steps=100, min_lr_frac=0.1)
+    jcfg, tcfg = joptim.OptConfig(**cfg), optim.OptConfig(**cfg)
+    steps = np.arange(0, 120, dtype=np.int32)
+    want = np.asarray(joptim.schedule(jcfg, jnp.asarray(steps)))
+    got = optim.schedule(tcfg, torch.from_numpy(steps)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
+    assert got[0] == 0.0 and abs(got[10] - 1e-3) < 1e-9
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e-3, 0.0])
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_update_matches_reference(name, clip):
+    """Three updates from the same parameters and gradients: weight decay
+    on the 2-D leaves only, the clip from the global norm (1e-3 clips,
+    0 turns it off), bias correction at the count."""
+    kw = dict(name=name, lr=1e-2, warmup=1, decay_steps=10, grad_clip=clip)
+    jcfg, tcfg = joptim.OptConfig(**kw), optim.OptConfig(**kw)
+    params, jp = _ttoy(_toy(0)), _jtoy(_toy(0))
+    if name == "adamw":
+        jst = {"m": jax.tree_util.tree_map(jnp.zeros_like, jp),
+               "v": jax.tree_util.tree_map(jnp.zeros_like, jp),
+               "count": jnp.int32(0)}
+        tst = optim.adamw_init(params)
+    else:
+        jst, _ = unzip(joptim.adafactor_init(
+            jax.tree_util.tree_map(lambda a: _P(a), jp)))
+        tst = optim.adafactor_init(params)
+    for i in range(3):
+        g = _toy(10 + i)
+        jg, tg = _jtoy(g), _ttoy(g)
+        if name == "adamw":
+            jp, jm, jv, jc, jstats = joptim.adamw_update(
+                jcfg, jp, jg, jst["m"], jst["v"], jst["count"])
+            jst = {"m": jm, "v": jv, "count": jc}
+            _, _, _, tc, tstats = optim.adamw_update(
+                tcfg, params, tg, tst["m"], tst["v"], tst["count"])
+        else:
+            jp, jf, jc, jstats = joptim.adafactor_update(
+                jcfg, jp, jg, jst["f"], jst["count"])
+            jst = {"f": jf, "count": jc}
+            _, _, tc, tstats = optim.adafactor_update(
+                tcfg, params, tg, tst["f"], tst["count"])
+        tst["count"] = tc
+        assert int(tc) == int(jc) == i + 1
+        for key in ("grad_norm", "lr"):
+            np.testing.assert_allclose(float(tstats[key]),
+                                       float(jstats[key]), rtol=1e-6)
+        for got, want in zip(leaves(params), _jleaves(jp)):
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-7)
+    state = {k: v for k, v in tst.items() if k != "count"}
+    jstate = {k: v for k, v in jst.items() if k != "count"}
+    for got, want in zip(leaves(state), _jleaves(jstate)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-9)
+
+
+def _P(a):
+    from repro.models.common import P
+    return P(a, (None,) * a.ndim)
+
+
+def test_grad_clip_bounds_the_step():
+    cfg = optim.OptConfig(lr=1.0, grad_clip=1e-3, weight_decay=0.0,
+                          warmup=0, decay_steps=10)
+    params = _ttoy(_toy(0))
+    before = params["w"].clone()
+    big = tree_map(lambda x: torch.full_like(x, 100.0), params)
+    st = optim.adamw_init(params)
+    optim.adamw_update(cfg, params, big, st["m"], st["v"], st["count"])
+    assert float((params["w"] - before).abs().max()) <= 1.05
+
+
+def test_state_dtype_policy():
+    st = optim.cast_state(optim.adamw_init(_ttoy(_toy(0))), "bfloat16")
+    assert st["m"]["w"].dtype == torch.bfloat16
+    assert st["v"]["stack"][0].dtype == torch.bfloat16
+    assert st["count"].dtype == torch.int32
+    model = Model(configs.reduced(ARCH))
+    state = init_state(model, optim.OptConfig(state_dtype="bfloat16"), 0,
+                       device="cpu")
+    assert {x.dtype for x in leaves(state["opt"]["m"])} == {torch.bfloat16}
+    assert set(state) == {"params", "opt"}
+    assert set(state["opt"]) == {"m", "v", "count"}
+    state = init_state(model, optim.OptConfig(name="adafactor"), 0,
+                       device="cpu")
+    assert set(state["opt"]) == {"f", "count"}
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+def _run_both(pair, ocfg, steps, microbatches=1, b=B):
+    """``steps`` steps of the jitted reference step and of the port's
+    from the same weights on the same batches.  Yields, after each step,
+    (port state, port metrics, reference state as the port's trees,
+    reference metrics)."""
+    jm, _, tm, tp = pair
+    par = dict(remat="none", microbatches=microbatches)
+    jstep = jax.jit(jmake_train_step(jm, joptim.OptConfig(**ocfg),
+                                     JParallelConfig(**par), impl="xla"))
+    jstate, _ = jinit_state(jm, joptim.OptConfig(**ocfg),
+                            jax.random.PRNGKey(0))
+    params = tree_map(torch.clone, tp)
+    stacks = stack_groups(tm, params)
+    opt = (optim.adafactor_init(params, stacks)
+           if ocfg.get("name") == "adafactor" else optim.adamw_init(params))
+    state = {"params": params, "opt": opt}
+    step = make_train_step(tm, optim.OptConfig(**ocfg),
+                           ParallelConfig(**par))
+    for i in range(steps):
+        batch = _batch(100 + i, tm.cfg.vocab, b=b)
+        jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+        state, met = step(state, _tbatch(batch))
+        jport = {"params": _port(jstate["params"])}
+        if "m" in jstate["opt"]:
+            jport["m"] = _port(jstate["opt"]["m"])
+        yield state, met, jport, jmet
+
+
+def _params_close(got, want, lr):
+    """Every parameter leaf after AdamW steps at ``lr``: its mean
+    |difference| within lr/50 and each element within lr/2.  AdamW moves
+    a parameter by about lr a step, in the sign of its gradient's running
+    mean, so an element whose gradient is near 0 (summed in another order
+    on each side) may part by a fraction of lr (up to 0.1 lr seen); a
+    wrong rule moves a whole leaf (the norm scales without their decay:
+    0.45 lr over 5 steps)."""
+    for g, w in zip(leaves(got), leaves(want)):
+        d = (g - w).abs()
+        assert float(d.mean()) <= lr / 50 and float(d.max()) <= lr / 2, \
+            (tuple(g.shape), float(d.mean()), float(d.max()), lr)
+
+
+@pytest.mark.parametrize("wd", [0.1, 0.0])
+def test_adamw_trajectory_matches_reference(pair, wd):
+    """5 AdamW steps of the jitted reference step and of the port's, from
+    the same weights on the same batches: the loss and the gradient norm
+    at every step, and every parameter leaf after the last.  With weight
+    decay the port decays what the reference decays: its per-layer norm
+    scales are 1-D, the reference's are stacked (layers, d) and so take
+    decay (``stack_groups``)."""
+    ocfg = dict(lr=3e-3, warmup=2, decay_steps=10, weight_decay=wd)
+    for i, (state, met, jstate, jmet) in enumerate(
+            _run_both(pair, ocfg, 5)):
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-4, err_msg=f"step {i}")
+        np.testing.assert_allclose(float(met["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=1e-5,
+                                   err_msg=f"step {i}")
+    _params_close(state["params"], jstate["params"], ocfg["lr"])
+
+
+def test_adafactor_trajectory_matches_reference(pair):
+    """5 Adafactor steps with weight decay, as the AdamW trajectory: the
+    port factors the second moment of the 1-D per-layer leaves over the
+    group of layers the reference stacks (a row per layer, a column
+    shared), and decays them.  Adafactor's step scales with the gradient,
+    so every leaf holds to 1e-4 of its largest entry."""
+    ocfg = dict(name="adafactor", lr=3e-3, warmup=2, decay_steps=10,
+                weight_decay=0.1)
+    for i, (state, met, jstate, jmet) in enumerate(
+            _run_both(pair, ocfg, 5)):
+        np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                                   rtol=1e-4, err_msg=f"step {i}")
+        np.testing.assert_allclose(float(met["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=1e-5,
+                                   err_msg=f"step {i}")
+    _leaf_close(state["params"], jstate["params"])
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-moe-16b",
+                                  "recurrentgemma-9b"])
+def test_stack_groups_are_the_reference_stacks(arch):
+    """The leaves that ``stack_groups`` puts together are those that the
+    bridge cuts out of one stacked reference tensor: each leaf of the
+    reference's scanned periods filled with its own number and every
+    other leaf with 0, carried over, groups by number (deepseek's dense
+    layer 0 and a partial trailing period stand alone)."""
+    jm = JModel(jconfigs.reduced(arch))
+    shapes, _ = unzip(jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
+    ids = iter(range(1, 1 << 20))
+    labelled = jax.tree_util.tree_map(
+        lambda x: np.zeros(x.shape, np.float32), shapes)
+    labelled["periods"] = jax.tree_util.tree_map(
+        lambda x: np.full(x.shape, next(ids), np.float32),
+        shapes["periods"])
+    tree = params_from_numpy(labelled, device="cpu")
+    by_id = {}
+    for pos, leaf in enumerate(leaves(tree)):
+        by_id.setdefault(int(leaf.flatten()[0]), []).append(pos)
+    want = sorted(g for i, g in by_id.items() if i)
+    got = sorted(stack_groups(Model(configs.reduced(arch)), tree))
+    assert got == want and want
+
+
+def test_microbatches_equal_one_batch(pair):
+    """make_train_step(microbatches=4) == microbatches=1 for the same
+    total batch: the loss, the gradient norm, AdamW's m after one step
+    ((1 - b1) times the clipped mean gradient, so every microbatch's
+    gradient counts) and the updated weights."""
+    _, _, tm, tp = pair
+    ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=10)
+    batch = _tbatch(_batch(7, tm.cfg.vocab, b=8))
+    outs = []
+    for n in (1, 4):
+        params = tree_map(torch.clone, tp)
+        state = {"params": params, "opt": optim.adamw_init(params)}
+        step = make_train_step(tm, ocfg, ParallelConfig(microbatches=n,
+                                                        remat="none"))
+        outs.append(step(state, batch))
+    (s1, m1), (s4, m4) = outs
+    np.testing.assert_allclose(float(m4["loss"]), float(m1["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(m4["grad_norm"]),
+                               float(m1["grad_norm"]), rtol=1e-5)
+    _leaf_close(s4["opt"]["m"], s1["opt"]["m"], rel=1e-5)
+    _params_close(s4["params"], s1["params"], ocfg.lr)
+
+
+def test_microbatches_match_reference(pair):
+    """The port's microbatches=4 step against the reference's (its scan
+    over microbatches) on one batch of 8: the loss, the gradient norm,
+    AdamW's m leaf by leaf and the weights."""
+    ocfg = dict(lr=1e-3, warmup=0, decay_steps=10)
+    (state, met, jstate, jmet), = _run_both(pair, ocfg, 1, microbatches=4,
+                                            b=8)
+    np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(met["grad_norm"]),
+                               float(jmet["grad_norm"]), rtol=1e-5)
+    _leaf_close(state["opt"]["m"], jstate["m"], rel=1e-5)
+    _params_close(state["params"], jstate["params"], ocfg["lr"])
+
+
+def test_checkpoint_restart_determinism():
+    """Train 6 steps straight == train 3, save, restore into a fresh
+    state of another seed, train 3 more (the port's CheckpointClient)."""
+    cfg = configs.reduced(ARCH).replace(compute_dtype="float32")
+    model = Model(cfg)
+    ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=100)
+    step = make_train_step(model, ocfg, ParallelConfig(remat="none"))
+    batches = [_tbatch(_batch(i, cfg.vocab)) for i in range(6)]
+
+    state = init_state(model, ocfg, 0, device="cpu")
+    for i in range(6):
+        state, _ = step(state, batches[i])
+    direct = state
+
+    with Engine(None) as e:
+        CheckpointServer(e, device="cpu")
+        cli = CheckpointClient(e, e.uri)
+        state = init_state(model, ocfg, 0, device="cpu")
+        for i in range(3):
+            state, _ = step(state, batches[i])
+        cli.save("t", 3, state)
+        fresh = init_state(model, ocfg, 42, device="cpu")   # wrong init
+        restored, at = cli.restore("t", fresh, device="cpu")
+        assert at == 3 and int(restored["opt"]["count"]) == 3
+        for i in range(3, 6):
+            restored, _ = step(restored, batches[i])
+
+    for a, b in zip(leaves(direct["params"]), leaves(restored["params"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_launcher_trains_on_the_cpu(capsys):
+    out = train_launcher.main(["--reduced", "--steps", "4", "--device",
+                               "cpu", "--ckpt-every", "2"])
+    assert len(out["losses"]) == 4 and np.all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] < out["losses"][0]
+    assert [c["step"] for c in out["checkpoints"]] == [2, 4]
+    assert "tok/s" in capsys.readouterr().out
+
+
+def test_launcher_resumes_from_an_external_server():
+    """--resume --ckpt-uri: a second run restores the first run's last
+    checkpoint from a server on its own engine over tcp."""
+    with Engine("tcp://127.0.0.1:0") as e:
+        CheckpointServer(e, device="cpu")
+        args = ["--reduced", "--steps", "2", "--device", "cpu",
+                "--ckpt-uri", e.uri, "--resume"]
+        first = train_launcher.main(args)
+        second = train_launcher.main(args)
+    assert [c["step"] for c in first["checkpoints"]] == [2]
+    assert [c["step"] for c in second["checkpoints"]] == [2, 4]
+
+
+def test_launcher_does_not_fall_back_to_the_cpu():
+    """The trainer runs on the card unless --device cpu is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    model = Model(configs.reduced(ARCH))
+    for call in (lambda: train_launcher.main(["--reduced", "--steps", "1"]),
+                 lambda: init_state(model, optim.OptConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes, on one NVIDIA card.
+
+    python3 tools/train_profile.py            # 8 x 128, then 4 x 1024
+
+Full-width qwen1.5-0.5b (bf16 compute, f32 state, AdamW, remat "none" at
+the launcher's 8 x 128, "block" at 4 x 1024), seeded weights and
+batches, no services.  After two warm-up steps, 5 steps of
+``train.step``'s own step run with its parts timed on the host clock,
+the card synchronised around each: ``Model.loss_fn`` (the forward), the
+step's ``loss_and_grads`` (the forward and autograd's backward; the
+backward is the difference) and the optimizer update.  Then
+``torch.profiler`` over 3 more steps, unwrapped: device time by kernel
+(self CUDA time), the device's busy share of the window (kernel time
+over wall-clock; kernels do not overlap on one stream) and the kernel
+launches a step.
+
+Each measurement is one line ``PROFILE {json}`` on stdout.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import ParallelConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
+
+ARCH = "qwen1.5-0.5b"
+SHAPES = ((8, 128, "none"), (4, 1024, "block"))
+WARM, TIMED, PROFILED = 2, 5, 3
+
+
+def emit(**row):
+    print("PROFILE", json.dumps(row), flush=True)
+
+
+class StepTimer:
+    """Wraps the step's parts where ``train.step`` looks them up; each
+    call's host seconds, the card synchronised before and after, go to
+    ``self.seconds[part]``."""
+
+    PARTS = ((Model, "loss_fn", "forward"),
+             (train_step, "loss_and_grads", "forward+backward"),
+             (optim, "adamw_update", "optimizer"),
+             (optim, "adafactor_update", "optimizer"))
+
+    def __init__(self):
+        self.seconds = {}
+        self._orig = []
+
+    def __enter__(self):
+        for owner, attr, part in self.PARTS:
+            fn = getattr(owner, attr)
+            self._orig.append((owner, attr, fn))
+            setattr(owner, attr, self._timed(fn, part))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._orig:
+            setattr(owner, attr, fn)
+        self._orig = []
+
+    def _timed(self, fn, part):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(part, []).append(time.monotonic() - t0)
+            return out
+        return run
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    cfg = configs.get(ARCH)
+    model = Model(cfg)
+    ocfg = optim.OptConfig(warmup=5, decay_steps=100)
+    print(torch.cuda.get_device_name(0))
+    for B, S, remat in SHAPES:
+        state = train_step.init_state(model, ocfg, 0, device="cuda")
+        step = train_step.make_train_step(model, ocfg,
+                                          ParallelConfig(remat=remat))
+        source = SyntheticSource(cfg.vocab, S, B)
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in source.batch_at(i).items()}
+                   for i in range(WARM + TIMED + PROFILED)]
+        for i in range(WARM):
+            state, metrics = step(state, batches[i])
+        float(metrics["loss"])
+        with StepTimer() as timer:
+            for i in range(TIMED):
+                state, metrics = step(state, batches[WARM + i])
+        fwd, both, opt = (statistics.median(timer.seconds[part]) for part
+                          in ("forward", "forward+backward", "optimizer"))
+        bwd = both - fwd
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(PROFILED):
+                state, metrics = step(state, batches[WARM + TIMED + i])
+            torch.cuda.synchronize()
+        window = time.monotonic() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        launches = sum(e.count for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        emit(shape=f"{B}x{S}", remat=remat, forward_ms=fwd * 1e3,
+             backward_ms=bwd * 1e3, optimizer_ms=opt * 1e3,
+             step_ms=(fwd + bwd + opt) * 1e3,
+             tokens_per_s=B * S / (fwd + bwd + opt),
+             profiled_window_ms=window * 1e3,
+             device_busy_ms_per_step=busy_us / 1e3 / PROFILED,
+             device_busy_share=busy_us / 1e6 / window,
+             kernel_launches_per_step=launches / PROFILED)
+        for e in top:
+            emit(shape=f"{B}x{S}", kernel=e.key[:120],
+                 device_ms_per_step=e.self_device_time_total / 1e3 / PROFILED,
+                 calls_per_step=e.count / PROFILED)
+        del state, step, batches
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,14 +5,15 @@ PyTorch version that the CPU runs and the card is checked against.
 prefill, prefill chunks and decode; (``csrc/flash_attention_bwd.cu``) its
 backward, for training.
 ``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing and the
-capacity dispatch of every MoE layer call, in one launch.
+capacity dispatch of every MoE layer call, in one launch; and the
+logits' gradient, for training.
 ``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksums of a
 batch of checkpoint shards, in one launch pair.
 ``ssd`` (``csrc/ssd.cu``) — the Mamba2 SSD scan of every SSD layer's
-prefill.
+prefill; (``csrc/ssd_bwd.cu``) its backward, for training.
 ``rglru`` (``csrc/rglru_scan.cu``) — the RG-LRU recurrence of every
 RG-LRU layer's prefill."""
 
 # every CUDA source under csrc/, by the name build.build() takes
 SOURCES = ("flash_attention", "flash_attention_bwd", "moe_router",
-           "fletcher64", "ssd", "rglru_scan")
+           "fletcher64", "ssd", "ssd_bwd", "rglru_scan")

@@ -58,6 +58,21 @@
 // same sums on every run, and no float atomics are used.  src is filled
 // with T at the start of the same launch.  One block costs one SM; the
 // tile loop takes ceil(T/R) iterations.
+//
+// The backward (router_bwd_kernel, training): the gradient of the logits
+// from those of w (T, k), prob_sum (E) and z_sum (1); the dispatch outputs
+// and probs carry none.  No Pallas kernel has a backward: the reference
+// differentiates ref.router_topk_ref and the aux sums with XLA.  With p a
+// row's probabilities, wsum = sum_j p[idx_j] and c = sum_j dw_j w_j:
+//   g_j       = (dw_j - c) / wsum  (dw_j / 1e-9 where wsum <= 1e-9)
+//   dp[e]     = dprob_sum[e] + sum_{j: idx_j = e} g_j
+//   dlogit[e] = p[e] (dp[e] - sum_e' p[e'] dp[e']) + 2 dz_sum lse p[e]
+// with lse recomputed from the masked logits; 0 for a padded expert.  A
+// warp takes a row, its lanes the experts lane, lane+32, ...: every sum is
+// a butterfly over the warp's lanes, in a fixed order, and no atomics are
+// used, so the same inputs give the same gradient on every run.  At
+// training's T 1024, E 40 a call moves ~0.5 MB: launch latency is its
+// floor, as the forward's.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -284,7 +299,114 @@ cudaError_t launch_for(int per_lane, const float* logits, float* w, int* idx,
 #undef REPRO_ROUTER_LAUNCH
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(kFull, v, s);
+  return v;
+}
+
+constexpr int kBwdRows = 8;  // rows (warps) a block of the backward
+
+template <int PER_LANE>
+__global__ void __launch_bounds__(32 * kBwdRows)
+router_bwd_kernel(const float* __restrict__ logits,
+                  const float* __restrict__ probs, const int* __restrict__ idx,
+                  const float* __restrict__ w, const float* __restrict__ dw,
+                  const float* __restrict__ dprob_sum,
+                  const float* __restrict__ dz_sum,
+                  float* __restrict__ dlogits, int T, int E, int k,
+                  int n_real) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kBwdRows + (threadIdx.x >> 5);
+  if (row >= T) return;  // the whole warp leaves together
+  const float* x = logits + (size_t)row * E;
+  const float* pr = probs + (size_t)row * E;
+  float p[PER_LANE], dp[PER_LANE];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) {
+    const int e = lane + 32 * j;
+    dp[j] = e < E ? (e < n_real ? x[e] : kMasked) : -INFINITY;
+    p[j] = e < E ? pr[e] : 0.f;
+    m = fmaxf(m, dp[j]);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j)
+    sum += lane + 32 * j < E ? expf(dp[j] - m) : 0.f;
+  const float lse = m + logf(warp_sum(sum));
+
+  // lane j < k holds pick j: its expert, weight, upstream gradient and p
+  int ej = 0;
+  float wj = 0.f, dwj = 0.f, pj = 0.f;
+  if (lane < k) {
+    const size_t at = (size_t)row * k + lane;
+    ej = idx[at];
+    wj = w[at];
+    dwj = dw ? dw[at] : 0.f;
+    pj = pr[ej];
+  }
+  const float wsum = warp_sum(pj);
+  const float c = warp_sum(dwj * wj);
+  const float g = wsum > 1e-9f ? (dwj - c) / wsum : dwj / 1e-9f;
+
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) {
+    const int e = lane + 32 * j;
+    dp[j] = dprob_sum && e < E ? dprob_sum[e] : 0.f;
+  }
+  for (int r = 0; r < k; ++r) {
+    const int er = __shfl_sync(kFull, ej, r);
+    const float gr = __shfl_sync(kFull, g, r);
+    if ((er & 31) == lane) {
+#pragma unroll
+      for (int j = 0; j < PER_LANE; ++j)
+        if (lane + 32 * j == er) dp[j] += gr;
+    }
+  }
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) dot += p[j] * dp[j];
+  dot = warp_sum(dot);
+  const float zl = dz_sum ? 2.f * dz_sum[0] * lse : 0.f;
+  float* out = dlogits + (size_t)row * E;
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) {
+    const int e = lane + 32 * j;
+    if (e < E) out[e] = e < n_real ? p[j] * (dp[j] - dot) + zl * p[j] : 0.f;
+  }
+}
+
 }  // namespace
+
+// The router's backward: dlogits (T, E) f32 from logits, probs (T, E) f32,
+// idx (T, k) int32, w (T, k) f32 and the upstream dw (T, k), dprob_sum (E)
+// and dz_sum (1), f32, each null for zero.  Returns cudaGetLastError().
+extern "C" int repro_router_bwd(const float* logits, const float* probs,
+                                const int* idx, const float* w,
+                                const float* dw, const float* dprob_sum,
+                                const float* dz_sum, float* dlogits, int T,
+                                int E, int k, int n_real, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T <= 0 || E <= 0 || k < 1 || k > E || k > 32 || E > kMaxExperts ||
+      n_real < 1 || n_real > E)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((T + kBwdRows - 1) / kBwdRows);
+  const int per_lane = (E + 31) / 32;
+#define REPRO_ROUTER_BWD(P)                                             \
+  router_bwd_kernel<P><<<blocks, 32 * kBwdRows, 0, st>>>(               \
+      logits, probs, idx, w, dw, dprob_sum, dz_sum, dlogits, T, E, k,   \
+      n_real);                                                          \
+  return (int)cudaGetLastError()
+  if (per_lane <= 1) { REPRO_ROUTER_BWD(1); }
+  if (per_lane <= 2) { REPRO_ROUTER_BWD(2); }
+  if (per_lane <= 4) { REPRO_ROUTER_BWD(4); }
+  if (per_lane <= 8) { REPRO_ROUTER_BWD(8); }
+  REPRO_ROUTER_BWD(16);
+#undef REPRO_ROUTER_BWD
+}
 
 extern "C" int repro_router_dispatch(const float* logits, float* w, int* idx,
                                      float* probs, int* slot, int* src,

@@ -27,9 +27,19 @@ same sums on every run.
 ``router_dispatch`` and ``router_topk`` dispatch on the device of
 ``logits``: a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises.  There is no fallback.  ``router_dispatch.launches``
-counts kernel launches (``router_topk`` launches the same kernel).  The
-kernel has no backward: on the card it refuses logits that need a
-gradient.
+counts kernel launches (``router_topk`` launches the same kernel).
+
+**The backward** (training; the reference differentiates
+``ref.router_topk_ref`` and the aux sums with XLA, there is no Pallas
+backward).  When ``logits`` needs a gradient, ``router_dispatch`` goes
+through :class:`RouterFunction`: the same forward, and a backward that
+takes the gradients of ``w``, ``prob_sum`` and ``z_sum`` (the dispatch
+outputs and ``probs`` carry none, as the reference's one-hot load
+carries none) back to the logits: :func:`router_bwd`, the second kernel
+of ``csrc/moe_router.cu`` (``router_bwd_kernel``, a warp a token row, no
+atomics), or :func:`router_bwd_plain` on the CPU.  At training's T 1024,
+E 40 it moves about 0.5 MB: launch latency is its floor too.
+``router_bwd.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -120,11 +130,87 @@ def router_dispatch_plain(logits, k: int, *, n_real: int, capacity: int,
     return Routing(w, idx, probs, slot, src, load, probs.sum(0), z_sum)
 
 
-def router_dispatch(logits, k: int, *, n_real: int, capacity: int,
-                    dispatch: str = "sort") -> Routing:
-    """Routing and dispatch of one MoE layer call; see
-    ``router_dispatch_plain``.  The kernel takes both dispatch forms'
-    positions from one running count: they agree."""
+def router_bwd_plain(logits, probs, idx, w, dw, dprob_sum, dz_sum, *,
+                     n_real: int) -> torch.Tensor:
+    """The gradient of the logits (T, E) f32, from the gradients of the
+    routing's differentiable outputs: ``dw`` (T, k), ``dprob_sum`` (E,)
+    and ``dz_sum`` () (None for zero).  With p the row's probabilities,
+    wsum = Σ_j p[idx_j] and w_j = p[idx_j] / max(wsum, 1e-9):
+
+        dp[e] = dprob_sum[e] + Σ_{j: idx_j = e} g_j,
+        g_j = (dw_j − Σ_i dw_i·w_i) / wsum   (dw_j / 1e-9 when clamped),
+        dlogit[e] = p[e]·(dp[e] − Σ_e' p[e']·dp[e']) + 2·dz_sum·lse·p[e],
+
+    lse recomputed from the masked logits.  Experts at or past
+    ``n_real`` get 0 (the forward's mask)."""
+    T, E = logits.shape
+    x = logits.float()
+    pad = torch.arange(E, device=x.device) >= n_real
+    if n_real < E:
+        x = x.masked_fill(pad[None], NEG_INF)
+    lse = torch.logsumexp(x, dim=-1)                               # (T,)
+    idx = idx.long()
+    wsum = torch.gather(probs, 1, idx).sum(-1, keepdim=True)        # (T,1)
+    dw = torch.zeros_like(w) if dw is None else dw.float()
+    clamped = wsum <= 1e-9
+    g = torch.where(clamped, dw / 1e-9,
+                    (dw - (dw * w).sum(-1, keepdim=True))
+                    / torch.clamp(wsum, min=1e-9))
+    dp = torch.zeros_like(probs).scatter_add_(1, idx, g)
+    if dprob_sum is not None:
+        dp = dp + dprob_sum.float()[None]
+    dlogit = probs * (dp - (probs * dp).sum(-1, keepdim=True))
+    if dz_sum is not None:
+        dlogit = dlogit + (2.0 * dz_sum.float()) * lse[:, None] * probs
+    return dlogit.masked_fill(pad[None], 0.0)
+
+
+def router_bwd(logits, probs, idx, w, dw, dprob_sum, dz_sum, *,
+               n_real: int) -> torch.Tensor:
+    """``router_bwd_plain`` on the CPU, the backward kernel on the card;
+    no fallback."""
+    if logits.device.type == "cpu":
+        return router_bwd_plain(logits, probs, idx, w, dw, dprob_sum,
+                                dz_sum, n_real=n_real)
+    if logits.device.type != "cuda":
+        raise ValueError(f"router_bwd: no kernel for device "
+                         f"{logits.device}")
+    return _router_bwd_cuda(logits, probs, idx, w, dw, dprob_sum, dz_sum,
+                            n_real=n_real)
+
+
+router_bwd.launches = 0
+
+
+class RouterFunction(torch.autograd.Function):
+    """Routing and dispatch with the logits' gradient: the forward of
+    ``router_dispatch`` (kernel or plain, by device), ``router_bwd``
+    backward.  Outputs in ``Routing`` order; ``w``, ``prob_sum`` and
+    ``z_sum`` carry gradients, the rest are marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, logits, k, n_real, capacity, dispatch):
+        r = _route(logits, k, n_real=n_real, capacity=capacity,
+                   dispatch=dispatch)
+        ctx.n_real = n_real
+        ctx.save_for_backward(logits, r.probs, r.idx, r.w)
+        ctx.mark_non_differentiable(r.idx, r.probs, r.slot, r.src, r.load)
+        ctx.set_materialize_grads(False)
+        return tuple(r)
+
+    @staticmethod
+    def backward(ctx, dw, _idx, _probs, _slot, _src, _load, dprob_sum,
+                 dz_sum):
+        logits, probs, idx, w = ctx.saved_tensors
+        if dw is None and dprob_sum is None and dz_sum is None:
+            return None, None, None, None, None
+        dlogits = router_bwd(logits, probs, idx, w, dw, dprob_sum, dz_sum,
+                             n_real=ctx.n_real)
+        return dlogits, None, None, None, None
+
+
+def _route(logits, k, *, n_real, capacity, dispatch) -> Routing:
+    """The forward by device: the plain version or the kernel."""
     if logits.device.type == "cpu":
         return router_dispatch_plain(logits, k, n_real=n_real,
                                      capacity=capacity, dispatch=dispatch)
@@ -132,6 +218,19 @@ def router_dispatch(logits, k: int, *, n_real: int, capacity: int,
         raise ValueError(f"router_dispatch: no kernel for device "
                          f"{logits.device}")
     return _router_dispatch_cuda(logits, k, n_real=n_real, capacity=capacity)
+
+
+def router_dispatch(logits, k: int, *, n_real: int, capacity: int,
+                    dispatch: str = "sort") -> Routing:
+    """Routing and dispatch of one MoE layer call; see
+    ``router_dispatch_plain``.  The kernel takes both dispatch forms'
+    positions from one running count: they agree.  Logits that need a
+    gradient go through ``RouterFunction``."""
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return Routing(*RouterFunction.apply(logits, k, n_real, capacity,
+                                             dispatch))
+    return _route(logits, k, n_real=n_real, capacity=capacity,
+                  dispatch=dispatch)
 
 
 router_dispatch.launches = 0
@@ -151,7 +250,8 @@ def router_topk(logits, k: int
     return _router_dispatch_cuda(logits, k, n_real=E, capacity=T)[:3]
 
 
-_fn = None   # the C entry, bound once by _kernel()
+_fn = None   # the C entries, bound once by _kernel() / _bwd_kernel()
+_bwd_fn = None
 
 
 def _kernel():
@@ -168,14 +268,28 @@ def _kernel():
     return _fn
 
 
+def _bwd_kernel():
+    """The backward's C entry, bound at its first launch."""
+    global _bwd_fn
+    if _bwd_fn is None:
+        from .build import load
+        fn = load("moe_router").repro_router_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        _bwd_fn = fn
+    return _bwd_fn
+
+
 def _router_dispatch_cuda(logits, k: int, *, n_real: int,
                           capacity: int) -> Routing:
     """Validate, then launch.  Every check comes before the kernel is
     built or bound."""
     if torch.is_grad_enabled() and logits.requires_grad:
-        raise RuntimeError("router_dispatch: the kernel has no backward "
-                           "(ROADMAP A9b); logits that need a gradient "
-                           "would get none")
+        raise RuntimeError("router_dispatch: this raw launch has no "
+                           "backward; logits that need a gradient go "
+                           "through router_dispatch(), whose "
+                           "RouterFunction carries it")
     if logits.ndim != 2:
         raise ValueError(f"router_dispatch: logits must be (T, E), got "
                          f"{tuple(logits.shape)}")
@@ -213,3 +327,55 @@ def _router_dispatch_cuda(logits, k: int, *, n_real: int,
                            f"{err}")
     router_dispatch.launches += 1
     return r
+
+
+def _router_bwd_cuda(logits, probs, idx, w, dw, dprob_sum, dz_sum, *,
+                     n_real: int) -> torch.Tensor:
+    """Validate, then launch ``router_bwd_kernel``: a warp a token row.
+    A gradient that is None reads as zero (a null pointer)."""
+    if logits.ndim != 2 or probs.shape != logits.shape:
+        raise ValueError(f"router_bwd: logits {tuple(logits.shape)} and "
+                         f"probs {tuple(probs.shape)} must be one (T, E)")
+    T, E = logits.shape
+    k = idx.shape[1] if idx.ndim == 2 else -1
+    if idx.shape != (T, k) or w.shape != (T, k) or \
+            (dw is not None and dw.shape != (T, k)):
+        raise ValueError(f"router_bwd: idx {tuple(idx.shape)}, w "
+                         f"{tuple(w.shape)} must be ({T}, k)")
+    if not (1 <= k <= min(E, MAX_K)) or E > MAX_EXPERTS or \
+            not (1 <= n_real <= E):
+        raise ValueError(f"router_bwd: needs 1 <= k <= min(E, {MAX_K}), "
+                         f"E <= {MAX_EXPERTS}, 1 <= n_real <= E; got k={k},"
+                         f" E={E}, n_real={n_real}")
+    if (dprob_sum is not None and dprob_sum.shape != (E,)) or \
+            (dz_sum is not None and dz_sum.numel() != 1):
+        raise ValueError("router_bwd: dprob_sum must be (E,), dz_sum one "
+                         "value")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"router_bwd: idx must be int32, got {idx.dtype}")
+    dev = logits.device
+    ts = [logits, probs, idx, w] + [t for t in (dw, dprob_sum, dz_sum)
+                                    if t is not None]
+    if any(t.device != dev for t in ts):
+        raise ValueError("router_bwd: every input must be on one device")
+
+    def f32(t):
+        return None if t is None else t.float().contiguous()
+    logits, probs, w, dw, dprob_sum, dz_sum = map(
+        f32, (logits, probs, w, dw, dprob_sum, dz_sum))
+    idx = idx.contiguous()
+    dlogits = torch.empty((T, E), dtype=torch.float32, device=dev)
+    fn = _bwd_kernel()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(logits), ptr(probs), ptr(idx), ptr(w), ptr(dw),
+                 ptr(dprob_sum), ptr(dz_sum), ptr(dlogits), T, E, k,
+                 n_real, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_router backward launch failed: CUDA error "
+                           f"{err}")
+    router_bwd.launches += 1
+    return dlogits

@@ -39,6 +39,17 @@ cumulative decay is summed and differenced in f64.
 version, a CUDA tensor launches the kernels or raises.  There is no
 fallback.  ``ssd.launches`` counts calls (one per layer's prefill) that
 launched the kernels.
+
+**The backward** (training; the reference differentiates ``ops.ssd``
+with XLA, there is no Pallas backward).  When an input needs a
+gradient, ``ssd`` goes through :class:`SSDFunction`: the same forward,
+which on the card keeps the states entering each chunk and the chunks'
+decays, and :func:`ssd_bwd`: the kernels of ``csrc/ssd_bwd.cu`` on the
+card (CUDA cores, f32 sums, no atomics; the split mirrors the forward's:
+each chunk's dy ⊗ C sum, the reverse state passing, one block a (head,
+chunk, row) for the in-chunk gradients, then the sums over a group's
+heads and over (row, chunk) for A and D), :func:`ssd_bwd_plain` on the
+CPU.  ``ssd_bwd.launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -190,6 +201,19 @@ def ssd_chunk_scan_plain(x, dt, A, B, C, entering, D=None, *,
     return y.to(x.dtype)
 
 
+def ssd_keep_plain(x, dt, A, B, C, D=None, h0=None):
+    """What the forward kernels give ``SSDFunction`` (``_ssd_cuda`` with
+    ``keep``), in plain torch: (y, h_final, the states entering each
+    chunk (Bb,nc,H,P,N), the chunks' decays (Bb,nc,H)), the last two
+    None for a sequence of one chunk."""
+    y, hf = ssd_plain(x, dt, A, B, C, D, h0)
+    if x.shape[1] <= CHUNK:
+        return y, hf, None, None
+    states, decay = ssd_chunk_states_plain(x, dt, A, B)
+    entering, _ = ssd_state_passing_plain(states, decay, h0)
+    return y, hf, entering.contiguous(), decay.contiguous()
+
+
 def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token, as ``ops.ssd_decode_step``: h (B,H,P,N), x_t (B,H,P),
@@ -209,11 +233,166 @@ def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
     return y.to(x_t.dtype), h_new
 
 
+def ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final=None, *,
+                  chunk: int = CHUNK):
+    """The gradients (dx, ddt, dA, dB, dC, dD) of the SSD's (y, h_final)
+    from dy (and dh_final, None for zero), each in its input's dtype (dD
+    None without D), in f32 as the kernels take them.  Per (row, head)
+    and chunk of Q tokens, cum_i the in-chunk inclusive Σ dt·A,
+    L_ij = exp(cum_i − cum_j) for j <= i, h_in the state entering the
+    chunk and G the gradient of the state leaving it:
+
+        G_{c−1} = exp(cum_Q) G_c + Σ_i exp(cum_i) dy_i ⊗ C_i,
+        G_last = dh_final;
+        dx_j = Σ_{i>=j} L_ij dt_j (C_i·B_j) dy_i
+               + dt_j exp(cum_Q − cum_j) G B_j + D dy_j;
+        dB_j = Σ_{i>=j} L_ij dt_j (dy_i·x_j) C_i
+               + dt_j exp(cum_Q − cum_j) Gᵀ x_j;
+        dC_i = Σ_{j<=i} L_ij dt_j (dy_i·x_j) B_j + exp(cum_i) h_inᵀ dy_i;
+
+    and through the exponents: d(dt·A)_k sums every term whose exponent
+    spans step k (the T_ij = L_ij dt_j (C_i·B_j)(dy_i·x_j) with
+    i >= k > j, and the state terms), and gives ddt_k = A·d(dt·A)_k plus
+    the direct terms and dA = Σ dt·d(dt·A).
+    B's and C's gradients are summed over the heads of a group.  h0 takes
+    no gradient."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    Q = chunk
+    xf, dtf, dyf = _cut(x, Q), _cut(dt, Q), _cut(dy, Q)
+    Bf, Cf = _cut(B, Q, rep), _cut(C, Q, rep)
+    Af = A.float()
+    cum = _cum(dt, A, Q)                                   # b,c,i,h f64
+    nc = cum.shape[1]
+    # the states entering each chunk and the chunks' decays, as the
+    # forward's passes compute them
+    states, decay = ssd_chunk_states_plain(x, dt, A, B, chunk=Q)
+    entering, _ = ssd_state_passing_plain(states, decay, h0)
+    ecum = torch.exp(cum.float())                          # exp(cum_i)
+    to_end = torch.exp((cum[:, :, -1:] - cum).float())     # exp(cum_Q-cum_j)
+
+    # the gradient of the state leaving each chunk, from the last back
+    R = torch.einsum("bcih,bcihp,bcihn->bchpn", ecum, dyf, Cf)
+    g = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if dh_final is None else dh_final.float())
+    leaving = []
+    for c in reversed(range(nc)):
+        leaving.append(g)
+        g = decay[:, c, :, None, None] * g + R[:, c]
+    dS = torch.stack(leaving[::-1], dim=1)                 # b,c,h,p,n
+
+    # in-chunk: L masked before exp (no overflow to mask after)
+    above = torch.triu(torch.ones(Q, Q, dtype=torch.bool, device=x.device),
+                       diagonal=1)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # b,c,i,j,h
+    L = torch.exp(diff.float().masked_fill(above[None, None, :, :, None],
+                                           float("-inf")))
+    CB = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf)
+    DX = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
+    dt_j = dtf[:, :, None, :, :]
+    M1 = L * dt_j * CB
+    M2 = L * dt_j * DX
+    K = L * CB * DX
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M1, dyf)
+    dBh = torch.einsum("bcijh,bcihn->bcjhn", M2, Cf)
+    dCh = torch.einsum("bcijh,bcjhn->bcihn", M2, Bf)
+    # the state terms
+    GB = torch.einsum("bchpn,bcjhn->bcjhp", dS, Bf)
+    w_end = (to_end * dtf)[..., None]
+    dx = dx + w_end * GB
+    dBh = dBh + w_end * torch.einsum("bchpn,bcjhp->bcjhn", dS, xf)
+    HD = torch.einsum("bchpn,bcihp->bcihn", entering, dyf)
+    dCh = dCh + ecum[..., None] * HD
+    if D is not None:
+        dx = dx + dyf * D.float()[None, None, None, :, None]
+
+    # the exponents: T_ij = K_ij dt_j pulls cum_i up and cum_j down, so
+    # d(dt A)_k takes the T_ij that straddle k (i >= k > j): the suffix
+    # over i of each row's prefix over j < k, no cancelling sums
+    Tm = K * dt_j
+    Vd = to_end * (xf * GB).sum(-1)                        # b,c,j,h
+    U = ecum * (Cf * HD).sum(-1)
+    W = decay * (dS * entering).sum((-1, -2))              # b,c,h
+    before = (torch.cumsum(Tm.double(), 3) - Tm.double())  # b,c,i,k,h
+    straddle = torch.flip(torch.cumsum(torch.flip(before, [2]), 2), [2])
+    da_T = torch.diagonal(straddle, dim1=2, dim2=3).permute(0, 1, 3, 2)
+    rest = (U - dtf * Vd).double()
+    rest[:, :, -1] += ((dtf * Vd).sum(2) + W).double()
+    da = (da_T + torch.flip(torch.cumsum(torch.flip(rest, [2]), 2),
+                            [2])).float()
+    ddt = Af * da + K.sum(2) + Vd
+    dA = (dtf * da).sum((0, 1, 2))
+    dD = None if D is None else (dyf * xf).sum((0, 1, 2, 4))
+
+    def back(t):            # (Bb,nc,Q,...) -> (Bb,S,...)
+        return t.reshape(Bb, nc * Q, *t.shape[3:])[:, :S]
+    dB = back(dBh).reshape(Bb, S, G, rep, N).sum(3)
+    dC = back(dCh).reshape(Bb, S, G, rep, N).sum(3)
+    return (back(dx).to(x.dtype), back(ddt).to(dt.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype),
+            None if D is None else dD.to(D.dtype))
+
+
+def ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final=None, *, states=None,
+            decay=None, chunk: int = CHUNK):
+    """(dx, ddt, dA, dB, dC, dD): ``ssd_bwd_plain`` on the CPU (at
+    ``chunk``), the backward kernels on the card, which read the forward's
+    ``states`` (the state entering each chunk) and ``decay`` (each chunk's
+    exp(cum_Q)) when the sequence has more than one chunk; no fallback."""
+    if x.device.type == "cpu":
+        return ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final,
+                             chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_bwd: no kernel for device {x.device}")
+    return _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay)
+
+
+ssd_bwd.launches = 0
+
+
+class SSDFunction(torch.autograd.Function):
+    """The SSD with its gradients: ``ssd``'s forward (the kernels keep
+    the entering states and decays on the card), ``ssd_bwd`` backward,
+    each dispatching on the device.  h0 takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk):
+        if x.device.type == "cpu":
+            y, hf = ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
+            states = decay = None
+        elif x.device.type == "cuda":
+            y, hf, states, decay = _ssd_cuda(x, dt, A, B, C, D, h0,
+                                             keep=True)
+        else:
+            raise ValueError(f"ssd: no kernel for device {x.device}")
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C, D, h0, states, decay)
+        ctx.set_materialize_grads(False)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, B, C, D, h0, states, decay = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final, states=states,
+                        decay=decay, chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
 def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, h_final) of the chunked SSD; see ``ssd_plain``.  On the card
     the kernels take their own chunk length, ``CHUNK``, whatever ``chunk``
-    says: the SSD is chunk-invariant."""
+    says: the SSD is chunk-invariant.  Inputs that need a gradient go
+    through ``SSDFunction`` (h0 may not)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, D)):
+        if h0 is not None and h0.requires_grad:
+            raise RuntimeError("ssd: the backward gives h0 no gradient; an "
+                               "h0 that needs one is not supported")
+        return SSDFunction.apply(x, dt, A, B, C, D, h0, chunk)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
     if x.device.type != "cuda":
@@ -223,7 +402,8 @@ def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
 
 ssd.launches = 0
 
-_fn = None   # the C entry, bound once by _kernel()
+_fn = None   # the C entries, bound once by _kernel() / _bwd_kernel()
+_bwd_fn = None
 
 
 def _kernel():
@@ -240,40 +420,65 @@ def _kernel():
     return _fn
 
 
-def _ssd_cuda(x, dt, A, B, C, D, h0):
-    """One call on the card: one launch if the sequence is one chunk,
-    else four."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A, B, C, D, h0)):
-        raise RuntimeError("ssd: the kernel has no backward (ROADMAP A9b); "
-                           "inputs that need a gradient would get none")
+def _bwd_kernel():
+    """The backward's C entry (``csrc/ssd_bwd.cu``), bound at its first
+    launch."""
+    global _bwd_fn
+    if _bwd_fn is None:
+        from .build import load
+        fn = load("ssd_bwd").repro_ssd_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _check_inputs(name, x, dt, A, B, C, D, h0):
+    """The kernels' shape, dtype and device rules, forward and backward."""
     if x.ndim != 4 or B.ndim != 4 or B.shape != C.shape:
-        raise ValueError(f"ssd: x {tuple(x.shape)} must be (B,S,H,P) and "
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be (B,S,H,P) and "
                          f"B {tuple(B.shape)} / C {tuple(C.shape)} (B,S,G,N)")
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if B.shape[:2] != (Bb, S) or dt.shape != (Bb, S, H) \
             or A.shape != (H,) or G < 1 or H % G:
-        raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt "
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)} do not fit (H % G == 0)")
     if S < 1 or P > MAX_P or N > MAX_N:
-        raise ValueError(f"ssd: the kernel takes S >= 1, P <= {MAX_P}, "
+        raise ValueError(f"{name}: the kernel takes S >= 1, P <= {MAX_P}, "
                          f"N <= {MAX_N}; got S={S}, P={P}, N={N}")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
-        raise ValueError(f"ssd: dtypes x {x.dtype}, B {B.dtype}, C "
+        raise ValueError(f"{name}: dtypes x {x.dtype}, B {B.dtype}, C "
                          f"{C.dtype}; the kernel takes one of {_DTYPES} "
                          f"for all three")
     dev = x.device
     tensors = [x, dt, A, B, C] + [t for t in (D, h0) if t is not None]
     if any(t.device != dev for t in tensors):
-        raise ValueError("ssd: every input must be on one device")
+        raise ValueError(f"{name}: every input must be on one device")
     if D is not None and D.shape != (H,):
-        raise ValueError(f"ssd: D must be ({H},), got {tuple(D.shape)}")
+        raise ValueError(f"{name}: D must be ({H},), got {tuple(D.shape)}")
     if h0 is not None and h0.shape != (Bb, H, P, N):
-        raise ValueError(f"ssd: h0 must be {(Bb, H, P, N)}, got "
+        raise ValueError(f"{name}: h0 must be {(Bb, H, P, N)}, got "
                          f"{tuple(h0.shape)}")
+
+
+def _ssd_cuda(x, dt, A, B, C, D, h0, keep: bool = False):
+    """One call on the card: one launch if the sequence is one chunk,
+    else four.  ``keep`` also returns the scratch the backward reads: the
+    states entering each chunk (B,nc,H,P,N) and the chunks' decays
+    (B,nc,H), both None for one chunk."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, D, h0)):
+        raise RuntimeError("ssd: this raw launch has no backward; inputs "
+                           "that need a gradient go through ssd(), whose "
+                           "SSDFunction carries it")
+    _check_inputs("ssd", x, dt, A, B, C, D, h0)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = x.device
     x, B, C = x.contiguous(), B.contiguous(), C.contiguous()
     dt = dt.float().contiguous()
     A = A.float().contiguous()
@@ -303,4 +508,66 @@ def _ssd_cuda(x, dt, A, B, C, D, h0):
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     ssd.launches += 1
-    return y, hf
+    return (y, hf, states, decay) if keep else (y, hf)
+
+
+def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay):
+    """The backward on the card: four launches (two for one chunk), one
+    ``ssd_bwd.launches`` a call.  Scratch: the gradients of the states
+    leaving the chunks (B,nc,H,P,N), each head's dB and dC (B,S,H,N) and
+    the blocks' dA, dD partials (B,nc,H), f32."""
+    _check_inputs("ssd_bwd", x, dt, A, B, C, D, h0)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = x.device
+    nc = -(-S // CHUNK)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} must "
+                         f"be like x {tuple(x.shape)} {x.dtype}")
+    if dh_final is not None and (dh_final.shape != (Bb, H, P, N)
+                                 or dh_final.device != dev):
+        raise ValueError(f"ssd_bwd: dh_final must be {(Bb, H, P, N)}")
+    if nc > 1:
+        if states is None or decay is None \
+                or states.shape != (Bb, nc, H, P, N) \
+                or decay.shape != (Bb, nc, H) \
+                or states.dtype != torch.float32 \
+                or decay.dtype != torch.float32:
+            raise ValueError("ssd_bwd: needs the forward's entering states "
+                             f"{(Bb, nc, H, P, N)} and decays {(Bb, nc, H)}, "
+                             "f32")
+        hin = states.contiguous()
+        decay = decay.contiguous()
+    else:               # one chunk: it enters with h0
+        hin = None if h0 is None else h0.float().contiguous()
+        decay = None
+    xc, Bc, Cc, dyc = (t.contiguous() for t in (x, B, C, dy))
+    dtf = dt.float().contiguous()
+    Af = A.float().contiguous()
+    Df = None if D is None else D.float().contiguous()
+    dhf = None if dh_final is None else dh_final.float().contiguous()
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    dS = f32(Bb, nc, H, P, N) if nc > 1 else None
+    dx = torch.empty_like(xc)
+    ddt, dBh, dCh = f32(Bb, S, H), f32(Bb, S, H, N), f32(Bb, S, H, N)
+    dA_part, dD_part = f32(Bb, nc, H), f32(Bb, nc, H)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    dA, dD = f32(H), f32(H)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    fn = _bwd_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(xc), ptr(dtf), ptr(Af), ptr(Bc), ptr(Cc), ptr(Df),
+                 ptr(dyc), ptr(hin), ptr(decay), ptr(dhf), ptr(dS), ptr(dx),
+                 ptr(ddt), ptr(dBh), ptr(dCh), ptr(dA_part), ptr(dD_part),
+                 ptr(dB), ptr(dC), ptr(dA), ptr(dD), Bb, S, H, P, G, N,
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
+    ssd_bwd.launches += 1
+    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+            None if D is None else dD.to(D.dtype))

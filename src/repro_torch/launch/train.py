@@ -12,7 +12,9 @@ trainer could not reach it):
   * a datafeed engine hosting the token pipeline, pulled over RPC,
   * a membership coordinator the trainer joins and leaves,
   * the train step of ``repro_torch.train.step`` on ``--device``
-    (default ``cuda``: the attention kernels and their backward).
+    (default ``cuda``: the attention, router and SSD kernels and their
+    backwards; ``--arch`` qwen1.5-0.5b, granite-moe-3b-a800m or
+    mamba2-1.3b).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train           # the card

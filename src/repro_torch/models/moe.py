@@ -10,9 +10,18 @@ an (E, C, d) buffer, the experts' SwiGLU FFNs as batched products, and
 each token's k weighted expert outputs gathered back and summed.
 Assignments past an expert's capacity C = ceil(T·k/E · cf) are dropped
 and contribute zero; serving runs dropless (C = T: an expert can receive
-each token at most once).  Every shape is fixed, so a layer call makes
+each token at most once), training at the config's capacity factor
+(``dropless=False``).  Every shape is fixed, so a layer call makes
 the host wait for nothing.  The expert products stay ``torch.bmm``, as
 the reference leaves its einsums to XLA.
+
+Gradients: the router's go through ``RouterFunction`` (its backward is
+the second kernel of ``csrc/moe_router.cu``) to the logits, from the
+combine weights and the aux sums.  The token rows' gather into the
+capacity buffer is ``_Dispatch``, whose backward is a gather too (each
+token's k slots summed in choice order), not ``index_select``'s
+backward, which scatters with ``index_add_``: a token repeated k times
+would be summed in whatever order the atomics run.
 
 The expert-parallel ``shard_map`` path (``MoESpmd``) is not ported yet
 (ROADMAP A10).
@@ -66,6 +75,27 @@ def _expert_ffn(cfg: ModelConfig, p: dict, buf):
     return torch.bmm(h, p["wo"].to(cdt))
 
 
+class _Dispatch(torch.autograd.Function):
+    """buf[s] = x[src[s]] (a zero row where src[s] == T), and back:
+    dx[t] = Σ_j dbuf[slot[t, j]] in choice order, a dropped assignment's
+    slot (E·C) reading a zero row.  No atomics: the same inputs give the
+    same gradient on every run."""
+
+    @staticmethod
+    def forward(ctx, x2d, src, slot):
+        ctx.save_for_backward(slot)
+        x_pad = torch.cat([x2d, x2d.new_zeros((1, x2d.shape[1]))])
+        return x_pad.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        slot, = ctx.saved_tensors
+        T, k = slot.shape
+        d_pad = torch.cat([dbuf, dbuf.new_zeros((1, dbuf.shape[1]))])
+        dx = d_pad.index_select(0, slot.reshape(-1)).view(T, k, -1).sum(1)
+        return dx, None, None
+
+
 def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
                capacity_factor: float, dropless: bool = False):
     """Dispatch + expert FFN over x2d: (T, d).  Returns y (T, d) and the
@@ -84,16 +114,19 @@ def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
                         dispatch=cfg.moe.dispatch)
 
     # each capacity slot's token row, a zero row where the slot is empty
-    x_pad = torch.cat([x2d, x2d.new_zeros((1, d))])
-    buf = x_pad.index_select(0, r.src).view(e_pad, C, d)
+    buf = _Dispatch.apply(x2d, r.src, r.slot).view(e_pad, C, d)
     out_buf = _expert_ffn(cfg, params, buf)                     # (E, C, d)
-    del buf, x_pad
+    del buf
 
     # each token's k weighted expert outputs, summed in choice order (no
     # atomics: the same inputs give the same sum on the card); a dropped
     # assignment reads a zero row and contributes nothing, as the
     # reference's out-of-bounds gather with mode="fill".  Dropless, none
     # is dropped (C = T, and a token picks an expert once): no zero row.
+    # The gather's backward scatters with index_add_, but to distinct
+    # rows: a slot holds at most one assignment (the kernel hands out
+    # each position once), and the dropped assignments' shared zero row
+    # is cut off after, so no row's sum depends on the order of adds.
     out_flat = out_buf.view(e_pad * C, d)
     if not dropless:
         out_flat = torch.cat([out_flat, out_flat.new_zeros((1, d))])

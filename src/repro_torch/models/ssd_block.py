@@ -12,6 +12,11 @@ conv is written as the reference writes it, ``cw`` shifted
 multiply-adds, not ``F.conv1d``: a float32 convolution goes through
 cuDNN in TF32 by default, and the port holds f32 to the reference.
 
+Training runs ``ssd_block_apply`` with gradients on (``Model.loss_fn``):
+the SSD's through ``SSDFunction`` (its backward kernels on the card);
+the conv's backward is the same shifted slices and multiply-adds, summed
+in a fixed order (no ``index_add_``), so a step repeats bitwise.
+
 As in the reference, a prompt shorter than ``cw - 1`` tokens leaves a
 one-row conv tail (``u[:, S-(cw-1):]`` with a negative start); the
 engine writes that row to row 0 of the slot's tail and leaves the

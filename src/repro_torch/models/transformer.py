@@ -37,8 +37,9 @@ first layer keeps an MLP of ``first_dense_ff``.  Serving runs MoE layers
 dropless and discards their aux losses, as the reference does.
 
 ``loss_fn`` is the teacher-forced LM loss of training (the reference's
-``loss_fn``) for the attention family without experts; MoE and recurrent
-layers need their kernels' backwards (ROADMAP A9b) and raise.
+``loss_fn``) for attention, MoE and SSD layers: MoE layers run at the
+config's capacity factor and add their aux losses (``AUX_KEYS``) to the
+loss.  RG-LRU layers need the RG-LRU's backward (ROADMAP A9b) and raise.
 
 Encoder-decoder and VLM configs raise ``NotImplementedError``.
 """
@@ -60,6 +61,9 @@ from .rglru_block import (rglru_block_apply, rglru_block_decode,
                           rglru_cache_spec, rglru_params)
 from .ssd_block import (ssd_block_apply, ssd_block_decode, ssd_cache_spec,
                         ssd_params)
+
+
+AUX_KEYS = ("moe_lb", "moe_z")
 
 
 class _Recurrent(NamedTuple):
@@ -151,25 +155,31 @@ class Model:
                 "final_norm": ones_init(gen, (cfg.d_model,), dt)}
 
     # ----------------------------------------------------------------- block
-    def _ffn(self, p: dict, h):
-        """The feed-forward half: serving runs MoE layers dropless and
-        drops their aux losses."""
+    def _ffn(self, p: dict, h, aux: Optional[dict] = None):
+        """The feed-forward half.  Serving (``aux`` None) runs MoE layers
+        dropless and drops their aux losses; training runs them at the
+        config's capacity factor and adds their aux losses to ``aux``."""
         if "moe" in p:
-            return moe_apply(self.cfg, p["moe"], h, dropless=True)[0]
+            y, a = moe_apply(self.cfg, p["moe"], h, dropless=aux is None)
+            if aux is not None:
+                for key in AUX_KEYS:
+                    aux[key] = aux[key] + a[key]
+            return y
         return mlp(self.cfg, p["mlp"], h)
 
-    def _block(self, p: dict, x, mix):
+    def _block(self, p: dict, x, mix, aux: Optional[dict] = None):
         """One pre-norm block; ``mix(h)`` is the mixing half (attention
-        or recurrence; prefill, chunk or decode)."""
+        or recurrence; training, prefill, chunk or decode); ``aux`` as
+        ``_ffn``'s."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a = mix(h)
         if "mlp" not in p and "moe" not in p:
             return x + a
         if cfg.parallel_block:
-            return x + a + self._ffn(p, h)
+            return x + a + self._ffn(p, h, aux)
         x = x + a
-        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps))
+        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux)
 
     def _final(self, params, h):
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
@@ -181,30 +191,45 @@ class Model:
         ``tokens`` and ``targets`` (B,S) (-1: no target).  ``remat``:
         ``"block"`` wraps each layer in ``torch.utils.checkpoint`` (its
         activations are recomputed in the backward; the reference wraps
-        each period in ``jax.checkpoint``), ``"none"`` keeps them.
-        Returns (loss, {"ce", "z_loss", "tokens", "loss"})."""
+        each period in ``jax.checkpoint``), ``"none"`` keeps them.  MoE
+        layers drop over capacity (the config's capacity factor) and their
+        aux losses, summed over the layers, join the loss.
+        Returns (loss, {"ce", "z_loss", "tokens", "moe_lb", "moe_z",
+        "loss"})."""
         cfg = self.cfg
-        if cfg.moe.num_experts or any(k not in ATTN_KINDS
-                                      for k in self.kinds):
+        if "rglru" in self.kinds:
             raise NotImplementedError(
-                f"{cfg.name}: training MoE and recurrent layers needs the "
-                f"router's, SSD's and RG-LRU's backwards (ROADMAP A9b)")
+                f"{cfg.name}: training RG-LRU layers needs the RG-LRU's "
+                f"backward (ROADMAP A9b)")
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}: 'none' or 'block'")
 
         def layer(p, h, kind):
-            return self._block(p, h, lambda x: attn_train(
-                cfg, p["attn"], x, kind=kind))
+            aux = {key: h.new_zeros((), dtype=torch.float32)
+                   for key in AUX_KEYS}
+            if kind in ATTN_KINDS:
+                def mix(x):
+                    return attn_train(cfg, p["attn"], x, kind=kind)
+            else:
+                def mix(x):
+                    return _RECURRENT[kind].prefill(cfg, p["rec"], x)[0]
+            h = self._block(p, h, mix, aux)
+            return h, aux["moe_lb"], aux["moe_z"]
 
         h = embed_tokens(cfg, params["embed"], batch["tokens"])
+        aux = [h.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
         for p, kind in zip(params["layers"], self.kinds):
             if remat == "block":
-                h = checkpoint(layer, p, h, kind, use_reentrant=False)
+                h, *a = checkpoint(layer, p, h, kind, use_reentrant=False)
             else:
-                h = layer(p, h, kind)
+                h, *a = layer(p, h, kind)
+            aux = [x + y for x, y in zip(aux, a)]
         loss, metrics = chunked_ce_loss(
             cfg, params["embed"], self._final(params, h), batch["targets"],
             z_coef=z_coef, chunk=ce_chunk)
+        for key, value in zip(AUX_KEYS, aux):
+            loss = loss + value
+            metrics[key] = value
         metrics["loss"] = loss
         return loss, metrics
 

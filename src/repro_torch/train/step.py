@@ -8,8 +8,9 @@ State layout (plain dicts of tensors on one device)::
 
 The reference's step is one pure jitted function; here it runs eagerly:
 ``loss_and_grads`` takes each microbatch's loss and its gradients with
-``torch.autograd.grad`` (the attention kernels' backward carries them on
-the card), and the optimizer writes the parameters and its state in
+``torch.autograd.grad`` (the attention, router and SSD kernels'
+backwards carry them on the card), and the optimizer writes the
+parameters and its state in
 place, its rules reading each leaf as the reference lays it out
 (``stack_groups``).  There is no ``MoESpmd`` (ROADMAP A10): the step runs on one
 device.

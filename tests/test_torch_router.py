@@ -10,8 +10,9 @@ dispatch (both of the reference's forms) against a numpy loop that
 counts each expert's assignments in (token, choice) order: slots, slot
 tokens and loads exactly equal, dropless, at capacity factor 1.25 and at
 a capacity that drops, with and without padded experts; the aux sums
-against f64 sums at rtol 1e-5.  The kernel's wrapper refuses logits that
-need a gradient before it builds anything.  On the card (``-m gpu``):
+against f64 sums at rtol 1e-5.  The kernel's raw launch refuses logits
+that need a gradient (``RouterFunction`` carries those) before it builds
+anything.  On the card (``-m gpu``):
 the hand-written kernel against the plain version.
 
 The card's machine has no JAX, so JAX is imported by the ``ref``
@@ -169,10 +170,11 @@ def test_dispatch_plain_matches_count(dispatch, mode, padded, T, Ek):
 
 @pytest.mark.parametrize("call", ["router_topk", "moe_layer"])
 def test_kernel_refuses_inputs_that_need_grad(call):
-    """The kernel has no backward: on the card its wrapper raises for
-    logits that need a gradient, before it builds or binds the kernel
-    (so the check runs here, on a CPU tensor handed to the card's path).
-    With gradients off the check passes and validation goes on."""
+    """The raw launch has no backward (logits that need a gradient go
+    through ``router_dispatch``, whose ``RouterFunction`` carries it): it
+    raises for them before it builds or binds the kernel (so the check
+    runs here, on a CPU tensor handed to the card's path).  With
+    gradients off the check passes and validation goes on."""
     T, E, k = 6, 40, 8
     kw = (dict(n_real=E, capacity=T) if call == "router_topk"
           else dict(n_real=E - 4, capacity=2))

@@ -184,10 +184,11 @@ def test_kernel_matches_plain_on_card(case, dt):
 
 @pytest.mark.parametrize("needs_grad", ["x", "dt", "A", "B", "C", "D", "h0"])
 def test_kernel_refuses_inputs_that_need_grad(needs_grad):
-    """The kernels have no backward: the wrapper raises for inputs that
-    need a gradient, before it builds or binds anything (so the check
-    runs here, on CPU tensors handed to the card's path).  With gradients
-    off the check passes and validation goes on."""
+    """The raw launch has no backward (inputs that need a gradient go
+    through ``ssd``, whose ``SSDFunction`` carries it): it raises for
+    them before it builds or binds anything (so the check runs here, on
+    CPU tensors handed to the card's path).  With gradients off the check
+    passes and validation goes on."""
     from repro_torch.kernels import ssd as kssd
     Bb, S, H, P, G, N = 1, 5, 2, 4, 1, 4
     t = {"x": torch.randn(Bb, S, H, P), "dt": torch.rand(Bb, S, H),

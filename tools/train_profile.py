@@ -2,10 +2,11 @@
 """Where a training step's time goes, on one NVIDIA card.
 
     python3 tools/train_profile.py            # 8 x 128, then 4 x 1024
+    python3 tools/train_profile.py --arch mamba2-1.3b --arch granite-moe-3b-a800m
 
-Full-width qwen1.5-0.5b (bf16 compute, f32 state, AdamW, remat "none" at
-the launcher's 8 x 128, "block" at 4 x 1024), seeded weights and
-batches, no services.  After two warm-up steps, 5 steps of
+Full-width, full-depth models (bf16 compute, f32 state, AdamW; remat
+"none" at the launcher's 8 x 128, and for qwen1.5-0.5b, the default,
+also "block" at 4 x 1024), seeded weights and batches, no services.  After two warm-up steps, 5 steps of
 ``train.step``'s own step run with its parts timed on the host clock,
 the card synchronised around each: ``Model.loss_fn`` (the forward), the
 step's ``loss_and_grads`` (the forward and autograd's backward; the
@@ -19,6 +20,7 @@ Each measurement is one line ``PROFILE {json}`` on stdout.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -39,7 +41,10 @@ from repro_torch.train import optim  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
-SHAPES = ((8, 128, "none"), (4, 1024, "block"))
+# (batch, seq, remat) by model: the launcher's shape for each, and qwen's
+# long step of chip_smoke.py phase 3g
+SHAPES = {ARCH: ((8, 128, "none"), (4, 1024, "block"))}
+LAUNCHER_SHAPE = ((8, 128, "none"),)
 WARM, TIMED, PROFILED = 2, 5, 3
 
 
@@ -84,15 +89,26 @@ class StepTimer:
         return run
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", action="append",
+                    help=f"model to profile (repeat for several; default "
+                         f"{ARCH})")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
         return 1
-    cfg = configs.get(ARCH)
+    print(torch.cuda.get_device_name(0))
+    for arch in args.arch or [ARCH]:
+        profile_arch(arch)
+    return 0
+
+
+def profile_arch(arch: str) -> None:
+    cfg = configs.get(arch)
     model = Model(cfg)
     ocfg = optim.OptConfig(warmup=5, decay_steps=100)
-    print(torch.cuda.get_device_name(0))
-    for B, S, remat in SHAPES:
+    for B, S, remat in SHAPES.get(arch, LAUNCHER_SHAPE):
         state = train_step.init_state(model, ocfg, 0, device="cuda")
         step = train_step.make_train_step(model, ocfg,
                                           ParallelConfig(remat=remat))
@@ -122,7 +138,8 @@ def main() -> int:
         busy_us = sum(e.self_device_time_total for e in kernels)
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-        emit(shape=f"{B}x{S}", remat=remat, forward_ms=fwd * 1e3,
+        emit(arch=arch, shape=f"{B}x{S}", remat=remat,
+             forward_ms=fwd * 1e3,
              backward_ms=bwd * 1e3, optimizer_ms=opt * 1e3,
              step_ms=(fwd + bwd + opt) * 1e3,
              tokens_per_s=B * S / (fwd + bwd + opt),
@@ -131,12 +148,11 @@ def main() -> int:
              device_busy_share=busy_us / 1e6 / window,
              kernel_launches_per_step=launches / PROFILED)
         for e in top:
-            emit(shape=f"{B}x{S}", kernel=e.key[:120],
+            emit(arch=arch, shape=f"{B}x{S}", kernel=e.key[:120],
                  device_ms_per_step=e.self_device_time_total / 1e3 / PROFILED,
                  calls_per_step=e.count / PROFILED)
         del state, step, batches
         torch.cuda.empty_cache()
-    return 0
 
 
 if __name__ == "__main__":

@@ -51,7 +51,15 @@ Phases, in order; any failure exits non-zero:
    at mamba2's heads, 8 x 128, 2 x 1024 (dh_final), S 100 (h0,
    dh_final) and 8 groups, f32 and bf16, against autograd through
    ``ssd_plain``: each gradient's error over its largest entry, 1e-4
-   (f32) or 2e-2 + 2^-7 (bf16); two runs bitwise equal.
+   (f32) or 2e-2 + 2^-7 (bf16); two runs bitwise equal.  The RG-LRU's
+   backward (``csrc/rglru_bwd.cu``, f32) at recurrentgemma-9b's width
+   4096: 8 x 128, 2 x 1024 (dh_final), S 100 (h0, dh_final), 4 x 1 and
+   saturated gates near a = 1, against ``rglru_bwd_plain`` on the
+   forward kernels' kept states (each gradient's error over its largest
+   entry, 1e-4; dlambda's also against an f64 plain run, printed); two
+   runs bitwise equal.  The attention backward at recurrentgemma-9b's
+   heads, bf16, 8 x 128 and 1 x 4096 (the window binds), beside SDPA's
+   backward and the backend SDPA picked.
    The spec shapes are timed (CUDA events, warmed up, L2 flushed) beside
    the least time the card could take.
 3. The main paths, each driven with the kernels' launch counts set to 0
@@ -123,9 +131,18 @@ Phases, in order; any failure exits non-zero:
       one seed, the parameters within 1e-6 (bitwise printed).
    i. granite-moe-3b-a800m training at full width and depth through
       ``init_state`` / ``make_train_step``, batches over RPC from a
-      ``DataFeedServer``, no save (8 x 128, 10 steps, capacity factor
-      1.25): attention and the router forward and backward 32 times a
+      ``DataFeedServer``, a ``MembershipClient`` joined and left, no
+      save (8 x 128, 10 steps, capacity factor 1.25): attention and the router forward and backward 32 times a
       step each, ``moe_lb`` and ``moe_z`` printed; then the repeat check.
+   j. recurrentgemma-9b training at full width, cut to 11 of its 38
+      layers (three periods of rglru, rglru, local and the two trailing
+      RG-LRU layers; 38 layers with AdamW need 136.4 GB), through
+      ``init_state`` / ``make_train_step``, batches over RPC from a
+      ``DataFeedServer``, a ``MembershipClient`` joined and left, no
+      save (8 x 128, 10 steps, AdamW, bf16 compute): the RG-LRU forward
+      (its states kept) and backward 8 times a step each, attention's
+      3 + 3; loss curve, step ms, tokens/s and peak memory printed; the
+      loss finite and falling; then the repeat check at the same cut.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -138,8 +155,9 @@ Phases, in order; any failure exits non-zero:
    the recorded inputs, timed and bounded as in phase 2 (an attention
    row names its ``path`` and ``n_split``); phase 3g's attention
    backward rows also time SDPA's backward (forward + backward less the
-   forward) as the library yardstick; phases 3h and 3i add the SSD's and
-   the router's training forwards and backwards.  These rows, with the main
+   forward) as the library yardstick; phases 3h, 3i and 3j add the
+   SSD's, the router's and the RG-LRU's training forwards (the RG-LRU's
+   with its kept states) and backwards.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -152,7 +170,9 @@ Phases, in order; any failure exits non-zero:
    backwards against autograd through the plain versions: qwen1.5-0.5b
    and granite-moe-3b-a800m at full depth; mamba2-1.3b's backward
    kernels at full depth under the plain forward, its whole path at 4
-   layers, and its whole path at 48 printed (``ssm_train_parity``).
+   layers, and its whole path at 48 printed (``ssm_train_parity``);
+   recurrentgemma-9b at 5 layers (one period and the two trailing) and
+   at phase 3j's 11.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -299,6 +319,20 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2 + 2.0 ** -7}
 # (the restart check's 1e-6)
 SSM_TRAIN_STEPS, MOE_TRAIN_STEPS, REPEAT_STEPS = 10, 10, 3
 REPEAT_ATOL = 1e-6
+# phase 3j: recurrentgemma-9b at full width, cut to three whole periods
+# (rglru, rglru, local) and the two trailing RG-LRU layers, so that every
+# layer kind and the partial period train.  Its 38 layers with AdamW need
+# 136.4 GB of params, gradients, m and v; 11 need 51.5 GB, which leave
+# room on one 80 GB card for AdamW's per-leaf temporaries on the tied
+# 256000 x 4096 embedding (tools/train_profile.py takes the same cut).
+# 10 steps of 8 x 128 through init_state / make_train_step, batches over
+# RPC, no save; then the repeat check at the same cut
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 11, 10
+# recurrentgemma's whole training path (forward and backward kernels) is
+# held to TRAIN_PARITY_TOL at full width at this depth (one period and the
+# two trailing layers) and at phase 3j's: its gradients do not drift with
+# depth as mamba2's do
+HYBRID_PARITY_LAYERS = 5
 # mamba2's whole training path (forward and backward kernels) is held to
 # TRAIN_PARITY_TOL at this depth (ssm_train_parity says why not at 48)
 SSM_PARITY_LAYERS = 4
@@ -509,24 +543,45 @@ def attn_bwd_bound(q, k, kw):
     return bound_of(nbytes, 2.5 * 4 * D * Hq * pairs, q.dtype)
 
 
-def sdpa_bwd_ms(q, k, v, do, kw, flush):
-    """SDPA's backward on the same inputs and masks, as a yardstick only
-    (the port never calls it): forward + backward less the forward, each
-    timed by ``device_ms``.  A causal mask without window or prefix goes
-    as ``is_causal`` (the flash backend), any other as a boolean mask."""
+def sdpa_args(q, k, v, kw):
+    """(q, k, v as SDPA takes them, (B,H,S,D) with the kv heads repeated,
+    the mask, is_causal): a causal mask without window or prefix goes as
+    ``is_causal`` (the flash backend), any other as a boolean mask."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    qt, kt, vt, dot = (x.detach().transpose(1, 2).contiguous()
-                       for x in (q, k, v, do))
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous() for x in (q, k, v))
     if Hq != Hkv:
         kt = kt.repeat_interleave(Hq // Hkv, dim=1)
         vt = vt.repeat_interleave(Hq // Hkv, dim=1)
-    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
     causal = (kw["causal"] and not kw["window"] and kw["prefix_len"] is None
               and S == T)
     mask = None if causal else visible(
         S, T, [0] * B, kw["causal"], kw["window"], kw["prefix_len"],
         "cuda")[:, None]
+    return qt, kt, vt, mask, causal
+
+
+def sdpa_backend(q, k, v, kw) -> str:
+    """The name of the backend SDPA's dispatch picks for these inputs and
+    mask (``torch._fused_sdp_choice``, the choice it makes before it
+    runs); a name only, so a PyTorch without that call reads "unknown"."""
+    qt, kt, vt, mask, causal = sdpa_args(q, k, v, kw)
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = int(torch._fused_sdp_choice(qt, kt, vt, mask, 0.0, causal))
+    except (ImportError, AttributeError, TypeError) as e:
+        return f"unknown ({type(e).__name__})"
+    return next((name for name, b in SDPBackend.__members__.items()
+                 if int(b) == choice), str(choice))
+
+
+def sdpa_bwd_ms(q, k, v, do, kw, flush):
+    """SDPA's backward on the same inputs and masks, as a yardstick only
+    (the port never calls it): forward + backward less the forward, each
+    timed by ``device_ms``; masks as ``sdpa_args`` gives them."""
+    qt, kt, vt, mask, causal = sdpa_args(q, k, v, kw)
+    dot = do.detach().transpose(1, 2).contiguous()
+    qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def fwd():
@@ -570,16 +625,18 @@ def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
         row["plain_ms"] = device_ms(
             lambda: fa.attention_bwd_plain(q, k, v, o, lse, do, **kw), flush)
         row["library_ms"] = sdpa_bwd_ms(q, k, v, do, kw, flush)
+        row["library_backend"] = sdpa_backend(q, k, v, kw)
         row["bound_ms"], row["bound_by"] = attn_bwd_bound(q, k, kw)
     print("kernel-check", json.dumps(row))
     return row
 
 
 def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
-             dtype, seed=0):
+             dtype, seed=0, flush=None):
     """The forward kernel's lse (unsplit, and at 2 key splits in bf16,
     where ``attn_combine`` writes it) against ``attention_fwd_plain``,
-    then ``check_bwd`` on the unsplit forward's o and lse."""
+    then ``check_bwd`` on the unsplit forward's o and lse (timed with
+    ``flush``)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -598,7 +655,7 @@ def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
               f"{name}: forward o at {n_split} splits disagrees")
         if n_split == 1:
             o1, lse1 = o, lse
-    row = check_bwd(name, q, k, v, o1, lse1, do, kw)
+    row = check_bwd(name, q, k, v, o1, lse1, do, kw, flush)
     row["lse_err"] = lse_err
     row["ok"] = row["ok"] and max(lse_err.values()) <= LSE_TOL
     print("kernel-check lse", name, json.dumps(lse_err))
@@ -1009,37 +1066,138 @@ def ssd_bwd_case(name, B, S, H, P, G, N, dtype, *, use_D=True,
                          decay, flush)
 
 
-def rglru_bound(x, has_h0):
+def rglru_bound(x, has_h0, nc_kept=1):
     """The RG-LRU's least time: bytes (x and two gates read, h written,
-    lambda and h0 read, h_final written) or operations, 15 an element
-    (two sigmoids of an exp, an add and a divide; three multiplies, two
-    exps, a subtract, a max, a sqrt, a multiply-add)."""
+    lambda and h0 read, h_final written; training's forward also writes
+    the f32 states entering its ``nc_kept`` > 1 chunks) or operations, 15
+    an element (two sigmoids of an exp, an add and a divide; three
+    multiplies, two exps, a subtract, a max, a sqrt, a multiply-add)."""
     Bb, S, W = x.shape
     nbytes = 4 * x.numel() * x.element_size() + 4 * W \
-        + 4 * Bb * W * (1 + has_h0)
+        + 4 * Bb * W * (1 + has_h0) + 4 * Bb * W * nc_kept * (nc_kept > 1)
     return bound_of(nbytes, 15 * x.numel(), x.dtype)
 
 
-def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None):
+def rglru_bwd_bound(x, has_h0, has_dh, nc):
+    """The RG-LRU backward's least time: bytes (x, the two gates and dh
+    read, dx and the gates' gradients written, f32; lambda, h0, dh_final
+    and the forward's kept states read, dlambda written; the kernels' own
+    scratch, the chunk pairs and dlambda partials, not counted) or
+    operations, 30 an element (the forward's 15 to rebuild h and a, and
+    the reverse step's products: g, dx, di, dlog a, dr, the partial), at
+    the CUDA cores' f32 rate."""
+    Bb, S, W = x.shape
+    nbytes = 7 * x.numel() * 4 + 8 * W + 4 * Bb * W * (has_h0 + has_dh) \
+        + 4 * Bb * W * nc * (nc > 1)
+    return bound_of(nbytes, 30 * x.numel(), torch.float32)
+
+
+def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
+                    flush=None):
+    """The RG-LRU's backward kernels against ``rglru_bwd_plain`` (f32) on
+    the same inputs, the forward's kept states and upstream gradients;
+    dlambda's error against an f64 plain run too (its B·S terms summed
+    in f32 in a fixed order); two runs bitwise equal.  With ``flush``
+    also the times (plain: ``rglru_bwd_plain``) and the bound.  No
+    PyTorch call computes it: library_ms null."""
+    Bb, S, W = x.shape
+    args = (x, rg, ig, ll, h0, dh, dh_final)
+
+    def kernel():
+        return krg._rglru_bwd_cuda(*args, states)
+
+    def plain():
+        return krg.rglru_bwd_plain(*args)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    f64 = krg.rglru_bwd_plain(*(None if t is None else t.double()
+                                for t in args))
+    scaled, errs, tops = grad_errors(got, want)
+    dll_f64, _, _ = grad_errors(got[3:], [f64[3]])
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    again = kernel()
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    row = {"kernel": "rglru_bwd", "case": name,
+           "shape": f"B{Bb} S{S} W{W}" + (" h0" if h0 is not None else "")
+           + (" dh" if dh_final is not None else ""),
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "max_abs_err": max(errs), "dx_dr_di_dlambda_err": errs,
+           "grad_max": tops, "scaled_err": scaled,
+           "dlambda_scaled_err_vs_f64": dll_f64,
+           "tol": GRAD_TOL[x.dtype], "run_to_run_equal": same,
+           "ok": finite and same and scaled <= GRAD_TOL[x.dtype]}
+    del got, again, want, f64
+    if flush is not None:
+        row["ms"] = device_ms(kernel, flush)
+        row["plain_ms"] = device_ms(plain, flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = rglru_bwd_bound(
+            x, h0 is not None, dh_final is not None, -(-S // krg.CHUNK))
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def rglru_bwd_case(name, B, S, W, *, use_h0=False, use_dh=False,
+                   saturated=False, flush=None, seed=0):
+    """``check_rglru_bwd`` on seeded inputs drawn as ``rglru_case`` draws
+    them (f32), dh and dh_final normal; the forward kernels keep their
+    entering states, the backward reads them.  ``saturated``: Λ -4.3 and
+    half the r_gate entries -40 (a rounds to 1, the clamp of 1 - a^2
+    binds), -12 or -10 (a^2/β in the hundreds)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def z(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, rg, ig = z(B, S, W), z(B, S, W), z(B, S, W)
+    ll = z(W)
+    if saturated:
+        ll = torch.full((W,), -4.3, device="cuda")
+        pick = torch.randint(0, 3, (B, S, W), generator=gen, device="cuda")
+        low = torch.tensor([-40.0, -12.0, -10.0], device="cuda")[pick]
+        rg = torch.where(torch.rand((B, S, W), generator=gen,
+                                    device="cuda") < 0.5, low, rg)
+    h0 = z(B, W) * 0.2 if use_h0 else None
+    dh = z(B, S, W)
+    dh_final = z(B, W) if use_dh else None
+    _, _, states = krg._rglru_cuda(x, rg, ig, ll, h0, keep=True)
+    return check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
+                           flush)
+
+
+def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None,
+                keep=False):
     """RG-LRU kernels against plain on one set of inputs, at the kernels'
-    chunk length or ``chunk_len`` forced; with ``flush`` also the times
-    and the bound.  No PyTorch call computes it: library_ms null."""
+    chunk length or ``chunk_len`` forced; ``keep`` (training's forward)
+    also holds the states kept for the backward against
+    ``rglru_keep_plain``'s.  With ``flush`` also the times and the bound.
+    No PyTorch call computes it: library_ms null."""
     Bb, S, W = x.shape
 
     def kernel():
-        return krg._rglru_cuda(x, rg, ig, ll, h0, chunk_len=chunk_len)
+        return krg._rglru_cuda(x, rg, ig, ll, h0, chunk_len=chunk_len,
+                               keep=keep)
+
+    def plain():
+        return (krg.rglru_keep_plain(x, rg, ig, ll, h0) if keep
+                else krg.rglru_plain(x, rg, ig, ll, h0))
     got = kernel()
     torch.cuda.synchronize()
-    want = krg.rglru_plain(x, rg, ig, ll, h0)
+    want = plain()
+    if keep and want[2] is None:
+        check(got[2] is None, f"{name}: states kept for one chunk")
+        got, want = got[:2], want[:2]
     row = _scan_row("rglru", name, f"B{Bb} S{S} W{W}"
-                    + (" h0" if h0 is not None else ""), got, want, x.dtype)
+                    + (" h0" if h0 is not None else "")
+                    + (" keep" if keep else ""), got, want, x.dtype)
     row["chunk_len"] = krg.CHUNK if chunk_len is None else chunk_len
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
-        row["plain_ms"] = device_ms(lambda: krg.rglru_plain(x, rg, ig, ll,
-                                                            h0), flush)
+        row["plain_ms"] = device_ms(plain, flush)
         row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = rglru_bound(x, h0 is not None)
+        row["bound_ms"], row["bound_by"] = rglru_bound(
+            x, h0 is not None, -(-S // krg.CHUNK) if keep else 1)
     print("kernel-check", json.dumps(row))
     return row
 
@@ -1110,7 +1268,8 @@ def fletcher_words(n, seed=0):
 # phase 2
 # ---------------------------------------------------------------------------
 def backward_rows(flush):
-    """Phase 2's rows of the router's and the SSD's backwards."""
+    """Phase 2's rows of the router's, the SSD's and the RG-LRU's
+    backwards, and of attention's at recurrentgemma-9b's heads."""
     rows = []
     mamba = dict(H=64, P=64, G=1, N=128)
     # the router's backward at granite's E 40, k 8 and training's
@@ -1136,6 +1295,31 @@ def backward_rows(flush):
                                  seed=2, **mamba))
         rows.append(ssd_bwd_case("g8-b2-s256", B=2, S=256, H=64, P=64, G=8,
                                  N=128, dtype=dtype, use_dh=True, seed=3))
+    # the RG-LRU's backward at recurrentgemma-9b's width, f32 (the
+    # kernels take f32 alone; the model's recurrence runs in f32):
+    # training's 8 x 128, 2 x 1024 with dh_final, a ragged S 100 with h0
+    # and dh_final, S 1 (one chunk: two launches), saturated gates
+    W = 4096
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b8-s128", 8, 128, W,
+                               flush=flush))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b2-s1024-dh", 2, 1024, W,
+                               use_dh=True, flush=flush, seed=1))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b1-s100-h0-dh", 1, 100, W,
+                               use_h0=True, use_dh=True, flush=flush,
+                               seed=2))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b4-s1", 4, 1, W, flush=flush,
+                               seed=3))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b2-s128-saturated-dh", 2,
+                               128, W, use_dh=True, saturated=True,
+                               flush=flush, seed=4))
+    # the attention backward at recurrentgemma-9b's heads (MQA 16/1 of
+    # 256, window 2048), bf16: training's 8 x 128, and 1 x 4096, where
+    # the window binds
+    for B, S in ((8, 128), (1, 4096)):
+        rows.append(bwd_case(f"{HYBRID_ARCH}-bwd-b{B}-s{S}", B, S,
+                             RG_HEADS["Hq"], RG_HEADS["Hkv"], RG_HEADS["D"],
+                             True, RG_HEADS["window"], 0.0, None,
+                             torch.bfloat16, seed=B, flush=flush))
     return rows
 
 
@@ -2160,14 +2344,14 @@ class TrainRecorder:
     """What the training path gives the kernels.  Wraps ``Model.loss_fn``
     (the forward, kind "forward") and the train step's ``loss_and_grads``
     (around it: autograd's backward, with the forward recomputed there
-    under remat, kind "backward"), the attention, router and SSD the
-    layers call and the raw backward launches their autograd Functions
-    reach; keeps the launches the wrappers counted per (kernel, kind,
+    under remat, kind "backward"), the attention, router, SSD and RG-LRU
+    the layers call and the raw backward launches their autograd
+    Functions reach; keeps the launches the wrappers counted per (kernel, kind,
     shape), the inputs of the last launch, and each step's launches of
     every kernel (``KERNELS`` order)."""
 
     KERNELS = ("flash_attention", "flash_attention_bwd", "moe_router",
-               "moe_router_bwd", "ssd", "ssd_bwd")
+               "moe_router_bwd", "ssd", "ssd_bwd", "rglru", "rglru_bwd")
 
     def __init__(self):
         self.kind = "outside the train step"
@@ -2179,7 +2363,8 @@ class TrainRecorder:
     def counts():
         return (fa.attention.launches, fa.attention_bwd.launches,
                 kr.router_dispatch.launches, kr.router_bwd.launches,
-                kssd.ssd.launches, kssd.ssd_bwd.launches)
+                kssd.ssd.launches, kssd.ssd_bwd.launches,
+                krg.rglru.launches, krg.rglru_bwd.launches)
 
     def install(self):
         self._orig = {"loss_fn": Model.loss_fn,
@@ -2210,6 +2395,8 @@ class TrainRecorder:
         kr._router_bwd_cuda = self._router_bwd
         ssd_block.ssd = self._ssd
         kssd._ssd_bwd_cuda = self._ssd_bwd
+        rglru_block.rglru = self._rglru
+        krg._rglru_bwd_cuda = self._rglru_bwd
 
     def uninstall(self):
         Model.loss_fn = self._orig["loss_fn"]
@@ -2220,6 +2407,8 @@ class TrainRecorder:
         kr._router_bwd_cuda = _ROUTER_BWD_CUDA
         ssd_block.ssd = kssd.ssd
         kssd._ssd_bwd_cuda = _SSD_BWD_CUDA
+        rglru_block.rglru = krg.rglru
+        krg._rglru_bwd_cuda = _RGLRU_BWD_CUDA
 
     def _record(self, key, launches, inputs):
         rec = self.seen.setdefault(key, {"launches": 0})
@@ -2233,6 +2422,27 @@ class TrainRecorder:
         self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
                       k.shape[2], D, q.dtype), fa.attention.launches - before,
                      tuple(x.detach().clone() for x in (q, k, v)) + (kw,))
+        return out
+
+    def _rglru(self, x, r_gate, i_gate, log_lambda, h0=None):
+        before = krg.rglru.launches
+        out = krg.rglru(x, r_gate, i_gate, log_lambda, h0)
+        clone = (lambda t: None if t is None else t.detach().clone())
+        self._record(("rglru", self.kind) + tuple(x.shape) + (x.dtype,),
+                     krg.rglru.launches - before,
+                     tuple(map(clone, (x, r_gate, i_gate, log_lambda, h0))))
+        return out
+
+    def _rglru_bwd(self, x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
+                   states):
+        before = krg.rglru_bwd.launches
+        out = _RGLRU_BWD_CUDA(x, r_gate, i_gate, log_lambda, h0, dh,
+                              dh_final, states)
+        clone = (lambda t: None if t is None else t.detach().clone())
+        self._record(("rglru_bwd", self.kind) + tuple(x.shape) + (x.dtype,),
+                     krg.rglru_bwd.launches - before,
+                     tuple(map(clone, (x, r_gate, i_gate, log_lambda, h0, dh,
+                                       dh_final, states))))
         return out
 
     def _bwd(self, q, k, v, o, lse, do, **kw):
@@ -2301,30 +2511,35 @@ _ATTENTION_BWD_CUDA = fa._attention_bwd_cuda
 _ROUTER_BWD_CUDA = kr._router_bwd_cuda
 _SSD_BWD_CUDA = kssd._ssd_bwd_cuda
 _SSD_CUDA = kssd._ssd_cuda
+_RGLRU_BWD_CUDA = krg._rglru_bwd_cuda
 TRAIN_COUNTED = (fa.attention, fa.attention_bwd, kr.router_dispatch,
-                 kr.router_bwd, kssd.ssd, kssd.ssd_bwd, krg.rglru)
+                 kr.router_bwd, kssd.ssd, kssd.ssd_bwd, krg.rglru,
+                 krg.rglru_bwd)
 
 
 def layer_counts(model) -> dict:
-    """Layers a model trains through each kernel: attention, MoE (router)
-    and SSD."""
+    """Layers a model trains through each kernel: attention, MoE (router),
+    SSD and RG-LRU."""
     cfg = model.cfg
     n_moe = (cfg.n_layers - model.prefix_count
              if cfg.moe.num_experts and cfg.d_ff > 0 else 0)
     return {"attn": sum(k in ATTN_KINDS for k in model.kinds),
-            "moe": n_moe, "ssd": model.kinds.count("ssd")}
+            "moe": n_moe, "ssd": model.kinds.count("ssd"),
+            "rglru": model.kinds.count("rglru")}
 
 
 def check_train_launches(tag, model, recorder, n_steps, remat):
     """Every kernel of the model's layers launched on every step and
     nowhere outside the step: each forward once a layer and step in
     ``loss_fn`` (and again in the backward under remat "block"), each
-    backward once a layer and step in the step's autograd; the RG-LRU
-    never.  Returns the launches a step (``TrainRecorder.KERNELS``)."""
+    backward once a layer and step in the step's autograd; a kernel of
+    no layer never.  Returns the launches a step
+    (``TrainRecorder.KERNELS``)."""
     n = layer_counts(model)
     per_layer = {"flash_attention": n["attn"], "flash_attention_bwd":
                  n["attn"], "moe_router": n["moe"], "moe_router_bwd":
-                 n["moe"], "ssd": n["ssd"], "ssd_bwd": n["ssd"]}
+                 n["moe"], "ssd": n["ssd"], "ssd_bwd": n["ssd"],
+                 "rglru": n["rglru"], "rglru_bwd": n["rglru"]}
     again = remat == "block"
     want_step = tuple(per_layer[k] * (2 if again and not k.endswith("_bwd")
                                       else 1)
@@ -2343,7 +2558,6 @@ def check_train_launches(tag, model, recorder, n_steps, remat):
           and set(recorder.per_step) == {want_step},
           f"{tag}: a step's launches {recorder.per_step}, expected "
           f"{want_step}")
-    check(krg.rglru.launches == 0, f"{tag}: rglru launched")
     return want_step
 
 
@@ -2483,12 +2697,16 @@ def restart_check(model):
     free_card()
 
 
-def repeat_check(arch):
+def repeat_check(arch, n_layers=None):
     """REPEAT_STEPS AdamW steps twice from one seed on the same batches:
     the parameters must agree within REPEAT_ATOL (no atomics on the
     path); prints whether they are bitwise equal.  The first run's
-    parameters wait on the host while the second runs."""
-    model = Model(configs.get(arch))
+    parameters wait on the host while the second runs.  ``n_layers``
+    cuts the depth (printed)."""
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg)
     ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=100)
     step = train_step.make_train_step(model, ocfg,
                                       ParallelConfig(remat="none"))
@@ -2509,9 +2727,10 @@ def repeat_check(arch):
                 worst = max(worst, float((got - want).abs().max()))
         del state, params
         free_card()
-    print(f"repeat {arch}: {REPEAT_STEPS} steps twice from seed 0: max "
-          f"|diff| {worst:.3g} (atol {REPEAT_ATOL}); bitwise equal: "
-          f"{bitwise}")
+    print(f"repeat {arch}" + (f" ({n_layers} of {configs.get(arch).n_layers}"
+                               f" layers)" if n_layers else "")
+          + f": {REPEAT_STEPS} steps twice from seed 0: max |diff| "
+          f"{worst:.3g} (atol {REPEAT_ATOL}); bitwise equal: {bitwise}")
     check(worst <= REPEAT_ATOL, f"repeat {arch}: parameters differ")
 
 
@@ -2575,45 +2794,65 @@ def ssm_train_path():
     return recorder, ckrec
 
 
-def moe_train_path():
-    """Phase 3i: full-width, full-depth granite-moe-3b-a800m through
-    ``init_state`` and ``make_train_step`` (AdamW, 8 x 128, remat "none"),
-    batches pulled over RPC from a ``DataFeedServer``, no save.  Returns
-    the training recorder."""
-    from repro_torch.services import DataFeedClient, DataFeedServer
-    cfg = configs.get(MOE_ARCH)
-    model = Model(cfg)
-    ocfg = optim.OptConfig(warmup=5, decay_steps=MOE_TRAIN_STEPS)
+def train_over_rpc(model, n_steps):
+    """``n_steps`` of ``make_train_step`` from ``init_state`` (AdamW,
+    TRAIN_BATCH x TRAIN_SEQ, remat "none"), batches pulled over RPC from
+    a ``DataFeedServer``, a ``MembershipClient`` joined and left as the
+    launcher's, no save; under a ``TrainRecorder``, the launch counts set
+    to 0 first.  Returns (recorder, each step's metrics as floats, step
+    seconds, the parameter count, peak GiB)."""
+    from repro_torch.services import (DataFeedClient, DataFeedServer,
+                                      MembershipClient, MembershipServer)
+    ocfg = optim.OptConfig(warmup=5, decay_steps=n_steps)
     recorder = TrainRecorder()
     recorder.install()
     for fn in TRAIN_COUNTED:
         fn.launches = 0
-    losses, aux, step_seconds = [], [], []
+    mets, step_seconds = [], []
     try:
-        with Engine(None) as trainer, Engine(None) as feeder:
-            DataFeedServer(feeder, SyntheticSource(cfg.vocab, TRAIN_SEQ,
-                                                   TRAIN_BATCH))
+        with Engine(None) as trainer, Engine(None) as feeder, \
+                Engine(None) as coord:
+            DataFeedServer(feeder, SyntheticSource(model.cfg.vocab,
+                                                   TRAIN_SEQ, TRAIN_BATCH))
             feed = DataFeedClient(trainer, [feeder.uri], depth=2)
-            state = train_step.init_state(model, ocfg, 0, device="cuda")
-            step = train_step.make_train_step(model, ocfg,
-                                              ParallelConfig(remat="none"))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for i in range(MOE_TRAIN_STEPS):
-                t0 = time.monotonic()
-                raw = feed.get(i)
-                batch = {k: torch.tensor(raw[k], device="cuda")
-                         for k in ("tokens", "targets")}
-                state, met = step(state, batch)
-                losses.append(float(met["loss"]))
-                step_seconds.append(time.monotonic() - t0)
-                aux.append((float(met["moe_lb"]), float(met["moe_z"])))
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            del state, batch, met
+            MembershipServer(coord)
+            member = MembershipClient(trainer, coord.uri, "trainer-0")
+            member.join({"role": "trainer"})
+            try:
+                state = train_step.init_state(model, ocfg, 0, device="cuda")
+                n_params = sum(p.numel()
+                               for p in optim.leaves(state["params"]))
+                step = train_step.make_train_step(
+                    model, ocfg, ParallelConfig(remat="none"))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(n_steps):
+                    t0 = time.monotonic()
+                    raw = feed.get(i)
+                    batch = {k: torch.tensor(raw[k], device="cuda")
+                             for k in ("tokens", "targets")}
+                    state, met = step(state, batch)
+                    mets.append({k: float(v) for k, v in met.items()})
+                    step_seconds.append(time.monotonic() - t0)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                del state, batch, met
+            finally:
+                member.leave()
     finally:
         recorder.uninstall()
+    return recorder, mets, step_seconds, n_params, peak
+
+
+def moe_train_path():
+    """Phase 3i: full-width, full-depth granite-moe-3b-a800m through
+    ``train_over_rpc``.  Returns the training recorder."""
+    model = Model(configs.get(MOE_ARCH))
+    recorder, mets, step_seconds, _, peak = train_over_rpc(model,
+                                                           MOE_TRAIN_STEPS)
     tag = f"train {MOE_ARCH}"
-    report_losses(tag, losses, step_seconds, TRAIN_BATCH * TRAIN_SEQ)
+    report_losses(tag, [m["loss"] for m in mets], step_seconds,
+                  TRAIN_BATCH * TRAIN_SEQ)
+    aux = [(m["moe_lb"], m["moe_z"]) for m in mets]
     print(f"{tag}: (moe_lb, moe_z) by step {aux}; peak memory "
           f"{peak:.2f} GiB")
     check(all(math.isfinite(a) and math.isfinite(b) and a > 0 and b > 0
@@ -2622,6 +2861,29 @@ def moe_train_path():
                                     "none")
     print(f"{tag}: router launches a step, forward {per_step[2]}, backward "
           f"{per_step[3]}; attention forward {per_step[0]}, backward "
+          f"{per_step[1]}")
+    free_card()
+    return recorder
+
+
+def hybrid_train_path():
+    """Phase 3j: recurrentgemma-9b at full width, cut to
+    HYBRID_TRAIN_LAYERS layers, through ``train_over_rpc`` in the
+    config's bf16 compute.  Returns the training recorder."""
+    full = configs.get(HYBRID_ARCH)
+    model = Model(full.replace(n_layers=HYBRID_TRAIN_LAYERS))
+    recorder, mets, step_seconds, n_params, peak = train_over_rpc(
+        model, HYBRID_TRAIN_STEPS)
+    tag = (f"train {HYBRID_ARCH} ({HYBRID_TRAIN_LAYERS} of {full.n_layers} "
+           f"layers)")
+    report_losses(tag, [m["loss"] for m in mets], step_seconds,
+                  TRAIN_BATCH * TRAIN_SEQ)
+    print(f"{tag}: {n_params} parameters, AdamW, "
+          f"{model.cfg.compute_dtype} compute; peak memory {peak:.2f} GiB")
+    per_step = check_train_launches(tag, model, recorder, HYBRID_TRAIN_STEPS,
+                                    "none")
+    print(f"{tag}: launches a step, RG-LRU forward {per_step[6]}, backward "
+          f"{per_step[7]}; attention forward {per_step[0]}, backward "
           f"{per_step[1]}")
     free_card()
     return recorder
@@ -2657,7 +2919,11 @@ def phase_main_shapes(arch, recorder):
         elif key[0] == "ssd":
             row = check_ssd(name, *inputs, flush=flush)
         elif key[0] == "rglru":
-            row = check_rglru(name, *inputs, flush=flush)
+            # training's forward keeps its states for the backward
+            row = check_rglru(name, *inputs, flush=flush,
+                              keep=isinstance(recorder, TrainRecorder))
+        elif key[0] == "rglru_bwd":
+            row = check_rglru_bwd(name, *inputs, flush=flush)
         else:
             row = check_fletcher(name, inputs, flush=flush)
         row["launches"] = rec["launches"]
@@ -2770,9 +3036,9 @@ def _plain_ssd_forward(x, dt, A, B, C, D, h0, keep=False):
 def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
                        ssd_forward: str = "kernel", enforce: bool = True):
     """``arch``'s loss and every gradient leaf at B x S in f32 with TF32
-    off, through the kernels (attention's, the router's and the SSD's
-    forwards and backwards) against autograd through their plain
-    versions, on the same weights and batch.  ``n_layers`` cuts the depth
+    off, through the kernels (attention's, the router's, the SSD's and
+    the RG-LRU's forwards and backwards) against autograd through their
+    plain versions, on the same weights and batch.  ``n_layers`` cuts the depth
     (printed); ``ssd_forward="plain"`` runs the SSD's forward as its
     plain version inside ``SSDFunction`` (the backward kernels alone);
     ``enforce=False`` prints the errors without holding them."""
@@ -2801,6 +3067,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
         if plain:
             attn_layer.attention = fa.attention_plain
             ssd_block.ssd = kssd.ssd_plain
+            rglru_block.rglru = krg.rglru_plain
         elif ssd_forward == "plain":
             kssd._ssd_cuda = _plain_ssd_forward
         try:
@@ -2811,6 +3078,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
             moe_layer.router_dispatch = kr.router_dispatch
             ssd_block.ssd = kssd.ssd
             kssd._ssd_cuda = _SSD_CUDA
+            rglru_block.rglru = krg.rglru
         launched = tuple(n - b for n, b in zip(TrainRecorder.counts(),
                                                before))
         return float(loss), metrics, svc_base.flatten_named(grads), launched
@@ -2819,8 +3087,9 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
     want_loss, want_metrics, want, plain_launched = run(plain=True)
     n = layer_counts(model)
     want_launched = (n["attn"], n["attn"], n["moe"], n["moe"],
-                     n["ssd"] if ssd_forward == "kernel" else 0, n["ssd"])
-    check(launched == want_launched and plain_launched == (0,) * 6,
+                     n["ssd"] if ssd_forward == "kernel" else 0, n["ssd"],
+                     n["rglru"], n["rglru"])
+    check(launched == want_launched and plain_launched == (0,) * 8,
           f"train parity {arch}: launches {launched} / {plain_launched}, "
           f"expected {want_launched}")
     flips = sum(len(router_ties(ia.cpu(), ib.cpu(), pb.cpu()))
@@ -2847,8 +3116,8 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
           f"{json.dumps(aux_err)}; {len(want)} gradient leaves, worst "
           f"max|kernel - plain| / max|plain| = {worst:.3g} at {where} "
           f"(tolerance {TRAIN_PARITY_TOL}); launches (attention fwd, bwd, "
-          f"router fwd, bwd, ssd fwd, bwd) {launched}; routing "
-          f"differences {flips}")
+          f"router fwd, bwd, ssd fwd, bwd, rglru fwd, bwd) {launched}; "
+          f"routing differences {flips}")
     del params, grads, want
     free_card()
     check(not enforce or (
@@ -2895,7 +3164,11 @@ SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
           "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
                       "src/repro/kernels/ops.py:223"),
           "rglru": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
-                    "src/repro/kernels/rglru_scan.py:65")}
+                    "src/repro/kernels/rglru_scan.py:65"),
+          # no Pallas backward: the reference differentiates ops.rglru
+          # with XLA's autodiff
+          "rglru_bwd": ("src/repro_torch/kernels/csrc/rglru_bwd.cu",
+                        "src/repro/kernels/ops.py:326")}
 
 
 def summary_row(r):
@@ -2920,8 +3193,9 @@ def card_line() -> str:
 
 
 def train_phases() -> list:
-    """Phases 3h and 3i with their phase 4 rows (each recorder's inputs
-    freed as they are checked), each followed by its repeat check."""
+    """Phases 3h, 3i and 3j with their phase 4 rows (each recorder's
+    inputs freed as they are checked), each followed by its repeat
+    check."""
     ssm_rec, ssm_ckpt = ssm_train_path()
     rows = phase_main_shapes(f"{SSM_ARCH} train", ssm_rec)
     rows += phase_main_shapes(f"{SSM_ARCH} train", ssm_ckpt)
@@ -2929,6 +3203,8 @@ def train_phases() -> list:
     repeat_check(SSM_ARCH)
     rows += phase_main_shapes(f"{MOE_ARCH} train", moe_train_path())
     repeat_check(MOE_ARCH)
+    rows += phase_main_shapes(f"{HYBRID_ARCH} train", hybrid_train_path())
+    repeat_check(HYBRID_ARCH, n_layers=HYBRID_TRAIN_LAYERS)
     return rows
 
 
@@ -2982,6 +3258,8 @@ def main(argv=None) -> int:
     for arch in (ARCH, MOE_ARCH):
         phase_train_parity(arch)
     ssm_train_parity()
+    for n in (HYBRID_PARITY_LAYERS, HYBRID_TRAIN_LAYERS):
+        phase_train_parity(HYBRID_ARCH, n_layers=n)
 
     lost = {}
     for r in rows:

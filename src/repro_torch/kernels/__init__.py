@@ -12,8 +12,9 @@ batch of checkpoint shards, in one launch pair.
 ``ssd`` (``csrc/ssd.cu``) — the Mamba2 SSD scan of every SSD layer's
 prefill; (``csrc/ssd_bwd.cu``) its backward, for training.
 ``rglru`` (``csrc/rglru_scan.cu``) — the RG-LRU recurrence of every
-RG-LRU layer's prefill."""
+RG-LRU layer's prefill and training forward; (``csrc/rglru_bwd.cu``) its
+backward, for training."""
 
 # every CUDA source under csrc/, by the name build.build() takes
 SOURCES = ("flash_attention", "flash_attention_bwd", "moe_router",
-           "fletcher64", "ssd", "ssd_bwd", "rglru_scan")
+           "fletcher64", "ssd", "ssd_bwd", "rglru_scan", "rglru_bwd")

@@ -10,7 +10,9 @@
 //
 // Layouts (all contiguous): x, r_gate, i_gate, h (B, S, W) f32 or bf16;
 // lambda (W,) f32; h0, h_final (B, W) f32; the wrapper's scratch: the
-// chunk summaries (2, B, nc, W) f32.  All arithmetic in f32.
+// chunk summaries (2, B, nc, W) f32; for training, the state entering
+// each chunk (B, nc, W) f32, which the backward (rglru_bwd.cu) reads.
+// All arithmetic in f32.
 //
 // What bounds it on an H100.  Three reads and one write an element against
 // about a dozen operations: bound by bytes.  Channels are independent;
@@ -28,7 +30,8 @@
 //   2. rglru_chunk_apply folds the pairs of the chunks before its own
 //      into the entering state, h_in = A_c' h_in + e_c' from h0 (at most
 //      nc - 1 FMAs on values in L2), runs its chunk again from h_in,
-//      writes h_t, and (last chunk) h_final.
+//      writes h_t, and (last chunk) h_final; asked to keep them, it
+//      also writes each chunk's entering state h_in.
 // x and the gates are read twice, h written once: 7/4 of the bytes bound.
 // A sequence of one chunk launches the second pass alone.  Threads of a
 // warp take neighbouring channels, so every step's loads are coalesced;
@@ -101,6 +104,7 @@ struct Args {
   float* hf;
   float* sum_a;  // (B, nc, W): prod a over each chunk
   float* sum_e;  // (B, nc, W): each chunk's end state from h = 0
+  float* states; // (B, nc, W): each chunk's entering state; null: not kept
   int B, S, W, L, nc;
 };
 
@@ -217,6 +221,7 @@ __global__ void __launch_bounds__(kThreads) rglru_chunk_apply(Args p) {
 #pragma unroll
     for (int k = 0; k < V; ++k) h[k] = fmaf(p.sum_a[o + k], h[k], p.sum_e[o + k]);
   }
+  if (p.states) store_v<V>(p.states + ((size_t)b * p.nc + c) * p.W + w, h);
   const int t0 = c * p.L;
   run_steps<T, V, false, true>(p, (size_t)b * p.S * p.W + w, t0,
                                min(p.S, t0 + p.L), coef, h, unused);
@@ -240,10 +245,12 @@ cudaError_t launch(const Args& p, cudaStream_t st) {
 // One call of the RG-LRU over chunks of L steps: one launch when the
 // sequence is one chunk, else two.  summ is the caller's f32 scratch of
 // (2, B, nc, W), nc = ceil(S / L); unused (may be null) when nc == 1.
+// states, when not null, takes each chunk's entering state (B, nc, W) f32.
 // Returns the first non-zero cudaGetLastError() (0 = launched).
 extern "C" int repro_rglru_fwd(const void* x, const void* rg, const void* ig,
                                const float* lam, const float* h0, void* out,
-                               float* hf, float* summ, int B, int S, int W,
+                               float* hf, float* summ, float* states,
+                               int B, int S, int W,
                                int L, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || W <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   Args p;
@@ -261,6 +268,7 @@ extern "C" int repro_rglru_fwd(const void* x, const void* rg, const void* ig,
   p.nc = (S + L - 1) / L;
   p.sum_a = summ;
   p.sum_e = summ ? summ + (size_t)B * p.nc * W : nullptr;
+  p.states = states;
   if (p.nc > 65535 || B > 65535 || (p.nc > 1 && summ == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -35,8 +35,30 @@ in turn, and the chunk's own part e_c is summed from zero.
 
 ``rglru`` dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernels or raises.  There is no
-fallback.  ``rglru.launches`` counts calls (one per layer's prefill) that
-launched the kernels.
+fallback.  ``rglru.launches`` counts calls (one per layer's prefill or
+training forward) that launched the kernels.
+
+**The backward** (training; ``csrc/rglru_bwd.cu``).  The reference has no
+Pallas backward: XLA differentiates ``ops.rglru``.  With gₜ the gradient
+of hₜ, run in reverse (g at S from dh and dh_final, gₜ = dhₜ + aₜ₊₁·gₜ₊₁)::
+
+    dx = g·σi·β,   di = g·x·β·σi(1 − σi)
+    dlog a = g·hₜ₋₁·a − g·σi·x·a²/β    (second term 0 where the clamp binds)
+    dr = dlog a·(−8·softplus(Λ))·σr(1 − σr),   dΛ = Σ dlog a·(−8·σr)·σ(Λ)
+
+The same chunk split runs backwards: ``rglru_bwd_chunk_summary`` runs
+each chunk's reverse recurrence from g = 0 and writes its pair (A_c, the
+chunk's Π aₜ, and e_c = a·g at its first step); ``rglru_bwd_chunk_apply``
+folds the later chunks' pairs into the g leaving its chunk, from
+dh_final, recomputes hₜ₋₁ from the state the forward kept at the chunk's
+entry (``_rglru_cuda(keep=True)``), runs the chunk in reverse and writes
+dx, dr, di and one dΛ partial a (row, chunk, channel);
+``rglru_bwd_reduce`` sums the partials in a fixed order.  No atomics.
+Plain counterparts: :func:`rglru_keep_plain`,
+:func:`rglru_bwd_chunk_summary_plain`, :func:`rglru_bwd_chunk_apply_plain`,
+:func:`rglru_bwd_reduce_plain`; the sequential backward they are held
+against is :func:`rglru_bwd_plain`.  :class:`RGLRUFunction` carries it;
+``rglru_bwd.launches`` counts backward calls on the card.
 """
 from __future__ import annotations
 
@@ -142,9 +164,221 @@ def rglru_decode_step(h, x_t, r_gate_t, i_gate_t, log_lambda
     return h_new.to(x_t.dtype), h_new
 
 
+def _work_dtype(x):
+    """The backward's arithmetic: f64 for f64 inputs (an oracle run),
+    else f32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _bwd_terms(x, r_gate, i_gate, log_lambda, wd):
+    """σr, σi, x, a, β and the clamp's mask (1 − a² > 1e-12) in ``wd``."""
+    sr = torch.sigmoid(r_gate.to(wd))
+    si = torch.sigmoid(i_gate.to(wd))
+    log_a = -RGLRU_C * F.softplus(log_lambda.to(wd)) * sr
+    om = 1.0 - torch.exp(2.0 * log_a)
+    beta = torch.sqrt(torch.clamp_min(om, 1e-12))
+    return sr, si, x.to(wd), torch.exp(log_a), beta, om > 1e-12
+
+
+def _bwd_step(g, hp, sr, si, xf, a, beta, free, coef):
+    """One step's (dx, dr, di, dlog a·σr) from its g and hₜ₋₁."""
+    dla = g * hp * a - torch.where(free, g * si * xf * a * a / beta,
+                                   torch.zeros_like(g))
+    return (g * si * beta, dla * coef * sr * (1.0 - sr),
+            g * xf * beta * si * (1.0 - si), dla * sr)
+
+
+def rglru_bwd_plain(x, r_gate, i_gate, log_lambda, h0, dh, dh_final=None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`rglru_plain`, sequential: from the gradients
+    of h (B,S,W; None: zero) and h_final (B,W; None: zero), (dx, dr_gate,
+    di_gate, dlog_lambda) in the inputs' dtypes.  Arithmetic in f32 (f64
+    for f64 inputs); h0 takes no gradient."""
+    Bb, S, W = x.shape
+    wd = _work_dtype(x)
+    sr, si, xf, a, beta, free = _bwd_terms(x, r_gate, i_gate, log_lambda,
+                                           wd)
+    coef = -RGLRU_C * F.softplus(log_lambda.to(wd))
+    h = (torch.zeros((Bb, W), dtype=wd, device=x.device) if h0 is None
+         else h0.to(wd))
+    prev = []
+    for t in range(S):
+        prev.append(h)
+        h = a[:, t] * h + si[:, t] * xf[:, t] * beta[:, t]
+    carry = (torch.zeros((Bb, W), dtype=wd, device=x.device)
+             if dh_final is None else dh_final.to(wd))
+    gs = [None] * S
+    for t in reversed(range(S)):
+        gs[t] = carry if dh is None else dh[:, t].to(wd) + carry
+        carry = a[:, t] * gs[t]
+    dx, dr, di, part = _bwd_step(torch.stack(gs, 1), torch.stack(prev, 1),
+                                 sr, si, xf, a, beta, free, coef)
+    dll = -RGLRU_C * torch.sigmoid(log_lambda.to(wd)) * part.sum((0, 1))
+    return (dx.to(x.dtype), dr.to(r_gate.dtype), di.to(i_gate.dtype),
+            dll.to(log_lambda.dtype))
+
+
+def rglru_keep_plain(x, r_gate, i_gate, log_lambda, h0=None, *,
+                     chunk: int = CHUNK):
+    """(h, h_final, states): :func:`rglru_plain`'s outputs and what the
+    forward kernels keep for the backward, the f32 state entering each
+    chunk (B,nc,W) from h0 (or zero); None for one chunk."""
+    h, hf = rglru_plain(x, r_gate, i_gate, log_lambda, h0)
+    Bb, S, W = x.shape
+    nc = -(-S // chunk)
+    if nc == 1:
+        return h, hf, None
+    h32 = h if x.dtype == torch.float32 else rglru_plain(
+        x.float(), r_gate, i_gate, log_lambda, h0)[0]
+    first = (torch.zeros((Bb, 1, W), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float()[:, None])
+    return h, hf, torch.cat(
+        [first, h32[:, chunk - 1:(nc - 1) * chunk:chunk]], 1)
+
+
+def _chunked_bwd_terms(x, r_gate, i_gate, log_lambda, dh, L: int):
+    """``_bwd_terms`` and dh (Bb,nc,L,W) in f32, past S padded with
+    identity steps: σr = σi = x = dh = 0 and a = 1 there, so the step adds
+    nothing and takes no gradient."""
+    terms = _bwd_terms(x, r_gate, i_gate, log_lambda, torch.float32)
+    d = torch.zeros_like(terms[2]) if dh is None else dh.float()
+    pad = (-x.shape[1]) % L
+    Bb, W = x.shape[0], x.shape[2]
+
+    def chunked(t, value=0.0):
+        return F.pad(t, (0, 0, 0, pad), value=value).reshape(Bb, -1, L, W)
+    sr, si, xf, a, beta, free = terms
+    return (chunked(sr), chunked(si), chunked(xf), chunked(a, 1.0),
+            chunked(beta, 1.0), chunked(free.float()) > 0, chunked(d))
+
+
+def rglru_bwd_chunk_summary_plain(x, r_gate, i_gate, log_lambda, dh, *,
+                                  chunk: int = CHUNK
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each chunk's backward pair, as ``rglru_bwd_chunk_summary`` computes
+    it: (A (Bb,nc,W) = Π aₜ over the chunk, e (Bb,nc,W) = a·g at the
+    chunk's first step, g run in reverse from 0 at its end), f32."""
+    _, _, _, a, _, _, d = _chunked_bwd_terms(x, r_gate, i_gate, log_lambda,
+                                             dh, chunk)
+    carry = torch.zeros_like(a[:, :, 0])
+    prod = torch.ones_like(carry)
+    for t in reversed(range(chunk)):
+        carry = a[:, :, t] * (d[:, :, t] + carry)
+        prod = prod * a[:, :, t]
+    return prod, carry
+
+
+def rglru_bwd_chunk_apply_plain(x, r_gate, i_gate, log_lambda, h0, dh,
+                                dh_final, A, e, states, *,
+                                chunk: int = CHUNK
+                                ) -> Tuple[torch.Tensor, ...]:
+    """The backward's second pass, as ``rglru_bwd_chunk_apply`` computes
+    it: the g leaving each chunk folded from dh_final (or zero) over the
+    later chunks' pairs (C = A_c·C + e_c), hₜ₋₁ recomputed from the
+    forward's kept entering ``states`` (h0 or zero for one chunk), the
+    chunk run in reverse → (dx, dr_gate, di_gate (Bb,S,W) f32, the dΛ
+    partials Σₜ dlog aₜ·σrₜ (Bb,nc,W))."""
+    Bb, S, W = x.shape
+    sr, si, xf, a, beta, free, d = _chunked_bwd_terms(
+        x, r_gate, i_gate, log_lambda, dh, chunk)
+    nc = a.shape[1]
+    coef = -RGLRU_C * F.softplus(log_lambda.float())
+    C = (torch.zeros((Bb, W), dtype=torch.float32, device=x.device)
+         if dh_final is None else dh_final.float())
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = C
+        C = A[:, c] * C + e[:, c]
+    if states is None:
+        states = (torch.zeros((Bb, 1, W), dtype=torch.float32,
+                              device=x.device) if h0 is None
+                  else h0.float()[:, None])
+    h, prev = states.float(), []
+    for t in range(chunk):
+        prev.append(h)
+        h = a[:, :, t] * h + si[:, :, t] * xf[:, :, t] * beta[:, :, t]
+    carry, outs = torch.stack(leaving, 1), [None] * chunk
+    for t in reversed(range(chunk)):
+        g = d[:, :, t] + carry
+        outs[t] = _bwd_step(g, prev[t], sr[:, :, t], si[:, :, t],
+                            xf[:, :, t], a[:, :, t], beta[:, :, t],
+                            free[:, :, t], coef)
+        carry = a[:, :, t] * g
+
+    def back(i):
+        return torch.stack([o[i] for o in outs], 2).reshape(Bb, -1, W)[:, :S]
+    partials = torch.stack([o[3] for o in outs], 2).sum(2)
+    return back(0), back(1), back(2), partials
+
+
+def rglru_bwd_reduce_plain(partials, log_lambda) -> torch.Tensor:
+    """dΛ (W,) from the (Bb,nc,W) partials, as ``rglru_bwd_reduce``:
+    −8·σ(Λ)·Σ over rows, then chunks, in that order."""
+    s = torch.zeros_like(partials[0, 0])
+    for b in range(partials.shape[0]):
+        for c in range(partials.shape[1]):
+            s = s + partials[b, c]
+    return -RGLRU_C * torch.sigmoid(log_lambda.float()) * s
+
+
+def rglru_bwd(x, r_gate, i_gate, log_lambda, h0, dh, dh_final=None, *,
+              states=None) -> Tuple[torch.Tensor, ...]:
+    """(dx, dr_gate, di_gate, dlog_lambda): :func:`rglru_bwd_plain` on
+    the CPU, the backward kernels on the card, which read the forward's
+    ``states`` (the state entering each chunk) when the sequence has more
+    than one chunk; no fallback."""
+    if x.device.type == "cpu":
+        return rglru_bwd_plain(x, r_gate, i_gate, log_lambda, h0, dh,
+                               dh_final)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_bwd: no kernel for device {x.device}")
+    return _rglru_bwd_cuda(x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
+                           states)
+
+
+rglru_bwd.launches = 0
+
+
+class RGLRUFunction(torch.autograd.Function):
+    """The RG-LRU with its gradients: ``rglru``'s forward (on the card the
+    kernels keep each chunk's entering state), ``rglru_bwd`` backward,
+    each dispatching on the device.  h0 takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, r_gate, i_gate, log_lambda, h0):
+        if x.device.type == "cpu":
+            h, hf = rglru_plain(x, r_gate, i_gate, log_lambda, h0)
+            states = None
+        elif x.device.type == "cuda":
+            if x.dtype != torch.float32:
+                raise ValueError(f"rglru: the backward kernels take f32, "
+                                 f"got {x.dtype}")
+            h, hf, states = _rglru_cuda(x, r_gate, i_gate, log_lambda, h0,
+                                        keep=True)
+        else:
+            raise ValueError(f"rglru: no kernel for device {x.device}")
+        ctx.save_for_backward(x, r_gate, i_gate, log_lambda, h0, states)
+        ctx.set_materialize_grads(False)
+        return h, hf
+
+    @staticmethod
+    def backward(ctx, dh, dh_final):
+        x, r_gate, i_gate, log_lambda, h0, states = ctx.saved_tensors
+        grads = rglru_bwd(x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
+                          states=states)
+        return (*grads, None)
+
+
 def rglru(x, r_gate, i_gate, log_lambda, h0=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(h, h_final) of the RG-LRU; see ``rglru_plain``."""
+    """(h, h_final) of the RG-LRU; see ``rglru_plain``.  Inputs that need
+    a gradient go through ``RGLRUFunction`` (h0 may not)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, r_gate, i_gate, log_lambda)):
+        if h0 is not None and h0.requires_grad:
+            raise RuntimeError("rglru: the backward gives h0 no gradient; "
+                               "an h0 that needs one is not supported")
+        return RGLRUFunction.apply(x, r_gate, i_gate, log_lambda, h0)
     if x.device.type == "cpu":
         return rglru_plain(x, r_gate, i_gate, log_lambda, h0)
     if x.device.type != "cuda":
@@ -154,7 +388,8 @@ def rglru(x, r_gate, i_gate, log_lambda, h0=None
 
 rglru.launches = 0
 
-_fn = None   # the C entry, bound once by _kernel()
+_fn = None   # the C entries, bound once by _kernel() / _bwd_kernel()
+_bwd_fn = None
 
 
 def _kernel():
@@ -165,63 +400,141 @@ def _kernel():
         from .build import load
         fn = load("rglru_scan").repro_rglru_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         _fn = fn
     return _fn
 
 
-def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None):
-    """One call on the card: one launch if the sequence is one chunk,
-    else two.  ``chunk_len`` forces L (tests and the smoke run only);
-    None takes ``CHUNK``."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, r_gate, i_gate, log_lambda, h0)):
-        raise RuntimeError("rglru: the kernel has no backward (ROADMAP A9b); "
-                           "inputs that need a gradient would get none")
+def _bwd_kernel():
+    """The backward's C entry (``csrc/rglru_bwd.cu``), bound at its first
+    launch."""
+    global _bwd_fn
+    if _bwd_fn is None:
+        from .build import load
+        fn = load("rglru_bwd").repro_rglru_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _check_inputs(name, x, r_gate, i_gate, log_lambda, h0, dtypes):
+    """The kernels' shape, dtype and device rules, forward and backward."""
     if x.ndim != 3 or r_gate.shape != x.shape or i_gate.shape != x.shape:
-        raise ValueError(f"rglru: x {tuple(x.shape)}, r_gate "
+        raise ValueError(f"{name}: x {tuple(x.shape)}, r_gate "
                          f"{tuple(r_gate.shape)} and i_gate "
                          f"{tuple(i_gate.shape)} must all be (B,S,W)")
     Bb, S, W = x.shape
     if log_lambda.shape != (W,) or (h0 is not None
                                     and h0.shape != (Bb, W)):
-        raise ValueError(f"rglru: log_lambda must be ({W},) and h0 "
+        raise ValueError(f"{name}: log_lambda must be ({W},) and h0 "
                          f"({Bb}, {W})")
     if S < 1:
-        raise ValueError("rglru: the kernel takes S >= 1")
-    if x.dtype not in _DTYPES or r_gate.dtype != x.dtype \
+        raise ValueError(f"{name}: the kernel takes S >= 1")
+    if x.dtype not in dtypes or r_gate.dtype != x.dtype \
             or i_gate.dtype != x.dtype:
-        raise ValueError(f"rglru: dtypes {x.dtype}/{r_gate.dtype}/"
+        raise ValueError(f"{name}: dtypes {x.dtype}/{r_gate.dtype}/"
                          f"{i_gate.dtype}; the kernel takes one of "
-                         f"{_DTYPES} for all three")
+                         f"{dtypes} for all three")
     dev = x.device
     if any(t.device != dev for t in (r_gate, i_gate, log_lambda)) or (
             h0 is not None and h0.device != dev):
-        raise ValueError("rglru: every input must be on one device")
+        raise ValueError(f"{name}: every input must be on one device")
+
+
+def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None,
+                keep: bool = False):
+    """One call on the card: one launch if the sequence is one chunk,
+    else two.  ``chunk_len`` forces L (tests and the smoke run only);
+    None takes ``CHUNK``.  ``keep`` also returns what the backward reads:
+    the f32 state entering each chunk (B,nc,W), None for one chunk."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, r_gate, i_gate, log_lambda, h0)):
+        raise RuntimeError("rglru: this raw launch has no backward; inputs "
+                           "that need a gradient go through rglru(), whose "
+                           "RGLRUFunction carries it")
+    _check_inputs("rglru", x, r_gate, i_gate, log_lambda, h0, _DTYPES)
+    Bb, S, W = x.shape
+    dev = x.device
     x, r_gate, i_gate = (t.contiguous() for t in (x, r_gate, i_gate))
     ll = log_lambda.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     L = CHUNK if chunk_len is None else int(chunk_len)
     if L < 1:
         raise ValueError(f"rglru: chunk_len {L} must be >= 1")
+    if keep and L != CHUNK:
+        raise ValueError(f"rglru: the backward reads states at chunk "
+                         f"{CHUNK}, not {L}")
     nc = -(-S // L)
     out = torch.empty_like(x)
     hf = torch.empty((Bb, W), dtype=torch.float32, device=dev)
     # each chunk's (prod a, end state from 0)
     summ = (torch.empty((2, Bb, nc, W), dtype=torch.float32, device=dev)
             if nc > 1 else None)
+    states = (torch.empty((Bb, nc, W), dtype=torch.float32, device=dev)
+              if keep and nc > 1 else None)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
                  ll.data_ptr(), None if h0 is None else h0.data_ptr(),
                  out.data_ptr(), hf.data_ptr(),
-                 None if summ is None else summ.data_ptr(), Bb, S, W, L,
+                 None if summ is None else summ.data_ptr(),
+                 None if states is None else states.data_ptr(), Bb, S, W, L,
                  int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")
     rglru.launches += 1
-    return out, hf
+    return (out, hf, states) if keep else (out, hf)
+
+
+def _rglru_bwd_cuda(x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
+                    states):
+    """The backward on the card: three launches (two for one chunk), one
+    ``rglru_bwd.launches`` a call, all f32.  Scratch: each chunk's pair
+    (2,B,nc,W) and the dΛ partials (B,nc,W)."""
+    _check_inputs("rglru_bwd", x, r_gate, i_gate, log_lambda, h0,
+                  (torch.float32,))
+    Bb, S, W = x.shape
+    nc = -(-S // CHUNK)
+    if dh is not None and (dh.shape != x.shape or dh.dtype != x.dtype):
+        raise ValueError(f"rglru_bwd: dh {tuple(dh.shape)} {dh.dtype} must "
+                         f"be like x {tuple(x.shape)} {x.dtype}")
+    if dh_final is not None and dh_final.shape != (Bb, W):
+        raise ValueError(f"rglru_bwd: dh_final must be ({Bb}, {W})")
+    if nc > 1 and (states is None or states.shape != (Bb, nc, W)
+                   or states.dtype != torch.float32):
+        raise ValueError(f"rglru_bwd: {nc} chunks need the forward's "
+                         f"entering states, f32 ({Bb}, {nc}, {W})")
+    dev = x.device
+    if any(t is not None and t.device != dev
+           for t in (dh, dh_final, states)):
+        raise ValueError("rglru_bwd: every input must be on one device")
+    x, r_gate, i_gate = (t.contiguous() for t in (x, r_gate, i_gate))
+    ll = log_lambda.float().contiguous()
+    h0, dh, dh_final, states = (None if t is None else t.float().contiguous()
+                                for t in (h0, dh, dh_final, states))
+    dx, dr, di = (torch.empty_like(x) for _ in range(3))
+    dll = torch.empty((W,), dtype=torch.float32, device=dev)
+    pairs = (torch.empty((2, Bb, nc, W), dtype=torch.float32, device=dev)
+             if nc > 1 else None)
+    partials = torch.empty((Bb, nc, W), dtype=torch.float32, device=dev)
+    fn = _bwd_kernel()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
+                 ll.data_ptr(), ptr(h0), ptr(dh), ptr(dh_final), ptr(states),
+                 dx.data_ptr(), dr.data_ptr(), di.data_ptr(), dll.data_ptr(),
+                 ptr(pairs), partials.data_ptr(), Bb, S, W, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    rglru_bwd.launches += 1
+    return dx, dr, di, dll.to(log_lambda.dtype)

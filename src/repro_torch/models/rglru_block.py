@@ -3,7 +3,7 @@
 
 A gate branch (linear + GeLU) times a recurrent branch (linear → causal
 conv → RG-LRU, :func:`repro_torch.kernels.rglru.rglru`, the hand-written
-kernel on the card), projected out.  The recurrence gates (r, i) are
+kernels on the card, forward and backward), projected out.  The recurrence gates (r, i) are
 per-channel affine functions of the conv output, as in the reference.
 
 Decode state: the LRU hidden (B,W) f32 and the conv tail (B,cw-1,W).  A
@@ -65,7 +65,12 @@ def _gates(p, u):
 def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
                       want_cache: bool = False
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None)."""
+    """Train / prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None).
+
+    Training runs the same algebra with gradients on: the conv promotes
+    the branch to f32 against the f32 conv weights (its backward sums the
+    ``cw`` shifted slices of one padded tensor in a fixed order), so the
+    recurrence, ``RGLRUFunction``, runs in f32 at any compute dtype."""
     B, S, d = x.shape
     cw = cfg.rglru.conv_width
     gate, conv_in = _branches(cfg, p, x)

@@ -37,9 +37,10 @@ first layer keeps an MLP of ``first_dense_ff``.  Serving runs MoE layers
 dropless and discards their aux losses, as the reference does.
 
 ``loss_fn`` is the teacher-forced LM loss of training (the reference's
-``loss_fn``) for attention, MoE and SSD layers: MoE layers run at the
-config's capacity factor and add their aux losses (``AUX_KEYS``) to the
-loss.  RG-LRU layers need the RG-LRU's backward (ROADMAP A9b) and raise.
+``loss_fn``) for attention, MoE, SSD and RG-LRU layers: MoE layers run at
+the config's capacity factor and add their aux losses (``AUX_KEYS``) to
+the loss; the recurrent layers train through their prefill algebra, the
+scans' autograd Functions carrying the gradients.
 
 Encoder-decoder and VLM configs raise ``NotImplementedError``.
 """
@@ -197,10 +198,6 @@ class Model:
         Returns (loss, {"ce", "z_loss", "tokens", "moe_lb", "moe_z",
         "loss"})."""
         cfg = self.cfg
-        if "rglru" in self.kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: training RG-LRU layers needs the RG-LRU's "
-                f"backward (ROADMAP A9b)")
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}: 'none' or 'block'")
 

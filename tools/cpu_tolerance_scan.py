@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """How far the port's training numbers part from the JAX reference's on
 the CPU, over many weight draws: the spread that the tolerances of
-``tests/test_torch_train.py`` for granite-moe-3b-a800m and mamba2-1.3b
-are set against.
+``tests/test_torch_train.py`` for granite-moe-3b-a800m, mamba2-1.3b and
+recurrentgemma-9b are set against.
 
     JAX_PLATFORMS=cpu python3 tools/cpu_tolerance_scan.py --draws 32 --workers 4
 
@@ -34,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("granite-moe-3b-a800m", "mamba2-1.3b")
+ARCHS = ("granite-moe-3b-a800m", "mamba2-1.3b", "recurrentgemma-9b")
 
 
 def draw(arch: str) -> dict:

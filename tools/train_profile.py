@@ -3,10 +3,13 @@
 
     python3 tools/train_profile.py            # 8 x 128, then 4 x 1024
     python3 tools/train_profile.py --arch mamba2-1.3b --arch granite-moe-3b-a800m
+    python3 tools/train_profile.py --arch recurrentgemma-9b
 
-Full-width, full-depth models (bf16 compute, f32 state, AdamW; remat
-"none" at the launcher's 8 x 128, and for qwen1.5-0.5b, the default,
-also "block" at 4 x 1024), seeded weights and batches, no services.  After two warm-up steps, 5 steps of
+Full-width models (bf16 compute, f32 state, AdamW; remat "none" at the
+launcher's 8 x 128, and for qwen1.5-0.5b, the default, also "block" at
+4 x 1024), seeded weights and batches, no services.  Full depth, but
+recurrentgemma-9b at ``chip_smoke.py``'s cut (``HYBRID_TRAIN_LAYERS``,
+printed): its 38 layers' state does not fit one 80 GB card with AdamW.  After two warm-up steps, 5 steps of
 ``train.step``'s own step run with its parts timed on the host clock,
 the card synchronised around each: ``Model.loss_fn`` (the forward), the
 step's ``loss_and_grads`` (the forward and autograd's backward; the
@@ -28,11 +31,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from chip_smoke import HYBRID_ARCH, HYBRID_TRAIN_LAYERS  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
@@ -45,6 +49,8 @@ ARCH = "qwen1.5-0.5b"
 # long step of chip_smoke.py phase 3g
 SHAPES = {ARCH: ((8, 128, "none"), (4, 1024, "block"))}
 LAUNCHER_SHAPE = ((8, 128, "none"),)
+# the depth a model is cut to, where its state does not fit one card
+LAYERS = {HYBRID_ARCH: HYBRID_TRAIN_LAYERS}
 WARM, TIMED, PROFILED = 2, 5, 3
 
 
@@ -106,6 +112,8 @@ def main(argv=None) -> int:
 
 def profile_arch(arch: str) -> None:
     cfg = configs.get(arch)
+    if arch in LAYERS:
+        cfg = cfg.replace(n_layers=LAYERS[arch])
     model = Model(cfg)
     ocfg = optim.OptConfig(warmup=5, decay_steps=100)
     for B, S, remat in SHAPES.get(arch, LAUNCHER_SHAPE):
@@ -139,7 +147,7 @@ def profile_arch(arch: str) -> None:
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
         emit(arch=arch, shape=f"{B}x{S}", remat=remat,
-             forward_ms=fwd * 1e3,
+             layers=cfg.n_layers, forward_ms=fwd * 1e3,
              backward_ms=bwd * 1e3, optimizer_ms=opt * 1e3,
              step_ms=(fwd + bwd + opt) * 1e3,
              tokens_per_s=B * S / (fwd + bwd + opt),

@@ -60,6 +60,13 @@ Phases, in order; any failure exits non-zero:
    runs bitwise equal.  The attention backward at recurrentgemma-9b's
    heads, bf16, 8 x 128 and 1 x 4096 (the window binds), beside SDPA's
    backward and the backend SDPA picked.
+   The encoder-decoder's and the VLM's attention (``FRONTEND_CASES``), bf16
+   and f32: seamless-m4t-large-v2's encoder (non-causal, 1 and 8 x 512),
+   its cross attention (non-causal, 1 x 10 and 8 x 128 queries and 4
+   decode slots against 512 frames), paligemma-3b's prefix-LM prefill
+   (MQA 8/1 of 256, prefix 256: 1 x 266 and 8 x 384); their training
+   backwards in bf16 (encoder 8 x 512, cross 8 x 128 against 512, the
+   prefix-LM at 8 x 384).
    The spec shapes are timed (CUDA events, warmed up, L2 flushed) beside
    the least time the card could take.
 3. The main paths, each driven with the kernels' launch counts set to 0
@@ -143,6 +150,24 @@ Phases, in order; any failure exits non-zero:
       (its states kept) and backward 8 times a step each, attention's
       3 + 3; loss curve, step ms, tokens/s and peak memory printed; the
       loss finite and falling; then the repeat check at the same cut.
+   k. paligemma-3b (18 layers, MQA 8/1 of 256, tied 257,216-token
+      embedding) and l. seamless-m4t-large-v2 (24 encoder + 24 decoder
+      layers) at full width and depth, after 3d and 3e.  Serving: 6
+      requests of 5-10 prompt tokens, each with a seeded frontend
+      (paligemma's 256 patches of 1152, seamless's 512 frames of 160),
+      12 new tokens, all through ``gen.submit`` with ``frontend`` to a
+      ``ServingGateway`` over tcp and ``gen.result``, into 4 slots;
+      chunking and sessions asked for and turned off by the engine.
+      Attention must launch on prefill (paligemma: the prefix-LM mask over
+      the patches; seamless: the encoder, non-causal, and cross attention)
+      and decode (seamless: cross attention against the cached K/V too).
+      Training, 8 x 128 text tokens with their frontends, AdamW, bf16
+      compute, remat "none", 10 steps: seamless through
+      ``launch.train.main`` with one save of params, m and v at the end
+      (verified on the card, Fletcher-64's batches), paligemma through
+      ``make_train_step`` with batches over RPC; attention forward and
+      backward once a layer and step (seamless: 24 encoder, 24 decoder,
+      24 cross), the loss falling; then 3 steps twice, bitwise equal.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -172,7 +197,10 @@ Phases, in order; any failure exits non-zero:
    kernels at full depth under the plain forward, its whole path at 4
    layers, and its whole path at 48 printed (``ssm_train_parity``);
    recurrentgemma-9b at 5 layers (one period and the two trailing) and
-   at phase 3j's 11.
+   at phase 3j's 11.  paligemma-3b and seamless-m4t-large-v2 with seeded
+   frontends: serving parity at 2 x 128 text tokens, training parity
+   (full depth) at 2 x 128; cross attention's key-bias gradients, zero in
+   exact arithmetic, held against the largest gradient entry.
 
 The last three lines of stdout are the card's name and power limit, the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.
@@ -230,6 +258,9 @@ ARCH = "qwen1.5-0.5b"
 MOE_ARCH = "granite-moe-3b-a800m"
 SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "recurrentgemma-9b"
+VLM_ARCH = "paligemma-3b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+FRONTEND_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
                   torch.float32: 67e12}    # f32 outside the tensor cores
@@ -319,6 +350,13 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2 + 2.0 ** -7}
 # (the restart check's 1e-6)
 SSM_TRAIN_STEPS, MOE_TRAIN_STEPS, REPEAT_STEPS = 10, 10, 3
 REPEAT_ATOL = 1e-6
+# phases 3k (paligemma-3b) and 3l (seamless-m4t-large-v2) at full width
+# and depth: 6 requests of 5-10 prompt tokens, each with a seeded
+# frontend (256 patches of 1152, 512 frames of 160), 12 new tokens, into 4
+# slots; then FRONTEND_TRAIN_STEPS steps of 8 x 128 text tokens with
+# their frontends (AdamW, bf16 compute; seamless through the launcher and
+# its save, paligemma through make_train_step) and the repeat check
+FRONTEND_PROMPTS, FRONTEND_NEW, FRONTEND_TRAIN_STEPS = 6, 12, 10
 # phase 3j: recurrentgemma-9b at full width, cut to three whole periods
 # (rglru, rglru, local) and the two trailing RG-LRU layers, so that every
 # layer kind and the partial period train.  Its 38 layers with AdamW need
@@ -457,6 +495,8 @@ def sdpa_ms(q, k, v, offsets, causal, window, prefix, flush):
         kt = kt.repeat_interleave(Hq // Hkv, dim=1)
         vt = vt.repeat_interleave(Hq // Hkv, dim=1)
     mask = visible(S, T, offsets, causal, window, prefix, "cuda")[:, None]
+    if bool(mask.all()):        # nothing masked: no mask (its fast paths)
+        mask = None
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), flush)
 
@@ -558,6 +598,8 @@ def sdpa_args(q, k, v, kw):
     mask = None if causal else visible(
         S, T, [0] * B, kw["causal"], kw["window"], kw["prefix_len"],
         "cuda")[:, None]
+    if mask is not None and bool(mask.all()):     # nothing masked
+        mask = None
     return qt, kt, vt, mask, causal
 
 
@@ -632,16 +674,17 @@ def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
 
 
 def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
-             dtype, seed=0, flush=None):
+             dtype, seed=0, flush=None, T=None):
     """The forward kernel's lse (unsplit, and at 2 key splits in bf16,
     where ``attn_combine`` writes it) against ``attention_fwd_plain``,
     then ``check_bwd`` on the unsplit forward's o and lse (timed with
-    ``flush``)."""
+    ``flush``).  ``T`` keys (default S: self-attention)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+    T = S if T is None else T
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for shape in ((B, S, Hq, D), (B, S, Hkv, D),
-                                 (B, S, Hkv, D), (B, S, Hq, D)))
+                   for shape in ((B, S, Hq, D), (B, T, Hkv, D),
+                                 (B, T, Hkv, D), (B, S, Hq, D)))
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix)
     want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
@@ -718,6 +761,50 @@ SPLIT_CASES = {
         RG_HEADS, B=4, S=1, T=3072, offsets=[599, 1099, 1999, 2599]),
     f"{HYBRID_ARCH}:prefill-s2600": dict(RG_HEADS, B=1, S=2600, T=2600),
 }
+
+
+# the encoder-decoder's and the VLM's attention (phases 3k and 3l):
+# seamless-m4t-large-v2's heads (16 of 64) in its encoder (non-causal
+# self-attention over 512 frames, one request and training's 8) and its
+# cross attention (non-causal, queries against the 512 frames' K/V:
+# a short prompt, training's 8 x 128, decode of 4 slots); paligemma-3b's
+# (MQA 8/1 of 256) prefix-LM prefill over 256 patches and the text (a
+# 10-token prompt, training's 8 x 128)
+SEAMLESS_HEADS = dict(Hq=16, Hkv=16, D=64)
+PALI_HEADS = dict(Hq=8, Hkv=1, D=256)
+FRONTEND_CASES = {
+    f"{ENCDEC_ARCH}:encoder-b1": dict(SEAMLESS_HEADS, B=1, S=512, T=512,
+                                      causal=False),
+    f"{ENCDEC_ARCH}:encoder-b8": dict(SEAMLESS_HEADS, B=8, S=512, T=512,
+                                      causal=False),
+    f"{ENCDEC_ARCH}:cross-prefill-s10": dict(SEAMLESS_HEADS, B=1, S=10,
+                                             T=512, causal=False),
+    f"{ENCDEC_ARCH}:cross-b8-s128": dict(SEAMLESS_HEADS, B=8, S=128, T=512,
+                                         causal=False),
+    f"{ENCDEC_ARCH}:cross-decode-b4": dict(SEAMLESS_HEADS, B=4, S=1, T=512,
+                                           causal=False),
+    f"{VLM_ARCH}:prefix-prefill-s266": dict(PALI_HEADS, B=1, S=266, T=266,
+                                            prefix=256),
+    f"{VLM_ARCH}:prefix-b8-s384": dict(PALI_HEADS, B=8, S=384, T=384,
+                                       prefix=256),
+}
+# their training backwards, bf16: (name, B, S, T, heads, causal, prefix)
+FRONTEND_BWD_CASES = [
+    (f"{ENCDEC_ARCH}-bwd-encoder-b8-s512", 8, 512, 512, SEAMLESS_HEADS,
+     False, None),
+    (f"{ENCDEC_ARCH}-bwd-cross-b8-s128-t512", 8, 128, 512, SEAMLESS_HEADS,
+     False, None),
+    (f"{VLM_ARCH}-bwd-prefix-b8-s384", 8, 384, 384, PALI_HEADS, True, 256),
+]
+
+
+def mask_tag(kw) -> str:
+    """A row name's note of a mask other than plain causal."""
+    if not kw.get("causal", True):
+        return " non-causal"
+    if kw.get("prefix_len") is not None:
+        return f" prefix {kw['prefix_len']}"
+    return ""
 
 
 def assert_all_ok(rows):
@@ -1320,6 +1407,13 @@ def backward_rows(flush):
                              RG_HEADS["Hq"], RG_HEADS["Hkv"], RG_HEADS["D"],
                              True, RG_HEADS["window"], 0.0, None,
                              torch.bfloat16, seed=B, flush=flush))
+    # at the training shapes of phases 3k and 3l, bf16: seamless's encoder
+    # and cross attention, paligemma's prefix-LM at MQA 8/1 of 256
+    for i, (name, B, S, T, heads, causal, prefix) in enumerate(
+            FRONTEND_BWD_CASES):
+        rows.append(bwd_case(name, B, S, heads["Hq"], heads["Hkv"],
+                             heads["D"], causal, 0, 0.0, prefix,
+                             torch.bfloat16, seed=10 + i, flush=flush, T=T))
     return rows
 
 
@@ -1349,6 +1443,10 @@ def phase_kernels():
             rows.append(attention_case(
                 f"{name}-split{n_split or 'planned'}", dtype=torch.bfloat16,
                 n_split=n_split, seed=3, **shape))
+    for name, shape in FRONTEND_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(attention_case(name, dtype=dtype, flush=flush,
+                                       **shape))
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
         Sc = min(24, S // 2)
@@ -1518,7 +1616,7 @@ class MainPathRecorder:
         off = kw["q_offset"]
         off = off.clone() if torch.is_tensor(off) else off
         self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
-                      k.shape[2], D, q.dtype),
+                      k.shape[2], D, q.dtype, mask_tag(kw)),
                      fa.attention.launches - before,
                      (q.clone(), k.clone(), v.clone(),
                       dict(kw, q_offset=off)))
@@ -1651,6 +1749,60 @@ def phase_long_prompts(arch, cfg):
           f"long prompts: chunking or sessions on for {arch}: {stats}")
 
 
+def frontend_of(cfg, rng) -> np.ndarray:
+    """A seeded frontend (frontend_seq, frontend_dim) f32: a VLM's patch
+    embeddings or an encoder-decoder's frames, as the reference's stub
+    towers hand them over."""
+    return (rng.standard_normal((cfg.frontend_seq, cfg.frontend_dim))
+            * 0.1).astype(np.float32)
+
+
+def phase_frontend_requests(arch, cfg):
+    """Phases 3k and 3l's serving: FRONTEND_PROMPTS requests of 5-10
+    prompt tokens, each with a seeded frontend, FRONTEND_NEW new tokens,
+    submitted through ``gen.submit`` to a ``ServingGateway`` over tcp and
+    read back through ``gen.result``, into 4 slots.  Chunking and sessions
+    are asked for: the engine must prefill each whole and pin nothing."""
+    model = Model(cfg)
+    params = model.init(1, device="cuda")
+    max_len = cfg.frontend_seq + 10 + FRONTEND_NEW
+    serve = ServeEngine(model, params, max_len=-(-max_len // 64) * 64,
+                        n_slots=4, chunk_tokens=64, session_cap=4,
+                        device="cuda")
+    rng = np.random.default_rng(1)
+    server = Engine("tcp://127.0.0.1:0")
+    gw = ServingGateway(server, serve)
+    try:
+        with Engine("tcp://127.0.0.1:0") as client:
+            t0 = time.monotonic()
+            rids = [client.call(server.uri, "gen.submit", {
+                "tokens": rng.integers(1, cfg.vocab, size=5 + i % 6).tolist(),
+                "max_new": FRONTEND_NEW, "frontend": frontend_of(cfg, rng),
+                "session_id": f"fe-{i}"}, timeout=300.0)["rid"]
+                for i in range(FRONTEND_PROMPTS)]
+            outs = [client.call(server.uri, "gen.result",
+                                {"rid": rid, "wait": True, "timeout": 600.0},
+                                timeout=605.0) for rid in rids]
+            dt = time.monotonic() - t0
+            stats = client.call(server.uri, "gen.stats", {})
+    finally:
+        gw.stop()
+        server.shutdown()
+    print(f"{arch} frontend requests: {len(outs)} requests with "
+          f"({cfg.frontend_seq}, {cfg.frontend_dim}) frontends over tcp, "
+          f"{sum(len(o['tokens']) for o in outs)} new tokens in {dt:.2f}s "
+          f"(weights made before); max_len {serve.max_len}, chunk_tokens "
+          f"{stats['chunk_tokens']} pinned_sessions "
+          f"{stats['pinned_sessions']}")
+    for o in outs:
+        check(o["done"] and len(o["tokens"]) == FRONTEND_NEW
+              and all(0 <= t < cfg.vocab for t in o["tokens"]),
+              f"{arch} frontend requests: {o}")
+    check(stats["admitted"] == FRONTEND_PROMPTS and stats["chunk_tokens"] == 0
+          and stats["pinned_sessions"] == 0,
+          f"{arch} frontend requests: stats {stats}")
+
+
 def path_kernels(model):
     """The kernels a model's serving path must launch, by name, and the
     entry points each must launch on: attention and the router on every
@@ -1670,9 +1822,10 @@ def path_kernels(model):
 
 
 def serve_path(arch):
-    """Phase 3a/3b/3d/3e: one model's demo and sessions (or long
-    prompts, for a model that cannot chunk) with the kernels' counts
-    zeroed just before and read just after; returns the recorder."""
+    """Phase 3a/3b/3d/3e/3k/3l: one model's demo and sessions (or long
+    prompts, for a model that cannot chunk; or requests with frontends,
+    for a model that takes one) with the kernels' counts zeroed just
+    before and read just after; returns the recorder."""
     cfg = configs.get(arch)
     model = Model(cfg)
     kernels = path_kernels(model)
@@ -1681,11 +1834,14 @@ def serve_path(arch):
     for fn, _ in kernels.values():
         fn.launches = 0
     try:
-        phase_demo(arch, cfg)
-        if model.supports_chunked_prefill:
-            phase_sessions(arch, cfg)
+        if cfg.frontend != "none":
+            phase_frontend_requests(arch, cfg)
         else:
-            phase_long_prompts(arch, cfg)
+            phase_demo(arch, cfg)
+            if model.supports_chunked_prefill:
+                phase_sessions(arch, cfg)
+            else:
+                phase_long_prompts(arch, cfg)
     finally:
         recorder.uninstall()
     counts = {name: fn.launches for name, (fn, _) in kernels.items()}
@@ -2234,6 +2390,10 @@ class CheckpointRecorder:
         self._patched = []
 
     def _fletcher_many(self, xs):
+        if not all(isinstance(x, torch.Tensor) for x in xs):
+            # a data feeder's numpy batch (bulk mode): host checksums of
+            # the feed, no part of the checkpoint path
+            return fl.fletcher64_many(xs)
         before = fl.fletcher64.launches
         out = self._timed("checksums", fl.fletcher64_many)(xs)
         nbytes = sum(x.numel() * x.element_size() for x in xs)
@@ -2420,7 +2580,8 @@ class TrainRecorder:
         out = fa.attention(q, k, v, **kw)
         B, S, Hq, D = q.shape
         self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
-                      k.shape[2], D, q.dtype), fa.attention.launches - before,
+                      k.shape[2], D, q.dtype, mask_tag(kw)),
+                     fa.attention.launches - before,
                      tuple(x.detach().clone() for x in (q, k, v)) + (kw,))
         return out
 
@@ -2450,7 +2611,7 @@ class TrainRecorder:
         out = _ATTENTION_BWD_CUDA(q, k, v, o, lse, do, **kw)
         B, S, Hq, D = q.shape
         self._record(("flash_attention_bwd", self.kind, B, S, k.shape[1], Hq,
-                      k.shape[2], D, q.dtype),
+                      k.shape[2], D, q.dtype, mask_tag(kw)),
                      fa.attention_bwd.launches - before,
                      tuple(x.detach().clone() for x in (q, k, v, o, lse, do))
                      + (kw,))
@@ -2518,12 +2679,15 @@ TRAIN_COUNTED = (fa.attention, fa.attention_bwd, kr.router_dispatch,
 
 
 def layer_counts(model) -> dict:
-    """Layers a model trains through each kernel: attention, MoE (router),
-    SSD and RG-LRU."""
+    """Layers a model trains through each kernel: attention (self
+    attention, and an encoder-decoder's encoder layers and decoder cross
+    attention), MoE (router), SSD and RG-LRU."""
     cfg = model.cfg
     n_moe = (cfg.n_layers - model.prefix_count
              if cfg.moe.num_experts and cfg.d_ff > 0 else 0)
-    return {"attn": sum(k in ATTN_KINDS for k in model.kinds),
+    cross = cfg.n_layers if model.is_encdec else 0
+    return {"attn": sum(k in ATTN_KINDS for k in model.kinds)
+            + cfg.n_enc_layers + cross,
             "moe": n_moe, "ssd": model.kinds.count("ssd"),
             "rglru": model.kinds.count("rglru")}
 
@@ -2561,9 +2725,24 @@ def check_train_launches(tag, model, recorder, n_steps, remat):
     return want_step
 
 
-def train_batch(source, step):
-    return {k: torch.from_numpy(v).cuda()
-            for k, v in source.batch_at(step).items()}
+def train_source(cfg, seq=None, batch=None, seed=0):
+    """The launchers' SyntheticSource for ``cfg`` (with its frontend, if it
+    takes one), TRAIN_SEQ x TRAIN_BATCH unless given."""
+    frontend = ((cfg.frontend_seq, cfg.frontend_dim)
+                if cfg.frontend != "none" else None)
+    return SyntheticSource(cfg.vocab, seq or TRAIN_SEQ, batch or TRAIN_BATCH,
+                           seed=seed, frontend=frontend)
+
+
+def train_batch(source, step, cfg=None):
+    """``source``'s batch at ``step`` on the card; a VLM's targets padded
+    over its patches, as the launcher pads them."""
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in source.batch_at(step).items()}
+    if cfg is not None and cfg.family == "vlm":
+        batch["targets"] = train_launcher.vlm_targets(batch["targets"],
+                                                      cfg.frontend_seq)
+    return batch
 
 
 def train_path():
@@ -2710,12 +2889,14 @@ def repeat_check(arch, n_layers=None):
     ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=100)
     step = train_step.make_train_step(model, ocfg,
                                       ParallelConfig(remat="none"))
-    source = SyntheticSource(model.cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=7)
-    first = None
+    source = train_source(cfg, seed=7)
+    first, losses = None, []
     for _ in range(2):
         state = train_step.init_state(model, ocfg, 0, device="cuda")
+        losses.append([])
         for i in range(REPEAT_STEPS):
-            state, _ = step(state, train_batch(source, i))
+            state, met = step(state, train_batch(source, i, cfg))
+            losses[-1].append(float(met["loss"]))
         params = svc_base.flatten_named(state["params"])
         if first is None:
             first = {k: v.cpu() for k, v in params.items()}
@@ -2730,8 +2911,10 @@ def repeat_check(arch, n_layers=None):
     print(f"repeat {arch}" + (f" ({n_layers} of {configs.get(arch).n_layers}"
                                f" layers)" if n_layers else "")
           + f": {REPEAT_STEPS} steps twice from seed 0: max |diff| "
-          f"{worst:.3g} (atol {REPEAT_ATOL}); bitwise equal: {bitwise}")
+          f"{worst:.3g} (atol {REPEAT_ATOL}); bitwise equal: {bitwise}; "
+          f"losses {losses}")
     check(worst <= REPEAT_ATOL, f"repeat {arch}: parameters differ")
+    return bitwise
 
 
 def report_losses(tag, losses, step_seconds, tokens_a_step):
@@ -2812,8 +2995,7 @@ def train_over_rpc(model, n_steps):
     try:
         with Engine(None) as trainer, Engine(None) as feeder, \
                 Engine(None) as coord:
-            DataFeedServer(feeder, SyntheticSource(model.cfg.vocab,
-                                                   TRAIN_SEQ, TRAIN_BATCH))
+            DataFeedServer(feeder, train_source(model.cfg))
             feed = DataFeedClient(trainer, [feeder.uri], depth=2)
             MembershipServer(coord)
             member = MembershipClient(trainer, coord.uri, "trainer-0")
@@ -2830,7 +3012,10 @@ def train_over_rpc(model, n_steps):
                     t0 = time.monotonic()
                     raw = feed.get(i)
                     batch = {k: torch.tensor(raw[k], device="cuda")
-                             for k in ("tokens", "targets")}
+                             for k in train_launcher.BATCH_KEYS if k in raw}
+                    if model.cfg.family == "vlm":
+                        batch["targets"] = train_launcher.vlm_targets(
+                            batch["targets"], model.cfg.frontend_seq)
                     state, met = step(state, batch)
                     mets.append({k: float(v) for k, v in met.items()})
                     step_seconds.append(time.monotonic() - t0)
@@ -2889,6 +3074,72 @@ def hybrid_train_path():
     return recorder
 
 
+def frontend_train_path(arch):
+    """Phases 3k and 3l's training at full width and depth, 8 x 128 text
+    tokens with their seeded frontends (paligemma's 256 patches join the
+    sequence, its targets padded over them; seamless's 512 frames go
+    through the encoder), AdamW, bf16 compute, remat "none",
+    FRONTEND_TRAIN_STEPS steps: seamless through the launcher and its
+    services with one save of params, m and v at the end (verified on the
+    card: Fletcher-64 on this path), paligemma through
+    ``train_over_rpc``.  The loss must fall; attention's forward and
+    backward launch once a layer and step (seamless: encoder, decoder
+    self and cross attention).  Then the repeat check, which must be
+    bitwise.  Returns the recorders for phase 4."""
+    cfg = configs.get(arch)
+    model = Model(cfg)
+    tag = f"train {arch}"
+    recorders = []
+    if arch == ENCDEC_ARCH:
+        recorder, ckrec = TrainRecorder(), CheckpointRecorder()
+        recorder.install()
+        ckrec.install()
+        for fn in TRAIN_COUNTED + (fl.fletcher64,):
+            fn.launches = 0
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            out = train_launcher.main([
+                "--arch", arch, "--steps", str(FRONTEND_TRAIN_STEPS),
+                "--ckpt-every", str(FRONTEND_TRAIN_STEPS)])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            fletcher = fl.fletcher64.launches
+        finally:
+            ckrec.uninstall()
+            recorder.uninstall()
+        losses, step_seconds = out["losses"], out["step_seconds"]
+        by_kind = ckrec.by_kind()
+        print(f"{tag}: {out['seconds']:.3f} s for {FRONTEND_TRAIN_STEPS} "
+              f"steps and the save, peak memory {peak:.2f} GiB; save host "
+              f"seconds by part "
+              + json.dumps({k: round(v, 4)
+                            for k, v in sorted(ckrec.seconds.items())})
+              + f"; fletcher64 {fletcher} launches, by step {by_kind}, "
+              f"checksum batches {ckrec.batches}")
+        check(by_kind["save"] == 1 and by_kind["verify"] >= 1
+              and by_kind["restore"] == 0
+              and sum(by_kind.values()) == fletcher,
+              f"{tag}: expected one checksum batch for the save and the "
+              f"server's verify groups: {by_kind}")
+        check([c["step"] for c in out["checkpoints"]]
+              == [FRONTEND_TRAIN_STEPS], f"{tag}: checkpoints "
+              f"{out['checkpoints']}")
+        recorders.append(ckrec)
+    else:
+        recorder, mets, step_seconds, n_params, peak = train_over_rpc(
+            model, FRONTEND_TRAIN_STEPS)
+        losses = [m["loss"] for m in mets]
+        print(f"{tag}: {n_params} parameters, AdamW, {cfg.compute_dtype} "
+              f"compute; peak memory {peak:.2f} GiB")
+    report_losses(tag, losses, step_seconds, TRAIN_BATCH * TRAIN_SEQ)
+    per_step = check_train_launches(tag, model, recorder,
+                                    FRONTEND_TRAIN_STEPS, "none")
+    print(f"{tag}: attention launches a step, forward {per_step[0]}, "
+          f"backward {per_step[1]}")
+    free_card()
+    check(repeat_check(arch), f"repeat {arch}: not bitwise equal")
+    return [recorder] + recorders
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths' own shapes
 # ---------------------------------------------------------------------------
@@ -2901,6 +3152,8 @@ def phase_main_shapes(arch, recorder):
         rec = recorder.seen[key]
         inputs = rec.pop("inputs")
         name = f"{arch}:{key[1]}"
+        if key[0] in ("flash_attention", "flash_attention_bwd"):
+            name += key[-1]             # the mask, past plain causal
         if key[0] == "flash_attention":
             q, k, v, kw = inputs
             # an int offset as a 0-d device tensor: the same function, and
@@ -2952,6 +3205,13 @@ def phase_parity(arch, S):
     B, steps = 2, 8
     toks = torch.randint(1, cfg.vocab, (B, S + steps), generator=gen,
                          device="cuda")
+    # a frontend's seeded patches or frames; a VLM's take positions
+    # 0..F-1 before the text
+    frontend, span = None, 0
+    if cfg.frontend != "none":
+        frontend = torch.randn((B, cfg.frontend_seq, cfg.frontend_dim),
+                               generator=gen, device="cuda") * 0.1
+        span = cfg.frontend_seq if cfg.family == "vlm" else 0
     routes = []             # per run: (idx, probs) of every router call
 
     def spy(router):
@@ -2971,10 +3231,11 @@ def phase_parity(arch, S):
             rglru_block.rglru = krg.rglru_plain
         try:
             logits, cache = model.prefill(params, toks[:, :S],
-                                          cache_len=S + steps)
+                                          cache_len=span + S + steps,
+                                          frontend=frontend)
             out = [logits]
             for i in range(steps):
-                pos = torch.full((B,), S + i, dtype=torch.int32,
+                pos = torch.full((B,), span + S + i, dtype=torch.int32,
                                  device="cuda")
                 logits, cache = model.decode_step(
                     params, cache, toks[:, S + i:S + i + 1], pos)
@@ -2989,10 +3250,13 @@ def phase_parity(arch, S):
     n_moe = sum("moe" in p for p in params["layers"])
     sizes = model.stack_sizes
     kernels = (fa.attention, kr.router_dispatch, kssd.ssd, krg.rglru)
-    # attention and the router launch on prefill and every decode step,
+    # attention and the router launch on prefill and every decode step
+    # (an encoder-decoder's cross attention too, its encoder on prefill),
     # the SSD and the RG-LRU on prefill alone
-    want_launches = (sizes.get("attn", 0) * (1 + steps), n_moe * (1 + steps),
-                     sizes.get("ssd", 0), sizes.get("rglru", 0))
+    n_attn = sizes.get("attn", 0) + (cfg.n_layers if model.is_encdec else 0)
+    want_launches = (n_attn * (1 + steps) + cfg.n_enc_layers,
+                     n_moe * (1 + steps), sizes.get("ssd", 0),
+                     sizes.get("rglru", 0))
     before = [fn.launches for fn in kernels]
     got = run(plain=False)
     launched = tuple(fn.launches - b for fn, b in zip(kernels, before))
@@ -3014,7 +3278,9 @@ def phase_parity(arch, S):
                           "call": call // max(n_moe, 1), "token": t,
                           "position": j, "experts": [a, b],
                           "probs": [pa, pb_], "gap": abs(pa - pb_)})
-    print(f"parity {arch}: f32 full width, TF32 off, prefill {B}x{S} + "
+    print(f"parity {arch}: f32 full width, TF32 off, prefill {B}x{S}"
+          + (f" with ({cfg.frontend_seq}, {cfg.frontend_dim}) frontends"
+             if frontend is not None else "") + " + "
           f"{steps} decode steps: max |kernel - plain| = {err:.3g} (max "
           f"|logit| {scale:.3g}, tolerance {PARITY_TOL} * (1 + |logit|)); "
           f"kernel launches (attention, router, ssd, rglru) {launched}; "
@@ -3049,7 +3315,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
         cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg)
     params = model.init(2, device="cuda")
-    batch = train_batch(SyntheticSource(cfg.vocab, S, B, seed=2), 0)
+    batch = train_batch(train_source(cfg, S, B, seed=2), 0, cfg)
     routes = []             # per run: the idx of every router call
 
     def spy(router):
@@ -3098,11 +3364,22 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
     aux_err = {k: abs(float(metrics[k]) - float(want_metrics[k]))
                / max(abs(float(want_metrics[k])), 1e-30)
                for k in ("moe_lb", "moe_z") if float(want_metrics[k])}
+    # cross attention's key bias has no gradient in exact arithmetic (no
+    # RoPE: q . bk adds one logit to every key of a query, which the
+    # softmax cancels): both sides hold rounding noise, held against the
+    # largest gradient entry of the model
+    zero = [key for key in want if key.endswith("['cross']['bk']")]
+    top = max(float(w.abs().max()) for w in want.values())
+    zero_err = max((max(float(grads[key].abs().max()),
+                        float(want[key].abs().max())) / top
+                    for key in zero), default=0.0)
     worst, where = 0.0, None
     for key, w in want.items():
         g = grads[key]
         check(bool(torch.isfinite(g).all()), f"train parity {arch}: {key} "
               f"not finite")
+        if key in zero:
+            continue
         err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         if err >= worst:
             worst, where = err, key
@@ -3115,13 +3392,18 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
           f"{want_loss} (relative {loss_err:.3g}); aux relative "
           f"{json.dumps(aux_err)}; {len(want)} gradient leaves, worst "
           f"max|kernel - plain| / max|plain| = {worst:.3g} at {where} "
-          f"(tolerance {TRAIN_PARITY_TOL}); launches (attention fwd, bwd, "
+          f"(tolerance {TRAIN_PARITY_TOL})"
+          + (f"; {len(zero)} cross key-bias leaves (zero in exact "
+             f"arithmetic): largest |entry| / largest gradient entry "
+             f"{zero_err:.3g}" if zero else "")
+          + f"; launches (attention fwd, bwd, "
           f"router fwd, bwd, ssd fwd, bwd, rglru fwd, bwd) {launched}; "
           f"routing differences {flips}")
     del params, grads, want
     free_card()
     check(not enforce or (
         loss_err <= TRAIN_PARITY_TOL and worst <= TRAIN_PARITY_TOL
+        and zero_err <= TRAIN_PARITY_TOL
         and all(e <= TRAIN_PARITY_TOL for e in aux_err.values())),
           f"train parity {arch}: the kernels' loss or gradients disagree")
 
@@ -3208,6 +3490,15 @@ def train_phases() -> list:
     return rows
 
 
+def frontend_phases(arch) -> list:
+    """Phase 3k (paligemma-3b) or 3l (seamless-m4t-large-v2): serving,
+    then training, each followed by its phase 4 rows."""
+    rows = phase_main_shapes(arch, serve_path(arch))
+    for recorder in frontend_train_path(arch):
+        rows += phase_main_shapes(f"{arch} train", recorder)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3252,10 +3543,12 @@ def main(argv=None) -> int:
     rows += train_phases()
     for arch in (SSM_ARCH, HYBRID_ARCH):
         rows += phase_main_shapes(arch, serve_path(arch))
+    for arch in FRONTEND_ARCHS:
+        rows += frontend_phases(arch)
     for arch, S in ((ARCH, 128), (MOE_ARCH, 128), (SSM_ARCH, 640),
-                    (HYBRID_ARCH, 640)):
+                    (HYBRID_ARCH, 640), (VLM_ARCH, 128), (ENCDEC_ARCH, 128)):
         phase_parity(arch, S)
-    for arch in (ARCH, MOE_ARCH):
+    for arch in (ARCH, MOE_ARCH) + FRONTEND_ARCHS:
         phase_train_parity(arch)
     ssm_train_parity()
     for n in (HYBRID_PARITY_LAYERS, HYBRID_TRAIN_LAYERS):

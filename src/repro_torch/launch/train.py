@@ -12,9 +12,11 @@ trainer could not reach it):
   * a datafeed engine hosting the token pipeline, pulled over RPC,
   * a membership coordinator the trainer joins and leaves,
   * the train step of ``repro_torch.train.step`` on ``--device``
-    (default ``cuda``: the attention, router and SSD kernels and their
-    backwards; ``--arch`` qwen1.5-0.5b, granite-moe-3b-a800m or
-    mamba2-1.3b).
+    (default ``cuda``: the attention, router, SSD and RG-LRU kernels and
+    their backwards; ``--arch`` any config of ``repro_torch.configs``).
+    A config with a frontend (paligemma-3b's patches, seamless-m4t's
+    frames) gets seeded frontend batches beside the tokens; a VLM's
+    targets are padded with -1 over its patch positions.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train           # the card
@@ -41,7 +43,14 @@ from repro_torch.services import (CheckpointClient, CheckpointServer,
 from repro_torch.train import optim
 from repro_torch.train.step import init_state, make_train_step
 
-BATCH_KEYS = ("tokens", "targets")
+BATCH_KEYS = ("tokens", "targets", "frontend")
+
+
+def vlm_targets(targets, n_patches: int):
+    """A VLM's targets (B,S) padded with -1 (no target) over the
+    ``n_patches`` patch positions that come before the text."""
+    pad = targets.new_full((targets.shape[0], n_patches), -1)
+    return torch.cat([pad, targets], dim=1)
 
 
 def main(argv=None) -> dict:
@@ -89,7 +98,11 @@ def main(argv=None) -> dict:
     feed_engine = Engine(addr)
     coord = Engine(addr)
     engines += [feed_engine, coord]
-    source = SyntheticSource(cfg.vocab, args.seq, args.batch)
+    frontend = None
+    if cfg.frontend != "none":
+        frontend = (cfg.frontend_seq, cfg.frontend_dim)
+    source = SyntheticSource(cfg.vocab, args.seq, args.batch,
+                             frontend=frontend)
     DataFeedServer(feed_engine, source)
     feed = DataFeedClient(trainer, [feed_engine.uri], depth=2)
 
@@ -119,7 +132,10 @@ def main(argv=None) -> dict:
             t_step = time.monotonic()
             raw = feed.get(step)
             batch = {k: torch.tensor(raw[k], device=device)
-                     for k in BATCH_KEYS}
+                     for k in BATCH_KEYS if k in raw}
+            if cfg.family == "vlm":
+                batch["targets"] = vlm_targets(batch["targets"],
+                                               cfg.frontend_seq)
             state, metrics = step_fn(state, batch)
             if (step + 1) % args.ckpt_every == 0 or step == last:
                 if pending_save is not None:

@@ -1,11 +1,15 @@
-"""GQA self-attention sub-layer: params, training, prefill, prefill chunk,
-decode.
+"""GQA attention sub-layer: params, training, prefill, prefill chunk,
+decode, and the cross attention of an encoder-decoder.
 
 Ports ``src/repro/models/attention.py`` (``attn_apply``, ``attn_prefill``,
-``attn_prefill_chunk``, ``attn_decode``) for the attention family: GQA,
-RoPE (per-kind theta), sliding-window ("local") blocks, tanh logit
-soft-capping, qk RMS-norm and QKV biases.  All three run on one kernel,
-:func:`repro_torch.kernels.attention.attention`.
+``attn_prefill_chunk``, ``attn_decode``, ``cross_attn_apply``,
+``cross_kv``): GQA, RoPE (per-kind theta), sliding-window ("local")
+blocks, tanh logit soft-capping, qk RMS-norm, QKV biases, prefix-LM masks
+(``prefix_len``: keys below it are seen by every query) and non-causal
+self-attention (an encoder).  Cross attention projects its queries
+without RoPE and attends without a mask to K/V projected (without RoPE)
+from the encoder's output once per layer.  All of them run on one
+kernel, :func:`repro_torch.kernels.attention.attention`.
 
 A layer's KV cache is a pair of (B, T, Hkv, D) tensors.  Where the
 reference returns an updated copy, the chunk and decode paths here write
@@ -56,19 +60,32 @@ def _proj(x, w, cdt):
         *x.shape[:2], H, D)
 
 
-def _project(cfg, p, x, positions, kind):
+def _project_q(cfg, p, x, positions, kind, use_rope=True):
     cdt = dtype_of(cfg.compute_dtype)
-    q, k, v = _proj(x, p["wq"], cdt), _proj(x, p["wk"], cdt), \
-        _proj(x, p["wv"], cdt)
+    q = _proj(x, p["wq"], cdt)
     if "bq" in p:
         q = q + p["bq"].to(cdt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return apply_rope(q, positions, _theta(cfg, kind)) if use_rope else q
+
+
+def _project_kv(cfg, p, x, positions, kind, use_rope=True):
+    cdt = dtype_of(cfg.compute_dtype)
+    k, v = _proj(x, p["wk"], cdt), _proj(x, p["wv"], cdt)
+    if "bk" in p:
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    theta = _theta(cfg, kind)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    if use_rope:
+        k = apply_rope(k, positions, _theta(cfg, kind))
+    return k, v
+
+
+def _project(cfg, p, x, positions, kind):
+    return (_project_q(cfg, p, x, positions, kind),
+            *_project_kv(cfg, p, x, positions, kind))
 
 
 def _out(cfg, p, o):
@@ -78,32 +95,37 @@ def _out(cfg, p, o):
         p["wo"].to(cdt).reshape(H * D, d)
 
 
-def _attend(cfg, q, k, v, kind, q_offset):
-    return attention(q, k, v, causal=True,
+def _attend(cfg, q, k, v, kind, q_offset, causal=True, prefix_len=None):
+    return attention(q, k, v, causal=causal,
                      window=cfg.window if kind == "local" else 0,
-                     softcap=cfg.attn_softcap, q_offset=q_offset)
+                     softcap=cfg.attn_softcap, q_offset=q_offset,
+                     prefix_len=prefix_len)
 
 
-def attn_train(cfg: ModelConfig, p: dict, x, *, kind: str = "attn"):
-    """Full-sequence self-attention for training, as the reference's
-    ``attn_apply``: positions 0..S-1, no cache.  ``attention`` carries the
-    gradient (``AttentionFunction``)."""
+def attn_train(cfg: ModelConfig, p: dict, x, *, kind: str = "attn",
+               causal: bool = True, prefix_len=None):
+    """Full-sequence self-attention for training and for an encoder
+    (``causal=False``), as the reference's ``attn_apply``: positions
+    0..S-1, no cache.  ``attention`` carries the gradient
+    (``AttentionFunction``)."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project(cfg, p, x, positions, kind)
-    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0))
+    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0, causal, prefix_len))
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, cache_k, cache_v, *,
-                 kind: str = "attn"):
-    """Self-attention over the whole prompt; its K/V land at positions
+                 kind: str = "attn", prefix_len=None):
+    """Self-attention over the whole prompt (causal, keys below
+    ``prefix_len`` seen by every query); its K/V land at positions
     0..S-1 of the (B, T, Hkv, D) cache tensors."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project(cfg, p, x, positions, kind)
     cache_k[:, :S] = k
     cache_v[:, :S] = v
-    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0))
+    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0,
+                                prefix_len=prefix_len))
 
 
 def attn_prefill_chunk(cfg: ModelConfig, p: dict, x, cache_k, cache_v,
@@ -149,3 +171,21 @@ def attn_decode(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos, *,
         cache_v[rows, t] = torch.where(keep, v[:, 0].to(cache_v.dtype),
                                        cache_v[rows, t])
     return _out(cfg, p, _attend(cfg, q, cache_k, cache_v, kind, pos))
+
+
+# ---------------------------------------------------------------------------
+# cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+def cross_attn(cfg: ModelConfig, p: dict, x, mem_k, mem_v):
+    """Decoder cross attention: queries from x (B,S,d) without RoPE,
+    against the memory's K/V (B,F,Hkv,D), no mask."""
+    q = _project_q(cfg, p, x, None, "attn", use_rope=False)
+    return _out(cfg, p, _attend(cfg, q, mem_k, mem_v, "attn", 0,
+                                causal=False))
+
+
+def cross_kv(cfg: ModelConfig, p: dict, memory):
+    """The cross attention's K/V (B,F,Hkv,D) from the encoder's output
+    (B,F,d), without RoPE: computed once per layer and kept in the
+    cache for decode."""
+    return _project_kv(cfg, p, memory, None, "attn", use_rope=False)

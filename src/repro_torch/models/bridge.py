@@ -8,7 +8,11 @@ first layers (``prefix``: deepseek's dense layer 0), stacks the layers
 of each period position along a leading ``layers`` axis
 (``periods[pos][j]`` is layer ``prefix + j * len(period) + pos``) and
 unrolls the ``trailing`` layers; here they become one list in layer
-order.  Leaves keep their layouts: ``wq`` (d,H,D), ``wo`` (H,D,d),
+order.  An encoder-decoder's ``encoder.stack`` (stacked over
+``n_enc_layers``) becomes ``encoder.layers``, a list in layer order,
+beside ``encoder.final_norm``; its decoder layers keep their ``cross``
+and ``cross_norm`` subtrees, and ``embed`` its ``frontend_proj``.
+Leaves keep their layouts: ``wq`` (d,H,D), ``wo`` (H,D,d),
 ``embedding`` (V,d); MoE layers carry ``moe`` subtrees (``router``
 (d,E), ``wi_gate``/``wi_up`` (E,d,f), ``wo`` (E,f,d), ``shared``).
 """
@@ -38,21 +42,34 @@ def _map(tree, fn):
 
 def params_from_numpy(tree: dict, *, device="cuda") -> dict:
     dev = resolve_device(device)
-    if "encoder" in tree:
-        raise NotImplementedError("encoder-decoder weights are not ported "
-                                  "yet (ROADMAP A6)")
     periods = tree["periods"]
-    n_scan = len(next(iter(_leaves(periods[0])))) if periods else 0
     layers = [_map(layer, lambda a: _tensor(a, dev))
               for layer in tree.get("prefix", ())]
-    for j in range(n_scan):
+    for j in range(_depth(periods[0]) if periods else 0):
         for period in periods:
-            layers.append(_map(period, lambda a: _tensor(a[j], dev)))
+            layers.append(_unstack(period, j, dev))
     for layer in tree["trailing"]:
         layers.append(_map(layer, lambda a: _tensor(a, dev)))
-    return {"embed": _map(tree["embed"], lambda a: _tensor(a, dev)),
-            "layers": layers,
-            "final_norm": _tensor(tree["final_norm"], dev)}
+    out = {"embed": _map(tree["embed"], lambda a: _tensor(a, dev)),
+           "layers": layers,
+           "final_norm": _tensor(tree["final_norm"], dev)}
+    if "encoder" in tree:
+        stack = tree["encoder"]["stack"]
+        out["encoder"] = {
+            "layers": [_unstack(stack, j, dev)
+                       for j in range(_depth(stack))],
+            "final_norm": _tensor(tree["encoder"]["final_norm"], dev)}
+    return out
+
+
+def _depth(stacked: dict) -> int:
+    """The length of a stacked subtree's leading (layers) axis."""
+    return len(next(iter(_leaves(stacked))))
+
+
+def _unstack(stacked: dict, j: int, dev) -> dict:
+    """Layer ``j`` of a subtree stacked over layers."""
+    return _map(stacked, lambda a: _tensor(a[j], dev))
 
 
 def _leaves(tree):

@@ -121,6 +121,9 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                                  in_dim=cfg.d_model)}
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dt)
+    if cfg.frontend != "none" and cfg.frontend_dim:
+        p["frontend_proj"] = dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                                        dt)
     return p
 
 

@@ -3,9 +3,11 @@ and cache specs, ported from ``src/repro/models/transformer.py``.
 
 Parameters are a plain dict::
 
-    {"embed": {"embedding": (V, d)[, "head": (d, V)]},
+    {"embed": {"embedding": (V, d)[, "head": (d, V)]
+               [, "frontend_proj": (frontend_dim, d)]},
      "layers": [per-layer dict, ...],          # n_layers, in order
-     "final_norm": (d,)}
+     "final_norm": (d,)
+     [, "encoder": {"layers": [...], "final_norm": (d,)}]}
 
 The reference's scan over layer *periods* is a plain loop over
 ``layers`` here; ``bridge.params_from_numpy`` unstacks the reference's
@@ -22,6 +24,8 @@ kind's stack (``Model.cache_index``)::
     "ssd_conv"                (SSD layers, B, cw-1, conv channels)
     "rglru_h"                 (RG-LRU layers, B, W) f32
     "rglru_conv"              (RG-LRU layers, B, cw-1, W)
+    "cross_k", "cross_v"      (decoder layers of an encoder-decoder,
+                               B, frontend_seq, Hkv, D)
 
 Only the stacks of kinds the model has are present.  The recurrent ``h``
 stays f32 whatever the cache dtype is, as in the reference.
@@ -42,7 +46,18 @@ the config's capacity factor and add their aux losses (``AUX_KEYS``) to
 the loss; the recurrent layers train through their prefill algebra, the
 scans' autograd Functions carrying the gradients.
 
-Encoder-decoder and VLM configs raise ``NotImplementedError``.
+**Frontends.**  A config with a ``frontend`` takes precomputed
+embeddings (B, F, frontend_dim) beside the tokens, projected by
+``embed.frontend_proj`` (the reference stubs the vision and audio
+towers the same way).  A VLM (``family == "vlm"``) puts the projected
+patches before the text; under ``prefix_lm`` every query sees all F
+patches (``prefix_len = frontend_seq``) and the text stays causal.  An
+encoder-decoder (``n_enc_layers``) runs its frames through the encoder,
+``n_enc_layers`` non-causal attention blocks with RoPE at positions
+0..F-1 and a final norm; every decoder layer then attends to that memory
+(``cross``, after its self-attention and before its MLP) through K/V it
+projects once, which prefill keeps in the cache (``cross_k``/``cross_v``)
+for decode.  Neither kind chunks its prefill, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_KINDS, ModelConfig
 from .attention import (attn_decode, attn_params, attn_prefill,
-                        attn_prefill_chunk, attn_train)
+                        attn_prefill_chunk, attn_train, cross_attn, cross_kv)
 from .common import (chunked_ce_loss, dtype_of, embed_params, embed_tokens,
                      mlp, mlp_params, ones_init, resolve_device, rms_norm,
                      unembed)
@@ -88,21 +103,12 @@ def _group(kind: str) -> str:
     return "attn" if kind in ATTN_KINDS else kind
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet,
-    naming the ROADMAP item that ports it."""
-    if cfg.n_enc_layers or cfg.frontend != "none" or cfg.prefix_lm:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and VLM models are not ported "
-            f"yet (ROADMAP A6)")
-
-
 class Model:
     """One architecture, parameterized by its config."""
 
     def __init__(self, cfg: ModelConfig):
-        check_supported(cfg)
         self.cfg = cfg
+        self.is_encdec = cfg.n_enc_layers > 0
         self.kinds = tuple(cfg.kind_at(i) for i in range(cfg.n_layers))
         # layer i's index into the cache stack of its kind
         self.cache_index = []
@@ -119,12 +125,20 @@ class Model:
 
     def stacked_layers(self) -> list:
         """The layers whose weights the reference holds stacked along a
-        leading axis (its scan over periods): one list of layer indices
-        for each position in the period."""
+        leading axis: for each position in the period (its scan over
+        periods) one list of ("layers", index) pairs, indices into
+        ``params["layers"]``, and for an encoder-decoder one list of
+        ("encoder", index) pairs (its ``encoder.stack``), indices into
+        ``params["encoder"]["layers"]``."""
         plen = len(self.cfg.period)
         n_scan = (self.cfg.n_layers - self.prefix_count) // plen
-        return [[self.prefix_count + j * plen + pos for j in range(n_scan)]
-                for pos in range(plen)] if n_scan else []
+        groups = [[("layers", self.prefix_count + j * plen + pos)
+                   for j in range(n_scan)]
+                  for pos in range(plen)] if n_scan else []
+        if self.is_encdec:
+            groups.append([("encoder", i)
+                           for i in range(self.cfg.n_enc_layers)])
+        return groups
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0, *, device="cuda") -> dict:
@@ -149,11 +163,24 @@ class Model:
                 p["moe"] = moe_params(cfg, gen, e_pad=self.e_pad)
             elif cfg.d_ff > 0:
                 p["mlp"] = mlp_params(cfg, gen)
+            if self.is_encdec:
+                p["cross_norm"] = ones_init(gen, (cfg.d_model,), dt)
+                p["cross"] = attn_params(cfg, gen)
             if ("mlp" in p or "moe" in p) and not cfg.parallel_block:
                 p["norm2"] = ones_init(gen, (cfg.d_model,), dt)
             layers.append(p)
-        return {"embed": embed, "layers": layers,
+        params = {"embed": embed, "layers": layers,
+                  "final_norm": ones_init(gen, (cfg.d_model,), dt)}
+        if self.is_encdec:
+            enc = [{"norm1": ones_init(gen, (cfg.d_model,), dt),
+                    "attn": attn_params(cfg, gen),
+                    "mlp": mlp_params(cfg, gen),
+                    "norm2": ones_init(gen, (cfg.d_model,), dt)}
+                   for _ in range(cfg.n_enc_layers)]
+            params["encoder"] = {
+                "layers": enc,
                 "final_norm": ones_init(gen, (cfg.d_model,), dt)}
+        return params
 
     # ----------------------------------------------------------------- block
     def _ffn(self, p: dict, h, aux: Optional[dict] = None):
@@ -168,19 +195,62 @@ class Model:
             return y
         return mlp(self.cfg, p["mlp"], h)
 
-    def _block(self, p: dict, x, mix, aux: Optional[dict] = None):
+    def _block(self, p: dict, x, mix, aux: Optional[dict] = None,
+               mem_kv=None):
         """One pre-norm block; ``mix(h)`` is the mixing half (attention
         or recurrence; training, prefill, chunk or decode); ``aux`` as
-        ``_ffn``'s."""
+        ``_ffn``'s; ``mem_kv``, the cross attention's (K, V) of an
+        encoder-decoder layer, is attended to after the mixing half."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a = mix(h)
-        if "mlp" not in p and "moe" not in p:
-            return x + a
-        if cfg.parallel_block:
+        if cfg.parallel_block and ("mlp" in p or "moe" in p):
             return x + a + self._ffn(p, h, aux)
         x = x + a
+        if mem_kv is not None:
+            x = x + cross_attn(cfg, p["cross"],
+                               rms_norm(x, p["cross_norm"], cfg.norm_eps),
+                               *mem_kv)
+        if "mlp" not in p and "moe" not in p:
+            return x
         return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux)
+
+    def _embed_inputs(self, params, tokens, frontend=None):
+        """(h, prefix_len): the token embeddings, and for a VLM with a
+        frontend the projected patches (B,F,d) before them, under
+        ``prefix_lm`` with ``prefix_len`` = F (the patches; the text
+        stays causal)."""
+        cfg = self.cfg
+        h = embed_tokens(cfg, params["embed"], tokens)
+        if cfg.family != "vlm" or frontend is None:
+            return h, None
+        patches = self._project_frontend(params, frontend)
+        return (torch.cat([patches, h], dim=1),
+                cfg.frontend_seq if cfg.prefix_lm else None)
+
+    def _project_frontend(self, params, frontend):
+        cdt = dtype_of(self.cfg.compute_dtype)
+        return frontend.to(cdt) @ params["embed"]["frontend_proj"].to(cdt)
+
+    def _encode(self, params, frontend, remat: str = "none"):
+        """The encoder: frames (B,F,frontend_dim) → memory (B,F,d), each
+        layer a non-causal self-attention block (RoPE at 0..F-1) and
+        its MLP, then the encoder's final norm.  ``remat`` as
+        ``loss_fn``'s."""
+        cfg = self.cfg
+        if frontend is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: it takes "
+                             f"a frontend (frames) beside the tokens")
+
+        def layer(p, h):
+            return self._block(p, h, lambda x: attn_train(
+                cfg, p["attn"], x, causal=False))
+
+        h = self._project_frontend(params, frontend)
+        for p in params["encoder"]["layers"]:
+            h = (checkpoint(layer, p, h, use_reentrant=False)
+                 if remat == "block" else layer(p, h))
+        return rms_norm(h, params["encoder"]["final_norm"], cfg.norm_eps)
 
     def _final(self, params, h):
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
@@ -189,7 +259,9 @@ class Model:
     def loss_fn(self, params, batch, *, remat: str = "block",
                 z_coef: float = 1e-4, ce_chunk: int = 512):
         """Teacher-forced LM loss, as the reference's ``loss_fn``.  batch:
-        ``tokens`` and ``targets`` (B,S) (-1: no target).  ``remat``:
+        ``tokens`` and ``targets`` (B,S) (-1: no target), and a config
+        with a frontend takes ``frontend`` (B,F,frontend_dim) (a VLM's
+        targets then cover the F patches too: (B,F+S)).  ``remat``:
         ``"block"`` wraps each layer in ``torch.utils.checkpoint`` (its
         activations are recomputed in the backward; the reference wraps
         each period in ``jax.checkpoint``), ``"none"`` keeps them.  MoE
@@ -201,25 +273,32 @@ class Model:
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}: 'none' or 'block'")
 
-        def layer(p, h, kind):
+        def layer(p, h, kind, memory):
             aux = {key: h.new_zeros((), dtype=torch.float32)
                    for key in AUX_KEYS}
             if kind in ATTN_KINDS:
                 def mix(x):
-                    return attn_train(cfg, p["attn"], x, kind=kind)
+                    return attn_train(cfg, p["attn"], x, kind=kind,
+                                      prefix_len=prefix_len)
             else:
                 def mix(x):
                     return _RECURRENT[kind].prefill(cfg, p["rec"], x)[0]
-            h = self._block(p, h, mix, aux)
+            mem_kv = (None if memory is None
+                      else cross_kv(cfg, p["cross"], memory))
+            h = self._block(p, h, mix, aux, mem_kv)
             return h, aux["moe_lb"], aux["moe_z"]
 
-        h = embed_tokens(cfg, params["embed"], batch["tokens"])
+        frontend = batch.get("frontend")
+        h, prefix_len = self._embed_inputs(params, batch["tokens"], frontend)
+        memory = (self._encode(params, frontend, remat) if self.is_encdec
+                  else None)
         aux = [h.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
         for p, kind in zip(params["layers"], self.kinds):
             if remat == "block":
-                h, *a = checkpoint(layer, p, h, kind, use_reentrant=False)
+                h, *a = checkpoint(layer, p, h, kind, memory,
+                                   use_reentrant=False)
             else:
-                h, *a = layer(p, h, kind)
+                h, *a = layer(p, h, kind, memory)
             aux = [x + y for x, y in zip(aux, a)]
         loss, metrics = chunked_ce_loss(
             cfg, params["embed"], self._final(params, h), batch["targets"],
@@ -231,17 +310,26 @@ class Model:
         return loss, metrics
 
     # ------------------------------------------------------------------ serve
-    def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
-        """Prompt pass over tokens (B,S). Returns (last-position logits
-        (B,V) f32, cache of length ``cache_len``: K/V in the compute
-        dtype, recurrent ``h`` in f32 and conv tails in the compute
-        dtype)."""
+    def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
+                frontend=None):
+        """Prompt pass over tokens (B,S) (and ``frontend``
+        (B,F,frontend_dim) for a config with one: a VLM's patches come
+        first, F + S positions).  Returns (last-position logits (B,V)
+        f32, cache of length ``cache_len``: K/V in the compute dtype,
+        recurrent ``h`` in f32, conv tails in the compute dtype, an
+        encoder-decoder's cross K/V in the compute dtype)."""
         cfg = self.cfg
-        B, S = tokens.shape
+        B = tokens.shape[0]
         cdt = dtype_of(cfg.compute_dtype)
-        h = embed_tokens(cfg, params["embed"], tokens)
+        h, prefix_len = self._embed_inputs(params, tokens, frontend)
+        S = h.shape[1]
         cache = self._kv_stacks(B, cache_len or S, cdt, tokens.device)
         states = {g: [] for g in self.stack_sizes if g != "attn"}
+        memory = None
+        if self.is_encdec:
+            memory = self._encode(params, frontend)
+            cache.update(self._cross_stacks(B, memory.shape[1], cdt,
+                                            tokens.device))
 
         def recurrent(kind, p, x):
             out, st = _RECURRENT[kind].prefill(cfg, p, x, want_cache=True)
@@ -250,12 +338,18 @@ class Model:
 
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
             j = self.cache_index[i]
+            mem_kv = None
+            if memory is not None:
+                mem_kv = cross_kv(cfg, p["cross"], memory)
+                cache["cross_k"][i] = mem_kv[0]
+                cache["cross_v"][i] = mem_kv[1]
             if kind in ATTN_KINDS:
                 h = self._block(p, h, lambda x: attn_prefill(
                     cfg, p["attn"], x, cache["k"][j], cache["v"][j],
-                    kind=kind))
+                    kind=kind, prefix_len=prefix_len), mem_kv=mem_kv)
             else:
-                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x))
+                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x),
+                                mem_kv=mem_kv)
         for g, sts in states.items():
             for name in ("h", "conv"):
                 cache[f"{g}_{name}"] = torch.stack([st[name] for st in sts])
@@ -295,22 +389,27 @@ class Model:
 
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
             j = self.cache_index[i]
+            mem_kv = ((cache["cross_k"][i], cache["cross_v"][i])
+                      if self.is_encdec else None)
             if kind in ATTN_KINDS:
                 h = self._block(p, h, lambda x: attn_decode(
                     cfg, p["attn"], x, cache["k"][j], cache["v"][j], pos,
-                    kind=kind))
+                    kind=kind), mem_kv=mem_kv)
             else:
                 h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x,
-                                                          j))
+                                                          j), mem_kv=mem_kv)
         return unembed(cfg, params["embed"], self._final(params, h))[:, 0], \
             cache
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """True when every layer is an attention block: those continue a
+        """True when every layer is an attention block (those continue a
         prefill at an offset; the recurrent ones carry no resumable
-        prefill state, as in the reference."""
-        return all(kind in ATTN_KINDS for kind in self.kinds)
+        prefill state) and the model is neither an encoder-decoder nor a
+        prefix-LM, whose cross attention and prefix mask are
+        whole-prompt constructs, as in the reference."""
+        return (not self.is_encdec and not self.cfg.prefix_lm
+                and all(kind in ATTN_KINDS for kind in self.kinds))
 
     # ------------------------------------------------------------------ specs
     def cache_specs(self, batch_size: int, cache_len: int, *,
@@ -320,6 +419,9 @@ class Model:
         cfg = self.cfg
         dev = resolve_device(device)
         out = self._kv_stacks(batch_size, cache_len, dtype, dev)
+        if self.is_encdec:
+            out.update(self._cross_stacks(batch_size, cfg.frontend_seq,
+                                          dtype, dev))
         for g, n in self.stack_sizes.items():
             if g == "attn":
                 continue
@@ -340,3 +442,12 @@ class Model:
         shape = (n, batch_size, cache_len, self.cfg.n_kv_heads, self.cfg.hd)
         return {name: torch.zeros(shape, dtype=dtype, device=device)
                 for name in ("k", "v")}
+
+    def _cross_stacks(self, batch_size: int, n_frames: int, dtype,
+                      device) -> dict:
+        """Zeroed ``"cross_k"``/``"cross_v"`` stacks over the decoder
+        layers of an encoder-decoder."""
+        shape = (self.cfg.n_layers, batch_size, n_frames,
+                 self.cfg.n_kv_heads, self.cfg.hd)
+        return {name: torch.zeros(shape, dtype=dtype, device=device)
+                for name in ("cross_k", "cross_v")}

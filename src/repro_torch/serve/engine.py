@@ -24,6 +24,15 @@ prompt extends the cached history resumes there and prefills only the
 suffix, at an offset.  Pins are evicted LRU-first whenever a fresh
 request needs a slot or the table exceeds ``session_cap``.
 
+**Frontends** (a VLM's patches, an encoder-decoder's frames): a
+request may carry one, (frontend_seq, frontend_dim) f32.  It counts
+``frontend_seq`` positions into the prompt's span, prefills whole
+(never chunked) and takes no session, as in the reference; decode
+starts at position ``len(prompt) + frontend_seq`` for both kinds.  For
+an encoder-decoder that is the reference's quirk, mirrored here: its
+decoder wrote self-attention K/V only at ``0..len(prompt)-1``, so each
+decode step also attends to ``frontend_seq`` zero K/V rows in between.
+
 Where the reference builds new cache arrays, this engine updates the
 slot cache in place: the model writes chunk and decode K/V and states
 into the cache it is given, and slot gather/scatter are copies into and
@@ -64,6 +73,7 @@ class Request:
     max_new: int = 32
     temperature: float = 0.0           # 0 = greedy
     eos_id: int = -1                   # -1 = never
+    frontend: Optional[np.ndarray] = None  # (F, frontend_dim) f32
     session_id: Optional[str] = None   # KV-session key (None = stateless)
     out_tokens: List[int] = field(default_factory=list)
     done_event: threading.Event = field(default_factory=threading.Event)
@@ -164,17 +174,25 @@ class ServeEngine:
                 for name, t in self.cache.items()}
 
     def submit(self, prompt, max_new: int = 32, temperature: float = 0.0,
-               eos_id: int = -1, on_token=None,
+               eos_id: int = -1, frontend=None, on_token=None,
                session_id=None) -> Request:
         prompt = np.asarray(prompt, np.int32)
-        if len(prompt) + max_new > self.max_len:
+        if frontend is None and self.model.is_encdec:
+            raise ValueError(f"{self.model.cfg.name} is an encoder-decoder: "
+                             f"a request needs its frontend (frames)")
+        span = len(prompt) + (self.model.cfg.frontend_seq
+                              if frontend is not None else 0)
+        if span + max_new > self.max_len:
             raise ValueError(
-                f"prompt span {len(prompt)} + max_new {max_new} exceeds the "
+                f"prompt span {span} + max_new {max_new} exceeds the "
                 f"cache length {self.max_len}")
+        if frontend is not None:
+            frontend = np.asarray(frontend, np.float32)
+            session_id = None       # sessions are token-prefix keyed
         with self._lock:
             self._rid += 1
             rid = self._rid
-        req = Request(rid, prompt, max_new, temperature, eos_id,
+        req = Request(rid, prompt, max_new, temperature, eos_id, frontend,
                       session_id=session_id, on_token=on_token)
         req.t_submit = time.monotonic()
         self.queue.put(req)
@@ -291,7 +309,7 @@ class ServeEngine:
             req.t_admit = time.monotonic()
             self.slot_req[slot] = req
             self.slot_session[slot] = sid
-            if self.chunk:
+            if self.chunk and req.frontend is None:
                 self._start_chunked(
                     slot, req, req.prompt, base=0,
                     cache1=self.model.cache_specs(1, self.max_len,
@@ -304,12 +322,16 @@ class ServeEngine:
         return torch.tensor(np.asarray(toks, np.int32), device=self.device)
 
     def _prefill_monolithic(self, slot: int, req: Request):
+        frontend = None
+        if req.frontend is not None:
+            frontend = torch.tensor(req.frontend[None], device=self.device)
         logits, cache1 = self.model.prefill(
             self.params, self._tokens(req.prompt[None, :]),
-            cache_len=self.max_len)
+            cache_len=self.max_len, frontend=frontend)
         self._scatter_slot(cache1, slot)
         tok = self._sample(logits[0], req)
-        self.pos[slot] = len(req.prompt)
+        self.pos[slot] = len(req.prompt) + (
+            self.model.cfg.frontend_seq if frontend is not None else 0)
         self.last_tok[slot] = tok
         self._emit(req, tok)
         if req.done_event.is_set():
@@ -403,8 +425,10 @@ class ServeEngine:
                 return
 
     def generate(self, prompts, max_new: int = 32, temperature: float = 0.0,
-                 eos_id: int = -1, session_ids=None) -> List[List[int]]:
+                 eos_id: int = -1, frontends=None,
+                 session_ids=None) -> List[List[int]]:
         reqs = [self.submit(p, max_new, temperature, eos_id,
+                            None if frontends is None else frontends[i],
                             session_id=(None if session_ids is None
                                         else session_ids[i]))
                 for i, p in enumerate(prompts)]

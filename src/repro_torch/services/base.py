@@ -157,13 +157,6 @@ def verify_manifest(man: dict, named: Dict[str, Any]) -> None:
 # ---------------------------------------------------------------------------
 # straggler mitigation: replicated issue, first-wins
 # ---------------------------------------------------------------------------
-def no_registry() -> NotImplementedError:
-    """What a service raises for ``registry=``: the fabric registry is
-    not ported yet."""
-    return NotImplementedError(
-        "fabric registration (registry=) is not ported yet (ROADMAP A4)")
-
-
 def replicated_call(engine: Engine, targets: Sequence[str], name: str,
                     arg: Any = None, timeout: float = 30.0) -> Any:
     """Issue the same RPC to every target; first success wins, the rest

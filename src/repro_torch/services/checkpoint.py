@@ -23,9 +23,10 @@ to its device and verifies them there.
 background thread (training continues during the transfer).
 
 The wire format is the reference's: a checkpoint saved by either
-package's client restores through the other's.  Finding a server
-through the fabric registry (``registry=``) is not ported yet (ROADMAP
-A4) and raises.
+package's client restores through the other's.  With ``registry=`` the
+server registers itself as an instance of ``service`` in the fabric
+registry, and a client given ``registry=`` instead of ``server_uri``
+resolves it by name, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from ..core.types import MercuryError, Ret
 from ..fabric.readcache import ReadCache
 from ..models.common import resolve_device
 from .base import (alloc_from_manifest, flatten_named, host_copy,
-                   host_to_tensor, manifest_of, no_registry,
+                   host_to_tensor, manifest_of,
                    unflatten_named, verify_manifest)
 
 
@@ -76,12 +77,12 @@ def _verify_on(device, man: dict, host: dict) -> None:
 class CheckpointServer:
     """Hosts checkpoints in host memory; every stored shard set stays
     registered for one-sided restore pulls.  Pulled shards are verified
-    on ``device`` (default the card)."""
+    on ``device`` (default the card).  With ``registry=`` the server
+    registers itself as an instance of service ``service`` so clients
+    can resolve it by name through the fabric."""
 
     def __init__(self, engine: Engine, registry: Optional[str] = None,
                  service: str = "ckpt", *, device="cuda"):
-        if registry is not None:
-            raise no_registry()
         self.device = resolve_device(device)
         self.engine = engine
         self.store: Dict[Tuple[str, int], dict] = {}  #: guarded-by _lock
@@ -90,6 +91,20 @@ class CheckpointServer:
         engine.register("ckpt.get", self._get)
         engine.register("ckpt.list", self._list)
         engine.register("ckpt.delete", self._delete)
+        self.instance = None
+        if registry is not None:
+            from ..fabric.registry import ServiceInstance
+            self.instance = ServiceInstance(
+                engine, registry, service,
+                load_fn=lambda: float(self._count()))
+
+    def _count(self) -> int:
+        with self._lock:
+            return len(self.store)
+
+    def close(self) -> None:
+        if self.instance is not None:
+            self.instance.close()
 
     # -- handlers (run on the engine's handler pool) -------------------------
     def _put(self, req):
@@ -153,17 +168,19 @@ class CheckpointClient:
     def __init__(self, engine: Engine, server_uri: Optional[str] = None,
                  registry: Optional[str] = None, service: str = "ckpt",
                  cache_ttl: float = 0.0):
-        """Address the server directly (``server_uri``).
+        """Address either directly (``server_uri``) or by service name
+        through the fabric registry (``registry=`` + ``service=``).
 
         ``cache_ttl > 0`` caches ``ckpt.list`` reads (DESIGN.md §9):
         the server has no epoch stream, so validity is TTL-bounded plus
         self-invalidation — this client's own ``save``/``delete`` drop
         the cache immediately (read-your-writes), while other writers'
         checkpoints appear within the TTL."""
-        if registry is not None:
-            raise no_registry()
         if server_uri is None:
-            raise ValueError("need server_uri")
+            if registry is None:
+                raise ValueError("need server_uri or registry")
+            from ..fabric.registry import resolve_service_uris
+            server_uri = resolve_service_uris(engine, registry, service)[0]
         self.engine = engine
         self.server = server_uri
         self.cache = ReadCache(ttl=cache_ttl)

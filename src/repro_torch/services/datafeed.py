@@ -22,7 +22,7 @@ import numpy as np
 
 from ..core.bulk import BulkDescriptor
 from ..core.executor import Engine
-from .base import alloc_from_manifest, manifest_of, no_registry
+from .base import alloc_from_manifest, manifest_of
 
 EAGER_LIMIT = 256 * 1024
 
@@ -37,10 +37,16 @@ class DataFeedServer:
         self._exposed = collections.OrderedDict()  #: guarded-by _lock
         self._keep = keep
         self._lock = threading.Lock()
-        if registry is not None:
-            raise no_registry()
         engine.register("feed.get", self._get)
         engine.register("feed.spec", self._spec)
+        self.instance = None
+        if registry is not None:
+            from ..fabric.registry import ServiceInstance
+            self.instance = ServiceInstance(engine, registry, service)
+
+    def close(self) -> None:
+        if self.instance is not None:
+            self.instance.close()
 
     def _spec(self, _req):
         b = self.source.batch_at(0)
@@ -74,11 +80,13 @@ class DataFeedClient:
     def __init__(self, engine: Engine, feeders: Optional[List[str]] = None,
                  depth: int = 2, registry: Optional[str] = None,
                  service: str = "feed"):
-        """``feeders`` is an explicit URI list."""
-        if registry is not None:
-            raise no_registry()
+        """``feeders`` is an explicit URI list, or pass ``registry=`` to
+        resolve every live instance of ``service`` by name."""
         if feeders is None:
-            raise ValueError("need feeders")
+            if registry is None:
+                raise ValueError("need feeders or registry")
+            from ..fabric.registry import resolve_service_uris
+            feeders = resolve_service_uris(engine, registry, service)
         self.engine = engine
         self.feeders = feeders
         self.depth = depth

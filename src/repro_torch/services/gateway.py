@@ -3,8 +3,10 @@ ported from ``src/repro/services/gateway.py`` onto the port's own RPC
 core and engine.
 
 RPCs:
-  ``gen.submit``   {tokens, max_new, temperature, eos_id
+  ``gen.submit``   {tokens, max_new, temperature, eos_id[, frontend]
                    [, session_id]} → {rid}      (non-blocking enqueue)
+                   ``frontend``: a VLM's patches or an encoder-decoder's
+                   frames, (frontend_seq, frontend_dim), read as f32
                    ``session_id`` keys the engine's KV-session table: a
                    follow-up turn whose prompt extends the cached history
                    resumes from the pinned KV instead of re-prefilling
@@ -137,12 +139,14 @@ class ServingGateway:
                              parallelism=max(s["n_slots"], 1))
 
     def _enqueue(self, req_in) -> Request:
+        fe = req_in.get("frontend")
         t0 = time.monotonic()
         req = self.serve.submit(
             np.asarray(req_in["tokens"], np.int32),
             max_new=int(req_in.get("max_new", 32)),
             temperature=float(req_in.get("temperature", 0.0)),
             eos_id=int(req_in.get("eos_id", -1)),
+            frontend=None if fe is None else np.asarray(fe, np.float32),
             session_id=req_in.get("session_id"))
         with self._lock:
             self.requests[req.rid] = req

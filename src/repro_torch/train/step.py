@@ -34,9 +34,12 @@ def stack_groups(model: Model, params) -> list:
     ``stacks``)."""
     pos = iter(range(len(leaves(params))))
     index = tree_map(lambda _: next(pos), params)
+
+    def layer(where, i):
+        return (index["layers"][i] if where == "layers"
+                else index["encoder"]["layers"][i])
     return [list(group) for layer_ids in model.stacked_layers()
-            for group in zip(*(leaves(index["layers"][i])
-                               for i in layer_ids))]
+            for group in zip(*(leaves(layer(*at)) for at in layer_ids))]
 
 
 def init_state(model: Model, opt_cfg: optim.OptConfig, seed: int = 0, *,
@@ -66,7 +69,8 @@ def make_train_step(model: Model, opt_cfg: optim.OptConfig,
                     par: ParallelConfig) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the state
     is updated in place and returned; ``batch`` holds ``tokens`` and
-    ``targets`` (B,S) on the state's device, B divisible by
+    ``targets`` (B,S) on the state's device (and ``frontend``
+    (B,F,frontend_dim) for a config with a frontend), B divisible by
     ``par.microbatches``."""
     n_micro = max(par.microbatches, 1)
 

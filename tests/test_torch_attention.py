@@ -8,6 +8,12 @@ of tests/test_kernels.py (2e-5 f32, 2e-2 bf16), and the device dispatch.
 On the card (``-m gpu``): the hand-written kernel against the plain
 version on the same inputs.
 
+``CROSS_CASES`` (kept apart from the reference's sweep) hold the cases
+the encoder-decoder and the VLM add: non-causal attention whose query
+length differs from its key length (cross attention in prefill, decode
+and training), non-causal self-attention (an encoder), and the prefix-LM
+mask at head_dim 256 with MQA 8/1 (paligemma-3b's heads).
+
 The card's machine has no JAX, so JAX is imported by the ``ref``
 fixture (the CPU parity tests skip without it) and not at the top."""
 from types import SimpleNamespace
@@ -31,6 +37,22 @@ ATTN_SWEEP = [
     (200, 200, 2, 2, 16, True, 0, 0.0, None, "float32"),
     (64, 64, 2, 2, 16, False, 0, 0.0, None, "float32"),
     (128, 128, 4, 2, 32, True, 0, 0.0, None, "bfloat16"),
+]
+# name, S, T, Hq, Hkv, D, causal, window, softcap, prefix, dtype: cross
+# attention with ragged query and key tiles (S 37 against T 100; a
+# decode query against 64 keys), an encoder's non-causal self-attention,
+# and paligemma's prefix-LM mask (MQA 8/1 at head_dim 256) over a prefix
+# that ends inside a tile
+CROSS_CASES = [
+    ("cross-s37-t100", 37, 100, 4, 2, 32, False, 0, 0.0, None, "float32"),
+    ("cross-s10-t64-g1", 10, 64, 4, 4, 64, False, 0, 0.0, None, "float32"),
+    ("cross-s1-t64", 1, 64, 4, 4, 64, False, 0, 0.0, None, "float32"),
+    ("cross-s37-t100-bf16", 37, 100, 4, 2, 32, False, 0, 0.0, None,
+     "bfloat16"),
+    ("encoder-s100", 100, 100, 4, 4, 64, False, 0, 0.0, None, "float32"),
+    ("prefix-d256-mqa", 90, 90, 8, 1, 256, True, 0, 0.0, 40, "float32"),
+    ("prefix-d256-mqa-bf16", 90, 90, 8, 1, 256, True, 0, 0.0, 40,
+     "bfloat16"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # on the card the kernel sums in another order than the plain version
@@ -125,6 +147,22 @@ def test_plain_decode_matches_xla_decode(case, ref):
     _check(got, want, dt)
 
 
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+def test_plain_cross_and_prefix_match_reference(case, ref):
+    """The plain version against the Pallas kernel in interpret mode and
+    against the oracle ``ref.attention_ref`` on CROSS_CASES."""
+    from repro.kernels.ref import attention_ref
+    _, S, T, Hq, Hkv, D, causal, window, softcap, prefix, dt = case
+    q, k, v = _data(7, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix)
+    jq, jk, jv = (ref.arr(a, dt) for a in (q, k, v))
+    got = attention_plain(_torch(q, dt), _torch(k, dt), _torch(v, dt), **kw)
+    _check(got, ref.flash_attention(jq, jk, jv, interpret=True, block_q=64,
+                                    block_k=64, **kw), dt)
+    _check(got, attention_ref(jq, jk, jv, **kw), dt)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = _data(4, (1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 2, 16))
     before = attention.launches
@@ -190,6 +228,33 @@ def test_kernel_matches_plain_on_card(case, dt):
     assert attention.launches == before + 1
     _check(got, attention_plain(q, k, v, **kw).float().cpu().numpy(), dt,
            GPU_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+def test_cross_and_prefix_kernel_match_plain_on_card(case, dt):
+    """CROSS_CASES on the card, the kernel at plan's splits against the
+    plain version; cross attention at offset 0 (an int, as the models
+    pass it) and, for one query (decode), with the serving path's (B,)
+    offset tensor of zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
+    q, k, v = (_torch(a, dt, "cuda") for a in _data(
+        8, (B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    offsets = [0] + ([torch.zeros(B, dtype=torch.int32, device="cuda")]
+                     if S == 1 else [])
+    for off in offsets:
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=off, prefix_len=prefix)
+        before = attention.launches
+        got = attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert attention.launches == before + 1
+        _check(got, attention_plain(q, k, v, **kw).float().cpu().numpy(),
+               dt, GPU_TOL)
 
 
 # the main paths' bf16 shapes on the tensor-core kernel: (name, B, S, T,

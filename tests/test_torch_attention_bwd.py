@@ -31,6 +31,17 @@ CASES = [
     ("g3-d64-prefix", 6, 2, 64, True, 0, 0.0, 6),
     ("g1-d64-full", 4, 4, 64, False, 0, 0.0, None),
 ]
+# the cases the encoder-decoder and the VLM add, kept apart from CASES
+# (chip_smoke.py's BWD_SWEEP mirrors those): name, Hq, Hkv, D, causal,
+# window, softcap, prefix, T.  Cross attention's S queries against T
+# keys, more (ragged tiles on both axes) and fewer; an encoder's
+# non-causal self-attention; paligemma's prefix-LM at MQA 8/1 of 256
+CROSS_CASES = [
+    ("cross-g1-d64-t50", 4, 4, 64, False, 0, 0.0, None, 50),
+    ("cross-g3-d64-t9", 6, 2, 64, False, 0, 0.0, None, 9),
+    ("encoder-g1-d64", 4, 4, 64, False, 0, 0.0, None, 21),
+    ("prefix-g8-d256", 8, 1, 256, True, 0, 0.0, 12, 21),
+]
 B, S = 2, 21
 F32_TOL = 1e-5
 BF16_REL = 2e-2
@@ -62,7 +73,7 @@ def _inputs(case, seed=0, T=S):
 
 
 def _kw(case):
-    _, _, _, _, causal, window, softcap, prefix = case
+    _, _, _, _, causal, window, softcap, prefix = case[:8]
     return dict(causal=causal, window=window, softcap=softcap,
                 prefix_len=prefix)
 
@@ -106,6 +117,22 @@ def test_backward_matches_jax_vjp_and_autograd(ref, case, how, dt):
     assert all(g.dtype == getattr(torch, dt) for g in got)
     _close(got, ref(q, k, v, do, dt, **kw), dt)
     # autograd through the plain forward on the same inputs
+    tq, tk, tv = (_t(a, dt, grad=True) for a in (q, k, v))
+    want = torch.autograd.grad(fa.attention_plain(tq, tk, tv, **kw),
+                               (tq, tk, tv), _t(do, dt))
+    _close(got, [w.float().numpy() for w in want], dt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("how", ["bwd_plain", "function"])
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+def test_cross_and_prefix_backward_match_jax_vjp(ref, case, how, dt):
+    """CROSS_CASES: the plain backward and ``AttentionFunction`` against
+    ``jax.vjp`` of the oracle and autograd through the plain forward."""
+    q, k, v, do = _inputs(case, seed=4, T=case[8])
+    kw = _kw(case)
+    got = _by(how, *(_t(a, dt) for a in (q, k, v, do)), kw)
+    _close(got, ref(q, k, v, do, dt, **kw), dt)
     tq, tk, tv = (_t(a, dt, grad=True) for a in (q, k, v))
     want = torch.autograd.grad(fa.attention_plain(tq, tk, tv, **kw),
                                (tq, tk, tv), _t(do, dt))
@@ -236,6 +263,30 @@ def test_forward_lse_on_card(case, dt, n_split):
     want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
     _card_close([o], [want_o], dt)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+def test_cross_and_prefix_bwd_kernels_match_plain_on_card(case, dt):
+    """CROSS_CASES on the card: the forward kernel's o and lse (unsplit,
+    and at 2 key splits in bf16), then the backward kernels on them,
+    against the plain versions."""
+    q, k, v, do = _card(dt, *_inputs(case, seed=4, T=case[8]))
+    kw = _kw(case)
+    want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
+    for n_split in ((1, 2) if dt == "bfloat16" else (1,)):
+        o, lse = fa._attention_cuda(q, k, v, n_split=n_split,
+                                    with_lse=True, **kw)
+        torch.cuda.synchronize()
+        _card_close([o], [want_o], dt)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    before = fa.attention_bwd.launches
+    got = fa.attention_bwd(q, k, v, want_o, want_lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.attention_bwd.launches == before + 1
+    _card_close(got, fa.attention_bwd_plain(q, k, v, want_o, want_lse, do,
+                                            **kw), dt)
 
 
 @pytest.mark.gpu

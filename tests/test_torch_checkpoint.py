@@ -1,6 +1,7 @@
 """The port's checkpoint path: Fletcher-64 (repro_torch.kernels.fletcher),
 the named-buffer codecs and manifests (repro_torch.services.base), the
-checkpoint and datafeed services, and ``replicated_call``.
+checkpoint and datafeed services (found by name through the port's
+fabric registry or the reference's), and ``replicated_call``.
 
 On the CPU: ``fletcher64_plain`` equals ``ref.fletcher64_ref`` and
 ``ops.fletcher64(impl="xla")`` exactly, so does the batch's plain
@@ -414,15 +415,89 @@ def test_services_do_not_fall_back_to_the_cpu(tcp_pair):
         cli.restore("m", {"x": np.zeros(4, np.float32)})
 
 
+class _Source:
+    def batch_at(self, step):
+        return {"tokens": np.full((2, 4), step, np.int32)}
+
+
 def test_registry_is_not_ported(tcp_pair):
+    """Registration is ported (the name is historical): servers given
+    ``registry=`` register with the port's RegistryService, clients given
+    ``registry=`` resolve them by service name, and ``close()``
+    deregisters them."""
+    from repro_torch.fabric import RegistryClient, RegistryService
     srv, cli_e = tcp_pair
-    for make in (lambda: CheckpointServer(srv, registry="tcp://x:1",
-                                          device="cpu"),
-                 lambda: CheckpointClient(cli_e, registry="tcp://x:1"),
-                 lambda: DataFeedServer(srv, None, registry="tcp://x:1"),
-                 lambda: DataFeedClient(cli_e, registry="tcp://x:1")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            make()
+    with Engine("tcp://127.0.0.1:0") as reg_e:
+        reg = RegistryService(reg_e)
+        try:
+            server = CheckpointServer(srv, registry=reg_e.uri, device="cpu")
+            feeder = DataFeedServer(srv, _Source(), registry=reg_e.uri)
+            cli = CheckpointClient(cli_e, registry=reg_e.uri)
+            feed = DataFeedClient(cli_e, registry=reg_e.uri)
+            assert cli.server == srv.uri and feed.feeders == [srv.uri]
+            cli.save("m", 1, {"x": np.arange(4, dtype=np.float32)})
+            assert [c["step"] for c in cli.list()] == [1]
+            assert int(feed.get(3)["tokens"][0, 0]) == 3
+            for s in (server, feeder):
+                s.close()
+            view = RegistryClient(cli_e, reg_e.uri)
+            assert view.resolve("ckpt")["instances"] == []
+            assert view.resolve("feed")["instances"] == []
+            with pytest.raises(MercuryError):
+                CheckpointClient(cli_e, registry=reg_e.uri)
+        finally:
+            reg.close()
+
+
+@pytest.mark.parametrize("side", ["port", "reference"])
+def test_trainer_finds_its_services_by_name(side):
+    """A trainer resolves its feeder and its checkpoint server by service
+    name, through the port's registry or the reference's (over tcp), then
+    trains reduced qwen two steps on the fed batches and saves."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticSource
+    from repro_torch.models import Model
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    if side == "port":
+        from repro_torch.fabric import RegistryService
+        reg_engine = Engine("tcp://127.0.0.1:0")
+    else:
+        pytest.importorskip("jax")
+        from repro.core.executor import Engine as JEngine
+        from repro.fabric import RegistryService
+        reg_engine = JEngine("tcp://127.0.0.1:0")
+    cfg = configs.reduced("qwen1.5-0.5b")
+    with reg_engine as reg_e, Engine("tcp://127.0.0.1:0") as srv, \
+            Engine("tcp://127.0.0.1:0") as trainer:
+        reg = RegistryService(reg_e)
+        try:
+            server = CheckpointServer(srv, registry=reg_e.uri,
+                                      service="ckpt-t", device="cpu")
+            feeder = DataFeedServer(srv, SyntheticSource(cfg.vocab, 16, 2),
+                                    registry=reg_e.uri, service="feed-t")
+            feed = DataFeedClient(trainer, registry=reg_e.uri,
+                                  service="feed-t")
+            cli = CheckpointClient(trainer, registry=reg_e.uri,
+                                   service="ckpt-t")
+            model = Model(cfg)
+            ocfg = optim.OptConfig(lr=1e-3, warmup=0, decay_steps=10)
+            state = init_state(model, ocfg, 0, device="cpu")
+            step = make_train_step(model, ocfg, ParallelConfig(remat="none"))
+            losses = []
+            for i in range(2):
+                raw = feed.get(i)
+                state, met = step(state, {k: torch.tensor(raw[k])
+                                          for k in ("tokens", "targets")})
+                losses.append(float(met["loss"]))
+            cli.save(cfg.name, 2, state)
+            assert [c["step"] for c in cli.list()] == [2]
+            assert all(np.isfinite(losses))
+            server.close()
+            feeder.close()
+        finally:
+            reg.close()
 
 
 # ---------------------------------------------------------------------------

@@ -115,7 +115,7 @@ class FakeServe:
         self._lock = threading.Lock()
 
     def submit(self, tokens, max_new=32, temperature=0.0, eos_id=-1,
-               on_token=None, session_id=None):
+               frontend=None, on_token=None, session_id=None):
         with self._lock:
             self._rid += 1
             req = Request(self._rid, np.asarray(tokens, np.int32), max_new)

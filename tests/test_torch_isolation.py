@@ -37,7 +37,13 @@ SLICE_MODULES = {
     "repro_torch.fabric.affinity", "repro_torch.services.membership",
     "repro_torch.analysis.lockdep", "repro_torch.train.optim",
     "repro_torch.train.step", "repro_torch.data.pipeline",
-    "repro_torch.launch.train"}
+    "repro_torch.launch.train",
+    # the encoder-decoder and VLM slice: the models with their frontends,
+    # encoder and cross attention, serving and the services found by name
+    "repro_torch.models.transformer", "repro_torch.models.attention",
+    "repro_torch.models.bridge", "repro_torch.models.common",
+    "repro_torch.serve.engine", "repro_torch.services.gateway",
+    "repro_torch.services.datafeed", "repro_torch.fabric.registry"}
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -8,7 +8,11 @@ and the SSD and RG-LRU states and conv tails) of ``prefill``,
 the cache end, where the reference clamps the write) and ``decode_step``
 (scalar and (B,) positions, and a (B,) write past the cache that the
 reference drops) must agree to 1e-4 abs/rel: both sides are f32 on the
-CPU, with the operations in another order."""
+CPU, with the operations in another order.  paligemma-3b (a VLM: seeded
+patches before the text, the prefix-LM mask over them) and
+seamless-m4t-large-v2 (an encoder-decoder: seeded frames through the
+encoder, cross attention in every decoder layer, its K/V in the cache)
+are held the same way with their frontends."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,8 @@ RECURRENT_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b"]
 ARCHS = ["qwen1.5-0.5b", "gemma3-12b"] + MOE_ARCHS + RECURRENT_ARCHS
 # command-r: parallel block; nemotron: squared-ReLU MLP, untied head
 PREFILL_ARCHS = ARCHS + ["command-r-35b", "nemotron-4-340b"]
+# paligemma: VLM, prefix-LM, MQA; seamless: encoder-decoder, QKV biases
+FRONTEND_ARCHS = ["paligemma-3b", "seamless-m4t-large-v2"]
 B = 2
 
 
@@ -276,8 +282,122 @@ def test_recurrent_state_stays_f32_in_a_bf16_cache():
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paligemma-3b"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.reduced(arch))
+    """The two families the port once refused now construct (the name is
+    historical): seeded weights with the frontend projection, the
+    encoder and the decoder's cross layers for an encoder-decoder; the
+    cross K/V stacks in the cache; no chunked prefill, as the
+    reference."""
+    cfg = configs.reduced(arch)
+    m = Model(cfg)
+    p = m.init(0, device="cpu")
+    assert p["embed"]["frontend_proj"].shape == (cfg.frontend_dim,
+                                                 cfg.d_model)
+    encdec = cfg.n_enc_layers > 0
+    assert m.is_encdec == encdec
+    assert ("encoder" in p) == encdec
+    assert all(("cross" in layer) == encdec for layer in p["layers"])
+    if encdec:
+        assert len(p["encoder"]["layers"]) == cfg.n_enc_layers
+    c = m.cache_specs(B, 32, dtype=torch.float32, device="cpu")
+    want = {"k", "v"} | ({"cross_k", "cross_v"} if encdec else set())
+    assert set(c) == want
+    if encdec:
+        assert c["cross_k"].shape == (cfg.n_layers, B, cfg.frontend_seq,
+                                      cfg.n_kv_heads, cfg.hd)
+    assert not m.supports_chunked_prefill
+
+
+def _frontend(cfg, seed=0):
+    return (np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_seq, cfg.frontend_dim)) * 0.1).astype(np.float32)
+
+
+def _span(cfg):
+    """Positions the frontend takes before the text: a VLM's patches."""
+    return cfg.frontend_seq if cfg.family == "vlm" else 0
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_prefill_matches_reference(pairs, arch):
+    """Prefill with a frontend: the logits and the whole cache (the
+    patches' and the text's K/V; the encoder-decoder's cross K/V of
+    every decoder layer)."""
+    pr = pairs(arch)
+    toks, fe = _toks(12, pr.cfg.vocab), _frontend(pr.cfg)
+    jl, jc = pr.jm.prefill(pr.jp, {"tokens": jnp.asarray(toks),
+                                   "frontend": jnp.asarray(fe)},
+                           cache_len=48, impl="xla")
+    tl, tc = pr.tm.prefill(pr.tp, torch.from_numpy(toks), cache_len=48,
+                           frontend=torch.from_numpy(fe))
+    _close(tl, jl)
+    _check_cache(pr, tc, jc)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+@pytest.mark.parametrize("pos", ["scalar", "vector"])
+def test_frontend_decode_matches_reference(pairs, arch, pos):
+    """Decode after a prefill with a frontend, at a scalar position and
+    at per-row positions: cross attention reads the cache's K/V."""
+    pr = pairs(arch)
+    S = 12
+    at = _span(pr.cfg) + S
+    toks, fe = _toks(S + 1, pr.cfg.vocab, seed=2), _frontend(pr.cfg, 1)
+    p = at if pos == "scalar" else np.asarray([at, at - 3], np.int32)
+    _, jc = pr.jm.prefill(pr.jp, {"tokens": jnp.asarray(toks[:, :S]),
+                                  "frontend": jnp.asarray(fe)},
+                          cache_len=48, impl="xla")
+    _, tc = pr.tm.prefill(pr.tp, torch.from_numpy(toks[:, :S]),
+                          cache_len=48, frontend=torch.from_numpy(fe))
+    jl, jc = pr.jm.decode_step(pr.jp, jc, jnp.asarray(toks[:, S:]),
+                               jnp.asarray(p, jnp.int32), impl="xla")
+    tl, tc = pr.tm.decode_step(pr.tp, tc, torch.from_numpy(toks[:, S:]),
+                               torch.as_tensor(p, dtype=torch.int32))
+    _close(tl, jl)
+    _check_cache(pr, tc, jc)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_decode_matches_prefill(pairs, arch):
+    """Decode steps after a prefill give a longer prefill's logits (the
+    port's own consistency, as tests/test_models.py's)."""
+    pr = pairs(arch)
+    S, EXT = 10, 3
+    toks = torch.from_numpy(_toks(S + EXT, pr.cfg.vocab, seed=3))
+    fe = torch.from_numpy(_frontend(pr.cfg, 2))
+    lg, cache = pr.tm.prefill(pr.tp, toks[:, :S], cache_len=48, frontend=fe)
+    want, _ = pr.tm.prefill(pr.tp, toks, cache_len=48, frontend=fe)
+    for i in range(EXT):
+        lg, cache = pr.tm.decode_step(pr.tp, cache,
+                                      toks[:, S + i:S + i + 1],
+                                      _span(pr.cfg) + S + i)
+    np.testing.assert_allclose(lg.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_bridge_unstacks_the_encoder_in_layer_order():
+    """seamless-m4t-large-v2 at full depth: the reference's
+    ``encoder.stack`` (24 layers) comes out as ``encoder.layers`` in
+    layer order beside its final norm, and the decoder layers keep their
+    cross subtrees."""
+    cfg = configs.get("seamless-m4t-large-v2")
+    n, e = cfg.n_layers, cfg.n_enc_layers
+
+    def block(idx, cross):
+        b = {"norm1": idx, "attn": {"w": idx}}
+        if cross:
+            b.update(cross={"w": idx}, cross_norm=idx)
+        return b
+    tree = {"embed": {"embedding": np.zeros((2, 2), np.float32),
+                      "frontend_proj": np.zeros((3, 2), np.float32)},
+            "periods": (block(np.arange(n), True),), "trailing": (),
+            "final_norm": np.zeros(2, np.float32),
+            "encoder": {"stack": block(100 + np.arange(e), False),
+                        "final_norm": np.full(2, 7.0, np.float32)}}
+    p = params_from_numpy(tree, device="cpu")
+    assert [int(x["cross"]["w"]) for x in p["layers"]] == list(range(n))
+    assert [int(x["attn"]["w"]) for x in p["encoder"]["layers"]] == \
+        list(range(100, 100 + e))
+    assert float(p["encoder"]["final_norm"][0]) == 7.0
+    assert p["embed"]["frontend_proj"].shape == (3, 2)
 
 
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)

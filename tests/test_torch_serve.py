@@ -7,9 +7,12 @@ prefill, ``chunk_tokens=8``, session resume, stale prefix, continuous
 batching over ``n_slots=2``, and a padded last chunk that crosses the
 cache end — with an f32 cache and f32 compute; and for the recurrent
 models (mamba2, recurrentgemma), whose engines turn chunking and
-sessions off, including prompts shorter than the conv tail.  Then
-port-side mirrors of the engine tests of tests/test_serve_sessions.py
-and of ``test_gateway_tcp_end_to_end``."""
+sessions off, including prompts shorter than the conv tail; and for
+paligemma-3b and seamless-m4t-large-v2 with seeded frontends (patches,
+frames), whose requests prefill whole.  Then port-side mirrors of the
+engine tests of tests/test_serve_sessions.py and of
+``test_gateway_tcp_end_to_end``, and a reference client submitting a
+frontend to the port's gateway over tcp."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -230,6 +233,114 @@ def test_one_row_conv_tail_keeps_the_slots_other_rows(recurrent_models):
     assert torch.equal(eng.cache["ssd_h"][:, 1], cache1["ssd_h"][:, 0])
 
 
+FRONTEND_ARCHS = ["paligemma-3b", "seamless-m4t-large-v2"]
+
+
+@pytest.fixture(scope="module")
+def frontend_models():
+    """arch -> reduced paligemma / seamless on both sides, with the same
+    weights, built on first use."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jm = JModel(jconfigs.reduced(arch).replace(
+                compute_dtype="float32"))
+            jp, _ = unzip(jm.init(jax.random.PRNGKey(0)))
+            tm = Model(configs.reduced(arch).replace(
+                compute_dtype="float32"))
+            tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   device="cpu")
+            made[arch] = (jm, jp, tm, tp)
+        return made[arch]
+    return get
+
+
+def _frontends(cfg, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((cfg.frontend_seq, cfg.frontend_dim))
+             * 0.1).astype(np.float32) for _ in range(n)]
+
+
+def _with_frontends(eng):
+    # three requests over two slots (continuous batching), then a
+    # request whose session id the engine drops
+    cfg = eng.model.cfg
+    fes = _frontends(cfg, 4)
+    out = eng.generate([np.arange(1, 7), np.arange(3, 13), np.arange(2, 7)],
+                       max_new=6, frontends=fes[:3])
+    out += eng.generate([np.arange(4, 12)], max_new=4, frontends=fes[3:],
+                        session_ids=["s"])
+    return out + [[eng.stats()["pinned_sessions"]]]
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_greedy_streams_match_reference(frontend_models, arch):
+    """Greedy streams of requests with frontends through reduced
+    paligemma (patches before the text, the prefix-LM mask) and
+    seamless (frames through the encoder, cross attention), then the
+    whole slot cache (self and cross K/V; 1e-4, f32 on both sides).
+    Chunking and sessions are asked for; both engines turn them off
+    (neither model chunks) and a frontend request keeps no session."""
+    from test_torch_model import jstacks
+    jm, jp, tm, tp = frontend_models(arch)
+    kw = dict(max_len=64, n_slots=2, chunk_tokens=8, session_cap=4)
+    jeng = JServeEngine(jm, jp, cache_dtype=jnp.float32, **kw)
+    teng = ServeEngine(tm, tp, cache_dtype=torch.float32, device="cpu", **kw)
+    assert _with_frontends(teng) == _with_frontends(jeng)
+    for key in ("chunk_tokens", "session_capacity"):
+        assert teng.stats()[key] == jeng.stats()[key] == 0
+    want = jstacks(tm.kinds, len(tm.cfg.period), jeng.cache)
+    assert set(teng.cache) == set(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(teng.cache[key].numpy(), w, rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_encdec_decode_position_quirk(frontend_models):
+    """The reference's engine starts an encoder-decoder's decode at
+    ``len(prompt) + frontend_seq``, though its decoder wrote
+    self-attention K/V only at ``0..len(prompt)-1``: each decode step
+    attends to ``frontend_seq`` zero K/V rows between them, which weigh
+    in the softmax.  The port mirrors it: the same tokens, the same
+    empty rows in the slot's cache, the first decode write at
+    ``len + F``; and the quirk is real: decode at ``len`` gives other
+    logits."""
+    jm, jp, tm, tp = frontend_models("seamless-m4t-large-v2")
+    cfg = tm.cfg
+    prompt, fe = np.arange(1, 9), _frontends(cfg, 1, seed=5)[0]
+    jeng = JServeEngine(jm, jp, cache_dtype=jnp.float32, max_len=64,
+                        n_slots=1)
+    teng = make_engine(tm, tp, n_slots=1)
+    got = teng.generate([prompt], max_new=3, frontends=[fe])
+    assert got == jeng.generate([prompt], max_new=3, frontends=[fe])
+    n, F = len(prompt), cfg.frontend_seq
+    k = teng.cache["k"][:, 0]                      # (layers, T, Hkv, D)
+    assert bool((k[:, n:n + F] == 0).all())
+    assert bool((k[:, n + F].abs() > 0).any())     # the first decode write
+    # the same first decode step at position len(prompt) instead
+    toks = torch.from_numpy(prompt[None].astype(np.int32))
+    fe_t = torch.from_numpy(fe[None])
+    tok = torch.tensor([[got[0][0]]], dtype=torch.int32)
+    logits = []
+    for pos in (n + F, n):
+        _, cache = tm.prefill(tp, toks, cache_len=64, frontend=fe_t)
+        logits.append(tm.decode_step(tp, cache, tok, pos)[0])
+    assert float((logits[0] - logits[1]).abs().max()) > 1e-3
+
+
+def test_encdec_request_needs_a_frontend(frontend_models):
+    """An encoder-decoder request without its frames is refused at
+    submit, before it reaches the step loop."""
+    _, _, tm, tp = frontend_models("seamless-m4t-large-v2")
+    eng = make_engine(tm, tp, n_slots=1)
+    with pytest.raises(ValueError, match="needs its frontend"):
+        eng.submit(np.arange(1, 5), max_new=2)
+    assert eng.pending() == 0
+    with pytest.raises(ValueError, match="takes a frontend"):
+        tm.prefill(tp, torch.ones((1, 3), dtype=torch.int32))
+
+
 def test_greedy_takes_the_first_maximum(models):
     """As jnp.argmax: ties go to the lowest index."""
     _, _, m, params = models
@@ -432,6 +543,31 @@ def test_reference_client_reaches_the_port_over_tcp(models):
             assert out["done"] and len(out["tokens"]) == 5
         finally:
             gw.stop()
+
+
+def test_reference_client_submits_a_frontend_over_tcp(frontend_models):
+    """A reference client's ``gen.submit`` carrying a frontend (numpy f32
+    on the wire) reaches the port's gateway over tcp; the tokens equal
+    those of the port's engine given the same frontend directly."""
+    from repro.core.executor import Engine as JEngine
+    _, _, tm, tp = frontend_models("paligemma-3b")
+    fe = _frontends(tm.cfg, 1, seed=7)[0]
+    want = make_engine(tm, tp, n_slots=2).generate([[1, 2, 3]], max_new=5,
+                                                   frontends=[fe])[0]
+    with Engine("tcp://127.0.0.1:0") as srv, \
+            JEngine("tcp://127.0.0.1:0") as cli:
+        gw = ServingGateway(srv, make_engine(tm, tp, n_slots=2))
+        try:
+            rid = cli.call(srv.uri, "gen.submit",
+                           {"tokens": [1, 2, 3], "max_new": 5,
+                            "frontend": fe.astype(np.float64)},
+                           timeout=120.0)["rid"]
+            res = cli.call(srv.uri, "gen.result",
+                           {"rid": rid, "wait": True, "timeout": 60.0},
+                           timeout=120.0)
+        finally:
+            gw.stop()
+    assert res["done"] and res["tokens"] == want
 
 
 def test_gateway_fabric_registration_is_not_ported(models):

@@ -26,7 +26,14 @@ same numpy batches:
   ``tests/test_serve_and_train.py`` through the port's
   ``CheckpointClient``, and the launcher on the CPU (qwen, mamba2 and
   recurrentgemma);
-- two runs of reduced recurrentgemma's gradients are bitwise equal.
+- two runs of reduced recurrentgemma's gradients are bitwise equal;
+- reduced paligemma-3b (seeded patches before the text under the
+  prefix-LM mask, the targets padded with -1 over them) and
+  seamless-m4t-large-v2 (seeded frames through the encoder, cross
+  attention in every decoder layer) the same way: the loss, every
+  gradient leaf (the frontend projection's and the encoder's too), the
+  5-step AdamW trajectory (the encoder's stacked leaves decay as the
+  reference's) and the launcher.
 """
 import functools
 
@@ -69,10 +76,27 @@ def _port(tree):
     return params_from_numpy(_np_tree(tree), device="cpu")
 
 
-def _batch(seed, vocab, b=B, s=S):
+def _batch(seed, vocab, b=B, s=S, cfg=None):
+    """Seeded tokens and targets; for a ``cfg`` with a frontend also its
+    seeded ``frontend``, and a VLM's targets padded with -1 over the
+    patches, as the launchers pad them."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (b, s + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg is not None and cfg.frontend != "none":
+        batch["frontend"] = (rng.standard_normal(
+            (b, cfg.frontend_seq, cfg.frontend_dim)) * 0.1).astype(
+                np.float32)
+    if cfg is not None and cfg.family == "vlm":
+        batch["targets"] = np.concatenate(
+            [np.full((b, cfg.frontend_seq), -1, np.int32),
+             batch["targets"]], axis=1)
+    return batch
+
+
+def _span(cfg):
+    """Target positions before the text: a VLM's patches."""
+    return cfg.frontend_seq if cfg.family == "vlm" else 0
 
 
 def _tbatch(batch):
@@ -98,13 +122,13 @@ def pair():
 # the architectures trained here: qwen's cases keep their first ids
 MOE_ARCH, SSM_ARCH = "granite-moe-3b-a800m", "mamba2-1.3b"
 HYBRID_ARCH = "recurrentgemma-9b"
+VLM_ARCH, ENCDEC_ARCH = "paligemma-3b", "seamless-m4t-large-v2"
+OTHER_ARCHS = (MOE_ARCH, SSM_ARCH, HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH)
 ARCH_REMAT = [pytest.param(ARCH, r, id=r) for r in ("none", "block")] + [
-    pytest.param(a, r, id=f"{a}-{r}") for a in (MOE_ARCH, SSM_ARCH,
-                                                HYBRID_ARCH)
+    pytest.param(a, r, id=f"{a}-{r}") for a in OTHER_ARCHS
     for r in ("none", "block")]
 ARCH_WD = [pytest.param(ARCH, wd, id=str(wd)) for wd in (0.1, 0.0)] + [
-    pytest.param(a, 0.1, id=f"{a}-0.1") for a in (MOE_ARCH, SSM_ARCH,
-                                                  HYBRID_ARCH)]
+    pytest.param(a, 0.1, id=f"{a}-0.1") for a in OTHER_ARCHS]
 # The reference's kernels path for each model.  mamba2's is its SSD
 # oracle (``ref.ssd_ref``, the sequential scan), not the chunked XLA
 # form: that one exponentiates differences of f32 cumulative sums and
@@ -114,7 +138,8 @@ ARCH_WD = [pytest.param(ARCH, wd, id=str(wd)) for wd in (0.1, 0.0)] + [
 # plain backward (``tools/cpu_tolerance_scan.py``'s ORACLE lines).
 # recurrentgemma's associative scan (``ops._rglru_assoc``) agrees with
 # its sequential oracle to 1.4e-6 of each gradient leaf's largest entry.
-JIMPL = {ARCH: "xla", MOE_ARCH: "xla", SSM_ARCH: "ref", HYBRID_ARCH: "xla"}
+JIMPL = {ARCH: "xla", MOE_ARCH: "xla", SSM_ARCH: "ref", HYBRID_ARCH: "xla",
+         VLM_ARCH: "xla", ENCDEC_ARCH: "xla"}
 # The trajectories' gradient norm at each step.  AdamW's step is about
 # lr whatever the gradient's size, so an element whose gradient lies near
 # eps parts by up to lr between the two sides after one step; from then
@@ -125,10 +150,24 @@ JIMPL = {ARCH: "xla", MOE_ARCH: "xla", SSM_ARCH: "ref", HYBRID_ARCH: "xla"}
 # recurrentgemma (7.5e-7 at most over 12 draws); the loss at 1e-4 and
 # every parameter leaf within lr / 2 hold for all four.
 GRAD_NORM_RTOL = {ARCH: 1e-5, MOE_ARCH: 1e-4, SSM_ARCH: 1e-4,
-                  HYBRID_ARCH: 1e-5}
+                  HYBRID_ARCH: 1e-5, VLM_ARCH: 1e-5, ENCDEC_ARCH: 1e-5}
+
+
+def _zero_grads(grads) -> list:
+    """Pop the gradient leaves that are zero in exact arithmetic: the key
+    bias of cross attention (no RoPE: q . bk adds the same logit to every
+    key of a query, which the softmax cancels), rounding noise on both
+    sides."""
+    return [layer["cross"].pop("bk") for layer in grads["layers"]
+            if "bk" in layer.get("cross", {})]
 
 
 def _leaf_close(got, want, rel=1e-4):
+    zeros = _zero_grads(got) + _zero_grads(want)
+    if zeros:
+        # noise far below every other leaf's gradient, on both sides
+        top = max(float(w.abs().max()) for w in leaves(want))
+        assert max(float(z.abs().max()) for z in zeros) <= 1e-6 * top
     for g, w in zip(leaves(got), leaves(want)):
         assert g.shape == w.shape
         scale = float(w.abs().max())
@@ -139,8 +178,9 @@ def _leaf_close(got, want, rel=1e-4):
 @pytest.mark.parametrize("arch,remat", ARCH_REMAT)
 def test_loss_and_gradients_match_reference(arch, remat):
     jm, jp, tm, tp = _pair(arch)
-    batch = _batch(0, tm.cfg.vocab)
-    batch["targets"][0, :5] = -1            # ignored positions count too
+    batch = _batch(0, tm.cfg.vocab, cfg=tm.cfg)
+    at = _span(tm.cfg)
+    batch["targets"][0, at:at + 5] = -1     # ignored positions count too
 
     def jloss(params):
         return jm.loss_fn(params, {k: jnp.asarray(v) for k, v in
@@ -332,7 +372,7 @@ def _run_both(pair, ocfg, steps, microbatches=1, b=B):
     step = make_train_step(tm, optim.OptConfig(**ocfg),
                            ParallelConfig(**par))
     for i in range(steps):
-        batch = _batch(100 + i, tm.cfg.vocab, b=b)
+        batch = _batch(100 + i, tm.cfg.vocab, b=b, cfg=tm.cfg)
         jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
                                       for k, v in batch.items()})
         state, met = step(state, _tbatch(batch))
@@ -349,7 +389,11 @@ def _params_close(got, want, lr):
     mean, so an element whose gradient is near 0 (summed in another order
     on each side) may part by a fraction of lr (up to 0.1 lr seen); a
     wrong rule moves a whole leaf (the norm scales without their decay:
-    0.45 lr over 5 steps)."""
+    0.45 lr over 5 steps).  A leaf whose gradient is zero in exact
+    arithmetic (``_zero_grads``) moves by AdamW's reading of rounding
+    noise on each side: it is held to the element bound alone."""
+    for g, w in zip(_zero_grads(got), _zero_grads(want)):
+        assert float((g - w).abs().max()) <= lr / 2
     for g, w in zip(leaves(got), leaves(want)):
         d = (g - w).abs()
         assert float(d.mean()) <= lr / 50 and float(d.max()) <= lr / 2, \
@@ -395,13 +439,15 @@ def test_adafactor_trajectory_matches_reference(pair):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-moe-16b",
-                                  "recurrentgemma-9b", MOE_ARCH, SSM_ARCH])
+                                  "recurrentgemma-9b", MOE_ARCH, SSM_ARCH,
+                                  VLM_ARCH, ENCDEC_ARCH])
 def test_stack_groups_are_the_reference_stacks(arch):
     """The leaves that ``stack_groups`` puts together are those that the
     bridge cuts out of one stacked reference tensor: each leaf of the
-    reference's scanned periods filled with its own number and every
-    other leaf with 0, carried over, groups by number (deepseek's dense
-    layer 0 and a partial trailing period stand alone)."""
+    reference's scanned periods (and of an encoder-decoder's
+    ``encoder.stack``) filled with its own number and every other leaf
+    with 0, carried over, groups by number (deepseek's dense layer 0 and
+    a partial trailing period stand alone)."""
     jm = JModel(jconfigs.reduced(arch))
     shapes, _ = unzip(jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
     ids = iter(range(1, 1 << 20))
@@ -410,6 +456,10 @@ def test_stack_groups_are_the_reference_stacks(arch):
     labelled["periods"] = jax.tree_util.tree_map(
         lambda x: np.full(x.shape, next(ids), np.float32),
         shapes["periods"])
+    if "encoder" in shapes:
+        labelled["encoder"]["stack"] = jax.tree_util.tree_map(
+            lambda x: np.full(x.shape, next(ids), np.float32),
+            shapes["encoder"]["stack"])
     tree = params_from_numpy(labelled, device="cpu")
     by_id = {}
     for pos, leaf in enumerate(leaves(tree)):
@@ -519,6 +569,25 @@ def test_launcher_trains_recurrentgemma_on_the_cpu(capsys):
     assert len(out["losses"]) == 2 and np.all(np.isfinite(out["losses"]))
     assert [c["step"] for c in out["checkpoints"]] == [2]
     assert "tok/s" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", [VLM_ARCH, ENCDEC_ARCH])
+def test_launcher_trains_frontend_models_on_the_cpu(arch, capsys):
+    """--arch paligemma-3b / seamless-m4t-large-v2: seeded frontend
+    batches over RPC beside the tokens (paligemma's targets padded over
+    its patches); the loss falls over 4 steps and the end's save lands."""
+    out = train_launcher.main(["--arch", arch, "--reduced", "--steps", "4",
+                               "--device", "cpu", "--ckpt-every", "4"])
+    assert len(out["losses"]) == 4 and np.all(np.isfinite(out["losses"]))
+    assert out["losses"][-1] < out["losses"][0]
+    assert [c["step"] for c in out["checkpoints"]] == [4]
+    assert "tok/s" in capsys.readouterr().out
+
+
+def test_launcher_pads_vlm_targets_over_the_patches():
+    """A VLM's targets (B,S) gain F leading -1 (no target) positions."""
+    got = train_launcher.vlm_targets(torch.tensor([[3, 4], [5, 6]]), 3)
+    assert got.tolist() == [[-1, -1, -1, 3, 4], [-1, -1, -1, 5, 6]]
 
 
 def test_launcher_resumes_from_an_external_server():

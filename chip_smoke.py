@@ -39,11 +39,14 @@ Phases, in order; any failure exits non-zero:
    embedding), each with one bit flipped, and a mixed batch (4 KB, 1-3
    bytes, a view at offset 1, 4 MB, 11.5 MB, empty) in one launch where
    a flipped byte changes its own shard's checksum only; exactly equal.
-   The attention backward (``attn_bwd_pre``, ``attn_bwd_dkdv``,
-   ``attn_bwd_dq``) against ``attention_bwd_plain`` on the CPU tests' cases
-   (GQA 1, 3 and 16 at head dims 64 and 256; causal, window, softcap,
-   prefix, full) at 160 tokens in bf16 and f32, with the forward's row lse
-   unsplit and (bf16) at 2 key splits against ``attention_fwd_plain``.
+   The attention backward (bf16 on the tensor cores: ``attn_bwd_dq_tc``,
+   ``attn_bwd_dkdv_tc`` and, split, ``attn_bwd_dkdv_reduce``; f32 on the
+   CUDA cores: ``attn_bwd_pre``, ``attn_bwd_dkdv``, ``attn_bwd_dq``; each
+   row names its path and row splits) against ``attention_bwd_plain`` on
+   the CPU tests' cases (GQA 1, 2, 3 and 16 at head dims 64, 128 and 256;
+   causal, window, softcap, prefix, full) at 160 tokens in bf16 and f32,
+   with the forward's row lse unsplit and (bf16) at 2 key splits against
+   ``attention_fwd_plain``; every call made twice, bitwise equal.
    The router's backward (``router_bwd_kernel``) at granite's E 40, k 8
    and training's capacity factor 1.25, T 4, 64 and 1024, and with 8
    padded experts, against autograd through ``router_dispatch_plain`` and
@@ -59,14 +62,17 @@ Phases, in order; any failure exits non-zero:
    entry, 1e-4; dlambda's also against an f64 plain run, printed); two
    runs bitwise equal.  The attention backward at recurrentgemma-9b's
    heads, bf16, 8 x 128 and 1 x 4096 (the window binds), beside SDPA's
-   backward and the backend SDPA picked.
+   backward alone (its forward run once outside the timed region) and
+   the backend SDPA picked.
    The encoder-decoder's and the VLM's attention (``FRONTEND_CASES``), bf16
    and f32: seamless-m4t-large-v2's encoder (non-causal, 1 and 8 x 512),
    its cross attention (non-causal, 1 x 10 and 8 x 128 queries and 4
    decode slots against 512 frames), paligemma-3b's prefix-LM prefill
    (MQA 8/1 of 256, prefix 256: 1 x 266 and 8 x 384); their training
    backwards in bf16 (encoder 8 x 512, cross 8 x 128 against 512, the
-   prefix-LM at 8 x 384).
+   prefix-LM at 8 x 384).  The MQA training backwards (recurrentgemma's 8 x
+   128, paligemma's 8 x 384) with the dK/dV rows forced into 1, 2 and 4
+   splits.
    The spec shapes are timed (CUDA events, warmed up, L2 flushed) beside
    the least time the card could take.
 3. The main paths, each driven with the kernels' launch counts set to 0
@@ -322,12 +328,14 @@ QWEN_EMBED_WORDS = 151936 * 1024       # qwen1.5-0.5b's largest shard, f32
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-3
 # tests/test_torch_attention_bwd.py's CASES: Hq, Hkv, D, causal, window,
-# softcap, prefix (GQA groups of 1, 3 and 16 at head dims 64 and 256)
+# softcap, prefix (GQA groups of 1, 2, 3 and 16 at head dims 64, 128 and
+# 256)
 BWD_SWEEP = [
     (4, 4, 64, True, 0, 0.0, None), (6, 2, 64, True, 7, 0.0, None),
     (16, 1, 64, True, 0, 30.0, None), (2, 2, 256, True, 5, 20.0, None),
     (3, 1, 256, True, 0, 0.0, None), (16, 1, 256, True, 9, 0.0, None),
     (6, 2, 64, True, 0, 0.0, 6), (4, 4, 64, False, 0, 0.0, None),
+    (4, 2, 128, True, 0, 0.0, None),
 ]
 # phase 3g: the launcher's defaults (8 x 128, 20 steps, a checkpoint every
 # 10), then one step at 4 x 1024 with remat "block", then the restart
@@ -395,19 +403,21 @@ def free_card() -> None:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-def device_ms(fn, flush, iters: int = 20) -> float:
+def device_ms(fn, flush, iters: int = 20, stream=None) -> float:
     """Mean device time of ``fn`` in ms: captured once in a CUDA graph
     (no host launch overhead in the window), replayed ``iters`` times,
     each replay timed by CUDA events with the L2 cache flushed first (by
-    writing ``flush``, a buffer larger than the L2)."""
-    side = torch.cuda.Stream()
+    writing ``flush``, a buffer larger than the L2).  ``stream`` (default
+    a new one) is where ``fn`` warms up and is captured: a backward must
+    run on the stream its forward ran on."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     total = 0.0
     for _ in range(iters):
@@ -618,34 +628,43 @@ def sdpa_backend(q, k, v, kw) -> str:
 
 
 def sdpa_bwd_ms(q, k, v, do, kw, flush):
-    """SDPA's backward on the same inputs and masks, as a yardstick only
-    (the port never calls it): forward + backward less the forward, each
-    timed by ``device_ms``; masks as ``sdpa_args`` gives them."""
+    """SDPA's backward alone on the same inputs and masks, as a yardstick
+    only (the port never calls it): the forward runs once, outside the
+    timed region, and ``device_ms`` times ``torch.autograd.grad`` of its
+    output (the graph retained); masks as ``sdpa_args`` gives them.  Both
+    run on one side stream, as autograd runs a backward op on its
+    forward's stream."""
     qt, kt, vt, mask, causal = sdpa_args(q, k, v, kw)
     dot = do.detach().transpose(1, 2).contiguous()
     qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal)
+    return device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), flush, stream=side)
 
-    def fwd():
-        return sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal)
 
-    def fwd_bwd():
-        return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
-    return device_ms(fwd_bwd, flush) - device_ms(fwd, flush)
-
-
-def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
-    """The backward kernels (``attn_bwd_pre``, ``attn_bwd_dkdv``,
-    ``attn_bwd_dq``, one call) against ``attention_bwd_plain`` on the same
-    o and lse; with ``flush`` also the times, the bound and SDPA's
-    backward."""
+def check_bwd(name, q, k, v, o, lse, do, kw, flush=None, n_split=None):
+    """The backward kernels (one call: ``attn_bwd_dq_tc``,
+    ``attn_bwd_dkdv_tc`` and, split, ``attn_bwd_dkdv_reduce`` in bf16;
+    ``attn_bwd_pre``, ``attn_bwd_dkdv``, ``attn_bwd_dq`` in f32) against
+    ``attention_bwd_plain`` on the same o and lse, and a second call
+    against the first, bitwise; with ``flush`` also the times, the bound
+    and SDPA's backward.  The row names the route (``bwd_plan``'s path)
+    and its row splits, ``bwd_plan``'s unless ``n_split`` forces them."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    path, planned = fa.bwd_plan(B, S, T, Hq, Hkv, D, q.dtype)
 
     def kernel():
-        return fa._attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        return fa._attention_bwd_cuda(q, k, v, o, lse, do, n_split=n_split,
+                                      **kw)
     got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
     errs = [float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)]
@@ -657,11 +676,13 @@ def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
                  for e, m in zip(errs, grad_max))
     row = {"kernel": "flash_attention_bwd", "case": name,
            "shape": f"B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D}",
-           "dtype": str(q.dtype).replace("torch.", ""),
+           "dtype": str(q.dtype).replace("torch.", ""), "path": path,
+           "n_split": planned if n_split is None else n_split,
            "max_abs_err": max(errs), "dq_dk_dv_err": errs,
            "dq_dk_dv_max": grad_max, "elements_differing": differing,
            "scaled_err": scaled, "tol": BWD_TOL[q.dtype],
-           "ok": scaled <= BWD_TOL[q.dtype]}
+           "bitwise_repeat": bitwise,
+           "ok": scaled <= BWD_TOL[q.dtype] and bitwise}
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
         row["plain_ms"] = device_ms(
@@ -674,11 +695,12 @@ def check_bwd(name, q, k, v, o, lse, do, kw, flush=None):
 
 
 def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
-             dtype, seed=0, flush=None, T=None):
+             dtype, seed=0, flush=None, T=None, n_split=None):
     """The forward kernel's lse (unsplit, and at 2 key splits in bf16,
     where ``attn_combine`` writes it) against ``attention_fwd_plain``,
     then ``check_bwd`` on the unsplit forward's o and lse (timed with
-    ``flush``).  ``T`` keys (default S: self-attention)."""
+    ``flush``; its row splits forced by ``n_split``).  ``T`` keys
+    (default S: self-attention)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     T = S if T is None else T
@@ -689,16 +711,16 @@ def bwd_case(name, B, S, Hq, Hkv, D, causal, window, softcap, prefix,
               prefix_len=prefix)
     want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
     lse_err = {}
-    for n_split in ((1, 2) if dtype == torch.bfloat16 else (1,)):
-        o, lse = fa._attention_cuda(q, k, v, n_split=n_split, with_lse=True,
-                                    **kw)
+    for fwd_split in ((1, 2) if dtype == torch.bfloat16 else (1,)):
+        o, lse = fa._attention_cuda(q, k, v, n_split=fwd_split,
+                                    with_lse=True, **kw)
         torch.cuda.synchronize()
-        lse_err[n_split] = float((lse - want_lse).abs().max())
+        lse_err[fwd_split] = float((lse - want_lse).abs().max())
         check(float((o.float() - want_o.float()).abs().max()) <= TOL[dtype],
-              f"{name}: forward o at {n_split} splits disagrees")
-        if n_split == 1:
+              f"{name}: forward o at {fwd_split} splits disagrees")
+        if fwd_split == 1:
             o1, lse1 = o, lse
-    row = check_bwd(name, q, k, v, o1, lse1, do, kw, flush)
+    row = check_bwd(name, q, k, v, o1, lse1, do, kw, flush, n_split)
     row["lse_err"] = lse_err
     row["ok"] = row["ok"] and max(lse_err.values()) <= LSE_TOL
     print("kernel-check lse", name, json.dumps(lse_err))
@@ -1414,6 +1436,18 @@ def backward_rows(flush):
         rows.append(bwd_case(name, B, S, heads["Hq"], heads["Hkv"],
                              heads["D"], causal, 0, 0.0, prefix,
                              torch.bfloat16, seed=10 + i, flush=flush, T=T))
+    # the MQA training shapes with the tensor-core dK/dV's rows forced
+    # into 1, 2 and 4 splits (bwd_plan's count is timed above)
+    for n_split in (1, 2, 4):
+        rows.append(bwd_case(f"{HYBRID_ARCH}-bwd-b8-s128-split{n_split}", 8,
+                             128, RG_HEADS["Hq"], RG_HEADS["Hkv"],
+                             RG_HEADS["D"], True, RG_HEADS["window"], 0.0,
+                             None, torch.bfloat16, seed=20,
+                             n_split=n_split))
+        rows.append(bwd_case(f"{VLM_ARCH}-bwd-prefix-b8-s384-split{n_split}",
+                             8, 384, PALI_HEADS["Hq"], PALI_HEADS["Hkv"],
+                             PALI_HEADS["D"], True, 0, 0.0, 256,
+                             torch.bfloat16, seed=21, n_split=n_split))
     return rows
 
 

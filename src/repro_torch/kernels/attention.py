@@ -51,8 +51,23 @@ gradient (training, ``q_offset`` 0), ``attention`` goes through
 ``AttentionFunction``: its forward also keeps the row log-sum-exp
 (``attention_fwd``: the kernels write it beside O), its backward is
 ``attention_bwd`` — FlashAttention-2's backward, ``attention_bwd_plain``
-on the CPU and ``csrc/flash_attention_bwd.cu`` on the card (three
-launches, ``attention_bwd.launches`` counts one per call).
+on the CPU and ``csrc/flash_attention_bwd.cu`` on the card, by the route
+``bwd_plan`` picks from shapes and dtype alone:
+
+- bf16, every training path: the tensor cores (path ``"tc"``).
+  ``attn_bwd_dq_tc`` first (it also writes Δ = rowsum(dO∘O) of its rows),
+  then ``attn_bwd_dkdv_tc``, one block a 64-key tile of a (kv head, batch
+  row) that sums its GQA group's packed rows.  Under MQA that grid is
+  short of the card, so ``bwd_plan`` splits each block's rows into
+  ``n_split`` ranges across blocks; the f32 partials
+  (``attention_bwd_dkdv_partial_plain``) are summed in a fixed order by
+  ``attn_bwd_dkdv_reduce`` (``dkdv_reduce_plain``).  No atomics: two
+  calls give the same bits.
+- f32, the parity dtype: the CUDA cores (path ``"simt"``): ``attn_bwd_pre``
+  (Δ), ``attn_bwd_dkdv``, ``attn_bwd_dq``.
+
+A bf16 call is two launches (three when split), an f32 call three;
+``attention_bwd.launches`` counts one per call.
 """
 from __future__ import annotations
 
@@ -118,11 +133,43 @@ def plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
 def key_splits(k_begin: int, k_end: int, bk: int, n_split: int):
     """The kernel's split of keys ``[k_begin, k_end)`` into ``n_split``
     contiguous ranges of whole ``bk``-key tiles (some empty when there
-    are fewer tiles than splits): a list of (lo, hi)."""
+    are fewer tiles than splits): a list of (lo, hi).  The backward's
+    dK/dV kernel splits a key tile's packed rows the same way."""
     n = max(-(-(k_end - k_begin) // bk), 0)
     return [(min(k_begin + n * z // n_split * bk, k_end),
              min(k_begin + n * (z + 1) // n_split * bk, k_end))
             for z in range(n_split)]
+
+
+DKDV_KEYS = 64        # keys of a tensor-core dK/dV block (kTcKeys)
+
+
+def bwd_plan(B: int, S: int, T: int, Hq: int, Hkv: int, D: int,
+             dtype) -> tuple:
+    """(path, n_split) of a backward call on the card, from shapes and
+    dtype alone.
+
+    f32 takes the CUDA cores (``"simt"``, one split): the tensor cores'
+    f32 is TF32, whose 10 mantissa bits break the f32 gradients' 1e-4.
+    bf16 takes the tensor cores (``"tc"``).  Its dK/dV kernel runs one
+    block a (64-key tile, kv head, batch row) and each walks the packed
+    rows of its GQA group that see the tile; under MQA that grid is short
+    of the card (recurrentgemma's 8 x 128: 16 blocks walking up to 32 row
+    tiles each; paligemma's 8 x 384: 48 of up to 48).  So, as ``plan``
+    splits the forward's keys, when those blocks fill under half of the
+    SMs each block's row tiles are split into ``n_split`` contiguous
+    ranges (``key_splits`` of the rows, in ``ROWS``-row tiles) across
+    blocks, about one block an SM, each range at least MIN_SPLIT_TILES
+    row tiles of the ``ceil(S * G / ROWS)``, at most MAX_SPLITS; the dQ
+    kernel's (64 rows, kv head, batch row) blocks are never short."""
+    if dtype != torch.bfloat16:
+        return "simt", 1
+    blocks = -(-T // DKDV_KEYS) * Hkv * B
+    row_tiles = -(-S * (Hq // Hkv) // ROWS)
+    if 2 * blocks > SMS:
+        return "tc", 1
+    return "tc", max(1, min(-(-SMS // blocks), row_tiles // MIN_SPLIT_TILES,
+                            MAX_SPLITS))
 
 
 def _positions(q_offset, B: int, S: int, device) -> torch.Tensor:
@@ -230,6 +277,30 @@ def attention_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return o.to(q.dtype), lse.transpose(1, 2)
 
 
+def _bwd_scores(q, k, v, o, lse, do, *, causal, window, softcap,
+                prefix_len):
+    """(P, dZ) (B, Hq, S, T) f32 of the backward, and dO in f32."""
+    Hq = q.shape[2]
+    x, mask = _logits(q, k, causal=causal, window=window, softcap=softcap,
+                      q_offset=0, prefix_len=prefix_len)
+    live = mask[:, None] & (lse > NEG_INF / 10)[..., None]
+    lse_safe = torch.where(lse > NEG_INF / 10, lse, 0.0)
+    p = torch.where(live, torch.exp(x - lse_safe[..., None]), 0.0)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)     # (B,Hq,S)
+    dp = torch.einsum("bshd,bthd->bhst", dof, _values(v, Hq))
+    dz = p * (dp - delta[..., None])
+    if softcap > 0.0:
+        dz = dz * (1.0 - torch.square(x / softcap))
+    return p, dz, dof
+
+
+def _group_sum(g, Hkv):
+    """(B, T, Hq, D) per q head -> (B, T, Hkv, D), summing each group."""
+    B, T, Hq, D = g.shape
+    return g.reshape(B, T, Hkv, Hq // Hkv, D).sum(3)
+
+
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
                         prefix_len: Optional[int] = None):
@@ -245,29 +316,53 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     x is the scaled, soft-capped logit; the (1 - tanh^2) factor is the
     softcap's (absent without one).  A kv head's gradient sums its GQA
     group's q heads."""
-    B, S, Hq, D = q.shape
+    Hq, D = q.shape[2], q.shape[3]
     Hkv = k.shape[2]
-    G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    x, mask = _logits(q, k, causal=causal, window=window, softcap=softcap,
-                      q_offset=0, prefix_len=prefix_len)
-    live = mask[:, None] & (lse > NEG_INF / 10)[..., None]
-    lse_safe = torch.where(lse > NEG_INF / 10, lse, 0.0)
-    p = torch.where(live, torch.exp(x - lse_safe[..., None]), 0.0)
-    dof = do.float()
-    delta = (dof * o.float()).sum(-1).transpose(1, 2)     # (B,Hq,S)
+    p, dz, dof = _bwd_scores(q, k, v, o, lse, do, causal=causal,
+                             window=window, softcap=softcap,
+                             prefix_len=prefix_len)
     dv = torch.einsum("bhst,bshd->bthd", p, dof)
-    dp = torch.einsum("bshd,bthd->bhst", dof, _values(v, Hq))
-    dz = p * (dp - delta[..., None])
-    if softcap > 0.0:
-        dz = dz * (1.0 - torch.square(x / softcap))
-    kf = k.float().repeat_interleave(G, dim=2)
+    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
     dq = torch.einsum("bhst,bthd->bshd", dz, kf) * scale
     dk = torch.einsum("bhst,bshd->bthd", dz, q.float()) * scale
-    T = k.shape[1]
-    dk = dk.reshape(B, T, Hkv, G, D).sum(3)
-    dv = dv.reshape(B, T, Hkv, G, D).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(q.dtype), _group_sum(dk, Hkv).to(k.dtype),
+            _group_sum(dv, Hkv).to(v.dtype))
+
+
+def attention_bwd_dkdv_partial_plain(q, k, v, o, lse, do, row_lo: int,
+                                     row_hi: int, *, causal: bool = True,
+                                     window: int = 0, softcap: float = 0.0,
+                                     prefix_len: Optional[int] = None):
+    """One split's partial (dk, dv), f32 (B, T, Hkv, D), over the packed
+    rows ``[row_lo, row_hi)`` of every kv head's group (row r: query r // G
+    of the group's q head r % G, ``packed_row``), as ``attn_bwd_dkdv_tc``
+    writes it when split: dk already scaled.  ``dkdv_reduce_plain`` of
+    the partials of ranges that cover [0, S * G) is
+    ``attention_bwd_plain``'s dk and dv."""
+    S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    p, dz, dof = _bwd_scores(q, k, v, o, lse, do, causal=causal,
+                             window=window, softcap=softcap,
+                             prefix_len=prefix_len)
+    r = (torch.arange(S, device=q.device)[None, :] * G
+         + torch.arange(Hq, device=q.device)[:, None] % G)   # (Hq, S)
+    rows = ((r >= row_lo) & (r < row_hi))[None, :, :, None]
+    p = torch.where(rows, p, 0.0)
+    dz = torch.where(rows, dz, 0.0)
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dk = torch.einsum("bhst,bshd->bthd", dz, q.float()) * (1.0 / math.sqrt(D))
+    return _group_sum(dk, Hkv), _group_sum(dv, Hkv)
+
+
+def dkdv_reduce_plain(dk_part, dv_part, dtype):
+    """``attn_bwd_dkdv_reduce``: the partials stacked on a leading split
+    axis, summed in the order z = 0 .. n - 1, in ``dtype``."""
+    dk, dv = dk_part[0], dv_part[0]
+    for z in range(1, len(dk_part)):
+        dk, dv = dk + dk_part[z], dv + dv_part[z]
+    return dk.to(dtype), dv.to(dtype)
 
 
 def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
@@ -375,8 +470,9 @@ def _bwd_kernel():
         from .build import load
         fn = load("flash_attention_bwd").repro_flash_attention_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p]
         _bwd = fn
     return _bwd
 
@@ -460,9 +556,14 @@ BWD_HEAD_DIMS = (64, 128, 256)
 
 def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
-                        prefix_len: Optional[int] = None):
-    """The backward on the card: ``attn_bwd_pre``, ``attn_bwd_dkdv`` and
-    ``attn_bwd_dq``, one ``attention_bwd.launches`` a call."""
+                        prefix_len: Optional[int] = None,
+                        n_split: Optional[int] = None):
+    """The backward on the card, one ``attention_bwd.launches`` a call:
+    bf16 ``attn_bwd_dq_tc``, ``attn_bwd_dkdv_tc`` (and
+    ``attn_bwd_dkdv_reduce`` when split), f32 ``attn_bwd_pre``,
+    ``attn_bwd_dkdv``, ``attn_bwd_dq``.  ``n_split`` forces the row splits
+    of a bf16 call (tests and the smoke run only); None takes
+    ``bwd_plan``'s."""
     B, S, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or o.shape != q.shape or do.shape != q.shape:
@@ -485,19 +586,33 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if any(t.device != q.device for t in (k, v, o, lse, do)):
         raise ValueError("attention_bwd: all inputs must be on one device")
+    path, planned = bwd_plan(B, S, T, Hq, Hkv, D, q.dtype)
+    n_split = planned if n_split is None else int(n_split)
+    if n_split < 1 or (path == "simt" and n_split != 1):
+        raise ValueError(f"attention_bwd: n_split {n_split} on the {path} "
+                         f"path (f32 runs unsplit)")
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    if path == "tc" and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("attention_bwd: q, k, v, o and do must be 16-byte "
+                         "aligned (the kernels stage them 16 bytes at a "
+                         "time)")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    part = None
+    if n_split > 1:        # the splits' f32 dK (scaled) and dV, summed
+        part = torch.empty((n_split, 2, B, T, Hkv, D), dtype=torch.float32,
+                           device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, S, T, Hq, Hkv, D, int(q.dtype == torch.bfloat16),
+                 None if part is None else part.data_ptr(),
+                 B, S, T, Hq, Hkv, D, int(path == "tc"),
                  int(bool(causal)), int(window), float(softcap),
                  -1 if prefix_len is None else int(prefix_len),
-                 1.0 / math.sqrt(D), stream)
+                 1.0 / math.sqrt(D), n_split, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,7 +8,8 @@ autograd through ``attention_plain``, on the same numpy inputs.  f32 to
 1e-5 (the same f32 algebra, summed in another order); bf16 to 2e-2 of
 the largest gradient entry (inputs and outputs rounded to bf16, 2^-8
 relative each).  On the card (``-m gpu``): the backward kernels and the
-forward's lse against the plain versions.
+forward's lse against the plain versions; the bf16 tensor-core route at
+forced row splits 1, 2 and 4, and two calls bitwise equal.
 
 The card's machine has no JAX, so JAX is imported by the ``ref`` fixture
 and not at the top."""
@@ -19,8 +20,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention as fa  # noqa: E402
 
-# name, Hq, Hkv, D, causal, window, softcap, prefix: GQA groups of 1, 3
-# and 16 (MQA) at head dims 64 and 256, with causal, window and softcap
+# name, Hq, Hkv, D, causal, window, softcap, prefix: GQA groups of 1, 2,
+# 3 and 16 (MQA) at head dims 64, 128 and 256, with causal, window and
+# softcap
 CASES = [
     ("g1-d64-causal", 4, 4, 64, True, 0, 0.0, None),
     ("g3-d64-window", 6, 2, 64, True, 7, 0.0, None),
@@ -30,6 +32,7 @@ CASES = [
     ("g16-d256-window", 16, 1, 256, True, 9, 0.0, None),
     ("g3-d64-prefix", 6, 2, 64, True, 0, 0.0, 6),
     ("g1-d64-full", 4, 4, 64, False, 0, 0.0, None),
+    ("g2-d128-causal", 4, 2, 128, True, 0, 0.0, None),
 ]
 # the cases the encoder-decoder and the VLM add, kept apart from CASES
 # (chip_smoke.py's BWD_SWEEP mirrors those): name, Hq, Hkv, D, causal,
@@ -214,9 +217,16 @@ def test_chip_smoke_sweeps_these_cases():
 # on the card
 # ---------------------------------------------------------------------------
 GPU_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the training shapes: qwen1.5-0.5b's heads at batch 8 x 128 and 4 x 1024
-TRAIN_SHAPES = [("qwen-b8-s128", 8, 128, 16, 16, 64),
-                ("qwen-b4-s1024", 4, 1024, 16, 16, 64)]
+# the training shapes: qwen1.5-0.5b's heads at batch 8 x 128 and 4 x 1024,
+# paligemma-3b's prefix-LM (MQA 8/1 of 256, 256 patches) at 8 x 384 and
+# recurrentgemma-9b's local attention (MQA 16/1 of 256, window 2048) at
+# 8 x 128: name, B, S, Hq, Hkv, D, masks
+TRAIN_SHAPES = [("qwen-b8-s128", 8, 128, 16, 16, 64, {}),
+                ("qwen-b4-s1024", 4, 1024, 16, 16, 64, {}),
+                ("paligemma-b8-s384", 8, 384, 8, 1, 256,
+                 dict(prefix_len=256)),
+                ("recurrentgemma-b8-s128", 8, 128, 16, 1, 256,
+                 dict(window=2048))]
 
 
 def _card(dt, *arrays):
@@ -293,7 +303,7 @@ def test_cross_and_prefix_bwd_kernels_match_plain_on_card(case, dt):
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=lambda c: c[0])
 def test_attention_function_on_card_at_training_shapes(shape, dt):
-    _, nb, s, Hq, Hkv, D = shape
+    _, nb, s, Hq, Hkv, D, kw = shape
     rng = np.random.default_rng(3)
     arrays = [rng.standard_normal(x).astype(np.float32)
               for x in ((nb, s, Hq, D), (nb, s, Hkv, D), (nb, s, Hkv, D),
@@ -301,9 +311,51 @@ def test_attention_function_on_card_at_training_shapes(shape, dt):
     q, k, v, do = _card(dt, *arrays)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     before = (fa.attention.launches, fa.attention_bwd.launches)
-    got = torch.autograd.grad(fa.attention(q, k, v), (q, k, v), do)
+    got = torch.autograd.grad(fa.attention(q, k, v, **kw), (q, k, v), do)
     torch.cuda.synchronize()
     assert (fa.attention.launches, fa.attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    want = torch.autograd.grad(fa.attention_plain(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(fa.attention_plain(q, k, v, **kw),
+                               (q, k, v), do)
     _card_close(got, want, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+@pytest.mark.parametrize("case", CASES + CROSS_CASES, ids=lambda c: c[0])
+def test_tc_bwd_matches_plain_at_forced_splits(case, n_split):
+    """The bf16 tensor-core route (``bwd_plan``'s ``"tc"``) with its dK/dV
+    rows forced into 1, 2 and 4 splits (more splits than row tiles leave
+    some empty), against the plain backward on the plain forward's o and
+    lse."""
+    T = case[8] if len(case) > 8 else S
+    q, k, v, do = _card("bfloat16", *_inputs(case, seed=5, T=T))
+    kw = _kw(case)
+    assert fa.bwd_plan(B, S, T, q.shape[2], k.shape[2], q.shape[3],
+                       q.dtype)[0] == "tc"
+    o, lse = fa.attention_fwd_plain(q, k, v, **kw)
+    got = fa._attention_bwd_cuda(q, k, v, o, lse, do, n_split=n_split, **kw)
+    torch.cuda.synchronize()
+    _card_close(got, fa.attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,n_split", [("float32", 1), ("bfloat16", 1),
+                                        ("bfloat16", 4)])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES[2:], ids=lambda c: c[0])
+def test_bwd_kernel_repeats_bitwise(shape, dt, n_split):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    split's partials summed in a fixed order)."""
+    _, nb, s, Hq, Hkv, D, kw = shape
+    rng = np.random.default_rng(6)
+    q, k, v, do = _card(dt, *(rng.standard_normal(x).astype(np.float32)
+                              for x in ((nb, s, Hq, D), (nb, s, Hkv, D),
+                                        (nb, s, Hkv, D), (nb, s, Hq, D))))
+    o, lse = fa._attention_cuda(q, k, v, with_lse=True, **kw)
+    first = fa._attention_bwd_cuda(q, k, v, o, lse, do, n_split=n_split,
+                                   **kw)
+    again = fa._attention_bwd_cuda(q, k, v, o, lse, do, n_split=n_split,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

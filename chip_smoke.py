@@ -50,11 +50,15 @@ Phases, in order; any failure exits non-zero:
    The router's backward (``router_bwd_kernel``) at granite's E 40, k 8
    and training's capacity factor 1.25, T 4, 64 and 1024, and with 8
    padded experts, against autograd through ``router_dispatch_plain`` and
-   against ``router_bwd_plain``; the SSD's backward (``csrc/ssd_bwd.cu``)
-   at mamba2's heads, 8 x 128, 2 x 1024 (dh_final), S 100 (h0,
-   dh_final) and 8 groups, f32 and bf16, against autograd through
-   ``ssd_plain``: each gradient's error over its largest entry, 1e-4
-   (f32) or 2e-2 + 2^-7 (bf16); two runs bitwise equal.  The RG-LRU's
+   against ``router_bwd_plain``; the SSD's backward (``csrc/ssd_bwd.cu``:
+   ``ssd_bwd_state``, ``ssd_bwd_chunk``, ``ssd_bwd_reduce``, 3xTF32 on
+   the tensor cores) at mamba2's heads, 8 x 128, 2 x 1024 (dh_final), S
+   100 (h0, dh_final), 8 groups and N 90 (no multiple of 4), f32 and
+   bf16, against autograd through ``ssd_plain``: each gradient's error
+   over its largest entry, 1e-4 (f32) or 2e-2 + 2^-7 (bf16); two runs
+   bitwise equal; each row
+   with its launch plan (launches a call, the head slice hs, each
+   kernel's blocks, shared-memory bytes and blocks an SM).  The RG-LRU's
    backward (``csrc/rglru_bwd.cu``, f32) at recurrentgemma-9b's width
    4096: 8 x 128, 2 x 1024 (dh_final), S 100 (h0, dh_final), 4 x 1 and
    saturated gates near a = 1, against ``rglru_bwd_plain`` on the
@@ -140,8 +144,9 @@ Phases, in order; any failure exits non-zero:
       ``launch.train.main`` (8 x 128, 10 steps, AdamW, remat "none", one
       save of params, m and v at the end, verified on the card): the SSD's
       forward and backward 48 times a step each, the loss finite and
-      falling, Fletcher one batch for the save; then 3 steps twice from
-      one seed, the parameters within 1e-6 (bitwise printed).
+      falling, Fletcher one batch for the save, the peak memory
+      printed; then 3 steps twice from one seed, the parameters within
+      1e-6 (bitwise printed).
    i. granite-moe-3b-a800m training at full width and depth through
       ``init_state`` / ``make_train_step``, batches over RPC from a
       ``DataFeedServer``, a ``MembershipClient`` joined and left, no
@@ -1141,6 +1146,13 @@ def check_ssd_bwd(name, x, dt, A, B, C, D, h0, dy, dh, states, decay,
            "grad_max": tops, "scaled_err": scaled, "tol": GRAD_TOL[x.dtype],
            "run_to_run_equal": same,
            "ok": finite and same and scaled <= GRAD_TOL[x.dtype]}
+    plan = kssd.ssd_bwd_launch_plan(Bb, S, H, B.shape[2], B.shape[3],
+                                    x.dtype)
+    row["hs"] = plan["hs"]
+    row["launch_plan"] = {"launches": plan["launches"], **{
+        k: {"blocks_per_sm": v["blocks_per_sm"],
+            "smem_bytes": v["smem_bytes"], "blocks": v["blocks"]}
+        for k, v in plan["kernels"].items()}}
     del got, again, want
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
@@ -1404,6 +1416,10 @@ def backward_rows(flush):
                                  seed=2, **mamba))
         rows.append(ssd_bwd_case("g8-b2-s256", B=2, S=256, H=64, P=64, G=8,
                                  N=128, dtype=dtype, use_dh=True, seed=3))
+        # N no multiple of 4: half 0's rows are not 16-byte aligned
+        rows.append(ssd_bwd_case("n90-b1-s200-h0-dh", B=1, S=200, H=8, P=64,
+                                 G=1, N=90, dtype=dtype, use_h0=True,
+                                 use_dh=True, seed=4))
     # the RG-LRU's backward at recurrentgemma-9b's width, f32 (the
     # kernels take f32 alone; the model's recurrence runs in f32):
     # training's 8 x 128, 2 x 1024 with dh_final, a ragged S 100 with h0
@@ -2978,9 +2994,11 @@ def ssm_train_path():
     for fn in TRAIN_COUNTED + (fl.fletcher64,):
         fn.launches = 0
     try:
+        torch.cuda.reset_peak_memory_stats()
         out = train_launcher.main(["--arch", SSM_ARCH, "--steps",
                                    str(SSM_TRAIN_STEPS), "--ckpt-every",
                                    str(SSM_TRAIN_STEPS)])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         fletcher = fl.fletcher64.launches
     finally:
         ckrec.uninstall()
@@ -2989,7 +3007,8 @@ def ssm_train_path():
     report_losses(tag, out["losses"], out["step_seconds"],
                   TRAIN_BATCH * TRAIN_SEQ)
     print(f"{tag}: {out['seconds']:.3f} s for {SSM_TRAIN_STEPS} steps and "
-          f"the save; save host seconds by part "
+          f"the save, peak memory {peak:.2f} GiB; save host seconds by "
+          f"part "
           + json.dumps({k: round(v, 4)
                         for k, v in sorted(ckrec.seconds.items())}))
     model = Model(configs.get(SSM_ARCH))
@@ -3497,7 +3516,8 @@ def summary_row(r):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("path", "n_split", "chunk_len") if k in r}}
+            **{k: r[k] for k in ("path", "n_split", "chunk_len", "hs")
+               if k in r}}
 
 
 def card_line() -> str:

@@ -45,11 +45,17 @@ with XLA, there is no Pallas backward).  When an input needs a
 gradient, ``ssd`` goes through :class:`SSDFunction`: the same forward,
 which on the card keeps the states entering each chunk and the chunks'
 decays, and :func:`ssd_bwd`: the kernels of ``csrc/ssd_bwd.cu`` on the
-card (CUDA cores, f32 sums, no atomics; the split mirrors the forward's:
-each chunk's dy ⊗ C sum, the reverse state passing, one block a (head,
-chunk, row) for the in-chunk gradients, then the sums over a group's
-heads and over (row, chunk) for A and D), :func:`ssd_bwd_plain` on the
-CPU.  ``ssd_bwd.launches`` counts calls.
+card (3xTF32 products on the tensor cores, no atomics; three launches: a
+reverse walk a (row, head, half of N) that forms each chunk's dy ⊗ C sum
+and the gradients of the states leaving the chunks, beside each chunk's
+C·Bᵀ once a group; the chunk pass, whose dx blocks (a head, chunk, row)
+write dx, ddt and the dA, dD partials and whose dB/dC blocks walk a
+slice of a group's heads in order; the ordered sums over slices and over
+(row, chunk)), :func:`ssd_bwd_plain` on the CPU.  The passes' plain
+counterparts, held against it on the CPU: :func:`ssd_bwd_state_plain`,
+:func:`ssd_chunk_cb_plain`, :func:`ssd_bwd_dx_plain`,
+:func:`ssd_bwd_dbdc_plain`, :func:`ssd_bwd_reduce_plain`; the slice
+size is :func:`ssd_bwd_plan`'s.  ``ssd_bwd.launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -58,6 +64,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .attention import SMS
 
 MAX_P = 64       # head dim the kernel's state tile covers
 MAX_N = 128      # state dim the kernel's shared memory holds
@@ -334,6 +342,170 @@ def ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final=None, *,
             None if D is None else dD.to(D.dtype))
 
 
+def ssd_bwd_plan(B: int, S: int, H: int, G: int, N: int) -> int:
+    """hs, the heads of a group that one dB/dC block of
+    ``csrc/ssd_bwd.cu`` walks in order: the most, up to 16, that divide
+    the group and still give one such block each of the card's ``SMS``,
+    else 1.  Each such block is one (slice of hs heads, half of N, chunk,
+    row); the slices' sums go through an (B, S, H / hs, N) f32 scratch.
+    The dx blocks of the same launch fill the SMs around them.  The times
+    at each hs are ``tools/scan_tuning.py --bwd``'s (PERF.md, PR 23)."""
+    rep = H // G
+    blocks = H * -(-N // 64) * -(-S // CHUNK) * B
+    hs = 1
+    for cand in range(2, min(16, rep) + 1):
+        if rep % cand == 0 and blocks // cand >= SMS:
+            hs = cand
+    return hs
+
+
+def ssd_chunk_cb_plain(B, C, *, chunk: int = CHUNK) -> torch.Tensor:
+    """Each chunk's C·Bᵀ (Bb,nc,G,Q,Q) f32, once a group, as the
+    backward's cb blocks form it: [i, j] = C_i·B_j, zero past the
+    sequence; its readers take j <= i only."""
+    return torch.einsum("bcign,bcjgn->bcgij", _cut(C, chunk), _cut(B, chunk))
+
+
+def ssd_bwd_state_plain(dy, dt, A, C, decay, dh_final=None, *,
+                        chunk: int = CHUNK) -> torch.Tensor:
+    """The gradient of the state leaving each chunk (Bb,nc,H,P,N) f32, as
+    the backward's walk blocks form it: from the last chunk's (dh_final,
+    or zero) back, G_{c−1} = decay_c·G_c + R_c, where
+    R_c = Σ_i exp(cum_i)·dy_i ⊗ C_i is formed at the step that needs it.
+    ``decay`` (Bb,nc,H) is the forward's (None for one chunk).  The
+    kernel writes all but the last into its scratch and reads dh_final
+    for the last."""
+    Bb, S, H, P = dy.shape
+    N = C.shape[3]
+    rep = H // C.shape[2]
+    dyf, Cf = _cut(dy, chunk), _cut(C, chunk, rep)
+    cum = _cum(dt, A, chunk)
+    nc = cum.shape[1]
+    g = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dy.device)
+         if dh_final is None else dh_final.float())
+    leaving = [g] * nc
+    for c in range(nc - 1, 0, -1):
+        R = torch.einsum("bihp,bihn->bhpn",
+                         dyf[:, c] * torch.exp(cum[:, c].float())[..., None],
+                         Cf[:, c])
+        g = decay[:, c, :, None, None] * g + R
+        leaving[c - 1] = g
+    return torch.stack(leaving, dim=1)
+
+
+def _bwd_chunk_terms(x, dt, A, dy, chunk):
+    """What the chunk pass's blocks share: the f32 cut x, dt, dy, cum
+    (f64), exp(cum_i), exp(cum_Q − cum_j) and the masked L_ij."""
+    Q = chunk
+    xf, dtf, dyf = _cut(x, Q), _cut(dt, Q), _cut(dy, Q)
+    cum = _cum(dt, A, Q)
+    above = torch.triu(torch.ones(Q, Q, dtype=torch.bool, device=x.device),
+                       diagonal=1)
+    L = torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :]).float()
+                  .masked_fill(above[None, None, :, :, None], float("-inf")))
+    return (xf, dtf, dyf, cum, torch.exp(cum.float()),
+            torch.exp((cum[:, :, -1:] - cum).float()), L)
+
+
+def ssd_bwd_dx_plain(x, dt, A, B, C, D, dy, cb, leaving, entering, *,
+                     chunk: int = CHUNK):
+    """What the backward's dx blocks (one a head, chunk, row) write, from
+    the chunks' C·Bᵀ (``ssd_chunk_cb_plain``), the gradients of the
+    states leaving the chunks (``ssd_bwd_state_plain``) and the states
+    entering them (Bb,nc,H,P,N): dx in x's dtype,
+    M1ᵀ·dy + dt_j·exp(cum_Q − cum_j)·B·Gᵀ + D·dy with M1 = L·dt_j·CB;
+    ddt (Bb,S,H) f32; and each block's dA and dD partials (Bb,nc,H) f32.
+    r_i takes C·h_inᵀ (a (Q, P) product) dotted with dy_i; the
+    straddling T_ij take each row's prefix over j < k in f64, then the
+    sum over the rows i >= k."""
+    Bb, S, H, P = x.shape
+    rep = H // B.shape[2]
+    xf, dtf, dyf, cum, ecum, to_end, L = _bwd_chunk_terms(x, dt, A, dy,
+                                                          chunk)
+    nc = cum.shape[1]
+    Bf, Cf = _cut(B, chunk, rep), _cut(C, chunk, rep)
+    CB = cb.float().repeat_interleave(rep, dim=2).permute(0, 1, 3, 4, 2)
+    DX = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
+    dt_j = dtf[:, :, None, :, :]
+    M1 = L * dt_j * CB
+    K = L * CB * DX
+    GB = torch.einsum("bjhn,bhpn->bjhp", Bf.flatten(0, 1),
+                      leaving.flatten(0, 1)).reshape(xf.shape)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M1, dyf) \
+        + (to_end * dtf)[..., None] * GB
+    if D is not None:
+        dx = dx + dyf * D.float()[None, None, None, :, None]
+    Ch = torch.einsum("bihn,bhpn->bihp", Cf.flatten(0, 1),
+                      entering.float().flatten(0, 1)).reshape(xf.shape)
+    Vd = to_end * (xf * GB).sum(-1)                        # b,c,j,h
+    U = ecum * (dyf * Ch).sum(-1)
+    W = torch.exp(cum[:, :, -1].float()) * (leaving * entering).sum((-1, -2))
+    Tm = (K * dt_j).double()
+    before = torch.cumsum(Tm, 3) - Tm                      # b,c,i,k,h
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                device=x.device))
+    da_T = (before * tri[None, None, :, :, None]).sum(2)    # b,c,k,h
+    rest = (U - dtf * Vd).double()
+    rest[:, :, -1] += ((dtf * Vd).sum(2) + W).double()
+    suffix = torch.flip(torch.cumsum(torch.flip(rest, [2]), 2), [2])
+    da = (da_T + suffix).float()
+    ddt = A.float() * da + K.sum(2) + Vd
+    dA_part = (dtf * da).sum(2)
+    dD_part = (dyf * xf).sum((2, 4))
+
+    def back(t):
+        return t.reshape(Bb, nc * chunk, *t.shape[3:])[:, :S]
+    return back(dx).to(x.dtype), back(ddt), dA_part, dD_part
+
+
+def ssd_bwd_dbdc_plain(x, dt, A, B, C, dy, leaving, entering, hs: int, *,
+                       chunk: int = CHUNK):
+    """The dB and dC partials (Bb,S,H/hs,N) f32 that the backward's dB/dC
+    blocks write: for each slice of hs heads of a group, in head order,
+    the sum of each head's M2ᵀ·C + (w∘x)·G and M2·B + (e∘dy)·h_in, with
+    M2 = L·dt_j·(dy·xᵀ), w_j = dt_j·exp(cum_Q − cum_j), e_i =
+    exp(cum_i)."""
+    Bb, S, H, P = x.shape
+    N = B.shape[3]
+    rep = H // B.shape[2]
+    xf, dtf, dyf, cum, ecum, to_end, L = _bwd_chunk_terms(x, dt, A, dy,
+                                                          chunk)
+    nc = cum.shape[1]
+    Bf, Cf = _cut(B, chunk, rep), _cut(C, chunk, rep)
+    M2 = L * dtf[:, :, None, :, :] * torch.einsum("bcihp,bcjhp->bcijh",
+                                                  dyf, xf)
+    dBh = torch.einsum("bcijh,bcihn->bcjhn", M2, Cf) + torch.einsum(
+        "bcjhp,bchpn->bcjhn", xf * (to_end * dtf)[..., None], leaving)
+    dCh = torch.einsum("bcijh,bcjhn->bcihn", M2, Bf) + torch.einsum(
+        "bcihp,bchpn->bcihn", dyf * ecum[..., None], entering.float())
+
+    def slices(t):          # heads summed in order within each slice
+        t = t.reshape(Bb, nc * chunk, H // hs, hs, N)[:, :S]
+        acc = t[:, :, :, 0]
+        for k in range(1, hs):
+            acc = acc + t[:, :, :, k]
+        return acc
+    return slices(dBh), slices(dCh)
+
+
+def ssd_bwd_reduce_plain(dBp, dCp, dA_part, dD_part, G: int, dtype,
+                         with_D: bool = True):
+    """The last pass: dB and dC (Bb,S,G,N) in ``dtype``, each group's
+    slices summed in slice order; dA and dD (H,) f32, the (row, chunk)
+    partials summed (dD None without D)."""
+    Bb, S, nsl, N = dBp.shape
+
+    def groups(t):
+        t = t.reshape(Bb, S, G, nsl // G, N)
+        acc = t[:, :, :, 0]
+        for k in range(1, nsl // G):
+            acc = acc + t[:, :, :, k]
+        return acc.to(dtype)
+    dA = dA_part.sum((0, 1))
+    dD = dD_part.sum((0, 1)) if with_D else None
+    return groups(dBp), groups(dCp), dA, dD
+
+
 def ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final=None, *, states=None,
             decay=None, chunk: int = CHUNK):
     """(dx, ddt, dA, dB, dC, dD): ``ssd_bwd_plain`` on the CPU (at
@@ -428,10 +600,20 @@ def _bwd_kernel():
         from .build import load
         fn = load("ssd_bwd").repro_ssd_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         _bwd_fn = fn
     return _bwd_fn
+
+
+def _bwd_occupancy():
+    """``repro_ssd_bwd_occupancy``: each backward kernel's blocks, shared
+    memory and blocks an SM at given shapes, bound at its first use."""
+    from .build import load
+    fn = load("ssd_bwd").repro_ssd_bwd_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return fn
 
 
 def _check_inputs(name, x, dt, A, B, C, D, h0):
@@ -511,16 +693,23 @@ def _ssd_cuda(x, dt, A, B, C, D, h0, keep: bool = False):
     return (y, hf, states, decay) if keep else (y, hf)
 
 
-def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay):
-    """The backward on the card: four launches (two for one chunk), one
-    ``ssd_bwd.launches`` a call.  Scratch: the gradients of the states
-    leaving the chunks (B,nc,H,P,N), each head's dB and dC (B,S,H,N) and
-    the blocks' dA, dD partials (B,nc,H), f32."""
+def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
+                  hs=None):
+    """The backward on the card: three launches (``ssd_bwd_state``,
+    ``ssd_bwd_chunk``, ``ssd_bwd_reduce``), one ``ssd_bwd.launches`` a
+    call.  ``hs``, the heads a dB/dC block walks, is
+    :func:`ssd_bwd_plan`'s unless given (it must divide H / G).  Scratch,
+    f32: the gradients of the states leaving the chunks but the last
+    (B,nc−1,H,P,N), each chunk's C·Bᵀ (B,nc,G,64,64), the slices' dB and
+    dC (B,S,H/hs,N) and the blocks' dA, dD partials (B,nc,H)."""
     _check_inputs("ssd_bwd", x, dt, A, B, C, D, h0)
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     dev = x.device
     nc = -(-S // CHUNK)
+    hs = ssd_bwd_plan(Bb, S, H, G, N) if hs is None else int(hs)
+    if hs < 1 or (H // G) % hs:
+        raise ValueError(f"ssd_bwd: hs {hs} must divide H / G = {H // G}")
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
         raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} must "
                          f"be like x {tuple(x.shape)} {x.dtype}")
@@ -549,9 +738,11 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay):
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    dS = f32(Bb, nc, H, P, N) if nc > 1 else None
+    dS = f32(Bb, nc - 1, H, P, N) if nc > 1 else None
+    cb = f32(Bb, nc, G, CHUNK, CHUNK)
     dx = torch.empty_like(xc)
-    ddt, dBh, dCh = f32(Bb, S, H), f32(Bb, S, H, N), f32(Bb, S, H, N)
+    ddt, dBp, dCp = f32(Bb, S, H), f32(Bb, S, H // hs, N), \
+        f32(Bb, S, H // hs, N)
     dA_part, dD_part = f32(Bb, nc, H), f32(Bb, nc, H)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
     dA, dD = f32(H), f32(H)
@@ -562,12 +753,34 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ptr(xc), ptr(dtf), ptr(Af), ptr(Bc), ptr(Cc), ptr(Df),
-                 ptr(dyc), ptr(hin), ptr(decay), ptr(dhf), ptr(dS), ptr(dx),
-                 ptr(ddt), ptr(dBh), ptr(dCh), ptr(dA_part), ptr(dD_part),
-                 ptr(dB), ptr(dC), ptr(dA), ptr(dD), Bb, S, H, P, G, N,
+                 ptr(dyc), ptr(hin), ptr(decay), ptr(dhf), ptr(dS), ptr(cb),
+                 ptr(dx), ptr(ddt), ptr(dBp), ptr(dCp), ptr(dA_part),
+                 ptr(dD_part), ptr(dB), ptr(dC), ptr(dA), ptr(dD), Bb, S, H,
+                 P, G, N, hs, int(h0 is not None),
                  int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
     ssd_bwd.launches += 1
     return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
             None if D is None else dD.to(D.dtype))
+
+
+def ssd_bwd_launch_plan(B: int, S: int, H: int, G: int, N: int,
+                        dtype=torch.float32) -> dict:
+    """The backward's launch plan at these shapes, on the card: launches
+    a call, ``ssd_bwd_plan``'s hs, and each kernel's grid, dynamic shared
+    memory bytes and blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), as the C side
+    computes them for its launches."""
+    hs = ssd_bwd_plan(B, S, H, G, N)
+    out = (ctypes.c_int * 9)()
+    err = _bwd_occupancy()(B, S, H, G, N, hs, int(dtype == torch.bfloat16),
+                           out)
+    if err != 0:
+        raise RuntimeError(f"ssd backward occupancy query: CUDA error {err}")
+    names = ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_reduce")
+    return {"launches": len(names), "hs": hs,
+            "kernels": {name: {"blocks": out[3 * k],
+                               "smem_bytes": out[3 * k + 1],
+                               "blocks_per_sm": out[3 * k + 2]}
+                        for k, name in enumerate(names)}}

@@ -56,15 +56,18 @@ Phases, in order; any failure exits non-zero:
    100 (h0, dh_final), 8 groups and N 90 (no multiple of 4), f32 and
    bf16, against autograd through ``ssd_plain``: each gradient's error
    over its largest entry, 1e-4 (f32) or 2e-2 + 2^-7 (bf16); two runs
-   bitwise equal; each row
+   bitwise equal; h0's gradient (the walk's one more step) at S 100 and
+   S 40 (one chunk: the walk alone) against autograd's; each row
    with its launch plan (launches a call, the head slice hs, each
    kernel's blocks, shared-memory bytes and blocks an SM).  The RG-LRU's
-   backward (``csrc/rglru_bwd.cu``, f32) at recurrentgemma-9b's width
-   4096: 8 x 128, 2 x 1024 (dh_final), S 100 (h0, dh_final), 4 x 1 and
-   saturated gates near a = 1, against ``rglru_bwd_plain`` on the
-   forward kernels' kept states (each gradient's error over its largest
-   entry, 1e-4; dlambda's also against an f64 plain run, printed); two
-   runs bitwise equal.  The attention backward at recurrentgemma-9b's
+   backward (``csrc/rglru_bwd.cu``, one launch) at recurrentgemma-9b's
+   width 4096: f32 8 x 128, 2 x 1024 (dh_final), S 100 (h0, dh_final), 4
+   x 1 and saturated gates near a = 1, bf16 8 x 128, and an h0 that
+   needs a gradient (2 x 256, through ``RGLRUFunction`` too), against
+   ``rglru_bwd_plain`` on the forward kernels' kept states (each
+   gradient's error over its largest entry, dh0 among them, 1e-4 f32 or
+   2e-2 + 2^-7 bf16; dlambda's also against an f64 plain run, printed);
+   two runs bitwise equal.  The attention backward at recurrentgemma-9b's
    heads, bf16, 8 x 128 and 1 x 4096 (the window binds), beside SDPA's
    backward alone (its forward run once outside the timed region) and
    the backend SDPA picked.
@@ -435,6 +438,14 @@ def device_ms(fn, flush, iters: int = 20, stream=None) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def timing_floor(flush) -> float:
+    """``device_ms`` of a graph that holds one trivial launch (an
+    in-place add on a one-element tensor): the least time this method
+    gives any kernel, launch and events included."""
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda: one.add_(1.0), flush)
 
 
 def host_read_ms(fn, flush, iters: int = 5) -> float:
@@ -1107,29 +1118,33 @@ def ssd_bwd_bound(x, B, has_D, has_h0, has_dh, nc):
 
 
 def check_ssd_bwd(name, x, dt, A, B, C, D, h0, dy, dh, states, decay,
-                  flush=None):
+                  flush=None, with_dh0=False):
     """The SSD's backward kernels against autograd through ``ssd_plain``
-    on the same inputs and upstream gradients (dh_final None: zero); with
-    ``flush`` also the times (plain: ``ssd_bwd_plain``) and the bound.
-    No PyTorch call computes it: library_ms null."""
+    on the same inputs and upstream gradients (dh_final None: zero),
+    ``with_dh0`` h0's gradient too (h0 given); with ``flush`` also the
+    times (plain: ``ssd_bwd_plain``) and the bound.  No PyTorch call
+    computes it: library_ms null."""
     Bb, S, H, P = x.shape
     args = (x, dt, A, B, C, D, h0, dy, dh, states, decay)
 
     def kernel():
-        return kssd._ssd_bwd_cuda(*args)
+        return kssd._ssd_bwd_cuda(*args, with_dh0=with_dh0)
     got = kernel()
     torch.cuda.synchronize()
     leaves = [t.detach().clone().requires_grad_()
               for t in (x, dt, A, B, C)]
     Dg = None if D is None else D.detach().clone().requires_grad_()
-    y, hf = kssd.ssd_plain(*leaves, Dg, h0)
+    h0g = h0.detach().clone().requires_grad_() if with_dh0 else h0
+    y, hf = kssd.ssd_plain(*leaves, Dg, h0g)
     loss = (y.float() * dy.float()).sum()
     if dh is not None:
         loss = loss + (hf * dh).sum()
-    wrt = leaves + ([Dg] if Dg is not None else [])
-    want = list(torch.autograd.grad(loss, wrt)) + ([None] if Dg is None
-                                                   else [])
-    del y, hf, leaves, Dg, loss
+    wrt = leaves + ([Dg] if Dg is not None else []) + (
+        [h0g] if with_dh0 else [])
+    want = list(torch.autograd.grad(loss, wrt))
+    if Dg is None:
+        want.insert(5, None)
+    del y, hf, leaves, Dg, h0g, loss
     scaled, errs, tops = grad_errors(got, want)
     finite = all(bool(torch.isfinite(g).all()) for g in got
                  if g is not None)
@@ -1142,7 +1157,9 @@ def check_ssd_bwd(name, x, dt, A, B, C, D, h0, dy, dh, states, decay,
            + (" h0" if h0 is not None else "")
            + (" dh" if dh is not None else ""),
            "dtype": str(x.dtype).replace("torch.", ""),
-           "max_abs_err": max(errs), "dx_ddt_dA_dB_dC_dD_err": errs,
+           "max_abs_err": max(errs),
+           ("dx_ddt_dA_dB_dC_dD_dh0_err" if with_dh0
+            else "dx_ddt_dA_dB_dC_dD_err"): errs,
            "grad_max": tops, "scaled_err": scaled, "tol": GRAD_TOL[x.dtype],
            "run_to_run_equal": same,
            "ok": finite and same and scaled <= GRAD_TOL[x.dtype]}
@@ -1166,7 +1183,8 @@ def check_ssd_bwd(name, x, dt, A, B, C, D, h0, dy, dh, states, decay,
 
 
 def ssd_bwd_case(name, B, S, H, P, G, N, dtype, *, use_D=True,
-                 use_h0=False, use_dh=False, flush=None, seed=0):
+                 use_h0=False, use_dh=False, flush=None, seed=0,
+                 with_dh0=False):
     """``check_ssd_bwd`` on seeded inputs drawn as ``ssd_case`` draws
     them, dy and dh_final normal: the forward kernels keep their entering
     states and decays, the backward reads them."""
@@ -1184,7 +1202,7 @@ def ssd_bwd_case(name, B, S, H, P, G, N, dtype, *, use_D=True,
     dh = z(B, H, P, N) if use_dh else None
     _, _, states, decay = kssd._ssd_cuda(x, dt, A, Bm, Cm, D, h0, keep=True)
     return check_ssd_bwd(name, x, dt, A, Bm, Cm, D, h0, dy, dh, states,
-                         decay, flush)
+                         decay, flush, with_dh0=with_dh0)
 
 
 def rglru_bound(x, has_h0, nc_kept=1):
@@ -1201,26 +1219,29 @@ def rglru_bound(x, has_h0, nc_kept=1):
 
 def rglru_bwd_bound(x, has_h0, has_dh, nc):
     """The RG-LRU backward's least time: bytes (x, the two gates and dh
-    read, dx and the gates' gradients written, f32; lambda, h0, dh_final
-    and the forward's kept states read, dlambda written; the kernels' own
-    scratch, the chunk pairs and dlambda partials, not counted) or
-    operations, 30 an element (the forward's 15 to rebuild h and a, and
-    the reverse step's products: g, dx, di, dlog a, dr, the partial), at
-    the CUDA cores' f32 rate."""
+    read, dx and the gates' gradients written, in x's dtype; lambda, h0,
+    dh_final and the forward's kept states read, dlambda and dh0 written,
+    f32; the kernel's own scratch, the chunk pairs and dlambda partials,
+    not counted) or operations, 30 an element (the forward's 15 to
+    rebuild h and a, and the reverse step's products: g, dx, di, dlog a,
+    dr, the partial), at the CUDA cores' f32 rate."""
     Bb, S, W = x.shape
-    nbytes = 7 * x.numel() * 4 + 8 * W + 4 * Bb * W * (has_h0 + has_dh) \
-        + 4 * Bb * W * nc * (nc > 1)
+    nbytes = 7 * x.numel() * x.element_size() + 8 * W \
+        + 4 * Bb * W * (has_h0 + has_dh + 1) + 4 * Bb * W * nc * (nc > 1)
     return bound_of(nbytes, 30 * x.numel(), torch.float32)
 
 
 def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
-                    flush=None):
-    """The RG-LRU's backward kernels against ``rglru_bwd_plain`` (f32) on
-    the same inputs, the forward's kept states and upstream gradients;
-    dlambda's error against an f64 plain run too (its B·S terms summed
-    in f32 in a fixed order); two runs bitwise equal.  With ``flush``
-    also the times (plain: ``rglru_bwd_plain``) and the bound.  No
-    PyTorch call computes it: library_ms null."""
+                    flush=None, h0_grad=False):
+    """The RG-LRU's backward kernel against ``rglru_bwd_plain`` (f32
+    arithmetic) on the same inputs, the forward's kept states and
+    upstream gradients, dh0 among the gradients; dlambda's error against
+    an f64 plain run too (its B·S terms summed in f32 in a fixed order);
+    two runs bitwise equal.  ``h0_grad``: also every gradient, h0's
+    among them, by autograd through ``rglru`` (``RGLRUFunction``: the
+    forward and backward kernels) against the plain backward.  With
+    ``flush`` also the times (plain: ``rglru_bwd_plain``) and the bound.
+    No PyTorch call computes it: library_ms null."""
     Bb, S, W = x.shape
     args = (x, rg, ig, ll, h0, dh, dh_final)
 
@@ -1235,7 +1256,7 @@ def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
     f64 = krg.rglru_bwd_plain(*(None if t is None else t.double()
                                 for t in args))
     scaled, errs, tops = grad_errors(got, want)
-    dll_f64, _, _ = grad_errors(got[3:], [f64[3]])
+    dll_f64, _, _ = grad_errors(got[3:4], [f64[3]])
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     again = kernel()
     same = all(torch.equal(g, a) for g, a in zip(got, again))
@@ -1243,11 +1264,22 @@ def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
            "shape": f"B{Bb} S{S} W{W}" + (" h0" if h0 is not None else "")
            + (" dh" if dh_final is not None else ""),
            "dtype": str(x.dtype).replace("torch.", ""),
-           "max_abs_err": max(errs), "dx_dr_di_dlambda_err": errs,
+           "max_abs_err": max(errs), "dx_dr_di_dlambda_dh0_err": errs,
            "grad_max": tops, "scaled_err": scaled,
            "dlambda_scaled_err_vs_f64": dll_f64,
            "tol": GRAD_TOL[x.dtype], "run_to_run_equal": same,
            "ok": finite and same and scaled <= GRAD_TOL[x.dtype]}
+    if h0_grad:
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, rg, ig, ll, h0)]
+        h, hf = krg.rglru(*leaves)
+        loss = (h.float() * dh.float()).sum()
+        if dh_final is not None:
+            loss = loss + (hf * dh_final).sum()
+        auto = torch.autograd.grad(loss, leaves)
+        row["autograd_err"], _, _ = grad_errors(auto, want)
+        row["ok"] = row["ok"] and row["autograd_err"] <= GRAD_TOL[x.dtype]
+        del leaves, h, hf, loss, auto
     del got, again, want, f64
     if flush is not None:
         row["ms"] = device_ms(kernel, flush)
@@ -1260,12 +1292,13 @@ def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
 
 
 def rglru_bwd_case(name, B, S, W, *, use_h0=False, use_dh=False,
-                   saturated=False, flush=None, seed=0):
+                   saturated=False, flush=None, seed=0,
+                   dtype=torch.float32, h0_grad=False):
     """``check_rglru_bwd`` on seeded inputs drawn as ``rglru_case`` draws
-    them (f32), dh and dh_final normal; the forward kernels keep their
-    entering states, the backward reads them.  ``saturated``: Λ -4.3 and
-    half the r_gate entries -40 (a rounds to 1, the clamp of 1 - a^2
-    binds), -12 or -10 (a^2/β in the hundreds)."""
+    them (x, the gates and dh in ``dtype``), dh and dh_final normal; the
+    forward kernels keep their entering states, the backward reads them.
+    ``saturated``: Λ -4.3 and half the r_gate entries -40 (a rounds to 1,
+    the clamp of 1 - a^2 binds), -12 or -10 (a^2/β in the hundreds)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
 
@@ -1280,11 +1313,12 @@ def rglru_bwd_case(name, B, S, W, *, use_h0=False, use_dh=False,
         rg = torch.where(torch.rand((B, S, W), generator=gen,
                                     device="cuda") < 0.5, low, rg)
     h0 = z(B, W) * 0.2 if use_h0 else None
-    dh = z(B, S, W)
+    dh = z(B, S, W).to(dtype)
     dh_final = z(B, W) if use_dh else None
+    x, rg, ig = (t.to(dtype) for t in (x, rg, ig))
     _, _, states = krg._rglru_cuda(x, rg, ig, ll, h0, keep=True)
     return check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
-                           flush)
+                           flush, h0_grad=h0_grad)
 
 
 def check_rglru(name, x, rg, ig, ll, h0, flush=None, chunk_len=None,
@@ -1421,9 +1455,10 @@ def backward_rows(flush):
                                  G=1, N=90, dtype=dtype, use_h0=True,
                                  use_dh=True, seed=4))
     # the RG-LRU's backward at recurrentgemma-9b's width, f32 (the
-    # kernels take f32 alone; the model's recurrence runs in f32):
-    # training's 8 x 128, 2 x 1024 with dh_final, a ragged S 100 with h0
-    # and dh_final, S 1 (one chunk: two launches), saturated gates
+    # model's recurrence runs in f32): training's 8 x 128, 2 x 1024 with
+    # dh_final, a ragged S 100 with h0 and dh_final, S 1 (one chunk),
+    # saturated gates; then bf16 at 8 x 128 and an h0 that needs a
+    # gradient
     W = 4096
     rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b8-s128", 8, 128, W,
                                flush=flush))
@@ -1437,6 +1472,18 @@ def backward_rows(flush):
     rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b2-s128-saturated-dh", 2,
                                128, W, use_dh=True, saturated=True,
                                flush=flush, seed=4))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b8-s128-bf16", 8, 128, W,
+                               dtype=torch.bfloat16, flush=flush, seed=5))
+    rows.append(rglru_bwd_case(f"{HYBRID_ARCH}-b2-s256-h0grad-dh", 2, 256,
+                               W, use_h0=True, use_dh=True, h0_grad=True,
+                               flush=flush, seed=6))
+    # the SSD's backward with h0's gradient: the walk's one more step,
+    # through chunk 0 (S 40: one chunk, the walk alone)
+    for S in (100, 40):
+        rows.append(ssd_bwd_case(f"{SSM_ARCH}-b1-s{S}-h0grad-dh", B=1, S=S,
+                                 dtype=torch.float32, use_h0=True,
+                                 use_dh=True, with_dh0=True, seed=7,
+                                 **mamba))
     # the attention backward at recurrentgemma-9b's heads (MQA 16/1 of
     # 256, window 2048), bf16: training's 8 x 128, and 1 x 4096, where
     # the window binds
@@ -1473,9 +1520,8 @@ def phase_kernels():
     print("f32 cases run with TF32 off (cuda.matmul and cudnn)")
     rows = []
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    tiny = torch.empty(1, device="cuda")
-    print(f"timing floor: device_ms of a one-element fill "
-          f"{device_ms(lambda: tiny.fill_(1.0), flush)} ms")
+    print(f"timing floor: device_ms of a one-element add "
+          f"{timing_floor(flush)} ms")
     for arch, heads in HEADS.items():
         for name, shape in MAIN_CASES.items():
             for dtype in (torch.bfloat16, torch.float32):
@@ -2699,9 +2745,10 @@ class TrainRecorder:
                      tuple(map(clone, (x, dt, A, B, C, D, h0))) + (chunk,))
         return out
 
-    def _ssd_bwd(self, x, dt, A, B, C, D, h0, dy, dh, states, decay):
+    def _ssd_bwd(self, x, dt, A, B, C, D, h0, dy, dh, states, decay, **kw):
         before = kssd.ssd_bwd.launches
-        out = _SSD_BWD_CUDA(x, dt, A, B, C, D, h0, dy, dh, states, decay)
+        out = _SSD_BWD_CUDA(x, dt, A, B, C, D, h0, dy, dh, states, decay,
+                            **kw)
         clone = (lambda t: None if t is None else t.detach().clone())
         self._record(("ssd_bwd", self.kind) + tuple(x.shape)
                      + tuple(B.shape[2:]) + (x.dtype,),
@@ -3615,8 +3662,11 @@ def main(argv=None) -> int:
                                                           - r["bound_ms"])
     print("lost ms, launches x (ms - bound_ms) by kernel and path: "
           + json.dumps(dict(sorted(lost.items(), key=lambda kv: -kv[1]))))
+    floor = timing_floor(torch.empty(256 << 20, dtype=torch.uint8,
+                                     device="cuda"))
     print(card)
-    print(json.dumps({"kernels": [summary_row(r) for r in rows]}))
+    print(json.dumps({"kernels": [summary_row(r) for r in rows],
+                      "timing_floor_ms": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``).  The library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built when a module is
+a hash of its source, of every local header it includes (``#include
+"…"``, followed recursively) and of the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  Nothing is built when a module is
 imported: the first launch on a CUDA tensor builds.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,12 +44,39 @@ def _nvcc() -> str:
                        "port's CUDA kernels are built from source")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_sources(src: Path) -> list:
+    """``src`` and every local header it includes (``#include "…"``,
+    relative to the including file), recursively, each once, in the
+    order first reached.  A named header that does not exist is left to
+    nvcc to report."""
+    seen, todo = [], [Path(src).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
+def source_tag(src: Path) -> str:
+    """The library's tag: a hash of ``src``, its local headers (each by
+    name and content) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in local_sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     raises with the compiler's output if the build fails."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = source_tag(src)
     out = BUILD_DIR / f"lib{name}-{tag}.so"
     if out.exists():
         return out

@@ -43,56 +43,14 @@
 // each a_t in turn; here the entering state is multiplied by the chunk's
 // product A_c (one rounding a step folded into the product), and the
 // chunk's own contribution e_c is summed from zero.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stddef.h>
+
+#include "rglru_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 64;  // threads a block
 constexpr int kAhead = 8;     // elements of each input in flight a thread
-constexpr float kC = 8.f;
-
-// V consecutive channels at p as f32
-template <int V>
-__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
-#pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = p[k];
-}
-template <int V>
-__device__ __forceinline__ void load_v(const __nv_bfloat16* p,
-                                       float (&v)[V]) {
-  if constexpr (V == 2) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = __bfloat162float(p[k]);
-  }
-}
-template <int V>
-__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
-#pragma unroll
-  for (int k = 0; k < V; ++k) p[k] = v[k];
-}
-template <int V>
-__device__ __forceinline__ void store_v(__nv_bfloat16* p,
-                                        const float (&v)[V]) {
-  if constexpr (V == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) =
-        __floats2bfloat162_rn(v[0], v[1]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) p[k] = __float2bfloat16(v[k]);
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
 
 struct Args {
   const void* x;
@@ -180,8 +138,7 @@ __device__ __forceinline__ bool locate(const Args& p, int& b, int& c,
   if (w >= p.W) return false;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    const float l = p.lam[w + k];
-    coef[k] = -kC * (fmaxf(l, 0.f) + log1pf(expf(-fabsf(l))));
+    coef[k] = decay_coef(p.lam[w + k]);
   }
   return true;
 }

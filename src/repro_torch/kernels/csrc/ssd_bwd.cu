@@ -9,7 +9,7 @@
 // entering the chunk (kept by the forward) and G the gradient of the
 // state leaving it:
 //   G_{c-1} = exp(cum_Q) G_c + R_c,  R_c = sum_i exp(cum_i) dy_i (x) C_i,
-//             G_last = dh_final (or 0)
+//             G_last = dh_final (or 0), dh0 = G_{-1} (when asked)
 //   dx_j = sum_{i>=j} L_ij dt_j (C_i.B_j) dy_i
 //          + dt_j exp(cum_Q - cum_j) G B_j + D dy_j
 //   dB_j = sum_{i>=j} L_ij dt_j (dy_i.x_j) C_i + dt_j exp(cum_Q - cum_j) G^T x_j
@@ -54,7 +54,9 @@
 //   1. ssd_bwd_state: two kinds of block in one grid.  A walk block, one
 //      a (row, head, half of N), walks the chunks from the last: it forms
 //      R_c = (exp(cum) dy)^T C on the tensor cores, updates G in registers
-//      (G_{c-1} = decay_c G_c + R_c) and writes G_{c-1} into dS.  R never
+//      (G_{c-1} = decay_c G_c + R_c) and writes G_{c-1} into dS; asked for
+//      h0's gradient, it takes one more step, through chunk 0, and writes
+//      G_{-1} = dh0 (for one chunk the walk is then that step alone).  R never
 //      goes to device memory; G_c cannot be formed inside the chunk
 //      blocks, since it needs every later chunk's R.  A cb block, one a
 //      (group, chunk, row), forms the chunk's C.B^T once for the heads of
@@ -150,6 +152,7 @@ struct Params {
   const float* decay;   // (B, nc, H)
   const float* dhf;     // (B, H, P, N); null: zero
   float* dS;            // (B, nc - 1, H, P, N): G_c for c < nc - 1
+  float* dh0;           // (B, H, P, N): G_{-1}, h0's gradient; null: none
   float* cb;            // (B, nc, G, kQ, kQ): C_i . B_j
   void* dx;
   float* ddt;
@@ -492,8 +495,9 @@ __device__ __forceinline__ const float* leaving(const Params& p, int b,
 // ---------------------------------------------------------------------------
 // A walk block: row b, head h, columns [64 half, +64) of N.  G in the
 // strip layout (rows p, columns n) in registers, from dh_final; for c from
-// the last chunk down to 1: R_c = sum_i (exp(cum_i) dy_i) (x) C_i, then
-// G_{c-1} = decay_c G_c + R_c into dS.  dy and C go into two buffers in
+// the last chunk down to 1 (to 0 when dh0 is asked for): R_c = sum_i
+// (exp(cum_i) dy_i) (x) C_i, then G_{c-1} = decay_c G_c + R_c into dS
+// (G_{-1} into dh0).  dy and C go into two buffers in
 // turn: the next chunk's are in flight while this one's product runs.
 template <typename T>
 __device__ void state_walk(const Params& p, int blk, unsigned char* smem) {
@@ -512,6 +516,7 @@ __device__ void state_walk(const Params& p, int blk, unsigned char* smem) {
   const int live = live_cols(ncol);
   const size_t PN = (size_t)P * N;
   const float A = p.A[h];
+  const int last = p.dh0 ? 0 : 1;  // the last chunk walked through
 
   float gv[4][4];
 #pragma unroll
@@ -540,14 +545,13 @@ __device__ void state_walk(const Params& p, int blk, unsigned char* smem) {
   };
   stage_chunk(nc - 1);
   float dtv = chunk_dt(p, b, h, (nc - 1) * kQ, min(kQ, S - (nc - 1) * kQ));
-  for (int c = nc - 1; c >= 1; --c) {
+  for (int c = nc - 1; c >= last; --c) {
     const int rows = min(kQ, S - c * kQ);
     float* dys = bufs + ((nc - 1 - c) & 1) * 2 * kQ * kC64;
     float* Cs = dys + kQ * kC64;
-    const float dec = p.decay[((size_t)b * nc + c) * H + h];
     __syncthreads();  // the last step's reads of the other buffer are done
     if (tid < kQ) dts[tid] = dtv;
-    if (c > 1) {
+    if (c > last) {
       stage_chunk(c - 1);
       dtv = chunk_dt(p, b, h, (c - 1) * kQ, kQ);
       cp_async_wait_but_last();
@@ -556,12 +560,17 @@ __device__ void state_walk(const Params& p, int blk, unsigned char* smem) {
     }
     __syncthreads();
     chunk_cum(A, dts, cum, es);
+    // the forward's exp(cum_Q); for one chunk, formed here as it forms it
+    const float dec = p.decay ? p.decay[((size_t)b * nc + c) * H + h]
+                              : expf((float)cum[kQ - 1]);
     float acc[4][4];
     zero_acc(acc);
     if (live > 0)  // (exp(cum) dy)^T C
       warp_mma3<4>(acc, dys, 1, kC64, m0, Cs, kC64, 1, n0, 0, ceil8(rows),
                    live, es);
-    float* out = p.dS + (((size_t)b * (nc - 1) + c - 1) * H + h) * PN + nb;
+    float* out =
+        (c > 0 ? p.dS + (((size_t)b * (nc - 1) + c - 1) * H + h) * PN
+               : p.dh0 + ((size_t)b * H + h) * PN) + nb;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1154,7 +1163,8 @@ cudaError_t configure() {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// Each launch's blocks: ssd_bwd_state's walk blocks (none for one chunk)
+// Each launch's blocks: ssd_bwd_state's walk blocks (none for one chunk
+// unless dh0 is asked for)
 // then cb blocks, ssd_bwd_chunk's dBC blocks then dx blocks, and
 // ssd_bwd_reduce's element blocks then its 2 H warps.
 struct Grids {
@@ -1165,7 +1175,7 @@ struct Grids {
 Grids grids(const Params& p) {
   const int nh = (p.N + kH - 1) / kH;
   const size_t M = (size_t)p.B * p.S * p.G * p.N;
-  return {p.nc > 1 ? p.B * p.H * nh : 0, p.G * p.nc * p.B,
+  return {p.nc > 1 || p.dh0 ? p.B * p.H * nh : 0, p.G * p.nc * p.B,
           (p.H / p.hs) * nh * p.nc * p.B, p.H * p.nc * p.B,
           (2 * M + kThreads - 1) / kThreads +
               (2 * (size_t)p.H + kThreads / 32 - 1) / (kThreads / 32)};
@@ -1232,17 +1242,19 @@ bool shape(Params& p, int B, int S, int H, int P, int G, int N, int hs) {
 // else h0 (B, H, P, N) or null; decay (B, nc, H) when nc > 1.  Scratch:
 // dS (B, nc - 1, H, P, N) when nc > 1, cb (B, nc, G, 64, 64), dBp and dCp
 // (B, S, H / hs, N), dA_part and dD_part (B, nc, H); hs, the heads a dBC
-// block walks, divides H / G.  Returns the first non-zero
-// cudaGetLastError() (0 = launched).
+// block walks, divides H / G.  dh0 (B, H, P, N) f32, h0's gradient, or
+// null for none.  Returns the first non-zero cudaGetLastError() (0 =
+// launched).
 extern "C" int repro_ssd_bwd(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, const float* D,
                              const void* dy, const float* states,
                              const float* decay, const float* dhf, float* dS,
                              float* cb, void* dx, float* ddt, float* dBp,
                              float* dCp, float* dA_part, float* dD_part,
-                             void* dB, void* dC, float* dA, float* dD, int B,
-                             int S, int H, int P, int G, int N, int hs,
-                             int has_h0, int is_bf16, void* stream) {
+                             void* dB, void* dC, float* dA, float* dD,
+                             float* dh0, int B, int S, int H, int P, int G,
+                             int N, int hs, int has_h0, int is_bf16,
+                             void* stream) {
   Params p{};
   if (!shape(p, B, S, H, P, G, N, hs)) return (int)cudaErrorInvalidValue;
   p.x = x;
@@ -1267,6 +1279,7 @@ extern "C" int repro_ssd_bwd(const void* x, const float* dt, const float* A,
   p.dC = dC;
   p.dA = dA;
   p.dD = dD;
+  p.dh0 = dh0;
   p.has_h0 = has_h0;
   if ((p.nc > 1 &&
        (states == nullptr || decay == nullptr || dS == nullptr)) ||

@@ -55,7 +55,9 @@ slice of a group's heads in order; the ordered sums over slices and over
 counterparts, held against it on the CPU: :func:`ssd_bwd_state_plain`,
 :func:`ssd_chunk_cb_plain`, :func:`ssd_bwd_dx_plain`,
 :func:`ssd_bwd_dbdc_plain`, :func:`ssd_bwd_reduce_plain`; the slice
-size is :func:`ssd_bwd_plan`'s.  ``ssd_bwd.launches`` counts calls.
+size is :func:`ssd_bwd_plan`'s.  An h0 that needs a gradient takes it
+from the walk's one more step, through chunk 0 (``with_dh0``).
+``ssd_bwd.launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -242,10 +244,12 @@ def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D=None
 
 
 def ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final=None, *,
-                  chunk: int = CHUNK):
+                  chunk: int = CHUNK, with_dh0: bool = False):
     """The gradients (dx, ddt, dA, dB, dC, dD) of the SSD's (y, h_final)
     from dy (and dh_final, None for zero), each in its input's dtype (dD
-    None without D), in f32 as the kernels take them.  Per (row, head)
+    None without D), in f32 as the kernels take them; ``with_dh0`` adds
+    h0's, dh0 = decay_0·G_0 + R_0 (Bb,H,P,N), in h0's dtype (f32 without
+    h0: the gradient of a zero initial state).  Per (row, head)
     and chunk of Q tokens, cum_i the in-chunk inclusive Σ dt·A,
     L_ij = exp(cum_i − cum_j) for j <= i, h_in the state entering the
     chunk and G the gradient of the state leaving it:
@@ -262,8 +266,7 @@ def ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final=None, *,
     spans step k (the T_ij = L_ij dt_j (C_i·B_j)(dy_i·x_j) with
     i >= k > j, and the state terms), and gives ddt_k = A·d(dt·A)_k plus
     the direct terms and dA = Σ dt·d(dt·A).
-    B's and C's gradients are summed over the heads of a group.  h0 takes
-    no gradient."""
+    B's and C's gradients are summed over the heads of a group."""
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     rep = H // G
@@ -337,9 +340,13 @@ def ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final=None, *,
         return t.reshape(Bb, nc * Q, *t.shape[3:])[:, :S]
     dB = back(dBh).reshape(Bb, S, G, rep, N).sum(3)
     dC = back(dCh).reshape(Bb, S, G, rep, N).sum(3)
-    return (back(dx).to(x.dtype), back(ddt).to(dt.dtype), dA.to(A.dtype),
-            dB.to(B.dtype), dC.to(C.dtype),
-            None if D is None else dD.to(D.dtype))
+    grads = (back(dx).to(x.dtype), back(ddt).to(dt.dtype), dA.to(A.dtype),
+             dB.to(B.dtype), dC.to(C.dtype),
+             None if D is None else dD.to(D.dtype))
+    if not with_dh0:
+        return grads
+    dh0 = decay[:, 0, :, None, None] * dS[:, 0] + R[:, 0]
+    return grads + (dh0 if h0 is None else dh0.to(h0.dtype),)
 
 
 def ssd_bwd_plan(B: int, S: int, H: int, G: int, N: int) -> int:
@@ -367,14 +374,16 @@ def ssd_chunk_cb_plain(B, C, *, chunk: int = CHUNK) -> torch.Tensor:
 
 
 def ssd_bwd_state_plain(dy, dt, A, C, decay, dh_final=None, *,
-                        chunk: int = CHUNK) -> torch.Tensor:
+                        chunk: int = CHUNK, with_dh0: bool = False):
     """The gradient of the state leaving each chunk (Bb,nc,H,P,N) f32, as
     the backward's walk blocks form it: from the last chunk's (dh_final,
     or zero) back, G_{c−1} = decay_c·G_c + R_c, where
     R_c = Σ_i exp(cum_i)·dy_i ⊗ C_i is formed at the step that needs it.
-    ``decay`` (Bb,nc,H) is the forward's (None for one chunk).  The
-    kernel writes all but the last into its scratch and reads dh_final
-    for the last."""
+    ``decay`` (Bb,nc,H) is the forward's (None for one chunk: exp(cum_Q),
+    as the walk forms it).  The kernel writes all but the last into its
+    scratch and reads dh_final for the last.  ``with_dh0`` returns
+    (leaving, dh0) with dh0 = G_{−1} (Bb,H,P,N), the walk's one more
+    step, through chunk 0."""
     Bb, S, H, P = dy.shape
     N = C.shape[3]
     rep = H // C.shape[2]
@@ -383,14 +392,18 @@ def ssd_bwd_state_plain(dy, dt, A, C, decay, dh_final=None, *,
     nc = cum.shape[1]
     g = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=dy.device)
          if dh_final is None else dh_final.float())
+    if decay is None:
+        decay = torch.exp(cum[:, :, -1].float())
     leaving = [g] * nc
-    for c in range(nc - 1, 0, -1):
+    for c in range(nc - 1, -1 if with_dh0 else 0, -1):
         R = torch.einsum("bihp,bihn->bhpn",
                          dyf[:, c] * torch.exp(cum[:, c].float())[..., None],
                          Cf[:, c])
         g = decay[:, c, :, None, None] * g + R
-        leaving[c - 1] = g
-    return torch.stack(leaving, dim=1)
+        if c > 0:
+            leaving[c - 1] = g
+    leaving = torch.stack(leaving, dim=1)
+    return (leaving, g) if with_dh0 else leaving
 
 
 def _bwd_chunk_terms(x, dt, A, dy, chunk):
@@ -507,17 +520,19 @@ def ssd_bwd_reduce_plain(dBp, dCp, dA_part, dD_part, G: int, dtype,
 
 
 def ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final=None, *, states=None,
-            decay=None, chunk: int = CHUNK):
-    """(dx, ddt, dA, dB, dC, dD): ``ssd_bwd_plain`` on the CPU (at
-    ``chunk``), the backward kernels on the card, which read the forward's
-    ``states`` (the state entering each chunk) and ``decay`` (each chunk's
-    exp(cum_Q)) when the sequence has more than one chunk; no fallback."""
+            decay=None, chunk: int = CHUNK, with_dh0: bool = False):
+    """(dx, ddt, dA, dB, dC, dD) and, ``with_dh0``, dh0:
+    ``ssd_bwd_plain`` on the CPU (at ``chunk``), the backward kernels on
+    the card, which read the forward's ``states`` (the state entering each
+    chunk) and ``decay`` (each chunk's exp(cum_Q)) when the sequence has
+    more than one chunk; no fallback."""
     if x.device.type == "cpu":
         return ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final,
-                             chunk=chunk)
+                             chunk=chunk, with_dh0=with_dh0)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_bwd: no kernel for device {x.device}")
-    return _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay)
+    return _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay,
+                         with_dh0=with_dh0)
 
 
 ssd_bwd.launches = 0
@@ -526,7 +541,8 @@ ssd_bwd.launches = 0
 class SSDFunction(torch.autograd.Function):
     """The SSD with its gradients: ``ssd``'s forward (the kernels keep
     the entering states and decays on the card), ``ssd_bwd`` backward,
-    each dispatching on the device.  h0 takes no gradient."""
+    each dispatching on the device; an h0 that needs a gradient takes
+    it."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0, chunk):
@@ -548,22 +564,21 @@ class SSDFunction(torch.autograd.Function):
         x, dt, A, B, C, D, h0, states, decay = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
+        with_dh0 = ctx.needs_input_grad[6]
         grads = ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final, states=states,
-                        decay=decay, chunk=ctx.chunk)
-        return (*grads, None, None)
+                        decay=decay, chunk=ctx.chunk, with_dh0=with_dh0)
+        return (*grads[:6], grads[6] if with_dh0 else None, None)
 
 
 def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, h_final) of the chunked SSD; see ``ssd_plain``.  On the card
     the kernels take their own chunk length, ``CHUNK``, whatever ``chunk``
-    says: the SSD is chunk-invariant.  Inputs that need a gradient go
-    through ``SSDFunction`` (h0 may not)."""
+    says: the SSD is chunk-invariant.  Inputs that need a gradient (h0
+    among them) go through ``SSDFunction``."""
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, dt, A, B, C, D)):
-        if h0 is not None and h0.requires_grad:
-            raise RuntimeError("ssd: the backward gives h0 no gradient; an "
-                               "h0 that needs one is not supported")
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, D, h0)):
         return SSDFunction.apply(x, dt, A, B, C, D, h0, chunk)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
@@ -600,7 +615,7 @@ def _bwd_kernel():
         from .build import load
         fn = load("ssd_bwd").repro_ssd_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         _bwd_fn = fn
     return _bwd_fn
@@ -694,11 +709,13 @@ def _ssd_cuda(x, dt, A, B, C, D, h0, keep: bool = False):
 
 
 def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
-                  hs=None):
+                  hs=None, with_dh0: bool = False):
     """The backward on the card: three launches (``ssd_bwd_state``,
     ``ssd_bwd_chunk``, ``ssd_bwd_reduce``), one ``ssd_bwd.launches`` a
     call.  ``hs``, the heads a dB/dC block walks, is
-    :func:`ssd_bwd_plan`'s unless given (it must divide H / G).  Scratch,
+    :func:`ssd_bwd_plan`'s unless given (it must divide H / G).
+    ``with_dh0`` adds h0's gradient (B,H,P,N), in h0's dtype (f32 without
+    h0), from one more step of the walk.  Scratch,
     f32: the gradients of the states leaving the chunks but the last
     (B,nc−1,H,P,N), each chunk's C·Bᵀ (B,nc,G,64,64), the slices' dB and
     dC (B,S,H/hs,N) and the blocks' dA, dD partials (B,nc,H)."""
@@ -746,6 +763,7 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
     dA_part, dD_part = f32(Bb, nc, H), f32(Bb, nc, H)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
     dA, dD = f32(H), f32(H)
+    dh0 = f32(Bb, H, P, N) if with_dh0 else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -755,14 +773,17 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
         err = fn(ptr(xc), ptr(dtf), ptr(Af), ptr(Bc), ptr(Cc), ptr(Df),
                  ptr(dyc), ptr(hin), ptr(decay), ptr(dhf), ptr(dS), ptr(cb),
                  ptr(dx), ptr(ddt), ptr(dBp), ptr(dCp), ptr(dA_part),
-                 ptr(dD_part), ptr(dB), ptr(dC), ptr(dA), ptr(dD), Bb, S, H,
-                 P, G, N, hs, int(h0 is not None),
+                 ptr(dD_part), ptr(dB), ptr(dC), ptr(dA), ptr(dD), ptr(dh0),
+                 Bb, S, H, P, G, N, hs, int(h0 is not None),
                  int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
     ssd_bwd.launches += 1
-    return (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
-            None if D is None else dD.to(D.dtype))
+    grads = (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+             None if D is None else dD.to(D.dtype))
+    if not with_dh0:
+        return grads
+    return grads + (dh0 if h0 is None else dh0.to(h0.dtype),)
 
 
 def ssd_bwd_launch_plan(B: int, S: int, H: int, G: int, N: int,

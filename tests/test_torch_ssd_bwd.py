@@ -8,12 +8,16 @@ same numpy inputs and upstream gradients, each gradient to 1e-4 of its
 largest entry (f32 on both sides; the chunked and sequential forms sum
 in other orders).  Cases: S 1, 63, 64, 100 (a ragged last chunk: dt = 0
 padding must give the padded rows nothing) and 256; G 1 and 2; D on and
-off; h0 and dh_final on and off.  ``ssd`` with inputs that need a
+off; h0 and dh_final on and off.  h0's gradient (``with_dh0``: the
+walk's one more step, through chunk 0) against ``jax.vjp`` with respect
+to h0 (a zero h0 where the case has none), through ``SSDFunction`` and
+from the walk's plain counterpart.  ``ssd`` with inputs that need a
 gradient goes through ``SSDFunction``, and autograd through ``ssd_plain``
 gives no NaN (the masked exponents are masked before ``exp``);
 ``ssd_keep_plain`` gives the states entering each chunk.  On the card
 (``-m gpu``): the states the forward kernels keep, and the backward
-kernels, against the plain versions, f32 and bf16, and the launches.
+kernels, against the plain versions, f32 and bf16, dh0, and the
+launches.
 
 The card's machine has no JAX, so JAX is imported by the ``ref`` fixture
 and not at the top."""
@@ -107,12 +111,24 @@ def ref():
     jnp = jax.numpy
     from repro.kernels.ref import ssd_ref
 
-    def grads(x, dt, A, B, C, D, h0, dy, dh):
-        def f(x, dt, A, B, C, D):
-            return ssd_ref(x, dt, A, B, C, D,
-                           None if h0 is None else jnp.asarray(h0))
-        args = [jnp.asarray(a) for a in (x, dt, A, B, C)] + [
-            None if D is None else jnp.asarray(D)]
+    def grads(x, dt, A, B, C, D, h0, dy, dh, wrt_h0=False):
+        """The gradients of x, dt, A, B, C, D; with ``wrt_h0`` h0's
+        alone (of a zero h0 where ``h0`` is None)."""
+        if wrt_h0:
+            h0 = np.zeros((x.shape[0], x.shape[2], x.shape[3], B.shape[3]),
+                          np.float32) if h0 is None else h0
+            fixed = [jnp.asarray(a) for a in (x, dt, A, B, C)] + [
+                None if D is None else jnp.asarray(D)]
+
+            def f(h0):
+                return ssd_ref(*fixed, h0)
+            args = [jnp.asarray(h0)]
+        else:
+            def f(x, dt, A, B, C, D):
+                return ssd_ref(x, dt, A, B, C, D,
+                               None if h0 is None else jnp.asarray(h0))
+            args = [jnp.asarray(a) for a in (x, dt, A, B, C)] + [
+                None if D is None else jnp.asarray(D)]
         (y, hf), vjp = jax.vjp(f, *args)
         cot = (jnp.asarray(dy), jnp.zeros_like(hf) if dh is None
                else jnp.asarray(dh))
@@ -142,13 +158,47 @@ def test_ssd_function_carries_the_gradient(case):
     _close(got, want)
 
 
-def test_h0_that_needs_a_gradient_is_refused():
-    arrays, _, _ = _inputs(CASES[1])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_plain_dh0_matches_jax(ref, case):
+    """h0's gradient, decay_0·G_0 + R_0, against ``jax.vjp`` of
+    ``ref.ssd_ref`` with respect to h0 (of a zero h0 where the case has
+    none), to 1e-4 of its largest entry; the other gradients unchanged by
+    asking for it."""
+    arrays, dy, dh = _inputs(case)
+    (want,) = ref(*arrays, dy, dh, wrt_h0=True)
     ins = [_t(a) for a in arrays]
-    ins[0].requires_grad_()
-    ins[6].requires_grad_()
-    with pytest.raises(RuntimeError, match="h0"):
-        kssd.ssd(*ins)
+    got = kssd.ssd_bwd_plain(*ins, _t(dy), _t(dh), with_dh0=True)
+    assert len(got) == 7
+    _close([got[6]], [_t(want)], names=("dh0",))
+    for g, w in zip(got, kssd.ssd_bwd_plain(*ins, _t(dy), _t(dh))):
+        assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[4], CASES[5]],
+                         ids=lambda c: c[0])
+def test_ssd_function_gives_h0_its_gradient(case):
+    """``ssd`` with an h0 that needs a gradient goes through SSDFunction
+    (plain on the CPU) and gives h0 autograd's gradient through
+    ``ssd_plain``; the walk's plain counterpart, one step further, gives
+    the same dh0."""
+    arrays, dy, dh = _inputs(case)
+    ins, dy, dh = [_t(a) for a in arrays], _t(dy), _t(dh)
+
+    def grad_h0(fn, **kw):
+        h0 = ins[6].clone().requires_grad_()
+        x = ins[0].clone().requires_grad_()
+        y, hf = fn(x, *ins[1:6], h0, **kw)
+        loss = (y * dy).sum() + (0 if dh is None else (hf * dh).sum())
+        return torch.autograd.grad(loss, [x, h0]), y
+    (gx, got), y = grad_h0(kssd.ssd, chunk=32)
+    assert type(y.grad_fn).__name__ == "SSDFunctionBackward"
+    (wx, want), _ = grad_h0(kssd.ssd_plain)
+    _close([gx, got], [wx, want], names=("dx", "dh0"))
+    x, dt, A, B, C, D, h0 = ins
+    _, _, _, decay = kssd.ssd_keep_plain(x, dt, A, B, C, D, h0)
+    _, walked = kssd.ssd_bwd_state_plain(dy, dt, A, C, decay, dh,
+                                         with_dh0=True)
+    _close([walked], [want], names=("dh0",))
 
 
 def test_padded_rows_take_no_gradient():
@@ -226,6 +276,39 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[4], CASES[5]]
+                         + CARD_CASES[-4:], ids=lambda c: c[0])
+def test_dh0_matches_plain_on_card(case, dt):
+    """The walk's one more step on the card (one chunk: the walk alone):
+    dh0 and the other gradients against ``ssd_bwd_plain(with_dh0=True)``
+    on the forward kernels' kept states; through SSDFunction with an h0
+    that needs a gradient; two runs bitwise equal."""
+    _card()
+    dtype = getattr(torch, dt)
+    arrays, dy, dh = _inputs(case)
+    ins = [_t(a, "cuda", dtype if i in (0, 3, 4) else None)
+           for i, a in enumerate(arrays)]
+    dy, dh = _t(dy, "cuda", dtype), _t(dh, "cuda")
+    _, _, states, decay = kssd._ssd_cuda(*ins, keep=True)
+    got = kssd._ssd_bwd_cuda(*ins, dy, dh, states, decay, with_dh0=True)
+    again = kssd._ssd_bwd_cuda(*ins, dy, dh, states, decay, with_dh0=True)
+    torch.cuda.synchronize()
+    want = kssd.ssd_bwd_plain(*ins, dy, dh, with_dh0=True)
+    _close(got, want, tol=GPU_TOL[dt], names=NAMES + ("dh0",))
+    for a, b in zip(got, again):
+        assert a is None or torch.equal(a, b)
+    if ins[6] is not None:
+        h0 = ins[6].clone().requires_grad_()
+        y, hf = kssd.ssd(*ins[:6], h0)
+        loss = (y.float() * dy.float()).sum()
+        if dh is not None:
+            loss = loss + (hf * dh).sum()
+        (g,) = torch.autograd.grad(loss, [h0])
+        _close([g], [want[6]], tol=GPU_TOL[dt], names=("dh0",))
 
 
 @pytest.mark.gpu

@@ -51,8 +51,10 @@ def plain_forward(x, dt, A, B, C, D, h0, keep=False):
     return out if keep else out[:2]
 
 
-def plain_backward(x, dt, A, B, C, D, h0, dy, dh, states, decay):
-    return kssd.ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh)
+def plain_backward(x, dt, A, B, C, D, h0, dy, dh, states, decay,
+                   with_dh0=False):
+    return kssd.ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh,
+                              with_dh0=with_dh0)
 
 
 def gradients(model, params, batch, path):

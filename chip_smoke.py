@@ -50,7 +50,14 @@ Phases, in order; any failure exits non-zero:
    The router's backward (``router_bwd_kernel``) at granite's E 40, k 8
    and training's capacity factor 1.25, T 4, 64 and 1024, and with 8
    padded experts, against autograd through ``router_dispatch_plain`` and
-   against ``router_bwd_plain``; the SSD's backward (``csrc/ssd_bwd.cu``:
+   against ``router_bwd_plain``; the MoE combine and its backward with the
+   router's (``csrc/moe_combine.cu``) at granite's E 40, k 8, d 1536,
+   bf16 and f32: T 4 and 64 dropless, T 64 at C 13, training's T 1024
+   at C 256, 48 experts of which 40 are real, and rows of 90 and 66
+   values (no multiple of 16 bytes), against ``moe_combine_plain`` and
+   ``moe_combine_bwd_plain`` (the largest error over the largest entry,
+   1e-5 f32, 2e-2 bf16; the empty slots' rows zero; two runs bitwise
+   equal); the SSD's backward (``csrc/ssd_bwd.cu``:
    ``ssd_bwd_state``, ``ssd_bwd_chunk``, ``ssd_bwd_reduce``, 3xTF32 on
    the tensor cores) at mamba2's heads, 8 x 128, 2 x 1024 (dh_final), S
    100 (h0, dh_final), 8 groups and N 90 (no multiple of 4), f32 and
@@ -110,13 +117,17 @@ Phases, in order; any failure exits non-zero:
       Tokens/s, follow-up TTFT p50/p99 and whether the reference's >= 2x
       held are printed, not enforced.
    b. granite-moe-3b-a800m serving, the same demo and sessions at full
-      width: attention and the MoE router must launch on each.  Then one
-      MoE layer at granite's width on a decode step's 4 tokens and a
-      chunk's 64: it must make no host sync (``torch.cuda``'s sync debug
-      mode set to "error"), its output must equal bit for bit that of
-      the eager-dispatch layer the port ran before (kept here as a
-      yardstick), and ``torch.profiler`` counts both layers' launches
-      around the router matmul and the expert products.
+      width: attention, the MoE router and the MoE combine must launch on
+      each.  Then one MoE layer at granite's width on a decode step's 4
+      tokens and a chunk's 64: it must make no host sync
+      (``torch.cuda``'s sync debug mode set to "error"), its routing, each
+      assignment's slot and its dispatched buffer must equal bit for bit
+      those of the eager-dispatch layer the port ran before (kept here as
+      a yardstick), its y must lie within ``MOE_Y_TOL`` of the eager
+      layer's largest entry (the combine sums in f32 and rounds once,
+      where the eager layer rounded each product to bf16; the largest
+      difference is printed), and ``torch.profiler`` counts both layers'
+      launches around the router matmul and the expert products.
    c. The checkpoint service: full-width qwen1.5-0.5b weights saved from
       the card through ``CheckpointClient`` to a ``CheckpointServer``
       over tcp (checksums on the card, verified on the server's card),
@@ -153,8 +164,11 @@ Phases, in order; any failure exits non-zero:
    i. granite-moe-3b-a800m training at full width and depth through
       ``init_state`` / ``make_train_step``, batches over RPC from a
       ``DataFeedServer``, a ``MembershipClient`` joined and left, no
-      save (8 x 128, 10 steps, capacity factor 1.25): attention and the router forward and backward 32 times a
-      step each, ``moe_lb`` and ``moe_z`` printed; then the repeat check.
+      save (8 x 128, 10 steps, capacity factor 1.25): attention's
+      forward and backward, the router's forward and the MoE combine's
+      forward and backward 32 times a step each, the router's own
+      backward never (the combine's backward takes the logits'
+      gradient), ``moe_lb`` and ``moe_z`` printed; then the repeat check.
    j. recurrentgemma-9b training at full width, cut to 11 of its 38
       layers (three periods of rglru, rglru, local and the two trailing
       RG-LRU layers; 38 layers with AdamW need 136.4 GB), through
@@ -195,8 +209,8 @@ Phases, in order; any failure exits non-zero:
    row names its ``path`` and ``n_split``); phase 3g's attention
    backward rows also time SDPA's backward (forward + backward less the
    forward) as the library yardstick; phases 3h, 3i and 3j add the
-   SSD's, the router's and the RG-LRU's training forwards (the RG-LRU's
-   with its kept states) and backwards.  These rows, with the main
+   SSD's, the router's, the MoE combine's and the RG-LRU's training
+   forwards (the RG-LRU's with its kept states) and backwards.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -249,6 +263,7 @@ from repro_torch.kernels import SOURCES  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import fletcher as fl  # noqa: E402
+from repro_torch.kernels import moe_combine as kc  # noqa: E402
 from repro_torch.kernels import moe_router as kr  # noqa: E402
 from repro_torch.kernels import rglru as krg  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
@@ -359,6 +374,25 @@ TRAIN_PARITY_TOL = 1e-4
 # order; bf16: inputs and outputs rounded to bf16 on both sides, 2e-2 and
 # one unit in the last place, 2^-7, of the largest entry)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2 + 2.0 ** -7}
+# the MoE combine and its backward against their plain versions: the
+# largest error over the largest |entry| (f32: the same products summed
+# in another order; bf16: both sides sum in f32 and round once, so an
+# entry parts only where its rounding lands the other way, by one unit in
+# its last place, at most 2^-7 of the largest entry; held at bf16's 2e-2)
+COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# ... and the share of the bf16 outputs' entries (y, d_out_buf) that
+# differ at all.  The f32 sums part by a unit of f32 or two, so about one
+# entry in 10^4 rounds the other way; a kernel that rounds each product to
+# bf16 before the sum (within 2e-2 of the largest entry all the same)
+# parts on most entries
+COMBINE_DIFFER_SHARE = 1e-2
+# phase 3b: the MoE layer's y against the eager-dispatch layer's, over the
+# largest |entry|.  The eager layer rounds each of a token's 8 weighted
+# rows to bf16 (w cast to bf16 too) before it sums them; the combine sums
+# in f32 and rounds once.  Each rounding is at most 2^-9 of its value, so
+# the two part by a few units of 2^-8 of the largest row: bf16's 2e-2,
+# the combine kernel's own tolerance
+MOE_Y_TOL = 2e-2
 # phase 3h: mamba2-1.3b through the launcher, 10 steps of 8 x 128 and one
 # save at the end; phase 3i: granite-moe-3b-a800m, 10 steps of 8 x 128
 # through init_state / make_train_step, batches over RPC, no save; both:
@@ -1418,6 +1452,196 @@ def fletcher_words(n, seed=0):
     return torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
                          generator=gen, device="cuda")
 
+# ---------------------------------------------------------------------------
+# kernel against its plain version: the MoE combine and its backward
+# ---------------------------------------------------------------------------
+def combine_kept(slot, n_slots) -> int:
+    return int((slot < n_slots).sum())
+
+
+def combine_bound(out_buf, slot):
+    """The kept rows of out_buf read, w and slot read, y written; a
+    multiply-add per kept element, at the CUDA cores' f32 rate."""
+    (n_slots, d), (T, k) = out_buf.shape, slot.shape
+    size = out_buf.element_size()
+    kept = combine_kept(slot, n_slots)
+    return bound_of(kept * d * size + 8 * T * k + T * d * size,
+                    2 * kept * d, torch.float32)
+
+
+def combine_bwd_bound(out_buf, slot, E):
+    """dy and the kept rows of out_buf read, every row of d_out_buf
+    written; w, slot, idx, src, logits and probs read, dlogits written;
+    per kept element a multiply-add (dw) and a multiply (d_out), and the
+    router's row (router_bwd_bound's operations), at the CUDA cores' f32
+    rate."""
+    (n_slots, d), (T, k) = out_buf.shape, slot.shape
+    size = out_buf.element_size()
+    kept = combine_kept(slot, n_slots)
+    nbytes = ((T + kept + n_slots) * d * size + 12 * T * k + 4 * n_slots
+              + 12 * T * E + 4 * E + 4)
+    return bound_of(nbytes, 3 * kept * d + 8 * T * E + 4 * T * k,
+                    torch.float32)
+
+
+def differ_share(got, want) -> float:
+    """The share of the bf16 outputs' entries that differ at all (0.0 for
+    f32, which COMBINE_TOL alone holds)."""
+    pairs = [(g, w) for g, w in zip(got, want) if w.dtype == torch.bfloat16]
+    n = sum(w.numel() for _, w in pairs)
+    return sum(int((g != w).sum()) for g, w in pairs) / n if n else 0.0
+
+
+def combine_library(out_buf, w, slot):
+    """The one PyTorch call that computes the combine, where the call
+    drops nothing: ``F.embedding_bag``'s weighted sum of each token's k
+    rows (f32 sums on the card, w in the rows' dtype).  None where a
+    choice is dropped: it has no empty slot to skip, and the zero row it
+    would need is the copy of the whole buffer the kernel removed."""
+    if combine_kept(slot, out_buf.shape[0]) < slot.numel():
+        return None
+    at, ws = slot.long(), w.to(out_buf.dtype)
+    return lambda: F.embedding_bag(at, out_buf, per_sample_weights=ws,
+                                   mode="sum")
+
+
+def check_combine(name, out_buf, w, slot, flush=None):
+    """The combine kernel against ``moe_combine_plain``: the largest error
+    over the largest |entry| within COMBINE_TOL, in bf16 the share of
+    entries that differ within COMBINE_DIFFER_SHARE, a second call
+    bitwise equal; with ``flush`` the times and the bound, and where the
+    call drops nothing ``F.embedding_bag``'s time (library_ms; null where
+    it drops, ``library_note`` says why) and its error over the largest
+    entry."""
+    (n_slots, d), (T, k) = out_buf.shape, slot.shape
+
+    def kernel():
+        return kc._moe_combine_cuda(out_buf, w, slot)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    want = kc.moe_combine_plain(out_buf, w, slot)
+    scaled, errs, tops = grad_errors([got], [want])
+    tol = COMBINE_TOL[out_buf.dtype]
+    row = {"kernel": "moe_combine", "case": name,
+           "shape": f"T{T} k{k} EC{n_slots} d{d}",
+           "dtype": str(out_buf.dtype).replace("torch.", ""),
+           "max_abs_err": errs[0], "y_max": tops[0], "scaled_err": scaled,
+           "tol": tol, "differ_share": differ_share([got], [want]),
+           "dropped": T * k - combine_kept(slot, n_slots),
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    row["ok"] = (scaled <= tol and row["bitwise_repeat"]
+                 and row["differ_share"] <= COMBINE_DIFFER_SHARE)
+    if flush is not None:
+        row["ms"] = device_ms(kernel, flush)
+        row["plain_ms"] = device_ms(
+            lambda: kc.moe_combine_plain(out_buf, w, slot), flush)
+        library = combine_library(out_buf, w, slot)
+        if library is None:
+            row["library_ms"] = None
+            row["library_note"] = ("drops: F.embedding_bag needs a zero "
+                                   "row appended, a second call")
+        else:
+            row["library_ms"] = device_ms(library, flush)
+            row["library_scaled_err"] = grad_errors([library()],
+                                                    [want])[0]
+        row["bound_ms"], row["bound_by"] = combine_bound(out_buf, slot)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def check_combine_bwd(name, dy, out_buf, logits, probs, idx, w, slot, src,
+                      dprob_sum, dz_sum, n_real, flush=None):
+    """The combine's backward kernel against ``moe_combine_bwd_plain``:
+    d_out_buf's and dlogits' largest error over their largest |entry|
+    within COMBINE_TOL (d_out_buf's dtype), in bf16 the share of
+    d_out_buf's entries that differ within COMBINE_DIFFER_SHARE, a second
+    call bitwise equal,
+    the empty slots' rows zero; with ``flush`` the times and the bound
+    (library_ms null)."""
+    (n_slots, d), (T, k) = out_buf.shape, slot.shape
+    E = logits.shape[1]
+    args = (dy, out_buf, logits, probs, idx, w, slot, src, dprob_sum,
+            dz_sum)
+
+    def kernel():
+        return kc._moe_combine_bwd_cuda(*args, n_real=n_real)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    want = kc.moe_combine_bwd_plain(*args, n_real=n_real)
+    scaled, errs, tops = grad_errors(got, want)
+    tol = COMBINE_TOL[out_buf.dtype]
+    row = {"kernel": "moe_combine_bwd", "case": name,
+           "shape": f"T{T} k{k} EC{n_slots} d{d} E{E} real{n_real}",
+           "dtype": str(out_buf.dtype).replace("torch.", ""),
+           "max_abs_err": max(errs), "dout_dlogits_err": errs,
+           "dout_dlogits_max": tops, "scaled_err": scaled, "tol": tol,
+           "dropped": T * k - combine_kept(slot, n_slots),
+           "empty_rows_zero": not bool(got[0][src == T].any()),
+           "bitwise_repeat": all(torch.equal(a, b)
+                                 for a, b in zip(got, again))}
+    row["differ_share"] = differ_share(got, want)
+    row["ok"] = (scaled <= tol and row["bitwise_repeat"]
+                 and row["empty_rows_zero"]
+                 and row["differ_share"] <= COMBINE_DIFFER_SHARE)
+    if flush is not None:
+        row["ms"] = device_ms(kernel, flush)
+        row["plain_ms"] = device_ms(
+            lambda: kc.moe_combine_bwd_plain(*args, n_real=n_real), flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = combine_bwd_bound(out_buf, slot, E)
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def combine_case(name, T, E, k, d, dtype, *, n_real=None, cf=None,
+                 flush=None, seed=0):
+    """Phase 2's rows of the combine and its backward: routing by the
+    kernel on seeded logits at capacity C = ceil(T k / n_real cf) (``cf``
+    None: dropless, C = T), seeded expert outputs (E·C, d) and dy in
+    ``dtype``."""
+    n_real = E if n_real is None else n_real
+    C = T if cf is None else max(int(math.ceil(T * k / n_real * cf)), 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    out_buf = torch.randn((E * C, d), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+    dps = torch.randn((E,), generator=gen, device="cuda")
+    dz = torch.randn((), generator=gen, device="cuda")
+    r = kr.router_dispatch(logits, k, n_real=n_real, capacity=C)
+    return [check_combine(name, out_buf, r.w, r.slot, flush),
+            check_combine_bwd(name, dy, out_buf, logits, r.probs, r.idx,
+                              r.w, r.slot, r.src, dps, dz, n_real, flush)]
+
+
+def combine_rows(flush):
+    """Phase 2's combine rows at granite-moe-3b-a800m's E 40, k 8, d 1536,
+    bf16 and f32: decode's 4 and a chunk's 64 tokens dropless, a 64-token
+    chunk at C 13 (drops), training's 8 x 128 at C 256, 48 experts of
+    which 40 are real; then rows of 90 and 66 values (no multiple of 16
+    bytes: element loads).  The eager chain they replaced is timed
+    beside them in an older checkout by ``tools/combine_ab.py``."""
+    g = dict(E=40, k=8, d=1536)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "" if dtype == torch.bfloat16 else "-f32"
+        rows += combine_case(f"granite-T4-dropless{tag}", 4, dtype=dtype,
+                             flush=flush, seed=1, **g)
+        rows += combine_case(f"granite-T64-dropless{tag}", 64, dtype=dtype,
+                             flush=flush, seed=2, **g)
+        rows += combine_case(f"granite-T64-C13{tag}", 64, dtype=dtype,
+                             cf=1.0, flush=flush, seed=3, **g)
+        rows += combine_case(f"granite-T1024-C256{tag}", 1024, dtype=dtype,
+                             cf=1.25, flush=flush, seed=4, **g)
+        rows += combine_case(f"granite-T64-E48-real40{tag}", 64, E=48, k=8,
+                             d=1536, n_real=40, cf=1.25, dtype=dtype,
+                             flush=flush, seed=5)
+        for d in (90, 66):
+            rows += combine_case(f"d{d}-T64-C16{tag}", 64, E=40, k=8, d=d,
+                                 cf=1.25, dtype=dtype, seed=6)
+    check(any(r["dropped"] for r in rows), "moe_combine: no case dropped")
+    return rows
+
 
 # ---------------------------------------------------------------------------
 # phase 2
@@ -1437,6 +1661,9 @@ def backward_rows(flush):
                                 n_real=40, seed=5))
     check(any(r["dropped"] for r in rows[-4:]), "router_bwd: no case "
           "dropped")
+    # the MoE combine and its backward (the router's backward on the MoE
+    # layer's training path)
+    rows += combine_rows(flush)
     # the SSD's backward at mamba2-1.3b's heads: training's 8 x 128, 2 x
     # 1024, one ragged chunk, and 8 groups; f32 and bf16
     for dtype in (torch.float32, torch.bfloat16):
@@ -1689,6 +1916,7 @@ class MainPathRecorder:
             setattr(Model, entry, entered)
         attn_layer.attention = self._attention
         moe_layer.router_dispatch = self._router
+        moe_layer.moe_combine = self._combine
         ssd_block.ssd = self._ssd
         rglru_block.rglru = self._rglru
 
@@ -1697,6 +1925,7 @@ class MainPathRecorder:
             setattr(Model, entry, orig)
         attn_layer.attention = fa.attention
         moe_layer.router_dispatch = kr.router_dispatch
+        moe_layer.moe_combine = kc.moe_combine
         ssd_block.ssd = kssd.ssd
         rglru_block.rglru = krg.rglru
 
@@ -1726,6 +1955,15 @@ class MainPathRecorder:
                      + (k, n_real, capacity),
                      kr.router_dispatch.launches - before,
                      (logits.clone(), k, n_real, capacity))
+        return out
+
+    def _combine(self, out_buf, w, slot):
+        before = kc.moe_combine.launches
+        out = kc.moe_combine(out_buf, w, slot)
+        self._record(("moe_combine", self.kind) + tuple(slot.shape)
+                     + tuple(out_buf.shape) + (out_buf.dtype,),
+                     kc.moe_combine.launches - before,
+                     (out_buf.clone(), w.clone(), slot.clone()))
         return out
 
     def _ssd(self, x, dt, A, B, C, D=None, h0=None, *, chunk=256):
@@ -1901,15 +2139,17 @@ def phase_frontend_requests(arch, cfg):
 
 def path_kernels(model):
     """The kernels a model's serving path must launch, by name, and the
-    entry points each must launch on: attention and the router on every
-    entry point the model has, the SSD and the RG-LRU on prefill alone
-    (their decode steps are plain torch, as the reference's)."""
+    entry points each must launch on: attention, the router and the MoE
+    combine on every entry point the model has, the SSD and the RG-LRU on
+    prefill alone (their decode steps are plain torch, as the
+    reference's)."""
     kinds = set(model.kinds)
     kernels = {}
     if "attn" in model.stack_sizes:
         kernels["flash_attention"] = (fa.attention, None)
     if model.cfg.moe.num_experts:
         kernels["moe_router"] = (kr.router_dispatch, None)
+        kernels["moe_combine"] = (kc.moe_combine, None)
     if "ssd" in kinds:
         kernels["ssd"] = (kssd.ssd, ("prefill",))
     if "rglru" in kinds:
@@ -2259,12 +2499,14 @@ def phase_fabric(card: str) -> list:
 # phase 3b: one MoE layer call, its launches and host syncs
 # ---------------------------------------------------------------------------
 def eager_moe_local(cfg, params, x2d, *, e_pad, capacity_factor,
-                    dropless=False):
+                    dropless=False, record=None):
     """The eager-dispatch MoE layer (``models/moe.py`` before routing and
     dispatch became one launch), kept here as a yardstick of launches,
     host syncs and outputs only: the aux sums and the sort dispatch in
     eager PyTorch around ``router_topk``, and boolean-mask indexing,
-    which makes the host wait for the card."""
+    which makes the host wait for the card.  ``record`` (a dict), when
+    given, receives the routing (w, idx, probs), each assignment's slot
+    (E·C where dropped, as ``Routing.slot``) and the dispatched buffer."""
     T, d = x2d.shape
     E_real, k = cfg.moe.num_experts, cfg.moe.top_k
     cdt = dtype_of(cfg.compute_dtype)
@@ -2285,13 +2527,18 @@ def eager_moe_local(cfg, params, x2d, *, e_pad, capacity_factor,
     seg_start = torch.searchsorted(se, torch.arange(e_pad, device=dev))
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
     keep = pos_in_e < C
-    ke, kc, kp = se[keep], pos_in_e[keep], flat_pos[keep]
+    ke, kpos, kp = se[keep], pos_in_e[keep], flat_pos[keep]
     buf = torch.zeros((e_pad, C, d), dtype=x2d.dtype, device=dev)
-    buf.index_put_((ke, kc), x2d[kp // k])
+    buf.index_put_((ke, kpos), x2d[kp // k])
+    if record is not None:
+        slot = torch.full((T * k,), e_pad * C, dtype=torch.int32, device=dev)
+        slot[kp] = (ke * C + kpos).to(torch.int32)
+        record.update(w=w, idx=idx, probs=probs, slot=slot.view(T, k),
+                      buf=buf.clone())
     out_buf = moe_layer._expert_ffn(cfg, params, buf)
     del buf
     vals = torch.zeros((T * k, d), dtype=out_buf.dtype, device=dev)
-    vals[kp] = out_buf[ke, kc] * w.reshape(-1)[kp][:, None].to(vals.dtype)
+    vals[kp] = out_buf[ke, kpos] * w.reshape(-1)[kp][:, None].to(vals.dtype)
     return vals.view(T, k, d).sum(1), (load_sum, prob_sum, z_sum, float(T))
 
 
@@ -2339,14 +2586,39 @@ def call_ms(fns, iters: int = 20) -> list:
     return [t / iters * 1e3 for t in total]
 
 
+def layer_intermediates(layer):
+    """y, the routing and the dispatched buffer of one call of ``layer``
+    (a function of no arguments that calls ``moe_layer._moe_local``):
+    the router's outputs and the experts' input, as the layer passes
+    them."""
+    seen = {}
+
+    def router(*a, **kw):
+        seen["routing"] = kr.router_dispatch(*a, **kw)
+        return seen["routing"]
+
+    def ffn(cfg, params, buf):
+        seen["buf"] = buf.clone()
+        return EXPERT_FFN(cfg, params, buf)
+    moe_layer.router_dispatch, moe_layer._expert_ffn = router, ffn
+    try:
+        y, aux = layer()
+    finally:
+        moe_layer.router_dispatch = kr.router_dispatch
+        moe_layer._expert_ffn = EXPERT_FFN
+    return y, aux, seen["routing"], seen["buf"]
+
+
 def moe_layer_check():
     """One MoE layer at granite's width (40 experts, top-8, d 1536, bf16
     compute, f32 weights), dropless as serving runs it, on a decode
     step's 4 tokens and a 64-token chunk: no host sync (sync debug mode
-    "error"), output equal to the eager-dispatch layer's bit for bit and
-    aux sums within the router's tolerance; launches from the router
-    matmul's output to y (the layer's device activities less the router
-    matmul's and the expert products') beside the eager layer's."""
+    "error"); its routing (w, idx, probs), each assignment's slot and the
+    dispatched buffer equal to the eager-dispatch layer's bit for bit, y
+    within MOE_Y_TOL of its largest entry (printed) and the aux sums
+    within the router's tolerance; launches from the router matmul's
+    output to y (the layer's device activities less the router matmul's
+    and the expert products') beside the eager layer's."""
     cfg = configs.get(MOE_ARCH)
     cdt = dtype_of(cfg.compute_dtype)
     e_pad = moe_layer.padded_experts(cfg, 1)
@@ -2365,21 +2637,25 @@ def moe_layer_check():
 
         def eager():
             return eager_moe_local(cfg, params, x2d, **kw)
-        (y, aux), (y0, aux0) = layer(), eager()
+        y, aux, r, buf = layer_intermediates(layer)
+        seen0 = {}
+        y0, aux0 = eager_moe_local(cfg, params, x2d, record=seen0, **kw)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             layer()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        buf = x2d.new_zeros((e_pad, T, cfg.d_model))
+        zeros = x2d.new_zeros((e_pad, T, cfg.d_model))
         around = [device_events(lambda: (x2d.to(cdt) @ params["router"].to(
                       cdt)).float()),
                   device_events(lambda: moe_layer._expert_ffn(cfg, params,
-                                                              buf))]
+                                                              zeros))]
         events, events0 = device_events(layer), device_events(eager)
         n_around = sum(map(len, around))
         ms0, ms = call_ms([eager, layer])
+        y_err = float((y.float() - y0.float()).abs().max())
+        y_max = float(y0.float().abs().max())
         row = {"case": f"{MOE_ARCH}:{name}", "T": T,
                "launches": len(events) - n_around,
                "eager_launches": len(events0) - n_around,
@@ -2387,14 +2663,23 @@ def moe_layer_check():
                "eager_host_syncs": host_syncs(eager),
                "router_matmul_and_expert_launches": [len(a) for a in around],
                "call_ms": ms, "eager_call_ms": ms0,
+               "routing_equal_eager": all(
+                   bool(torch.equal(getattr(r, n), seen0[n]))
+                   for n in ("w", "idx", "probs", "slot")),
+               "buf_equal_eager": bool(torch.equal(buf, seen0["buf"])),
+               "y_err": y_err, "y_max": y_max, "y_tol": MOE_Y_TOL,
                "y_equal_eager": bool(torch.equal(y, y0)),
                "aux_ok": all(bool(torch.allclose(a, b, rtol=ROUTER_RTOL,
                                                  atol=ROUTER_ATOL))
                              for a, b in zip(aux[:3], aux0[:3]))}
         print("moe-layer", json.dumps(row))
+        print(f"moe-layer {name}: largest |y - eager y| {y_err} against "
+              f"the largest |eager y| {y_max} (tolerance {MOE_Y_TOL} of "
+              f"it); bitwise equal: {row['y_equal_eager']}")
         print(f"moe-layer {name} device activities: {events}")
         print(f"moe-layer {name} the eager layer's: {events0}")
-        check(row["y_equal_eager"] and row["aux_ok"],
+        check(row["routing_equal_eager"] and row["buf_equal_eager"]
+              and y_err <= MOE_Y_TOL * y_max and row["aux_ok"],
               f"moe layer {name}: differs from the eager layer {row}")
         check(row["host_syncs"] == 0 and row["eager_host_syncs"] > 0,
               f"moe layer {name}: host syncs {row}")
@@ -2601,13 +2886,15 @@ class TrainRecorder:
     (the forward, kind "forward") and the train step's ``loss_and_grads``
     (around it: autograd's backward, with the forward recomputed there
     under remat, kind "backward"), the attention, router, SSD and RG-LRU
-    the layers call and the raw backward launches their autograd
+    the layers call, the MoE combine's raw launches (its forward inside
+    ``CombineFunction``) and the raw backward launches the autograd
     Functions reach; keeps the launches the wrappers counted per (kernel, kind,
     shape), the inputs of the last launch, and each step's launches of
     every kernel (``KERNELS`` order)."""
 
     KERNELS = ("flash_attention", "flash_attention_bwd", "moe_router",
-               "moe_router_bwd", "ssd", "ssd_bwd", "rglru", "rglru_bwd")
+               "moe_router_bwd", "ssd", "ssd_bwd", "rglru", "rglru_bwd",
+               "moe_combine", "moe_combine_bwd")
 
     def __init__(self):
         self.kind = "outside the train step"
@@ -2620,7 +2907,8 @@ class TrainRecorder:
         return (fa.attention.launches, fa.attention_bwd.launches,
                 kr.router_dispatch.launches, kr.router_bwd.launches,
                 kssd.ssd.launches, kssd.ssd_bwd.launches,
-                krg.rglru.launches, krg.rglru_bwd.launches)
+                krg.rglru.launches, krg.rglru_bwd.launches,
+                kc.moe_combine.launches, kc.moe_combine_bwd.launches)
 
     def install(self):
         self._orig = {"loss_fn": Model.loss_fn,
@@ -2649,6 +2937,8 @@ class TrainRecorder:
         fa._attention_bwd_cuda = self._bwd
         moe_layer.router_dispatch = self._router
         kr._router_bwd_cuda = self._router_bwd
+        kc._moe_combine_cuda = self._combine
+        kc._moe_combine_bwd_cuda = self._combine_bwd
         ssd_block.ssd = self._ssd
         kssd._ssd_bwd_cuda = self._ssd_bwd
         rglru_block.rglru = self._rglru
@@ -2661,6 +2951,8 @@ class TrainRecorder:
         fa._attention_bwd_cuda = _ATTENTION_BWD_CUDA
         moe_layer.router_dispatch = kr.router_dispatch
         kr._router_bwd_cuda = _ROUTER_BWD_CUDA
+        kc._moe_combine_cuda = _COMBINE_CUDA
+        kc._moe_combine_bwd_cuda = _COMBINE_BWD_CUDA
         ssd_block.ssd = kssd.ssd
         kssd._ssd_bwd_cuda = _SSD_BWD_CUDA
         rglru_block.rglru = krg.rglru
@@ -2736,6 +3028,30 @@ class TrainRecorder:
                                        dz_sum))) + (n_real,))
         return out
 
+    def _combine(self, out_buf, w, slot):
+        before = kc.moe_combine.launches
+        out = _COMBINE_CUDA(out_buf, w, slot)
+        self._record(("moe_combine", self.kind) + tuple(slot.shape)
+                     + tuple(out_buf.shape) + (out_buf.dtype,),
+                     kc.moe_combine.launches - before,
+                     tuple(t.detach().clone() for t in (out_buf, w, slot)))
+        return out
+
+    def _combine_bwd(self, dy, out_buf, logits, probs, idx, w, slot, src,
+                     dprob_sum, dz_sum, *, n_real):
+        before = kc.moe_combine_bwd.launches
+        out = _COMBINE_BWD_CUDA(dy, out_buf, logits, probs, idx, w, slot,
+                                src, dprob_sum, dz_sum, n_real=n_real)
+        clone = (lambda t: None if t is None else t.detach().clone())
+        self._record(("moe_combine_bwd", self.kind) + tuple(slot.shape)
+                     + tuple(out_buf.shape) + (logits.shape[1], n_real,
+                                               out_buf.dtype),
+                     kc.moe_combine_bwd.launches - before,
+                     tuple(map(clone, (dy, out_buf, logits, probs, idx, w,
+                                       slot, src, dprob_sum, dz_sum)))
+                     + (n_real,))
+        return out
+
     def _ssd(self, x, dt, A, B, C, D=None, h0=None, *, chunk=256):
         before = kssd.ssd.launches
         out = kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
@@ -2765,14 +3081,17 @@ class TrainRecorder:
         return n
 
 
+EXPERT_FFN = moe_layer._expert_ffn
 _ATTENTION_BWD_CUDA = fa._attention_bwd_cuda
 _ROUTER_BWD_CUDA = kr._router_bwd_cuda
+_COMBINE_CUDA = kc._moe_combine_cuda
+_COMBINE_BWD_CUDA = kc._moe_combine_bwd_cuda
 _SSD_BWD_CUDA = kssd._ssd_bwd_cuda
 _SSD_CUDA = kssd._ssd_cuda
 _RGLRU_BWD_CUDA = krg._rglru_bwd_cuda
 TRAIN_COUNTED = (fa.attention, fa.attention_bwd, kr.router_dispatch,
                  kr.router_bwd, kssd.ssd, kssd.ssd_bwd, krg.rglru,
-                 krg.rglru_bwd)
+                 krg.rglru_bwd, kc.moe_combine, kc.moe_combine_bwd)
 
 
 def layer_counts(model) -> dict:
@@ -2794,13 +3113,15 @@ def check_train_launches(tag, model, recorder, n_steps, remat):
     nowhere outside the step: each forward once a layer and step in
     ``loss_fn`` (and again in the backward under remat "block"), each
     backward once a layer and step in the step's autograd; a kernel of
-    no layer never.  Returns the launches a step
-    (``TrainRecorder.KERNELS``)."""
+    no layer never.  A MoE layer's router gradient comes from the
+    combine's backward, so ``moe_router_bwd`` never launches in
+    training.  Returns the launches a step (``TrainRecorder.KERNELS``)."""
     n = layer_counts(model)
     per_layer = {"flash_attention": n["attn"], "flash_attention_bwd":
-                 n["attn"], "moe_router": n["moe"], "moe_router_bwd":
-                 n["moe"], "ssd": n["ssd"], "ssd_bwd": n["ssd"],
-                 "rglru": n["rglru"], "rglru_bwd": n["rglru"]}
+                 n["attn"], "moe_router": n["moe"], "moe_router_bwd": 0,
+                 "ssd": n["ssd"], "ssd_bwd": n["ssd"],
+                 "rglru": n["rglru"], "rglru_bwd": n["rglru"],
+                 "moe_combine": n["moe"], "moe_combine_bwd": n["moe"]}
     again = remat == "block"
     want_step = tuple(per_layer[k] * (2 if again and not k.endswith("_bwd")
                                       else 1)
@@ -3145,7 +3466,8 @@ def moe_train_path():
     per_step = check_train_launches(tag, model, recorder, MOE_TRAIN_STEPS,
                                     "none")
     print(f"{tag}: router launches a step, forward {per_step[2]}, backward "
-          f"{per_step[3]}; attention forward {per_step[0]}, backward "
+          f"{per_step[3]}; combine forward {per_step[8]}, backward "
+          f"{per_step[9]}; attention forward {per_step[0]}, backward "
           f"{per_step[1]}")
     free_card()
     return recorder
@@ -3267,6 +3589,10 @@ def phase_main_shapes(arch, recorder):
             row = check_router(name, *inputs, flush=flush)
         elif key[0] == "moe_router_bwd":
             row = check_router_bwd(name, *inputs, flush=flush)
+        elif key[0] == "moe_combine":
+            row = check_combine(name, *inputs, flush=flush)
+        elif key[0] == "moe_combine_bwd":
+            row = check_combine_bwd(name, *inputs, flush=flush)
         elif key[0] == "ssd_bwd":
             row = check_ssd_bwd(name, *inputs, flush=flush)
         elif key[0] == "ssd":
@@ -3327,6 +3653,7 @@ def phase_parity(arch, S):
                                         else kr.router_dispatch)
         if plain:
             attn_layer.attention = fa.attention_plain
+            moe_layer.moe_combine = kc.moe_combine_plain
             ssd_block.ssd = kssd.ssd_plain
             rglru_block.rglru = krg.rglru_plain
         try:
@@ -3342,6 +3669,7 @@ def phase_parity(arch, S):
                 out.append(logits)
         finally:
             moe_layer.router_dispatch = kr.router_dispatch
+            moe_layer.moe_combine = kc.moe_combine
             attn_layer.attention = fa.attention
             ssd_block.ssd = kssd.ssd
             rglru_block.rglru = krg.rglru
@@ -3349,20 +3677,21 @@ def phase_parity(arch, S):
 
     n_moe = sum("moe" in p for p in params["layers"])
     sizes = model.stack_sizes
-    kernels = (fa.attention, kr.router_dispatch, kssd.ssd, krg.rglru)
-    # attention and the router launch on prefill and every decode step
-    # (an encoder-decoder's cross attention too, its encoder on prefill),
-    # the SSD and the RG-LRU on prefill alone
+    kernels = (fa.attention, kr.router_dispatch, kssd.ssd, krg.rglru,
+               kc.moe_combine)
+    # attention, the router and the combine launch on prefill and every
+    # decode step (an encoder-decoder's cross attention too, its encoder
+    # on prefill), the SSD and the RG-LRU on prefill alone
     n_attn = sizes.get("attn", 0) + (cfg.n_layers if model.is_encdec else 0)
     want_launches = (n_attn * (1 + steps) + cfg.n_enc_layers,
                      n_moe * (1 + steps), sizes.get("ssd", 0),
-                     sizes.get("rglru", 0))
+                     sizes.get("rglru", 0), n_moe * (1 + steps))
     before = [fn.launches for fn in kernels]
     got = run(plain=False)
     launched = tuple(fn.launches - b for fn, b in zip(kernels, before))
     check(launched == want_launches,
           f"parity: kernel launches {launched}, expected {want_launches} "
-          f"(attention, router, ssd, rglru)")
+          f"(attention, router, ssd, rglru, combine)")
     want = run(plain=True)
     check(bool(torch.isfinite(got).all()), "parity: non-finite logits")
     err = float((got - want).abs().max())
@@ -3383,7 +3712,8 @@ def phase_parity(arch, S):
              if frontend is not None else "") + " + "
           f"{steps} decode steps: max |kernel - plain| = {err:.3g} (max "
           f"|logit| {scale:.3g}, tolerance {PARITY_TOL} * (1 + |logit|)); "
-          f"kernel launches (attention, router, ssd, rglru) {launched}; "
+          f"kernel launches (attention, router, ssd, rglru, combine) "
+          f"{launched}; "
           f"routing differences {len(flips)}"
           + (f": {json.dumps(flips[:20])}" if flips else ""))
     del params, model
@@ -3399,12 +3729,41 @@ def _plain_ssd_forward(x, dt, A, B, C, D, h0, keep=False):
     return out if keep else out[:2]
 
 
+def autograd_moe_local(cfg, params, x2d, *, e_pad, capacity_factor,
+                       dropless=False):
+    """The MoE layer as autograd differentiates it, phase_train_parity's
+    plain side: the router's plain version on the logits themselves, so
+    the router's gradient comes from autograd through its formulas and
+    not from the row function that ``moe_combine_bwd`` and its plain
+    version share; the layer's dispatch and experts; and the eager
+    combine (a zero row appended, the T·k rows gathered, weighted and
+    summed: ``models/moe.py`` before the combine kernel)."""
+    T, d = x2d.shape
+    E_real, k = cfg.moe.num_experts, cfg.moe.top_k
+    cdt = dtype_of(cfg.compute_dtype)
+    logits = (x2d.to(cdt) @ params["router"].to(cdt)).float()
+    C = T if dropless else max(
+        int(math.ceil(T * k / max(E_real, 1) * capacity_factor)), 1)
+    r = moe_layer.router_dispatch(logits, k, n_real=E_real, capacity=C,
+                                  dispatch=cfg.moe.dispatch)
+    buf = moe_layer._Dispatch.apply(x2d, r.src, r.slot).view(e_pad, C, d)
+    out_buf = moe_layer._expert_ffn(cfg, params, buf).view(e_pad * C, d)
+    out_flat = torch.cat([out_buf, out_buf.new_zeros((1, d))])
+    vals = out_flat.index_select(0, r.slot.view(-1)).view(T, k, d)
+    y = (vals * r.w[..., None].to(vals.dtype)).sum(1)
+    return y, (r.load, r.prob_sum, r.z_sum, float(T))
+
+
+_MOE_LOCAL = moe_layer._moe_local
+
+
 def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
                        ssd_forward: str = "kernel", enforce: bool = True):
     """``arch``'s loss and every gradient leaf at B x S in f32 with TF32
     off, through the kernels (attention's, the router's, the SSD's and
     the RG-LRU's forwards and backwards) against autograd through their
-    plain versions, on the same weights and batch.  ``n_layers`` cuts the depth
+    plain versions, on the same weights and batch; the MoE layer's plain
+    side is ``autograd_moe_local``, whose router gradient is autograd's.  ``n_layers`` cuts the depth
     (printed); ``ssd_forward="plain"`` runs the SSD's forward as its
     plain version inside ``SSDFunction`` (the backward kernels alone);
     ``enforce=False`` prints the errors without holding them."""
@@ -3432,6 +3791,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
                                         else kr.router_dispatch)
         if plain:
             attn_layer.attention = fa.attention_plain
+            moe_layer._moe_local = autograd_moe_local
             ssd_block.ssd = kssd.ssd_plain
             rglru_block.rglru = krg.rglru_plain
         elif ssd_forward == "plain":
@@ -3442,6 +3802,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
         finally:
             attn_layer.attention = fa.attention
             moe_layer.router_dispatch = kr.router_dispatch
+            moe_layer._moe_local = _MOE_LOCAL
             ssd_block.ssd = kssd.ssd
             kssd._ssd_cuda = _SSD_CUDA
             rglru_block.rglru = krg.rglru
@@ -3452,10 +3813,10 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
     loss, metrics, grads, launched = run(plain=False)
     want_loss, want_metrics, want, plain_launched = run(plain=True)
     n = layer_counts(model)
-    want_launched = (n["attn"], n["attn"], n["moe"], n["moe"],
+    want_launched = (n["attn"], n["attn"], n["moe"], 0,
                      n["ssd"] if ssd_forward == "kernel" else 0, n["ssd"],
-                     n["rglru"], n["rglru"])
-    check(launched == want_launched and plain_launched == (0,) * 8,
+                     n["rglru"], n["rglru"], n["moe"], n["moe"])
+    check(launched == want_launched and plain_launched == (0,) * 10,
           f"train parity {arch}: launches {launched} / {plain_launched}, "
           f"expected {want_launched}")
     flips = sum(len(router_ties(ia.cpu(), ib.cpu(), pb.cpu()))
@@ -3497,7 +3858,8 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
              f"arithmetic): largest |entry| / largest gradient entry "
              f"{zero_err:.3g}" if zero else "")
           + f"; launches (attention fwd, bwd, "
-          f"router fwd, bwd, ssd fwd, bwd, rglru fwd, bwd) {launched}; "
+          f"router fwd, bwd, ssd fwd, bwd, rglru fwd, bwd, combine fwd, "
+          f"bwd) {launched}; "
           f"routing differences {flips}")
     del params, grads, want
     free_card()
@@ -3543,6 +3905,12 @@ SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
           # ops.router_topk and ops.ssd with XLA's autodiff
           "moe_router_bwd": ("src/repro_torch/kernels/csrc/moe_router.cu",
                              "src/repro/kernels/ops.py:376"),
+          # the reference's combine is XLA's gather and scatter-add; its
+          # backward, with the router's, XLA's autodiff
+          "moe_combine": ("src/repro_torch/kernels/csrc/moe_combine.cu",
+                          "src/repro/models/moe.py:161"),
+          "moe_combine_bwd": ("src/repro_torch/kernels/csrc/moe_combine.cu",
+                              "src/repro/kernels/ops.py:376"),
           "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
                       "src/repro/kernels/ops.py:223"),
           "rglru": ("src/repro_torch/kernels/csrc/rglru_scan.cu",

@@ -6,7 +6,10 @@ prefill, prefill chunks and decode; (``csrc/flash_attention_bwd.cu``) its
 backward, for training.
 ``moe_router`` (``csrc/moe_router.cu``) — softmax top-k routing and the
 capacity dispatch of every MoE layer call, in one launch; and the
-logits' gradient, for training.
+logits' gradient, for callers outside the MoE layer.
+``moe_combine`` (``csrc/moe_combine.cu``) — each token's weighted sum of
+its experts' outputs, in one launch; its backward, with the logits'
+gradient, in one launch, for training.
 ``fletcher`` (``csrc/fletcher64.cu``) — the Fletcher-64 checksums of a
 batch of checkpoint shards, in one launch pair.
 ``ssd`` (``csrc/ssd.cu``) — the Mamba2 SSD scan of every SSD layer's
@@ -17,4 +20,4 @@ backward, for training."""
 
 # every CUDA source under csrc/, by the name build.build() takes
 SOURCES = ("flash_attention", "flash_attention_bwd", "moe_router",
-           "fletcher64", "ssd", "ssd_bwd", "rglru_scan", "rglru_bwd")
+           "moe_combine", "fletcher64", "ssd", "ssd_bwd", "rglru_scan", "rglru_bwd")

@@ -70,18 +70,24 @@
 // with lse recomputed from the masked logits; 0 for a padded expert.  A
 // warp takes a row, its lanes the experts lane, lane+32, ...: every sum is
 // a butterfly over the warp's lanes, in a fixed order, and no atomics are
-// used, so the same inputs give the same gradient on every run.  At
-// training's T 1024, E 40 a call moves ~0.5 MB: launch latency is its
-// floor, as the forward's.
+// used, so the same inputs give the same gradient on every run.  The row's
+// arithmetic is repro_moe::router_bwd_row (moe_router_common.cuh), which
+// the MoE combine's backward (moe_combine.cu) runs too: the MoE layer's
+// training takes the logits' gradient there, in the launch that also
+// takes the combine's, and this kernel serves other callers of
+// router_dispatch with a gradient.  At training's T 1024, E 40 a call
+// moves ~0.5 MB: launch latency is its floor, as the forward's.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "moe_router_common.cuh"
+
 namespace {
 
+using repro_moe::kFull;
+using repro_moe::kMasked;
+using repro_moe::kMaxExperts;
 constexpr int kMaxThreads = 1024;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kMasked = -1e30f;
-constexpr int kMaxExperts = 512;
 
 // One row's softmax and top-k, by the G lanes of its group: writes the
 // row's probabilities and adds them to psum, and lane 0 its
@@ -299,12 +305,6 @@ cudaError_t launch_for(int per_lane, const float* logits, float* w, int* idx,
 #undef REPRO_ROUTER_LAUNCH
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(kFull, v, s);
-  return v;
-}
-
 constexpr int kBwdRows = 8;  // rows (warps) a block of the backward
 
 template <int PER_LANE>
@@ -319,64 +319,10 @@ router_bwd_kernel(const float* __restrict__ logits,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kBwdRows + (threadIdx.x >> 5);
   if (row >= T) return;  // the whole warp leaves together
-  const float* x = logits + (size_t)row * E;
-  const float* pr = probs + (size_t)row * E;
-  float p[PER_LANE], dp[PER_LANE];
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) {
-    const int e = lane + 32 * j;
-    dp[j] = e < E ? (e < n_real ? x[e] : kMasked) : -INFINITY;
-    p[j] = e < E ? pr[e] : 0.f;
-    m = fmaxf(m, dp[j]);
-  }
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < PER_LANE; ++j)
-    sum += lane + 32 * j < E ? expf(dp[j] - m) : 0.f;
-  const float lse = m + logf(warp_sum(sum));
-
-  // lane j < k holds pick j: its expert, weight, upstream gradient and p
-  int ej = 0;
-  float wj = 0.f, dwj = 0.f, pj = 0.f;
-  if (lane < k) {
-    const size_t at = (size_t)row * k + lane;
-    ej = idx[at];
-    wj = w[at];
-    dwj = dw ? dw[at] : 0.f;
-    pj = pr[ej];
-  }
-  const float wsum = warp_sum(pj);
-  const float c = warp_sum(dwj * wj);
-  const float g = wsum > 1e-9f ? (dwj - c) / wsum : dwj / 1e-9f;
-
-#pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) {
-    const int e = lane + 32 * j;
-    dp[j] = dprob_sum && e < E ? dprob_sum[e] : 0.f;
-  }
-  for (int r = 0; r < k; ++r) {
-    const int er = __shfl_sync(kFull, ej, r);
-    const float gr = __shfl_sync(kFull, g, r);
-    if ((er & 31) == lane) {
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j)
-        if (lane + 32 * j == er) dp[j] += gr;
-    }
-  }
-  float dot = 0.f;
-#pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) dot += p[j] * dp[j];
-  dot = warp_sum(dot);
-  const float zl = dz_sum ? 2.f * dz_sum[0] * lse : 0.f;
-  float* out = dlogits + (size_t)row * E;
-#pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) {
-    const int e = lane + 32 * j;
-    if (e < E) out[e] = e < n_real ? p[j] * (dp[j] - dot) + zl * p[j] : 0.f;
-  }
+  const float dwj = dw && lane < k ? dw[(size_t)row * k + lane] : 0.f;
+  repro_moe::router_bwd_row<PER_LANE>(logits, probs, idx, w, dwj, dprob_sum,
+                                      dz_sum, dlogits, row, lane, E, k,
+                                      n_real);
 }
 
 }  // namespace
@@ -400,11 +346,7 @@ extern "C" int repro_router_bwd(const float* logits, const float* probs,
       logits, probs, idx, w, dw, dprob_sum, dz_sum, dlogits, T, E, k,   \
       n_real);                                                          \
   return (int)cudaGetLastError()
-  if (per_lane <= 1) { REPRO_ROUTER_BWD(1); }
-  if (per_lane <= 2) { REPRO_ROUTER_BWD(2); }
-  if (per_lane <= 4) { REPRO_ROUTER_BWD(4); }
-  if (per_lane <= 8) { REPRO_ROUTER_BWD(8); }
-  REPRO_ROUTER_BWD(16);
+  REPRO_PER_LANE(per_lane, REPRO_ROUTER_BWD);
 #undef REPRO_ROUTER_BWD
 }
 

@@ -39,7 +39,10 @@ carries none) back to the logits: :func:`router_bwd`, the second kernel
 of ``csrc/moe_router.cu`` (``router_bwd_kernel``, a warp a token row, no
 atomics), or :func:`router_bwd_plain` on the CPU.  At training's T 1024,
 E 40 it moves about 0.5 MB: launch latency is its floor too.
-``router_bwd.launches`` counts its launches.
+``router_bwd.launches`` counts its launches.  The MoE layer does not
+launch it: it routes on detached logits and takes their gradient from
+the MoE combine's backward (``moe_combine.py``), which runs the same
+row function (``csrc/moe_router_common.cuh``) in its own launch.
 """
 from __future__ import annotations
 

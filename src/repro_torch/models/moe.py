@@ -15,9 +15,16 @@ each token at most once), training at the config's capacity factor
 the host wait for nothing.  The expert products stay ``torch.bmm``, as
 the reference leaves its einsums to XLA.
 
-Gradients: the router's go through ``RouterFunction`` (its backward is
-the second kernel of ``csrc/moe_router.cu``) to the logits, from the
-combine weights and the aux sums.  The token rows' gather into the
+The combine (each token's k weighted expert outputs, summed in choice
+order) is one launch, ``moe_combine`` (``csrc/moe_combine.cu``).
+
+Gradients: routing runs on the detached logits and carries no autograd
+node; ``CombineFunction`` takes the logits and the experts' outputs and
+returns y and the aux sums, so the router's gradient (from the combine
+weights and the aux sums) comes from its backward, ``moe_combine_bwd``:
+one launch that writes the experts' outputs' gradient and the logits'
+(the router's row function shared with ``router_bwd``, which the layer
+no longer launches).  The token rows' gather into the
 capacity buffer is ``_Dispatch``, whose backward is a gather too (each
 token's k slots summed in choice order), not ``index_select``'s
 backward, which scatters with ``index_add_``: a token repeated k times
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.moe_combine import CombineFunction, moe_combine
 from ..kernels.moe_router import router_dispatch
 from .common import dense_init, dtype_of, mlp, mlp_params
 
@@ -110,29 +118,27 @@ def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
         C = T
     else:
         C = max(int(math.ceil(T * k / max(E_real, 1) * capacity_factor)), 1)
-    r = router_dispatch(logits, k, n_real=E_real, capacity=C,
+    r = router_dispatch(logits.detach(), k, n_real=E_real, capacity=C,
                         dispatch=cfg.moe.dispatch)
 
     # each capacity slot's token row, a zero row where the slot is empty
     buf = _Dispatch.apply(x2d, r.src, r.slot).view(e_pad, C, d)
-    out_buf = _expert_ffn(cfg, params, buf)                     # (E, C, d)
+    out_buf = _expert_ffn(cfg, params, buf).view(e_pad * C, d)
     del buf
 
-    # each token's k weighted expert outputs, summed in choice order (no
-    # atomics: the same inputs give the same sum on the card); a dropped
-    # assignment reads a zero row and contributes nothing, as the
-    # reference's out-of-bounds gather with mode="fill".  Dropless, none
-    # is dropped (C = T, and a token picks an expert once): no zero row.
-    # The gather's backward scatters with index_add_, but to distinct
-    # rows: a slot holds at most one assignment (the kernel hands out
-    # each position once), and the dropped assignments' shared zero row
-    # is cut off after, so no row's sum depends on the order of adds.
-    out_flat = out_buf.view(e_pad * C, d)
-    if not dropless:
-        out_flat = torch.cat([out_flat, out_flat.new_zeros((1, d))])
-    vals = out_flat.index_select(0, r.slot.view(-1)).view(T, k, d)
-    y = (vals * r.w[..., None].to(vals.dtype)).sum(1)
-    return y, (r.load, r.prob_sum, r.z_sum, float(T))
+    # each token's k weighted expert outputs, summed in choice order in
+    # f32 (no atomics: the same inputs give the same sum on the card); a
+    # dropped assignment contributes nothing, as the reference's
+    # out-of-bounds gather with mode="fill"
+    if torch.is_grad_enabled() and (logits.requires_grad
+                                    or out_buf.requires_grad):
+        y, prob_sum, z_sum = CombineFunction.apply(
+            logits, out_buf, r.probs, r.idx, r.w, r.slot, r.src,
+            r.prob_sum, r.z_sum, E_real)
+    else:
+        y, prob_sum, z_sum = moe_combine(out_buf, r.w, r.slot), \
+            r.prob_sum, r.z_sum
+    return y, (r.load, prob_sum, z_sum, float(T))
 
 
 def _aux_from_stats(cfg: ModelConfig, load_sum, prob_sum, z_sum, t_total):

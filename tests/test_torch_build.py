@@ -71,3 +71,12 @@ def test_rglru_libraries_build_from_the_shared_header():
     for name in SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert len(build.source_tag(build.CSRC / f"{name}.cu")) == 12
+
+
+def test_router_libraries_build_from_the_shared_header():
+    """The router's backward and the MoE combine's include one header
+    (the logits' row gradient), so an edit of it rebuilds both."""
+    for name in ("moe_router", "moe_combine"):
+        names = [p.name for p in build.local_sources(
+            build.CSRC / f"{name}.cu")]
+        assert names == [f"{name}.cu", "moe_router_common.cuh"], names

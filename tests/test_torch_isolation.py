@@ -30,7 +30,7 @@ print(json.dumps({"names": names, "leaked": leaked}))
 # the kernels and blocks of each slice, which the walk must have reached
 SLICE_MODULES = {
     "repro_torch.kernels.attention", "repro_torch.kernels.moe_router",
-    "repro_torch.kernels.fletcher", "repro_torch.kernels.ssd",
+    "repro_torch.kernels.moe_combine", "repro_torch.kernels.fletcher", "repro_torch.kernels.ssd",
     "repro_torch.kernels.rglru", "repro_torch.models.ssd_block",
     "repro_torch.models.rglru_block", "repro_torch.models.moe",
     "repro_torch.services.checkpoint", "repro_torch.fabric.pool",

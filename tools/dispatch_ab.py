@@ -5,18 +5,27 @@ or more checkouts of the repository, in turns.
 
     python3 tools/dispatch_ab.py ROOT_A ROOT_B      # A, B, B, A
     python3 tools/dispatch_ab.py --one ROOT         # one checkout, once
+    python3 tools/dispatch_ab.py --layer ROOT_A ROOT_B   # part 1 alone
 
 Each turn runs in its own process, which imports ``repro_torch`` and
 ``chip_smoke.py`` from that checkout alone (this script's own helpers
 need nothing newer), builds its kernels, and measures:
 
 1. One MoE layer call at granite-moe-3b-a800m's width (40 experts,
-   top-8, d 1536, bf16 compute, f32 weights, dropless), on a decode
-   step's 4 tokens and a 64-token chunk: the device activities
+   top-8, d 1536, bf16 compute, f32 weights), dropless on a decode
+   step's 4 tokens and a 64-token chunk, and at training's capacity
+   factor 1.25 on 8 x 128 tokens (T 1024, C 256): the device activities
    ``torch.profiler`` sees from the router matmul's output to y (the
    layer's less the router matmul's and the expert products'), the host
    syncs ``torch.cuda``'s sync debug mode reports, and the call's host
-   wall-clock ending in a synchronise (mean of 20).
+   wall-clock ending in a synchronise (mean of 20).  At T 1024 also the
+   training call: the layer's forward and autograd's backward of
+   ``(y * dy).sum()`` with the aux losses, every device activity
+   counted (``train_launches``), and their device time
+   (``train_device_ms``, the activities' sum).  Each call's host time,
+   the card idle at its start and not waited for (``host_ms``,
+   ``train_host_ms``: median of 20), and the training call's wall-clock
+   ending in a synchronise (``train_call_ms``).
 2. granite-moe-3b-a800m serving through the checkout's ``chip_smoke.py``
    phases: the launcher's demo (weight init included) and the session
    phase, each phase's host wall-clock, and every ``Model.decode_step``
@@ -31,6 +40,7 @@ name and power limit.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +92,20 @@ def call_ms(torch, fn, iters: int = 20) -> float:
     return total / iters * 1e3
 
 
+def host_ms(torch, fn, iters: int = 20) -> float:
+    """Median host time of one call of ``fn`` in ms, the card idle at its
+    start and not waited for at its end: what the call costs the host to
+    put its work on the card."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[iters // 2]
+
+
 def moe_layer(cs, torch, tag):
     from repro_torch.models.common import dtype_of
     moe = cs.moe_layer
@@ -91,23 +115,62 @@ def moe_layer(cs, torch, tag):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     params = moe.moe_params(cfg, gen, e_pad=e_pad)
-    for name, T in (("decode", 4), ("chunk", 64)):
+    for name, T, dropless in (("decode", 4, True), ("chunk", 64, True),
+                              ("train-T1024", 1024, False)):
         x2d = torch.randn((T, cfg.d_model), generator=gen,
                           device="cuda").to(cdt)
+        cf = cfg.moe.capacity_factor
+        C = T if dropless else max(int(math.ceil(
+            T * cfg.moe.top_k / cfg.moe.num_experts * cf)), 1)
 
         def layer():
             return moe._moe_local(cfg, params, x2d, e_pad=e_pad,
-                                  capacity_factor=1.0, dropless=True)
-        layer()
-        buf = x2d.new_zeros((e_pad, T, cfg.d_model))
-        around = len(device_events(torch, lambda: (
-            x2d.to(cdt) @ params["router"].to(cdt)).float())) + len(
-            device_events(torch, lambda: moe._expert_ffn(cfg, params, buf)))
-        events = device_events(torch, layer)
-        emit(root=tag, what="moe_layer", case=name, T=T,
-             launches=len(events) - around, events=events,
-             host_syncs=host_syncs(torch, layer),
-             call_ms=call_ms(torch, layer))
+                                  capacity_factor=cf, dropless=dropless)
+        with torch.no_grad():
+            layer()
+            buf = x2d.new_zeros((e_pad, C, cfg.d_model))
+            around = len(device_events(torch, lambda: (
+                x2d.to(cdt) @ params["router"].to(cdt)).float())) + len(
+                device_events(torch, lambda: moe._expert_ffn(cfg, params,
+                                                             buf)))
+            events = device_events(torch, layer)
+            row = dict(launches=len(events) - around, events=events,
+                       host_syncs=host_syncs(torch, layer),
+                       call_ms=call_ms(torch, layer),
+                       host_ms=host_ms(torch, layer))
+        if not dropless:
+            row.update(train_layer(torch, cfg, moe, params, x2d, e_pad, cf))
+        emit(root=tag, what="moe_layer", case=name, T=T, C=C, **row)
+
+
+def train_layer(torch, cfg, moe, params, x2d, e_pad, cf) -> dict:
+    """The layer's training call at ``x2d``: forward and autograd's
+    backward of (y * dy).sum() + the aux losses' sums, every device
+    activity ``torch.profiler`` sees and their summed device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    x = x2d.detach().clone().requires_grad_()
+    dy = torch.ones_like(x2d)
+
+    def step():
+        y, (_, prob_sum, z_sum, _) = moe._moe_local(
+            cfg, leaves, x, e_pad=e_pad, capacity_factor=cf)
+        loss = (y * dy).sum() + prob_sum.sum() + z_sum
+        return torch.autograd.grad(loss, [x] + list(leaves.values()))
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return dict(train_launches=len(kernels), train_device_ms=busy_us / 1e3,
+                train_host_ms=host_ms(torch, step),
+                train_call_ms=call_ms(torch, step),
+                train_events=[e.name for e in kernels])
 
 
 def granite_serving(cs, torch, tag):
@@ -169,7 +232,7 @@ def checkpoint(cs, torch, tag):
         server_e.shutdown()
 
 
-def one(root: Path) -> None:
+def one(root: Path, layer_only: bool = False) -> None:
     sys.path.insert(0, str(root))
     import chip_smoke as cs
     import torch
@@ -179,13 +242,17 @@ def one(root: Path) -> None:
     cs.kbuild.build_all(cs.SOURCES)
     moe_layer(cs, torch, tag)
     cs.free_card()
+    if layer_only:
+        return
     granite_serving(cs, torch, tag)
     checkpoint(cs, torch, tag)
 
 
 def main(argv) -> int:
+    layer_only = argv[:1] == ["--layer"]
+    argv = argv[1:] if layer_only else argv
     if argv[:1] == ["--one"]:
-        one(Path(argv[1]).resolve())
+        one(Path(argv[1]).resolve(), layer_only)
         return 0
     roots = [Path(a).resolve() for a in argv]
     if len(roots) < 2:
@@ -193,8 +260,9 @@ def main(argv) -> int:
         return 2
     order = roots + roots[::-1]
     for root in order:
-        proc = subprocess.run([sys.executable, __file__, "--one", str(root)],
-                              cwd=root)
+        proc = subprocess.run([sys.executable, __file__]
+                              + ["--layer"] * layer_only
+                              + ["--one", str(root)], cwd=root)
         if proc.returncode != 0:
             print(f"dispatch_ab: {root} failed ({proc.returncode})",
                   file=sys.stderr)

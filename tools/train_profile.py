@@ -13,7 +13,8 @@ printed): its 38 layers' state does not fit one 80 GB card with AdamW.  After tw
 ``train.step``'s own step run with its parts timed on the host clock,
 the card synchronised around each: ``Model.loss_fn`` (the forward), the
 step's ``loss_and_grads`` (the forward and autograd's backward; the
-backward is the difference) and the optimizer update.  Then
+backward is the difference) and the optimizer update, and the peak of
+device memory allocated over those steps (``peak_gib``).  Then
 ``torch.profiler`` over 3 more steps, unwrapped: device time by kernel
 (self CUDA time), the device's busy share of the window (kernel time
 over wall-clock; kernels do not overlap on one stream) and the kernel
@@ -127,12 +128,14 @@ def profile_arch(arch: str) -> None:
         for i in range(WARM):
             state, metrics = step(state, batches[i])
         float(metrics["loss"])
+        torch.cuda.reset_peak_memory_stats()
         with StepTimer() as timer:
             for i in range(TIMED):
                 state, metrics = step(state, batches[WARM + i])
         fwd, both, opt = (statistics.median(timer.seconds[part]) for part
                           in ("forward", "forward+backward", "optimizer"))
         bwd = both - fwd
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.synchronize()
         t0 = time.monotonic()
         with profile(activities=[ProfilerActivity.CPU,
@@ -149,7 +152,7 @@ def profile_arch(arch: str) -> None:
         emit(arch=arch, shape=f"{B}x{S}", remat=remat,
              layers=cfg.n_layers, forward_ms=fwd * 1e3,
              backward_ms=bwd * 1e3, optimizer_ms=opt * 1e3,
-             step_ms=(fwd + bwd + opt) * 1e3,
+             step_ms=(fwd + bwd + opt) * 1e3, peak_gib=peak,
              tokens_per_s=B * S / (fwd + bwd + opt),
              profiled_window_ms=window * 1e3,
              device_busy_ms_per_step=busy_us / 1e3 / PROFILED,

@@ -196,6 +196,34 @@ Phases, in order; any failure exits non-zero:
       ``make_train_step`` with batches over RPC; attention forward and
       backward once a layer and step (seamless: 24 encoder, 24 decoder,
       24 cross), the loss falling; then 3 steps twice, bitwise equal.
+   m. (run last, the card's memory freed) Distribution: 4 rank
+      subprocesses of this script (``--distrib-rank``) on the one card,
+      a gloo world with CUDA tensors (the kernels built here first), each
+      writing its results back.  1: granite-moe-3b-a800m at full width
+      cut to 16 of 32 layers through ``make_train_step(..., mesh=)`` on a
+      (data 2, model 2) mesh: state stored as ``tree_shardings`` places
+      it (each rank's bytes equal ``bytes_per_device``), bf16 compute,
+      AdamW with phase 3i's schedule, 8 x 128 global, capacity factor
+      1.25, 4 steps; the loss finite and the last below the first; on
+      every rank the router (experts [0, 20) or [20, 40)), the combine's
+      forward and backward and attention's forward and backward once a
+      layer and step; step ms, peak memory and the share of the step in
+      all-reduce printed.  Then granite at 2 layers, f32, TF32 off, 2 x
+      128, dropless, one step, gathered, against one process from the
+      same seed (``TRAIN_PARITY_TOL``).  2: ``sp_decode_attention`` over
+      (data 1, model 4) at qwen1.5-0.5b's heads, B 4, T 32768 (8192 keys
+      a rank), bf16, softcap 0 and 30, against the whole-cache kernel and
+      the plain version (``TOL``).  3: ``compressed_allreduce_tree`` over
+      (data 4, model 1) of each rank's gradient tree of the 2-layer
+      model, within 0.75 of the shared scale of the exact mean; the
+      error-feedback toy converges.  4: ``pipeline_apply`` over a
+      (stage,) mesh of 4, 6 of qwen's 24 blocks a stage, 8 microbatches
+      of 1 x 128, against the 24 blocks in one process (``PIPE_TOL``),
+      attention launching on every stage.  NCCL must refuse two ranks
+      on the card.  Rank 0 then checks and times its recorded kernel
+      inputs (phase 4) while the others wait.  5 (in this process): a
+      one-rank NCCL mesh runs the 2-layer step, held to the step without
+      a mesh (1e-6, bitwise printed).  A ``distrib {json}`` line sums up.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -210,7 +238,9 @@ Phases, in order; any failure exits non-zero:
    backward rows also time SDPA's backward (forward + backward less the
    forward) as the library yardstick; phases 3h, 3i and 3j add the
    SSD's, the router's, the MoE combine's and the RG-LRU's training
-   forwards (the RG-LRU's with its kept states) and backwards.  These rows, with the main
+   forwards (the RG-LRU's with its kept states) and backwards; phase 3m
+   adds rank 0's training rows (the router at 20 of 40 experts) and the
+   attention partial of ``sp_decode_attention``.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -236,6 +266,7 @@ kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -899,10 +930,12 @@ def router_ties(idx, pidx, pprobs):
     return out
 
 
-def check_router(name, logits, k, n_real=None, capacity=None, flush=None):
+def check_router(name, logits, k, n_real=None, capacity=None, e_start=0,
+                 e_local=None, flush=None):
     """Routing kernel against plain on one (T, E) logits tensor, with
-    ``n_real`` real experts (default E) and capacity C (default T,
-    dropless): indices exactly equal except ties (two probabilities
+    ``n_real`` real experts (default E), capacity C (default T,
+    dropless) and the expert range [e_start, e_start + e_local) (default
+    all): indices exactly equal except ties (two probabilities
     within TIE_GAP), which are reported; w, probs, prob_sum and z_sum
     within rtol/atol (w only without ties); slots, slot tokens and loads
     exactly equal to the plain dispatch, both forms, of the kernel's own
@@ -911,7 +944,10 @@ def check_router(name, logits, k, n_real=None, capacity=None, flush=None):
     T, E = logits.shape
     n_real = E if n_real is None else n_real
     capacity = T if capacity is None else capacity
+    e_local = E if e_local is None else e_local
     kw = dict(n_real=n_real, capacity=capacity)
+    if e_local != E:
+        kw.update(e_start=e_start, e_local=e_local)
     r = kr.router_dispatch(logits, k, **kw)
     torch.cuda.synchronize()
     p = kr.router_dispatch_plain(logits, k, **kw)
@@ -925,14 +961,17 @@ def check_router(name, logits, k, n_real=None, capacity=None, flush=None):
                 for n in near)
     exact = all(torch.equal(a, b) for form in ("sort", "cumsum")
                 for a, b in zip((r.slot, r.src, r.load),
-                                kr.dispatch_plain(r.idx, E, capacity, form)))
-    if n_real == E and capacity == T:
+                                kr.dispatch_plain(r.idx, E, capacity, form,
+                                                  e_start, e_local)))
+    if n_real == E and capacity == T and e_local == E:
         exact = exact and all(torch.equal(a, b) for a, b in
                               zip(kr.router_topk(logits, k), r[:3]))
-    row = {"kernel": "moe_router", "case": name,
-           "shape": f"T{T} E{E} k{k} real{n_real} C{capacity}",
+    shape = f"T{T} E{E} k{k} real{n_real} C{capacity}"
+    if e_local != E:
+        shape += f" experts[{e_start}:{e_start + e_local}]"
+    row = {"kernel": "moe_router", "case": name, "shape": shape,
            "max_abs_err": err, "index_swaps": len(swaps), "ties": ties,
-           "dropped": int((r.slot == E * capacity).sum()),
+           "dropped": int((r.slot == e_local * capacity).sum()),
            "dispatch_exact": exact,
            "ok": close and exact and len(ties) == len(swaps)}
     if swaps and len(ties) != len(swaps):
@@ -955,7 +994,7 @@ def check_router(name, logits, k, n_real=None, capacity=None, flush=None):
         # written; per element a max, an exp, a sum, a divide and a
         # compare per round
         row["bound_ms"], row["bound_by"] = bound_of(
-            8 * T * E + 12 * T * k + 4 * E * capacity + 8 * E + 4,
+            8 * T * E + 12 * T * k + 4 * e_local * capacity + 8 * E + 4,
             (4 + 2 * k) * T * E, torch.float32)
     print("kernel-check", json.dumps(row))
     return row
@@ -967,7 +1006,7 @@ def router_case(name, T, E, k, flush=None, seed=0, n_real=None,
     gen.manual_seed(seed)
     return check_router(name, torch.randn((T, E), generator=gen,
                                           device="cuda"), k, n_real,
-                        capacity, flush)
+                        capacity, flush=flush)
 
 
 # ---------------------------------------------------------------------------
@@ -1947,10 +1986,12 @@ class MainPathRecorder:
                       dict(kw, q_offset=off)))
         return out
 
-    def _router(self, logits, k, *, n_real, capacity, dispatch="sort"):
+    def _router(self, logits, k, *, n_real, capacity, dispatch="sort",
+                e_start=0, e_local=None):
         before = kr.router_dispatch.launches
         out = kr.router_dispatch(logits, k, n_real=n_real, capacity=capacity,
-                                 dispatch=dispatch)
+                                 dispatch=dispatch, e_start=e_start,
+                                 e_local=e_local)
         self._record(("moe_router", self.kind) + tuple(logits.shape)
                      + (k, n_real, capacity),
                      kr.router_dispatch.launches - before,
@@ -3005,14 +3046,17 @@ class TrainRecorder:
                      + (kw,))
         return out
 
-    def _router(self, logits, k, *, n_real, capacity, dispatch="sort"):
+    def _router(self, logits, k, *, n_real, capacity, dispatch="sort",
+                e_start=0, e_local=None):
         before = kr.router_dispatch.launches
         out = kr.router_dispatch(logits, k, n_real=n_real, capacity=capacity,
-                                 dispatch=dispatch)
+                                 dispatch=dispatch, e_start=e_start,
+                                 e_local=e_local)
         self._record(("moe_router", self.kind) + tuple(logits.shape)
-                     + (k, n_real, capacity),
+                     + (k, n_real, capacity, e_start, e_local),
                      kr.router_dispatch.launches - before,
-                     (logits.detach().clone(), k, n_real, capacity))
+                     (logits.detach().clone(), k, n_real, capacity, e_start,
+                      e_local))
         return out
 
     def _router_bwd(self, logits, probs, idx, w, dw, dprob_sum, dz_sum, *,
@@ -3885,6 +3929,496 @@ def ssm_train_parity():
 
 
 # ---------------------------------------------------------------------------
+# phase 3m: distribution, four ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+DISTRIB_RANKS = 4
+DISTRIB_MESH = (2, 2)            # (data, model) of the sharded step
+DISTRIB_LAYERS = 16              # granite-moe-3b-a800m cut from 32 (memory)
+DISTRIB_STEPS = 4
+DISTRIB_PARITY = dict(layers=2, batch=2)
+# the parity step's AdamW eps: at 1e-8 an entry whose gradient is below
+# about 1e-8 steps by lr·g/(|g| + eps), which turns the last bits of two
+# equal gradients summed in another order into differences up to lr
+DISTRIB_PARITY_EPS = 1e-3
+DISTRIB_LIMIT_S = 900.0          # the four ranks' whole run
+DISTRIB_BARRIER_S = 600.0        # a rank's wait in one collective
+SP_DECODE = dict(B=4, T=32768, Hq=16, Hkv=16, D=64, softcaps=(0.0, 30.0))
+PIPE = dict(n_micro=8, mb=1, S=128)
+PIPE_TOL = 2e-2                  # bf16: largest error over largest entry
+COMPRESS_BOUND = 0.75            # of the shared scale, the reference's
+
+
+class CollectiveClock:
+    """Host time inside ``torch.distributed.all_reduce`` (the card
+    synchronised on both sides of each call, so the time is the
+    collective's own, gloo's staging through the host included)."""
+
+    def __init__(self):
+        self.seconds, self.calls, self.bytes = 0.0, 0, 0
+        self._orig = None
+
+    def install(self):
+        import torch.distributed as dist
+        self._orig = dist.all_reduce
+
+        def timed(t, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(t, *a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += t.numel() * t.element_size()
+            return out
+        dist.all_reduce = timed
+
+    def uninstall(self):
+        import torch.distributed as dist
+        dist.all_reduce = self._orig
+
+
+def distrib_model(n_layers, mesh, capacity_factor=None, **over):
+    """granite-moe-3b-a800m at full width, ``n_layers`` deep, its experts
+    padded to the mesh's model axis."""
+    cfg = configs.get(MOE_ARCH).replace(n_layers=n_layers, **over)
+    if capacity_factor is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return Model(cfg, e_pad=moe_layer.padded_experts(cfg,
+                                                     mesh.shape["model"]))
+
+
+def stored_bytes(state) -> int:
+    opt = state["opt"]
+    return sum(t.numel() * t.element_size() for t in
+               optim.leaves(state["params"]) + optim.leaves(opt["m"])
+               + optim.leaves(opt["v"]) + [opt["count"]])
+
+
+def distrib_train(mesh, rank):
+    """Sub-check 1: DISTRIB_STEPS sharded steps of granite-moe-3b-a800m at
+    full width, DISTRIB_LAYERS deep, bf16 compute, AdamW, 8 x 128 global,
+    capacity factor 1.25, under a ``TrainRecorder``.  Returns (results,
+    recorder)."""
+    from repro_torch.distrib.sharding import bytes_per_device
+    model = distrib_model(DISTRIB_LAYERS, mesh)
+    # phase 3i's schedule (its first steps: warmup 5 of 10)
+    ocfg = optim.OptConfig(warmup=5, decay_steps=MOE_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
+    init_peak = torch.cuda.max_memory_allocated()
+    shapes, axes = train_step.init_state_axes(model, ocfg)
+    want = bytes_per_device(shapes, axes, mesh)
+    got = stored_bytes(state)
+    whole = sum(t.numel() * t.element_size()
+                for t in optim.leaves(shapes["params"]))
+    tag = f"distrib r{rank} {MOE_ARCH} ({DISTRIB_LAYERS} layers)"
+    print(f"{tag}: stored {got} bytes, bytes_per_device {want}; init peak "
+          f"{init_peak} bytes, the whole parameter tree {whole}", flush=True)
+    check(got == want, f"{tag}: stored {got} bytes, bytes_per_device "
+          f"{want}")
+    # the blocks are kept one layer at a time: the whole tree is never
+    # held on the card
+    check(init_peak < whole, f"{tag}: init peak {init_peak} bytes holds "
+          f"the whole parameter tree ({whole})")
+    step = train_step.make_train_step(model, ocfg,
+                                      ParallelConfig(remat="none"), mesh)
+    source = train_source(model.cfg)
+    recorder, clock = TrainRecorder(), CollectiveClock()
+    recorder.install()
+    for fn in TRAIN_COUNTED:
+        fn.launches = 0
+    clock.install()
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(DISTRIB_STEPS):
+            batch = train_batch(source, i)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            step_s.append(time.monotonic() - t0)
+    finally:
+        clock.uninstall()
+        recorder.uninstall()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag}: losses {losses}, step ms "
+          f"{[round(s * 1e3, 2) for s in step_s]}, peak {peak:.2f} GiB, "
+          f"all_reduce {clock.calls} calls {clock.seconds:.3f}s "
+          f"{clock.bytes / 1e9:.2f} GB", flush=True)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"{tag}: losses {losses}")
+    per_step = check_train_launches(tag, model, recorder, DISTRIB_STEPS,
+                                    "none")
+    del state, step
+    free_card()
+    return {"losses": losses, "step_ms": [s * 1e3 for s in step_s],
+            "peak_gib": peak, "init_peak_gib": init_peak / 2 ** 30,
+            "stored_bytes": got,
+            "bytes_per_device": want, "launches_a_step": per_step,
+            "all_reduce_s": clock.seconds, "all_reduce_calls": clock.calls,
+            "all_reduce_bytes": clock.bytes,
+            "all_reduce_share": clock.seconds / sum(step_s)}, recorder
+
+
+def distrib_parity_step(mesh):
+    """The sharded step's state after one step of granite at
+    DISTRIB_PARITY layers, f32, TF32 off, DISTRIB_PARITY batch x 128, and
+    the model, optimizer and batch it ran (every rank the same).  The
+    capacity factor is 16 (dropless): capacity is per token shard, so at
+    1.25 the shards drop other assignments than one process does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = distrib_model(DISTRIB_PARITY["layers"], mesh,
+                          capacity_factor=16.0, compute_dtype="float32")
+    ocfg = optim.OptConfig(warmup=1, decay_steps=1, eps=DISTRIB_PARITY_EPS)
+    batch = train_batch(train_source(model.cfg, TRAIN_SEQ,
+                                     DISTRIB_PARITY["batch"], seed=2), 0)
+    par = ParallelConfig(remat="none")
+    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
+    state, met = train_step.make_train_step(model, ocfg, par, mesh)(state,
+                                                                    batch)
+    return model, ocfg, par, batch, state, float(met["loss"])
+
+
+def parity_against_one_process(tag, model, ocfg, par, batch, whole, loss,
+                               tol):
+    """The gathered parameters ``whole`` and ``loss`` of a sharded step
+    against one step without a mesh from the same seed; returns (the
+    loss's and the worst leaf's error over its largest entry, leaves
+    bitwise equal)."""
+    state = train_step.init_state(model, ocfg, 0, device="cuda")
+    state, met = train_step.make_train_step(model, ocfg, par)(state, batch)
+    want = optim.leaves(state["params"])
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(whole, want)]
+    same = sum(bool(torch.equal(g, w)) for g, w in zip(whole, want))
+    loss_err = abs(loss - float(met["loss"])) / abs(float(met["loss"]))
+    print(f"{tag}: loss {loss} against {float(met['loss'])} (rel "
+          f"{loss_err:.3g}); worst leaf {max(errs):.3g} of its largest "
+          f"entry; {same} of {len(want)} leaves bitwise equal", flush=True)
+    check(loss_err <= tol and max(errs) <= tol,
+          f"{tag}: loss {loss_err:.3g}, worst leaf {max(errs):.3g} > {tol}")
+    del state
+    free_card()
+    return loss_err, max(errs), same
+
+
+def gathered_params(model, state, mesh):
+    from repro_torch.distrib.sharding import gather_block, tree_specs
+    specs = train_step.leaves_of(tree_specs(model.init(device="meta"),
+                                            model.param_axes(), mesh))
+    return [gather_block(b, s, mesh).clone()
+            for b, s in zip(optim.leaves(state["params"]), specs)]
+
+
+def distrib_sp_decode(rank):
+    """Sub-check 2: ``sp_decode_attention`` over (data 1, model 4) at
+    qwen1.5-0.5b's heads, B 4, T 32768 (8192 keys a rank), bf16, with and
+    without softcap, against the kernel's decode over the whole cache
+    and against the plain version.  Returns (results, phase 4 inputs)."""
+    from repro_torch.distrib import collectives as coll
+    from repro_torch.launch.mesh import Mesh
+    sp = SP_DECODE
+    mesh = Mesh((1, DISTRIB_RANKS), ("data", "model"), backend="gloo")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    B, T = sp["B"], sp["T"]
+    q = rnd(B, 1, sp["Hq"], sp["D"])
+    k, v = rnd(B, T, sp["Hkv"], sp["D"]), rnd(B, T, sp["Hkv"], sp["D"])
+    n = T // DISTRIB_RANKS
+    k_mine = k[:, rank * n:(rank + 1) * n].contiguous()
+    v_mine = v[:, rank * n:(rank + 1) * n].contiguous()
+    out, inputs = {}, []
+    for softcap in sp["softcaps"]:
+        before = fa.attention.launches
+        got = coll.sp_decode_attention(q, k_mine, v_mine, mesh,
+                                       softcap=softcap)
+        torch.cuda.synchronize()
+        launches = fa.attention.launches - before
+        kw = dict(causal=True, softcap=softcap, q_offset=T - 1)
+        whole = fa.attention(q, k, v, **kw).float()
+        plain = fa.attention_plain(q, k, v, **kw).float()
+        scale = float(plain.abs().max())
+        e_kernel = float((got.float() - whole).abs().max()) / scale
+        e_plain = float((got.float() - plain).abs().max()) / scale
+        print(f"distrib r{rank} sp_decode softcap {softcap}: partial "
+              f"launches {launches}; error over the largest entry "
+              f"{e_kernel:.3g} against the whole-cache kernel, "
+              f"{e_plain:.3g} against plain", flush=True)
+        check(launches == 1 and e_kernel <= TOL[torch.bfloat16]
+              and e_plain <= TOL[torch.bfloat16],
+              f"sp_decode softcap {softcap}: launches {launches}, errors "
+              f"{e_kernel:.3g} / {e_plain:.3g}")
+        out[str(softcap)] = {"launches": launches, "err_kernel": e_kernel,
+                             "err_plain": e_plain}
+        inputs.append((f"sp_decode softcap{softcap:g}", launches,
+                       dict(causal=False, softcap=softcap)))
+    return out, (q, k_mine, v_mine, inputs)
+
+
+def distrib_compress(rank, model, whole, batch):
+    """Sub-check 3: over (data 4, model 1), each rank's gradient tree of
+    the parity model at the gathered weights on its own batch row, the
+    int8 compressed mean against the exact mean (within COMPRESS_BOUND
+    of the shared scale, leaf by leaf); then the reference test's
+    error-feedback regression toy, which must converge (< 0.05)."""
+    from repro_torch.distrib import collectives as coll
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, backend="gloo")
+    pos = iter(whole)
+    params = optim.tree_map(lambda _: next(pos), model.init(device="meta"))
+    rows = {k: x[rank:rank + 1] for k, x in batch.items()}
+    _, _, grads = train_step.loss_and_grads(model, params, rows,
+                                            remat="none")
+    comp, _ = coll.compressed_allreduce_tree(grads, None, mesh, "data")
+    worst = 0.0
+    for g, c in zip(optim.leaves(grads), optim.leaves(comp)):
+        exact = coll.all_reduce(g, mesh, "data") / DISTRIB_RANKS
+        scale = coll.all_reduce(g.abs().max() / 127.0, mesh, "data", "max")
+        worst = max(worst, float((c - exact).abs().max() / scale))
+    X = torch.randn((4, 64, 8), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    wt = torch.randn(8, generator=torch.Generator(device="cuda").manual_seed(
+        2), device="cuda")
+    y = torch.einsum("dbi,i->db", X, wt)
+    w, err = torch.zeros(8, device="cuda"), torch.zeros(8, device="cuda")
+    for _ in range(60):
+        g = X[rank].T @ (X[rank] @ w - y[rank]) / y[rank].numel()
+        g, err = coll.compressed_psum(g + err, mesh, "data")
+        w = w - 0.3 * g
+    dist_toy = float(torch.linalg.norm(w - wt))
+    print(f"distrib r{rank} compressed all-reduce: {len(optim.leaves(grads))}"
+          f" leaves, worst |compressed - exact| {worst:.3g} of the scale; "
+          f"error-feedback toy at {dist_toy:.3g}", flush=True)
+    check(worst <= COMPRESS_BOUND and dist_toy < 0.05,
+          f"compressed all-reduce: worst {worst:.3g}, toy {dist_toy:.3g}")
+    return {"leaves": len(optim.leaves(grads)), "worst_over_scale": worst,
+            "toy_distance": dist_toy}
+
+
+def distrib_pipeline(rank):
+    """Sub-check 4: ``pipeline_apply`` over a (stage,) mesh of 4, each stage
+    6 of qwen1.5-0.5b's 24 decoder blocks at full width (bf16 compute),
+    8 microbatches of 1 x 128 hidden states; rank 0 holds the result
+    against the 24 blocks applied in one process."""
+    from repro_torch.distrib.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((DISTRIB_RANKS,), ("stage",), backend="gloo")
+    model = Model(configs.get(ARCH))
+    cfg = model.cfg
+    params = model.init(FABRIC_SEED, device="cuda")
+    per = cfg.n_layers // DISTRIB_RANKS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    x = torch.randn((PIPE["n_micro"], PIPE["mb"], PIPE["S"], cfg.d_model),
+                    generator=gen, device="cuda").to(dtype_of(
+                        cfg.compute_dtype))
+
+    def blocks(layers, h):
+        for p in layers:
+            h = model._block(p, h, lambda a, p=p: attn_layer.attn_train(
+                cfg, p["attn"], a))
+        return h
+    with torch.no_grad():
+        before = fa.attention.launches
+        got = pipeline_apply(blocks, params["layers"][rank * per:
+                                                      (rank + 1) * per],
+                             x, mesh)
+        torch.cuda.synchronize()
+        launches = fa.attention.launches - before
+        want_launches = (PIPE["n_micro"] + DISTRIB_RANKS - 1) * per
+        err = same = None
+        if rank == 0:
+            want = torch.stack([blocks(params["layers"], x[i])
+                                for i in range(PIPE["n_micro"])])
+            err = float((got.float() - want.float()).abs().max()
+                        / want.float().abs().max())
+            same = bool(torch.equal(got, want))
+    print(f"distrib r{rank} pipeline: {per} blocks a stage, attention "
+          f"launches {launches} (want {want_launches})"
+          + ("" if err is None else f"; error over the largest entry "
+             f"{err:.3g} against one process, bitwise {same}"), flush=True)
+    check(launches == want_launches and (err is None or err <= PIPE_TOL),
+          f"pipeline: launches {launches}, error {err}")
+    del params
+    free_card()
+    return {"launches": launches, "err": err, "bitwise": same}
+
+
+def distrib_rank(rank: int, folder: str) -> int:
+    """One rank of phase 3m (this script with ``--distrib-rank``): joins
+    the gloo world through a FileStore in ``folder``, runs sub-checks
+    1-4 and the NCCL refusal, and rank 0 then checks and times the
+    kernels on its recorded inputs (phase 4) while the others wait;
+    writes its results to ``folder/rank<rank>.json``."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.launch.mesh import Mesh, make_local_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{folder}/store", rank=rank,
+        world_size=DISTRIB_RANKS,
+        timeout=timedelta(seconds=DISTRIB_BARRIER_S))
+    grid = Mesh(DISTRIB_MESH, ("data", "model"), backend="gloo")
+    out = {"rank": rank}
+    out["train"], recorder = distrib_train(grid, rank)
+    model, ocfg, par, batch, state, loss = distrib_parity_step(grid)
+    whole = gathered_params(model, state, grid)
+    del state
+    if rank == 0:
+        out["parity"] = parity_against_one_process(
+            f"distrib r0 parity ({DISTRIB_PARITY['layers']} layers, f32)",
+            model, ocfg, par, batch, whole, loss, TRAIN_PARITY_TOL)
+    out["sp_decode"], sp_inputs = distrib_sp_decode(rank)
+    out["compress"] = distrib_compress(rank, model, whole,
+                                       train_batch(train_source(
+                                           model.cfg, TRAIN_SEQ,
+                                           DISTRIB_RANKS, seed=3), 0))
+    del whole
+    out["pipeline"] = distrib_pipeline(rank)
+    try:
+        make_local_mesh(2, backend="nccl")
+        out["nccl_two_on_one"] = "accepted"
+    except RuntimeError as e:
+        out["nccl_two_on_one"] = f"refused: {e}"
+    print(f"distrib r{rank} nccl, two ranks a card: "
+          f"{out['nccl_two_on_one']}", flush=True)
+    check(out["nccl_two_on_one"].startswith("refused"),
+          "nccl accepted ranks that share a card")
+    free_card()
+    dist.barrier()
+    rows = []
+    if rank == 0:                  # alone on the card: the others wait
+        rows = phase_main_shapes(f"{MOE_ARCH} distrib", recorder)
+        q, k_mine, v_mine, calls = sp_inputs
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        for name, launches, kw in calls:
+            row = check_kernel(f"{ARCH}:{name}", q, k_mine, v_mine,
+                               dict(kw, window=0, prefix_len=None,
+                                    q_offset=torch.zeros(
+                                        (), dtype=torch.int32,
+                                        device="cuda")), flush)
+            row["launches"] = launches
+            rows.append(row)
+        del flush
+        assert_all_ok(rows)
+    out["rows"] = rows
+    dist.barrier()
+    Path(folder, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_distrib() -> list:
+    """Phase 3m: DISTRIB_RANKS rank subprocesses of this script on the one
+    card over gloo with CUDA tensors (the kernels built here first, the
+    card's memory freed), then the one-rank NCCL check here.  Returns
+    rank 0's phase 4 rows with its launches."""
+    import tempfile
+    free_card()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="distrib-") as folder:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--distrib-rank", str(r), "--distrib-dir", folder],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DISTRIB_RANKS)]
+        tails = [[] for _ in procs]
+
+        def pump(i):
+            for line in procs[i].stdout:
+                line = line.rstrip("\n")
+                tails[i] = (tails[i] + [line])[-40:]
+                if i == 0 or line.startswith("distrib ") or "Error" in line:
+                    sys.stdout.write(line + "\n")
+                    sys.stdout.flush()
+        readers = [threading.Thread(target=pump, args=(i,), daemon=True)
+                   for i in range(len(procs))]
+        for t in readers:
+            t.start()
+        deadline = time.monotonic() + DISTRIB_LIMIT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = [i for i, p in enumerate(procs) if p.poll()]
+                check(not failed, f"distrib: rank {failed} failed (rc "
+                      f"{[procs[i].returncode for i in failed]}):\n"
+                      + "\n".join(tails[failed[0]] if failed else []))
+                check(time.monotonic() < deadline,
+                      f"distrib: ranks still running after "
+                      f"{DISTRIB_LIMIT_S}s")
+                time.sleep(0.2)
+            for t in readers:
+                t.join(timeout=10)
+            bad = [i for i, p in enumerate(procs) if p.returncode]
+            check(not bad, f"distrib: rank {bad} failed:\n"
+                  + "\n".join(tails[bad[0]] if bad else []))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+        results = [json.loads(Path(folder, f"rank{r}.json").read_text())
+                   for r in range(DISTRIB_RANKS)]
+    wall = time.monotonic() - t0
+    nccl = nccl_one_rank()
+    summary = {
+        "wall_s": wall, "card": torch.cuda.get_device_name(0),
+        "mesh": DISTRIB_MESH, "layers": DISTRIB_LAYERS,
+        "losses": results[0]["train"]["losses"],
+        "step_ms": {r["rank"]: r["train"]["step_ms"] for r in results},
+        "peak_gib": {r["rank"]: r["train"]["peak_gib"] for r in results},
+        "init_peak_gib": {r["rank"]: r["train"]["init_peak_gib"]
+                          for r in results},
+        "all_reduce_share": {r["rank"]: r["train"]["all_reduce_share"]
+                             for r in results},
+        "all_reduce_gb_a_step": results[0]["train"]["all_reduce_bytes"]
+        / DISTRIB_STEPS / 1e9,
+        "stored_bytes": {r["rank"]: r["train"]["stored_bytes"]
+                         for r in results},
+        "parity": results[0]["parity"],
+        "sp_decode": results[0]["sp_decode"],
+        "compress": {r["rank"]: r["compress"] for r in results},
+        "pipeline": results[0]["pipeline"], "nccl_one_rank": nccl}
+    print(f"distrib: phase 3m {wall:.1f}s wall, peak GiB by rank "
+          f"{summary['peak_gib']}")
+    print("distrib " + json.dumps(summary))
+    return results[0]["rows"]
+
+
+def nccl_one_rank() -> dict:
+    """Sub-check 5, in this process: a one-rank NCCL world and mesh
+    (data 1, model 1); the parity step through it against the step
+    without a mesh, printed bitwise and held to 1e-6."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    with tempfile.TemporaryDirectory(prefix="nccl-") as folder:
+        dist.init_process_group("nccl", init_method=f"file://{folder}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(1, backend="nccl")
+            model, ocfg, par, batch, state, loss = distrib_parity_step(mesh)
+            whole = gathered_params(model, state, mesh)
+            del state
+            loss_err, worst, same = parity_against_one_process(
+                "distrib nccl one rank", model, ocfg, par, batch, whole,
+                loss, 1e-6)
+        finally:
+            dist.destroy_process_group()
+    free_card()
+    return {"loss_err": loss_err, "worst_leaf_err": worst,
+            "bitwise_leaves": same, "leaves": len(whole)}
+
+
+# ---------------------------------------------------------------------------
 # the summary
 # ---------------------------------------------------------------------------
 SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
@@ -3976,6 +4510,11 @@ def main(argv=None) -> int:
     ap.add_argument("--fabric-replica", metavar="REGISTRY_URI",
                     help="run one replica of phase 3f, registered with "
                          "REGISTRY_URI (phase 3f starts these itself)")
+    ap.add_argument("--distrib-rank", type=int, metavar="RANK",
+                    help="run one rank of phase 3m (phase 3m starts "
+                         "these itself)")
+    ap.add_argument("--distrib-dir", metavar="DIR",
+                    help="phase 3m's rendezvous folder")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3983,6 +4522,8 @@ def main(argv=None) -> int:
         return 1
     if args.fabric_replica:
         return fabric_replica(args.fabric_replica)
+    if args.distrib_rank is not None:
+        return distrib_rank(args.distrib_rank, args.distrib_dir)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -4022,6 +4563,7 @@ def main(argv=None) -> int:
     ssm_train_parity()
     for n in (HYBRID_PARITY_LAYERS, HYBRID_TRAIN_LAYERS):
         phase_train_parity(HYBRID_ARCH, n_layers=n)
+    rows += phase_distrib()
 
     lost = {}
     for r in rows:

@@ -1,0 +1,195 @@
+"""Collectives on a ``launch.mesh.Mesh``, ported from
+``src/repro/distrib/collectives.py``, and the gradient rules of the
+collectives that the expert-parallel MoE layer runs inside autograd.
+
+``all_reduce`` is the one primitive: every collective here is built from
+it, so it runs on gloo (ranks that share a card, or CPU ranks) and NCCL
+alike.  Floating tensors travel in f32 (a bf16 or f16 tensor is widened
+for the reduction and rounded back once), integers in int32 or int64.
+
+``compressed_psum`` — int8-quantised mean all-reduce with error feedback:
+a shared per-tensor scale (an all-reduce MAX), the int8 payload widened
+to int32 and summed, divided by n, and the local quantisation error
+returned so that the caller can fold it into the next step's input.
+The reference's arithmetic in the reference's order.
+
+``sp_decode_attention`` — the two-pass sequence-parallel decode softmax
+over a KV cache sharded along the sequence: each rank's partial is the
+hand-written attention kernel's non-causal forward, which writes the row
+lse beside the normalised output; an all-reduce MAX of lse and two
+all-reduce SUMs combine them.  The payload is O(B·H·D), independent of T.
+
+The gradient rules (``CopyToAxes``, ``ReduceFromAxes``, ``SumOnce``) are
+named ``autograd.Function``s, each beside the collective it runs.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..kernels.attention import attention_fwd
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+# the dtype each dtype is reduced in
+_WIRE = {torch.float32: torch.float32, torch.float64: torch.float64,
+         torch.bfloat16: torch.float32, torch.float16: torch.float32,
+         torch.int32: torch.int32, torch.int64: torch.int64,
+         torch.int8: torch.int32, torch.uint8: torch.int32}
+
+
+def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum"
+                ) -> torch.Tensor:
+    """Reduce ``x`` over the mesh axes ``axes`` in place and return it;
+    ``x`` must be in a dtype the wire takes as it is (f32, f64, int32,
+    int64)."""
+    if _WIRE.get(x.dtype) is not x.dtype:
+        raise ValueError(f"all_reduce_: {x.dtype} does not travel as it is")
+    if not x.is_contiguous():
+        raise ValueError("all_reduce_: x must be contiguous")
+    # a 0-d tensor travels as one element of the same storage
+    dist.all_reduce(x.view(-1) if x.ndim == 0 else x, op=_OPS[op],
+                    group=mesh.group(axes))
+    return x
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
+               ) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over the mesh axes ``axes`` (``op``:
+    sum, max or min), in ``x``'s dtype."""
+    wire = _WIRE.get(x.dtype)
+    if wire is None:
+        raise ValueError(f"all_reduce: no wire dtype for {x.dtype}")
+    buf = x.to(wire, copy=True).contiguous()
+    return all_reduce_(buf, mesh, axes, op).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gradient rules
+# ---------------------------------------------------------------------------
+class CopyToAxes(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over ``axes``.  A
+    tensor replicated over ``axes`` that feeds computations whose
+    gradients are partial there (each expert shard's share of the
+    router's logits and of the token rows) gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class ReduceFromAxes(torch.autograd.Function):
+    """The sum over ``axes`` forward (the expert shards' partial outputs);
+    identity backward: each partial's gradient is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class SumOnce(torch.autograd.Function):
+    """The sum over ``axes`` forward (the MoE aux sums over the token
+    shards: every rank then holds the global sums, and its loss the
+    global aux losses).  Backward: the gradient summed over ``axes``
+    (each token shard's loss is one term of the mean that the step takes
+    over them, so no term is scaled down by that mean), kept on the rank
+    whose index on ``once_axis`` is 0 and zero on the others: every shard
+    along ``once_axis`` computes the same sums, so their gradient must
+    count once when the shards' gradients are summed there.  No
+    ``axes``: no sum, the gradient still counted once."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, once_axis):
+        ctx.mesh, ctx.axes, ctx.once_axis = mesh, axes, once_axis
+        return all_reduce(x, mesh, axes) if axes else x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axes:
+            g = all_reduce(g, ctx.mesh, ctx.axes)
+        if ctx.once_axis is not None and ctx.mesh.coords[ctx.once_axis]:
+            g = torch.zeros_like(g)
+        return g, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# int8 compressed all-reduce with error feedback
+# ---------------------------------------------------------------------------
+def quantize_int8(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantisation.  Returns (q, scale)."""
+    amax = torch.max(torch.abs(x))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.to(torch.float32) * scale
+
+
+def compressed_psum(x, mesh, axis) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 mean all-reduce of ``x`` (f32) over the mesh axis ``axis``.
+    Quantises against the largest scale of the axis, sums the int8
+    payload widened to int32 (the wire cost modeled is the int8 payload)
+    and dequantises.  Returns (mean-reduced value, local quantisation
+    error for feedback)."""
+    _, scale = quantize_int8(x)
+    n = mesh.axis_size(axis)
+    scale_max = all_reduce(scale, mesh, axis, "max")
+    # re-quantise against the shared scale so the sum is coherent
+    q_shared = torch.clamp(torch.round(x / scale_max), -127,
+                           127).to(torch.int8)
+    err = x - q_shared.to(torch.float32) * scale_max
+    summed = all_reduce_(q_shared.to(torch.int32), mesh, axis)
+    out = summed.to(torch.float32) * scale_max / n
+    return out, err
+
+
+def compressed_allreduce_tree(tree, err_tree, mesh, axis):
+    """``compressed_psum`` of every leaf of ``tree`` (a dict / list tree
+    of f32 tensors) with error feedback from ``err_tree`` (None: zeros).
+    Returns (mean-reduced tree, new error tree)."""
+    from ..train.optim import leaves, tree_map
+    flat = leaves(tree)
+    errs = leaves(err_tree) if err_tree is not None else [None] * len(flat)
+    res = [compressed_psum(x if e is None else x + e, mesh, axis)
+           for x, e in zip(flat, errs)]
+    outs = iter(o for o, _ in res)
+    new_errs = iter(e for _, e in res)
+    return (tree_map(lambda _: next(outs), tree),
+            tree_map(lambda _: next(new_errs), tree))
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel decode attention
+# ---------------------------------------------------------------------------
+def sp_decode_attention(q, k_local, v_local, mesh, seq_axis: str = "model",
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Two-pass sequence-parallel decode attention.
+
+    q: (B, 1, Hq, D), the same on every rank of ``seq_axis``; k_local,
+    v_local: (B, T/n, Hkv, D), this rank's slice of the cache along the
+    sequence (the query sees every key: decode at the cache's end).
+    Each rank's partial (o, lse) is ``attention_fwd`` non-causal: the
+    hand-written kernel on the card, its plain version on the CPU.  Then
+    m = max lse over the ranks, and out = Σ o·e^(lse−m) / Σ e^(lse−m).
+    Returns (B, 1, Hq, D) in q's dtype."""
+    o, lse = attention_fwd(q, k_local, v_local, causal=False,
+                           softcap=softcap)            # lse (B, Hq, 1)
+    lse = lse.transpose(1, 2)                           # (B, 1, Hq)
+    m = all_reduce(lse, mesh, seq_axis, "max")
+    w = torch.exp(lse - m)
+    num = all_reduce_(o.float() * w[..., None], mesh, seq_axis)
+    den = all_reduce_(w.contiguous(), mesh, seq_axis)
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)

@@ -11,9 +11,10 @@
 // both directions, and the load-balance and z-loss sums.
 //
 // Layouts (all contiguous): logits (T, E) f32 in.  Out: w (T, k) f32,
-// idx (T, k) int32, probs (T, E) f32, slot (T, k) int32, src (E*C) int32,
-// load (E) f32, prob_sum (E) f32, z_sum (1) f32.  1 <= k <= min(E, 32),
-// E <= 512, 1 <= n_real <= E, C >= 1.
+// idx (T, k) int32, probs (T, E) f32, slot (T, k) int32, src (e_local*C)
+// int32, load (E) f32, prob_sum (E) f32, z_sum (1) f32.  1 <= k <=
+// min(E, 32), E <= 512, 1 <= n_real <= E, C >= 1, 0 <= e_start,
+// 1 <= e_local, e_start + e_local <= E.
 // Numerics, as the Pallas kernel: m = max, e = exp(x - m),
 // probs = e / sum(e); round j takes the largest remaining probability and,
 // among equal ones, the lowest expert index; the taken slot is set below
@@ -25,6 +26,12 @@
 // token in that capacity slot, or T when the slot stays empty.
 // load[e] counts every assignment to e (dropped ones too), prob_sum[e] =
 // sum_t probs[t, e], z_sum = sum_t logsumexp(logits[t])^2.
+// Expert parallelism: a shard that holds experts [e_start, e_start +
+// e_local) routes and counts over all E, as above, but keeps only the
+// assignments to its own experts (the reference's keep = (pos < C) &
+// in_shard): slot[t, j] = (e - e_start)*C + position for those, and
+// e_local*C for every other; src has e_local*C entries.  At e_start 0 and
+// e_local E this is the unsharded dispatch, bit for bit.
 //
 // What bounds it on an H100.  At serving shapes (T = 4 to 64 tokens,
 // E = 40, k = 8) a call moves a few KB: some nanoseconds at 3.35 TB/s,
@@ -183,7 +190,7 @@ router_dispatch_kernel(const float* __restrict__ logits,
                        int* __restrict__ src, float* __restrict__ load,
                        float* __restrict__ prob_sum,
                        float* __restrict__ z_sum, int T, int E, int k,
-                       int n_real, int C) {
+                       int n_real, int C, int e_start, int e_local) {
   constexpr int kMaxRows = kMaxThreads / G;
   static_assert(kMaxRows <= 64, "a tile's rows must fit a 64-bit mask");
   __shared__ int count[2][kMaxExperts];           // assignments so far
@@ -197,7 +204,7 @@ router_dispatch_kernel(const float* __restrict__ logits,
   const int group = tid / G;   // row within the tile
   const int word = group >> 5;
   const unsigned bit = 1u << (group & 31);
-  const int n_slots = E * C;
+  const int n_slots = e_local * C;  // this shard's slots
   for (int i = tid; i < n_slots; i += nthreads) src[i] = T;
   for (int e = tid; e < E; e += nthreads) {
     count[0][e] = 0;
@@ -232,8 +239,9 @@ router_dispatch_kernel(const float* __restrict__ logits,
       const unsigned* mask = rows[cur][mine_e];
       const int pos = count[cur][mine_e] + (word ? __popc(mask[0]) : 0) +
                       __popc(mask[word] & (bit - 1u));
-      const int at = mine_e * C + pos;
-      const bool kept = pos < C;
+      const int local = mine_e - e_start;  // the expert in this shard
+      const int at = local * C + pos;
+      const bool kept = pos < C && local >= 0 && local < e_local;
       slot[(size_t)row * k + lane] = kept ? at : n_slots;
       if (kept) src[at] = row;
     }
@@ -275,7 +283,7 @@ template <int G, int PER_LANE>
 cudaError_t launch(const float* logits, float* w, int* idx, float* probs,
                    int* slot, int* src, float* load, float* prob_sum,
                    float* z_sum, int T, int E, int k, int n_real, int C,
-                   cudaStream_t st) {
+                   int e_start, int e_local, cudaStream_t st) {
   // rows a tile: as many as there are tokens, up to 1024 / G, rounded up
   // to whole warps
   constexpr int per_warp = 32 / G;
@@ -284,7 +292,7 @@ cudaError_t launch(const float* logits, float* w, int* idx, float* probs,
                                 : max_rows;
   router_dispatch_kernel<G, PER_LANE><<<1, rows * G, 0, st>>>(
       logits, w, idx, probs, slot, src, load, prob_sum, z_sum, T, E, k,
-      n_real, C);
+      n_real, C, e_start, e_local);
   return cudaGetLastError();
 }
 
@@ -293,10 +301,11 @@ template <int G>
 cudaError_t launch_for(int per_lane, const float* logits, float* w, int* idx,
                        float* probs, int* slot, int* src, float* load,
                        float* prob_sum, float* z_sum, int T, int E, int k,
-                       int n_real, int C, cudaStream_t st) {
+                       int n_real, int C, int e_start, int e_local,
+                       cudaStream_t st) {
 #define REPRO_ROUTER_LAUNCH(P)                                          \
   return launch<G, P>(logits, w, idx, probs, slot, src, load, prob_sum, \
-                      z_sum, T, E, k, n_real, C, st)
+                      z_sum, T, E, k, n_real, C, e_start, e_local, st)
   if (per_lane <= 1) REPRO_ROUTER_LAUNCH(1);
   if (per_lane <= 2) REPRO_ROUTER_LAUNCH(2);
   if (per_lane <= 4) REPRO_ROUTER_LAUNCH(4);
@@ -354,15 +363,18 @@ extern "C" int repro_router_dispatch(const float* logits, float* w, int* idx,
                                      float* probs, int* slot, int* src,
                                      float* load, float* prob_sum,
                                      float* z_sum, int T, int E, int k,
-                                     int n_real, int C, void* stream) {
+                                     int n_real, int C, int e_start,
+                                     int e_local, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T <= 0 || E <= 0 || k < 1 || k > E || k > 32 || E > kMaxExperts ||
-      n_real < 1 || n_real > E || C < 1 || (long long)E * C >= (1LL << 31))
+      n_real < 1 || n_real > E || C < 1 || (long long)E * C >= (1LL << 31) ||
+      e_start < 0 || e_local < 1 || e_start + e_local > E)
     return (int)cudaErrorInvalidValue;
   if (T > 32 && E <= 16 * 8 && k <= 16)
     return (int)launch_for<16>((E + 15) / 16, logits, w, idx, probs, slot,
                                src, load, prob_sum, z_sum, T, E, k, n_real,
-                               C, st);
+                               C, e_start, e_local, st);
   return (int)launch_for<32>((E + 31) / 32, logits, w, idx, probs, slot, src,
-                             load, prob_sum, z_sum, T, E, k, n_real, C, st);
+                             load, prob_sum, z_sum, T, E, k, n_real, C,
+                             e_start, e_local, st);
 }

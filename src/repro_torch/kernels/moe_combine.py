@@ -35,6 +35,11 @@ In bf16 the chain rounded each product ``vals * w`` to bf16, with ``w``
 cast to bf16, before the sum, and its dw was a bf16 sum: y, ``d_out_buf``
 and dw each drop those roundings now.
 
+The slot count is ``out_buf``'s rows: an expert shard passes its e_local·C
+slots and the routing's slots for that range (``router_dispatch`` with
+``e_start``/``e_local``), where a choice outside the shard carries the
+sentinel e_local·C and so reads as dropped.
+
 ``moe_combine`` and ``moe_combine_bwd`` dispatch on the device of their
 rows: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.  There is no fallback; every check comes before the

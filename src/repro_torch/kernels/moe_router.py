@@ -47,7 +47,7 @@ row function (``csrc/moe_router_common.cuh``) in its own launch.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,9 @@ class Routing(NamedTuple):
     probs: torch.Tensor     # (T, E) f32, softmax over the masked logits
     slot: torch.Tensor      # (T, k) int32, e*C + position, E*C if dropped
     src: torch.Tensor       # (E*C,) int32, each slot's token, T if empty
+    # (with an expert range [e_start, e_start + e_local): slot
+    # (e - e_start)*C + position for the range's experts and e_local*C for
+    # every other assignment, src (e_local*C,))
     load: torch.Tensor      # (E,) f32, assignments per expert (dropped too)
     prob_sum: torch.Tensor  # (E,) f32, sum over tokens of probs
     z_sum: torch.Tensor     # () f32, sum over tokens of logsumexp²
@@ -83,14 +86,19 @@ def router_topk_plain(logits, k: int
 
 
 def dispatch_plain(idx, n_experts: int, capacity: int,
-                   dispatch: str = "sort"
+                   dispatch: str = "sort", e_start: int = 0,
+                   e_local: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(slot, src, load) of the assignments ``idx`` (T, k), as the
     reference's dispatch computes positions: by a stable sort over
     experts (``"sort"``) or a running count over the one-hot
     (``"cumsum"``); both rank an assignment among the earlier ones to
     the same expert in (t, j) order.  Positions at or past ``capacity``
-    are dropped.  Fixed shapes: no boolean indexing."""
+    are dropped, and so is every assignment to an expert outside
+    ``[e_start, e_start + e_local)`` (default all ``n_experts``): the
+    reference's ``keep = (pos_in_e < C) & in_shard``.  Positions and
+    ``load`` count over all experts.  Fixed shapes: no boolean
+    indexing."""
     T, k = idx.shape
     dev = idx.device
     n = T * k
@@ -107,8 +115,11 @@ def dispatch_plain(idx, n_experts: int, capacity: int,
         seg_start = torch.searchsorted(se, experts)
         pos = torch.empty_like(order).scatter_(
             0, order, torch.arange(n, device=dev) - seg_start[se])
-    n_slots = n_experts * capacity
-    slot = torch.where(pos < capacity, flat_e * capacity + pos, n_slots)
+    e_local = n_experts if e_local is None else e_local
+    n_slots = e_local * capacity
+    local = flat_e - e_start
+    keep = (pos < capacity) & (local >= 0) & (local < e_local)
+    slot = torch.where(keep, local * capacity + pos, n_slots)
     # dropped assignments all land on one extra element, cut off after
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=dev)
     src.scatter_(0, slot, torch.arange(n, device=dev) // k)
@@ -118,17 +129,21 @@ def dispatch_plain(idx, n_experts: int, capacity: int,
 
 
 def router_dispatch_plain(logits, k: int, *, n_real: int, capacity: int,
-                          dispatch: str = "sort") -> Routing:
+                          dispatch: str = "sort", e_start: int = 0,
+                          e_local: Optional[int] = None) -> Routing:
     """Routing of one MoE layer call, as ``models/moe.py`` computed it
     around ``router_topk``: experts at or past ``n_real`` masked to
-    -1e30, top-k softmax gating, ``dispatch_plain`` and the aux sums."""
+    -1e30, top-k softmax gating, ``dispatch_plain`` (to the expert range
+    ``[e_start, e_start + e_local)``, default all) and the aux sums, which
+    cover all experts."""
     logits = logits.float()
     E = logits.shape[1]
     if n_real < E:
         pad = torch.arange(E, device=logits.device) >= n_real
         logits = logits.masked_fill(pad[None], NEG_INF)
     w, idx, probs = router_topk_plain(logits, k)
-    slot, src, load = dispatch_plain(idx, E, capacity, dispatch)
+    slot, src, load = dispatch_plain(idx, E, capacity, dispatch, e_start,
+                                     e_local)
     z_sum = torch.square(torch.logsumexp(logits, dim=-1)).sum()
     return Routing(w, idx, probs, slot, src, load, probs.sum(0), z_sum)
 
@@ -192,9 +207,10 @@ class RouterFunction(torch.autograd.Function):
     ``z_sum`` carry gradients, the rest are marked non-differentiable."""
 
     @staticmethod
-    def forward(ctx, logits, k, n_real, capacity, dispatch):
+    def forward(ctx, logits, k, n_real, capacity, dispatch, e_start,
+                e_local):
         r = _route(logits, k, n_real=n_real, capacity=capacity,
-                   dispatch=dispatch)
+                   dispatch=dispatch, e_start=e_start, e_local=e_local)
         ctx.n_real = n_real
         ctx.save_for_backward(logits, r.probs, r.idx, r.w)
         ctx.mark_non_differentiable(r.idx, r.probs, r.slot, r.src, r.load)
@@ -206,34 +222,39 @@ class RouterFunction(torch.autograd.Function):
                  dz_sum):
         logits, probs, idx, w = ctx.saved_tensors
         if dw is None and dprob_sum is None and dz_sum is None:
-            return None, None, None, None, None
+            return (None,) * 7
         dlogits = router_bwd(logits, probs, idx, w, dw, dprob_sum, dz_sum,
                              n_real=ctx.n_real)
-        return dlogits, None, None, None, None
+        return (dlogits,) + (None,) * 6
 
 
-def _route(logits, k, *, n_real, capacity, dispatch) -> Routing:
+def _route(logits, k, *, n_real, capacity, dispatch, e_start=0,
+           e_local=None) -> Routing:
     """The forward by device: the plain version or the kernel."""
+    kw = dict(n_real=n_real, capacity=capacity, e_start=e_start,
+              e_local=e_local)
     if logits.device.type == "cpu":
-        return router_dispatch_plain(logits, k, n_real=n_real,
-                                     capacity=capacity, dispatch=dispatch)
+        return router_dispatch_plain(logits, k, dispatch=dispatch, **kw)
     if logits.device.type != "cuda":
         raise ValueError(f"router_dispatch: no kernel for device "
                          f"{logits.device}")
-    return _router_dispatch_cuda(logits, k, n_real=n_real, capacity=capacity)
+    return _router_dispatch_cuda(logits, k, **kw)
 
 
 def router_dispatch(logits, k: int, *, n_real: int, capacity: int,
-                    dispatch: str = "sort") -> Routing:
+                    dispatch: str = "sort", e_start: int = 0,
+                    e_local: Optional[int] = None) -> Routing:
     """Routing and dispatch of one MoE layer call; see
     ``router_dispatch_plain``.  The kernel takes both dispatch forms'
-    positions from one running count: they agree.  Logits that need a
-    gradient go through ``RouterFunction``."""
+    positions from one running count: they agree.  An expert shard passes
+    its range ``[e_start, e_start + e_local)``: routing and the aux sums
+    stay over all experts, and only the range's assignments get slots.
+    Logits that need a gradient go through ``RouterFunction``."""
     if torch.is_grad_enabled() and logits.requires_grad:
         return Routing(*RouterFunction.apply(logits, k, n_real, capacity,
-                                             dispatch))
+                                             dispatch, e_start, e_local))
     return _route(logits, k, n_real=n_real, capacity=capacity,
-                  dispatch=dispatch)
+                  dispatch=dispatch, e_start=e_start, e_local=e_local)
 
 
 router_dispatch.launches = 0
@@ -265,7 +286,7 @@ def _kernel():
         from .build import load
         fn = load("moe_router").repro_router_dispatch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         _fn = fn
     return _fn
@@ -284,8 +305,9 @@ def _bwd_kernel():
     return _bwd_fn
 
 
-def _router_dispatch_cuda(logits, k: int, *, n_real: int,
-                          capacity: int) -> Routing:
+def _router_dispatch_cuda(logits, k: int, *, n_real: int, capacity: int,
+                          e_start: int = 0,
+                          e_local: Optional[int] = None) -> Routing:
     """Validate, then launch.  Every check comes before the kernel is
     built or bound."""
     if torch.is_grad_enabled() and logits.requires_grad:
@@ -309,6 +331,11 @@ def _router_dispatch_cuda(logits, k: int, *, n_real: int,
         raise ValueError(f"router_dispatch: needs 1 <= n_real <= E and "
                          f"1 <= E*capacity < 2^31; got n_real={n_real}, "
                          f"E={E}, capacity={capacity}")
+    e_start = int(e_start)
+    e_local = E if e_local is None else int(e_local)
+    if not (0 <= e_start and 1 <= e_local and e_start + e_local <= E):
+        raise ValueError(f"router_dispatch: the expert range [{e_start}, "
+                         f"{e_start}+{e_local}) is not within E={E}")
     if T < 1:
         raise ValueError("router_dispatch: no tokens")
     logits = logits.contiguous()
@@ -318,13 +345,13 @@ def _router_dispatch_cuda(logits, k: int, *, n_real: int,
         return torch.empty(shape, dtype=dtype, device=dev)
     r = Routing(w=out(T, k), idx=out(T, k, dtype=torch.int32),
                 probs=out(T, E), slot=out(T, k, dtype=torch.int32),
-                src=out(E * capacity, dtype=torch.int32), load=out(E),
+                src=out(e_local * capacity, dtype=torch.int32), load=out(E),
                 prob_sum=out(E), z_sum=out())
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(logits.data_ptr(), *(t.data_ptr() for t in r), T, E, k,
-                 n_real, capacity, stream)
+                 n_real, capacity, e_start, e_local, stream)
     if err != 0:
         raise RuntimeError(f"moe_router kernel launch failed: CUDA error "
                            f"{err}")

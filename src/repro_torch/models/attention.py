@@ -47,6 +47,23 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return p
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``attn_params``' leaves, as the reference's
+    ``attn_params`` tags them."""
+    p = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", "head_dim")
+        p["bk"] = ("kv_heads", "head_dim")
+        p["bv"] = ("kv_heads", "head_dim")
+    if cfg.qk_norm:
+        p["q_norm"] = ("head_dim",)
+        p["k_norm"] = ("head_dim",)
+    return p
+
+
 def _theta(cfg: ModelConfig, kind: str) -> float:
     if kind == "global" and cfg.rope_theta_global > 0:
         return cfg.rope_theta_global

@@ -38,9 +38,17 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # init (seeded: the same seed gives the same weights on the same device)
 # ---------------------------------------------------------------------------
+class ShapesOnly:
+    """Stands in for the generator where only shapes and dtypes are made
+    (``Model.init(device="meta")``): every leaf a meta tensor."""
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype,
                in_dim: Optional[int] = None) -> torch.Tensor:
     """Truncated-normal (±2σ) fan-in init, as the reference's ``dense_p``."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = in_dim if in_dim is not None else shape[0]
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -97,6 +105,17 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``mlp_params``' leaves, as the reference tags
+    them (``models/common.py``, ``mlp_params``)."""
+    if cfg.mlp in ("swiglu", "geglu"):
+        p = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp")}
+    else:
+        p = {"wi": ("embed", "mlp")}
+    p["wo"] = ("mlp", "embed")
+    return p
+
+
 def mlp(cfg: ModelConfig, p: dict, x):
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
@@ -124,6 +143,17 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if cfg.frontend != "none" and cfg.frontend_dim:
         p["frontend_proj"] = dense_init(gen, (cfg.frontend_dim, cfg.d_model),
                                         dt)
+    return p
+
+
+def embed_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``embed_params``' leaves, as the reference's
+    ``embed_params`` tags them."""
+    p = {"embedding": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["head"] = ("embed", "vocab")
+    if cfg.frontend != "none" and cfg.frontend_dim:
+        p["frontend_proj"] = ("frontend", "embed")
     return p
 
 

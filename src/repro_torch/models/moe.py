@@ -1,5 +1,6 @@
-"""Mixture-of-Experts layer, ported from ``src/repro/models/moe.py`` for
-one device (the reference's ``spmd=None`` path).
+"""Mixture-of-Experts layer, ported from ``src/repro/models/moe.py``: on
+one device (the reference's ``spmd=None`` path) and expert-parallel over
+a mesh (``MoESpmd``, below).
 
 Per call: router logits, then one call of the routing kernel's wrapper
 (``router_dispatch``: padded experts masked to -1e30, top-k routing, each
@@ -30,21 +31,58 @@ token's k slots summed in choice order), not ``index_select``'s
 backward, which scatters with ``index_add_``: a token repeated k times
 would be summed in whatever order the atomics run.
 
-The expert-parallel ``shard_map`` path (``MoESpmd``) is not ported yet
-(ROADMAP A10).
+**Expert parallelism** (``spmd=MoESpmd(...)``, the reference's
+``shard_map`` path).  The experts lie along the mesh axis
+``expert_axis``: shard i holds experts [i·e_local, (i+1)·e_local), and
+every shard of a token row holds the row's tokens.  Each shard routes its
+tokens over all experts (the router weight is whole everywhere), gives
+slots only to the assignments to its own experts (the routing kernel's
+expert range), runs its experts and combines their partial outputs; the
+partials are summed over the expert axis.  The aux sums (identical on
+every expert shard) are summed over the token axes, so every rank holds
+the global aux losses.  Capacity is per token shard, as the reference's.
+
+The gradients across ranks are the unsharded layer's (tested against
+it), by three named rules from ``distrib/collectives.py``:
+``CopyToAxes`` at the layer's input and at the router weight (identity
+forward; backward, the sum over the expert axis of each shard's partial
+gradient), ``ReduceFromAxes`` at the output (the sum forward, identity
+backward), and ``SumOnce`` on the aux sums (the sum over the token axes;
+its gradient summed back over them and counted on one expert shard
+only).  A shared expert (deepseek) runs whole on every shard, outside
+those rules: its input and output are replicated.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distrib.collectives import (CopyToAxes, ReduceFromAxes, SumOnce,
+                                   all_reduce)
 from ..kernels.moe_combine import CombineFunction, moe_combine
 from ..kernels.moe_router import router_dispatch
-from .common import dense_init, dtype_of, mlp, mlp_params
+from .common import dense_init, dtype_of, mlp, mlp_axes, mlp_params
+
+
+@dataclass(frozen=True)
+class MoESpmd:
+    """How the MoE layer sees the mesh: the axes that split the tokens
+    (``("pod", "data")``), and the axis the experts lie along
+    (``expert_axis=None``: every rank holds all experts)."""
+    mesh: object                      # launch.mesh.Mesh
+    token_axes: Tuple[str, ...]
+    expert_axis: Optional[str] = "model"
+
+    @property
+    def n_expert_shards(self) -> int:
+        if self.expert_axis is None:
+            return 1
+        return self.mesh.shape[self.expert_axis]
 
 
 def padded_experts(cfg: ModelConfig, n_shards: int) -> int:
@@ -64,6 +102,19 @@ def moe_params(cfg: ModelConfig, gen: torch.Generator,
     if cfg.moe.num_shared_experts:
         p["shared"] = mlp_params(cfg, gen,
                                  d_ff=cfg.moe.num_shared_experts * cfg.d_ff)
+    return p
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``moe_params``' leaves, as the reference's
+    ``moe_params`` tags them: the router replicated over the experts
+    (every shard needs the global top-k)."""
+    p = {"router": ("embed", "experts_unsharded"),
+         "wi_gate": ("experts", "embed", "mlp"),
+         "wi_up": ("experts", "embed", "mlp"),
+         "wo": ("experts", "mlp", "embed")}
+    if cfg.moe.num_shared_experts:
+        p["shared"] = mlp_axes(cfg)
     return p
 
 
@@ -105,10 +156,14 @@ class _Dispatch(torch.autograd.Function):
 
 
 def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
-               capacity_factor: float, dropless: bool = False):
-    """Dispatch + expert FFN over x2d: (T, d).  Returns y (T, d) and the
-    aux sums (load per expert, prob per expert, router z, T).  Every
-    shape is fixed by T, k, E and C: nothing waits for the card."""
+               capacity_factor: float, dropless: bool = False,
+               e_start: int = 0, e_local: Optional[int] = None):
+    """Dispatch + expert FFN over x2d: (T, d); the expert tensors hold
+    experts [e_start, e_start + e_local) (default all ``e_pad``).  Returns
+    y (T, d), the contributions of those experts only, and the aux sums
+    over all experts (load per expert, prob per expert, router z, T).
+    Every shape is fixed by T, k, E and C: nothing waits for the card."""
+    e_local = e_pad if e_local is None else e_local
     T, d = x2d.shape
     E_real, k = cfg.moe.num_experts, cfg.moe.top_k
     cdt = dtype_of(cfg.compute_dtype)
@@ -119,11 +174,12 @@ def _moe_local(cfg: ModelConfig, params: dict, x2d, *, e_pad: int,
     else:
         C = max(int(math.ceil(T * k / max(E_real, 1) * capacity_factor)), 1)
     r = router_dispatch(logits.detach(), k, n_real=E_real, capacity=C,
-                        dispatch=cfg.moe.dispatch)
+                        dispatch=cfg.moe.dispatch, e_start=e_start,
+                        e_local=e_local)
 
     # each capacity slot's token row, a zero row where the slot is empty
-    buf = _Dispatch.apply(x2d, r.src, r.slot).view(e_pad, C, d)
-    out_buf = _expert_ffn(cfg, params, buf).view(e_pad * C, d)
+    buf = _Dispatch.apply(x2d, r.src, r.slot).view(e_local, C, d)
+    out_buf = _expert_ffn(cfg, params, buf).view(e_local * C, d)
     del buf
 
     # each token's k weighted expert outputs, summed in choice order in
@@ -152,16 +208,52 @@ def _aux_from_stats(cfg: ModelConfig, load_sum, prob_sum, z_sum, t_total):
 
 
 def moe_apply(cfg: ModelConfig, params: dict, x, *,
+              spmd: Optional[MoESpmd] = None,
               capacity_factor: Optional[float] = None,
               dropless: bool = False) -> Tuple[torch.Tensor, dict]:
-    """MoE FFN over x: (B, S, d).  Returns (y, aux_losses)."""
+    """MoE FFN over x: (B, S, d).  Returns (y, aux_losses).
+
+    With ``spmd``, x holds this rank's tokens, the router is whole and
+    the expert tensors hold this rank's experts along
+    ``spmd.expert_axis``; y is the sum over the expert shards and the aux
+    losses are over every token of the mesh."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     cf = capacity_factor if capacity_factor is not None \
         else cfg.moe.capacity_factor
-    e_pad = params["wi_gate"].shape[0]
-    y, (ls, ps, zs, t) = _moe_local(cfg, params, x2d, e_pad=e_pad,
-                                    capacity_factor=cf, dropless=dropless)
+    if spmd is None:
+        e_pad = params["wi_gate"].shape[0]
+        y, (ls, ps, zs, t) = _moe_local(cfg, params, x2d, e_pad=e_pad,
+                                        capacity_factor=cf,
+                                        dropless=dropless)
+        if "shared" in params:
+            y = y + mlp(cfg, params["shared"], x2d)
+        return y.reshape(B, S, d), _aux_from_stats(cfg, ls, ps, zs, t)
+
+    mesh, ex, tok = spmd.mesh, spmd.expert_axis, tuple(spmd.token_axes)
+    e_pad = params["router"].shape[1]
+    e_local = params["wi_gate"].shape[0]
+    if e_local * spmd.n_expert_shards != e_pad:
+        raise ValueError(f"moe_apply: {e_local} local experts on "
+                         f"{spmd.n_expert_shards} shards are not the "
+                         f"router's {e_pad}")
+    local = dict(params)
+    x_in = x2d
+    if ex is not None:
+        x_in = CopyToAxes.apply(x2d, mesh, ex)
+        local["router"] = CopyToAxes.apply(params["router"], mesh, ex)
+    y, (ls, ps, zs, t) = _moe_local(
+        cfg, local, x_in, e_pad=e_pad, capacity_factor=cf,
+        dropless=dropless, e_start=mesh.coords[ex] * e_local if ex else 0,
+        e_local=e_local)
+    if ex is not None:
+        y = ReduceFromAxes.apply(y, mesh, ex)      # combine expert partials
     if "shared" in params:
         y = y + mlp(cfg, params["shared"], x2d)
+    # identical on every expert shard: summed over the token shards
+    ps = SumOnce.apply(ps, mesh, tok, ex)
+    zs = SumOnce.apply(zs, mesh, tok, ex)
+    if tok:
+        ls = all_reduce(ls, mesh, tok)
+        t = t * mesh.axis_size(tok)
     return y.reshape(B, S, d), _aux_from_stats(cfg, ls, ps, zs, t)

@@ -49,6 +49,16 @@ def rglru_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def rglru_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``rglru_params``' leaves, as the reference's
+    ``rglru_params`` tags them."""
+    return {"w_gate": ("embed", "lru"), "w_x": ("embed", "lru"),
+            "conv_w": ("conv", "lru"), "conv_b": ("lru",),
+            "a_gate_w": ("lru",), "a_gate_b": ("lru",),
+            "i_gate_w": ("lru",), "i_gate_b": ("lru",),
+            "log_lambda": ("lru",), "w_out": ("lru", "embed")}
+
+
 def _branches(cfg, p, x):
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)

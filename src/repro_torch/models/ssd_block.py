@@ -66,6 +66,17 @@ def ssd_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def ssd_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``ssd_params``' leaves, as the reference's
+    ``ssd_params`` tags them."""
+    return {"wz": ("embed", "inner"), "wx": ("embed", "inner"),
+            "wB": ("embed", "state_proj"), "wC": ("embed", "state_proj"),
+            "wdt": ("embed", "ssm_heads"), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "conv_w": ("conv", "conv_ch"), "conv_b": ("conv_ch",),
+            "norm": ("inner",), "wo": ("inner", "embed")}
+
+
 def _causal_conv(u, w, b):
     """Depthwise causal conv. u: (B,S,C); w: (cw,C); b: (C,)."""
     cw = w.shape[0]

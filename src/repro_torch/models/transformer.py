@@ -67,16 +67,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_KINDS, ModelConfig
-from .attention import (attn_decode, attn_params, attn_prefill,
+from .attention import (attn_axes, attn_decode, attn_params, attn_prefill,
                         attn_prefill_chunk, attn_train, cross_attn, cross_kv)
-from .common import (chunked_ce_loss, dtype_of, embed_params, embed_tokens,
-                     mlp, mlp_params, ones_init, resolve_device, rms_norm,
-                     unembed)
-from .moe import moe_apply, moe_params, padded_experts
-from .rglru_block import (rglru_block_apply, rglru_block_decode,
+from .common import (ShapesOnly, chunked_ce_loss, dtype_of, embed_axes,
+                     embed_params, embed_tokens, mlp, mlp_axes, mlp_params,
+                     ones_init, resolve_device, rms_norm, unembed)
+from .moe import MoESpmd, moe_apply, moe_axes, moe_params, padded_experts
+from .rglru_block import (rglru_axes, rglru_block_apply, rglru_block_decode,
                           rglru_cache_spec, rglru_params)
-from .ssd_block import (ssd_block_apply, ssd_block_decode, ssd_cache_spec,
-                        ssd_params)
+from .ssd_block import (ssd_axes, ssd_block_apply, ssd_block_decode,
+                        ssd_cache_spec, ssd_params)
 
 
 AUX_KEYS = ("moe_lb", "moe_z")
@@ -88,13 +88,14 @@ class _Recurrent(NamedTuple):
     prefill: Callable
     decode: Callable
     cache_spec: Callable
+    axes: Callable
 
 
 _RECURRENT = {
     "ssd": _Recurrent(ssd_params, ssd_block_apply, ssd_block_decode,
-                      ssd_cache_spec),
+                      ssd_cache_spec, ssd_axes),
     "rglru": _Recurrent(rglru_params, rglru_block_apply, rglru_block_decode,
-                        rglru_cache_spec),
+                        rglru_cache_spec, rglru_axes),
 }
 
 
@@ -106,7 +107,7 @@ def _group(kind: str) -> str:
 class Model:
     """One architecture, parameterized by its config."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, e_pad: Optional[int] = None):
         self.cfg = cfg
         self.is_encdec = cfg.n_enc_layers > 0
         self.kinds = tuple(cfg.kind_at(i) for i in range(cfg.n_layers))
@@ -120,8 +121,10 @@ class Model:
         # deepseek: layer 0 is a dense FFN (the reference's "prefix")
         self.prefix_count = 1 if (cfg.moe.first_layer_dense
                                   and cfg.moe.num_experts) else 0
-        self.e_pad = (padded_experts(cfg, 1) if cfg.moe.num_experts
-                      else None)
+        # experts padded to a multiple of the expert shards (the router
+        # masks the padded ones), as the reference's ``e_pad``
+        self.e_pad = e_pad or (padded_experts(cfg, 1)
+                               if cfg.moe.num_experts else None)
 
     def stacked_layers(self) -> list:
         """The layers whose weights the reference holds stacked along a
@@ -141,13 +144,29 @@ class Model:
         return groups
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: int = 0, *, device="cuda") -> dict:
-        """Seeded random weights on ``device``."""
+    def init(self, seed: int = 0, *, device="cuda",
+             keep: Optional[Callable] = None) -> dict:
+        """Seeded random weights on ``device``; on ``"meta"`` the same tree
+        of meta tensors (shapes and dtypes, nothing allocated).
+
+        ``keep(path, part)``, where given, is applied to each part of the
+        tree as soon as it is drawn (the embedding, each layer, each final
+        norm; ``path`` the part's keys from the root) and its result is
+        kept in the part's place: a sharded state keeps only its blocks,
+        so no more than one part is ever held whole.  It draws nothing,
+        so the weights are the same with it or without."""
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        if keep is None:
+            def keep(path, part):
+                return part
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            gen = ShapesOnly()
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         dt = dtype_of(cfg.param_dtype)
-        embed = embed_params(cfg, gen)
+        embed = keep(("embed",), embed_params(cfg, gen))
         layers = []
         for i, kind in enumerate(self.kinds):
             p = {"norm1": ones_init(gen, (cfg.d_model,), dt)}
@@ -168,27 +187,67 @@ class Model:
                 p["cross"] = attn_params(cfg, gen)
             if ("mlp" in p or "moe" in p) and not cfg.parallel_block:
                 p["norm2"] = ones_init(gen, (cfg.d_model,), dt)
-            layers.append(p)
+            layers.append(keep(("layers", i), p))
         params = {"embed": embed, "layers": layers,
-                  "final_norm": ones_init(gen, (cfg.d_model,), dt)}
+                  "final_norm": keep(("final_norm",),
+                                     ones_init(gen, (cfg.d_model,), dt))}
         if self.is_encdec:
-            enc = [{"norm1": ones_init(gen, (cfg.d_model,), dt),
-                    "attn": attn_params(cfg, gen),
-                    "mlp": mlp_params(cfg, gen),
-                    "norm2": ones_init(gen, (cfg.d_model,), dt)}
-                   for _ in range(cfg.n_enc_layers)]
+            enc = [keep(("encoder", "layers", i),
+                        {"norm1": ones_init(gen, (cfg.d_model,), dt),
+                         "attn": attn_params(cfg, gen),
+                         "mlp": mlp_params(cfg, gen),
+                         "norm2": ones_init(gen, (cfg.d_model,), dt)})
+                   for i in range(cfg.n_enc_layers)]
             params["encoder"] = {
                 "layers": enc,
-                "final_norm": ones_init(gen, (cfg.d_model,), dt)}
+                "final_norm": keep(("encoder", "final_norm"),
+                                   ones_init(gen, (cfg.d_model,), dt))}
         return params
 
+    def param_axes(self) -> dict:
+        """A tree shaped like ``init``'s whose leaves are the logical axes
+        the reference tags each parameter with (``dense_p`` / ``P``),
+        less the leading ``"layers"`` of its stacked layers: the port
+        keeps each layer apart."""
+        cfg = self.cfg
+        embed = ("embed",)
+        layers = []
+        for i, kind in enumerate(self.kinds):
+            p = {"norm1": embed}
+            if kind in ATTN_KINDS:
+                p["attn"] = attn_axes(cfg)
+            else:
+                p["rec"] = _RECURRENT[kind].axes(cfg)
+            if i < self.prefix_count or (cfg.d_ff > 0
+                                         and not cfg.moe.num_experts):
+                p["mlp"] = mlp_axes(cfg)
+            elif cfg.d_ff > 0:
+                p["moe"] = moe_axes(cfg)
+            if self.is_encdec:
+                p["cross_norm"] = embed
+                p["cross"] = attn_axes(cfg)
+            if ("mlp" in p or "moe" in p) and not cfg.parallel_block:
+                p["norm2"] = embed
+            layers.append(p)
+        axes = {"embed": embed_axes(cfg), "layers": layers,
+                "final_norm": embed}
+        if self.is_encdec:
+            enc = {"norm1": embed, "attn": attn_axes(cfg),
+                   "mlp": mlp_axes(cfg), "norm2": embed}
+            axes["encoder"] = {"layers": [enc] * cfg.n_enc_layers,
+                               "final_norm": embed}
+        return axes
+
     # ----------------------------------------------------------------- block
-    def _ffn(self, p: dict, h, aux: Optional[dict] = None):
+    def _ffn(self, p: dict, h, aux: Optional[dict] = None,
+             spmd: Optional[MoESpmd] = None):
         """The feed-forward half.  Serving (``aux`` None) runs MoE layers
         dropless and drops their aux losses; training runs them at the
-        config's capacity factor and adds their aux losses to ``aux``."""
+        config's capacity factor and adds their aux losses to ``aux``;
+        ``spmd`` lays MoE layers out on a mesh (``models/moe.py``)."""
         if "moe" in p:
-            y, a = moe_apply(self.cfg, p["moe"], h, dropless=aux is None)
+            y, a = moe_apply(self.cfg, p["moe"], h, spmd=spmd,
+                             dropless=aux is None)
             if aux is not None:
                 for key in AUX_KEYS:
                     aux[key] = aux[key] + a[key]
@@ -196,16 +255,17 @@ class Model:
         return mlp(self.cfg, p["mlp"], h)
 
     def _block(self, p: dict, x, mix, aux: Optional[dict] = None,
-               mem_kv=None):
+               mem_kv=None, spmd: Optional[MoESpmd] = None):
         """One pre-norm block; ``mix(h)`` is the mixing half (attention
-        or recurrence; training, prefill, chunk or decode); ``aux`` as
-        ``_ffn``'s; ``mem_kv``, the cross attention's (K, V) of an
-        encoder-decoder layer, is attended to after the mixing half."""
+        or recurrence; training, prefill, chunk or decode); ``aux`` and
+        ``spmd`` as ``_ffn``'s; ``mem_kv``, the cross attention's (K, V)
+        of an encoder-decoder layer, is attended to after the mixing
+        half."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a = mix(h)
         if cfg.parallel_block and ("mlp" in p or "moe" in p):
-            return x + a + self._ffn(p, h, aux)
+            return x + a + self._ffn(p, h, aux, spmd)
         x = x + a
         if mem_kv is not None:
             x = x + cross_attn(cfg, p["cross"],
@@ -213,7 +273,8 @@ class Model:
                                *mem_kv)
         if "mlp" not in p and "moe" not in p:
             return x
-        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux)
+        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux,
+                             spmd)
 
     def _embed_inputs(self, params, tokens, frontend=None):
         """(h, prefix_len): the token embeddings, and for a VLM with a
@@ -257,7 +318,8 @@ class Model:
 
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch, *, remat: str = "block",
-                z_coef: float = 1e-4, ce_chunk: int = 512):
+                z_coef: float = 1e-4, ce_chunk: int = 512,
+                spmd: Optional[MoESpmd] = None):
         """Teacher-forced LM loss, as the reference's ``loss_fn``.  batch:
         ``tokens`` and ``targets`` (B,S) (-1: no target), and a config
         with a frontend takes ``frontend`` (B,F,frontend_dim) (a VLM's
@@ -266,7 +328,9 @@ class Model:
         activations are recomputed in the backward; the reference wraps
         each period in ``jax.checkpoint``), ``"none"`` keeps them.  MoE
         layers drop over capacity (the config's capacity factor) and their
-        aux losses, summed over the layers, join the loss.
+        aux losses, summed over the layers, join the loss.  ``spmd`` lays
+        the MoE layers out on a mesh (the batch is then this rank's
+        tokens; the aux losses are over every token of the mesh).
         Returns (loss, {"ce", "z_loss", "tokens", "moe_lb", "moe_z",
         "loss"})."""
         cfg = self.cfg
@@ -285,7 +349,7 @@ class Model:
                     return _RECURRENT[kind].prefill(cfg, p["rec"], x)[0]
             mem_kv = (None if memory is None
                       else cross_kv(cfg, p["cross"], memory))
-            h = self._block(p, h, mix, aux, mem_kv)
+            h = self._block(p, h, mix, aux, mem_kv, spmd)
             return h, aux["moe_lb"], aux["moe_z"]
 
         frontend = batch.get("frontend")

@@ -126,12 +126,15 @@ def _clip(cfg: OptConfig, gn):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, m, v, count, stacks=()):
+def adamw_update(cfg: OptConfig, params, grads, m, v, count, stacks=(),
+                 grad_norm=None):
     """One AdamW step; writes ``params``, ``m`` and ``v`` in place.
+    ``grad_norm`` (default ``global_norm(grads)``) is the norm the clip
+    reads: a sharded step passes the norm over every rank's blocks.
     Returns (params, m, v, count + 1, {"grad_norm", "lr"})."""
     count = count + 1
     lr = schedule(cfg, count)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = _clip(cfg, gn)
     cf = count.float()
     c1 = 1 - cfg.b1 ** cf

@@ -1,7 +1,8 @@
 """Train state and train step, ported from ``src/repro/train/step.py``:
-microbatch gradient accumulation, remat and the optimizer update.
+microbatch gradient accumulation, remat, MoE SPMD wiring and the
+optimizer update.
 
-State layout (plain dicts of tensors on one device)::
+State layout (plain dicts of tensors)::
 
     {"params": …,
      "opt": {"m": …, "v": …, "count": i32} | {"f": …, "count": i32}}
@@ -12,19 +13,60 @@ The reference's step is one pure jitted function; here it runs eagerly:
 backwards carry them on the card), and the optimizer writes the
 parameters and its state in
 place, its rules reading each leaf as the reference lays it out
-(``stack_groups``).  There is no ``MoESpmd`` (ROADMAP A10): the step runs on one
-device.
+(``stack_groups``).
+
+**On a mesh** (``make_train_step(..., mesh=)``, AdamW), the state is
+stored as ``distrib.tree_shardings`` places it under ``DEFAULT_RULES``:
+each rank keeps only its block of every parameter and of m and v, so
+its bytes are ``bytes_per_device``'s.  A step takes the global batch and
+keeps this rank's rows (split over the data-parallel axes), then:
+
+1. gathers each leaf for compute: a dense leaf whole, an expert leaf
+   over every axis but the expert axis, so that it holds this rank's
+   experts;
+2. runs ``loss_fn`` with the ``MoESpmd`` (``make_moe_spmd``); the MoE
+   layers' gradient rules make every gradient whole on its rank (the
+   router's summed over the expert axis inside autograd);
+3. reduces each gradient to its stored block: the mean over the token
+   axes, then this rank's block;
+4. runs AdamW on the blocks, its clip reading the gradient norm over
+   every rank's blocks.
+
+The dense layers' compute is not tensor-parallel: every rank of a model
+row runs them whole on the same tokens.
 """
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Optional
 
 import torch
 
-from ..configs.base import ParallelConfig
+from ..configs.base import ModelConfig, ParallelConfig
+from ..distrib.collectives import all_reduce
+from ..distrib.sharding import (entry_axes, gather_block, local_block,
+                                tree_specs)
+from ..launch.mesh import dp_axes
 from ..models import Model
+from ..models.moe import MoESpmd
 from . import optim
 from .optim import leaves, tree_map
+
+
+def make_moe_spmd(cfg: ModelConfig, par: ParallelConfig, mesh
+                  ) -> Optional[MoESpmd]:
+    """The MoE layers' view of ``mesh``: tokens over the pod and data
+    axes, experts along the tensor axis; None without a mesh or for a
+    dense model.  Where the tensor axis has one rank, every rank holds
+    all experts (``expert_axis=None``) and the aux sums are still taken
+    over the token axes, so the aux losses are the global batch's."""
+    if mesh is None or not cfg.moe.num_experts:
+        return None
+    token_axes = tuple(a for a in (par.pod_axis, par.fsdp_axis)
+                       if a and a in mesh.shape)
+    ex = par.tensor_axis if mesh.shape.get(par.tensor_axis, 1) > 1 \
+        else None
+    return MoESpmd(mesh=mesh, token_axes=token_axes, expert_axis=ex)
 
 
 def stack_groups(model: Model, params) -> list:
@@ -42,10 +84,46 @@ def stack_groups(model: Model, params) -> list:
             for group in zip(*(leaves(layer(*at)) for at in layer_ids))]
 
 
+def init_state_axes(model: Model, opt_cfg: optim.OptConfig):
+    """(state of meta tensors, axes tree) of an AdamW state: m and v
+    mirror the parameters' axes, the count has none; nothing allocated."""
+    if opt_cfg.name != "adamw":
+        raise ValueError(f"init_state_axes: the sharded state is ported "
+                         f"for AdamW, not {opt_cfg.name!r}")
+    params = model.init(device="meta")
+    opt = optim.adamw_init(params)
+    if opt_cfg.state_dtype != "float32":
+        opt = optim.cast_state(opt, opt_cfg.state_dtype)
+    axes = model.param_axes()
+    return ({"params": params, "opt": opt},
+            {"params": axes, "opt": {"m": axes, "v": axes, "count": ()}})
+
+
 def init_state(model: Model, opt_cfg: optim.OptConfig, seed: int = 0, *,
-               device="cuda") -> dict:
-    """Seeded parameters on ``device`` and zeroed optimizer state."""
-    params = model.init(seed, device=device)
+               device="cuda", mesh=None) -> dict:
+    """Seeded parameters on ``device`` and zeroed optimizer state.  With a
+    ``mesh``, every rank draws the same seeded parameters and keeps its
+    block of each (``tree_specs`` under ``DEFAULT_RULES``), one layer at a
+    time, so that a rank never holds more than one whole layer (or the
+    embedding) beside its blocks; m and v are zeros of the blocks' shapes
+    (AdamW only)."""
+    if mesh is None:
+        params = model.init(seed, device=device)
+    else:
+        if opt_cfg.name != "adamw":
+            raise ValueError(f"init_state: the sharded state is ported "
+                             f"for AdamW, not {opt_cfg.name!r}")
+        specs = tree_specs(model.init(device="meta"), model.param_axes(),
+                           mesh)
+
+        def keep(path, part):
+            spec = specs
+            for key in path:
+                spec = spec[key]
+            return _blocks(part, spec, mesh)
+        params = model.init(seed, device=device, keep=keep)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
     if opt_cfg.name == "adafactor":
         opt = optim.adafactor_init(params, stack_groups(model, params))
     else:
@@ -55,46 +133,48 @@ def init_state(model: Model, opt_cfg: optim.OptConfig, seed: int = 0, *,
     return {"params": params, "opt": opt}
 
 
-def loss_and_grads(model: Model, params, batch, *, remat: str):
+def _blocks(tree, specs, mesh):
+    """This rank's block of every leaf of ``tree``, each whole leaf taken
+    out of ``tree`` as its block is made."""
+    if isinstance(tree, dict):
+        return {k: _blocks(tree.pop(k), specs[k], mesh) for k in list(tree)}
+    if isinstance(tree, list):
+        out = []
+        for i in range(len(tree)):
+            leaf, tree[i] = tree[i], None
+            out.append(_blocks(leaf, specs[i], mesh))
+        return out
+    return local_block(tree, specs, mesh)
+
+
+def loss_and_grads(model: Model, params, batch, *, remat: str, spmd=None):
     """(loss, metrics, grads) of one (micro)batch: the loss and metrics
     detached, the gradients a tree shaped like ``params``."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = model.loss_fn(live, batch, remat=remat)
+    loss, metrics = model.loss_fn(live, batch, remat=remat, spmd=spmd)
     got = iter(torch.autograd.grad(loss, leaves(live)))
     grads = tree_map(lambda _: next(got), live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(model: Model, opt_cfg: optim.OptConfig,
-                    par: ParallelConfig) -> Callable:
+                    par: ParallelConfig, mesh=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the state
     is updated in place and returned; ``batch`` holds ``tokens`` and
     ``targets`` (B,S) on the state's device (and ``frontend``
     (B,F,frontend_dim) for a config with a frontend), B divisible by
-    ``par.microbatches``."""
+    ``par.microbatches``.  With a ``mesh`` the state is the sharded one
+    of ``init_state(..., mesh=mesh)``, ``batch`` is the global batch (B
+    divisible by the data-parallel ranks times the microbatches), and
+    the metrics are the global batch's."""
+    if mesh is not None:
+        return _sharded_step(model, opt_cfg, par, mesh)
     n_micro = max(par.microbatches, 1)
 
     def train_step(state, batch):
         params = state["params"]
-        if n_micro == 1:
-            loss, metrics, grads = loss_and_grads(model, params, batch,
-                                                  remat=par.remat)
-        else:
-            b = batch["tokens"].shape[0] // n_micro
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = 0.0
-            for i in range(n_micro):
-                mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
-                l_i, metrics, g = loss_and_grads(model, params, mb,
-                                                 remat=par.remat)
-                for acc, gi in zip(leaves(grads), leaves(g)):
-                    acc.add_(gi)
-                loss = loss + l_i
-            for acc in leaves(grads):
-                acc.div_(n_micro)
-            loss = loss / n_micro
-
+        loss, metrics, grads = _accumulate(model, params, batch, par,
+                                           n_micro)
         opt = state["opt"]
         stacks = stack_groups(model, params)
         if opt_cfg.name == "adafactor":
@@ -111,3 +191,115 @@ def make_train_step(model: Model, opt_cfg: optim.OptConfig,
         return state, metrics
 
     return train_step
+
+
+def _accumulate(model, params, batch, par, n_micro, spmd=None):
+    """(loss, metrics, grads) of ``batch``, split into ``n_micro``
+    microbatches whose gradients are averaged."""
+    if n_micro == 1:
+        return loss_and_grads(model, params, batch, remat=par.remat,
+                              spmd=spmd)
+    b = batch["tokens"].shape[0] // n_micro
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = 0.0
+    for i in range(n_micro):
+        mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
+        l_i, metrics, g = loss_and_grads(model, params, mb, remat=par.remat,
+                                         spmd=spmd)
+        for acc, gi in zip(leaves(grads), leaves(g)):
+            acc.add_(gi)
+        loss = loss + l_i
+    for acc in leaves(grads):
+        acc.div_(n_micro)
+    return loss / n_micro, metrics, grads
+
+
+def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
+                  par: ParallelConfig, mesh) -> Callable:
+    """The step on a mesh (see the module docstring)."""
+    if opt_cfg.name != "adamw":
+        raise ValueError(f"make_train_step: the sharded step runs AdamW, "
+                         f"not {opt_cfg.name!r}")
+    cfg = model.cfg
+    n_micro = max(par.microbatches, 1)
+    spmd = make_moe_spmd(cfg, par, mesh)
+    dp = dp_axes(mesh)
+    n_dp = mesh.axis_size(dp)
+    axes = model.param_axes()
+    specs = tree_specs(model.init(device="meta"), axes, mesh)
+    ex = spmd.expert_axis if spmd is not None else None
+    every = tuple(mesh.axis_names)
+
+    def compute_axes(spec, names):
+        """The mesh axes a leaf is gathered over for compute."""
+        if ex is None or "experts" not in names:
+            return every
+        d = names.index("experts")
+        if d >= len(spec) or entry_axes(spec[d]) != (ex,):
+            raise ValueError(f"make_train_step: experts of a leaf with "
+                             f"spec {spec} are not split over {ex!r}; "
+                             f"build the Model with e_pad a multiple of "
+                             f"{mesh.shape[ex]}")
+        return tuple(a for a in every if a != ex)
+
+    flat_specs = leaves_of(specs)
+    flat_gather = [compute_axes(s, n) for s, n in
+                   zip(flat_specs, leaves_of(axes))]
+    # each leaf's copies: the ranks that hold the same block
+    copies = [mesh.size // math.prod(mesh.shape[a] for e in s
+                                     for a in entry_axes(e))
+              for s in flat_specs]
+    batch_spec = (dp,) if dp else ()
+
+    def train_step(state, batch):
+        blocks = state["params"]
+        pos = iter(range(len(flat_specs)))
+        params = tree_map(lambda b: _gather(b, next(pos)), blocks)
+        rows = {k: local_block(x, batch_spec, mesh) for k, x in
+                batch.items()}
+        loss, metrics, grads = _accumulate(model, params, rows, par,
+                                           n_micro, spmd)
+        del params
+        pos = iter(range(len(flat_specs)))
+        grads = tree_map(lambda g: _reduce(g, next(pos)), grads)
+        sq = sum(torch.sum(torch.square(g.float())) / c
+                 for g, c in zip(leaves(grads), copies))
+        gn = torch.sqrt(all_reduce(sq, mesh, every))
+        opt = state["opt"]
+        _, _, _, count, stats = optim.adamw_update(
+            opt_cfg, blocks, grads, opt["m"], opt["v"], opt["count"],
+            stack_groups(model, blocks), grad_norm=gn)
+        opt["count"] = count
+        metrics = dict(metrics)
+        for key in ("ce", "z_loss"):
+            metrics[key] = _sum(metrics[key]) / n_dp
+        metrics["tokens"] = _sum(metrics["tokens"])
+        metrics.update(stats)
+        metrics["loss"] = _sum(loss) / n_dp
+        return state, metrics
+
+    def _sum(x):
+        """The sum over the token axes."""
+        return all_reduce(x, mesh, dp) if dp else x
+
+    def _gather(block, i):
+        return gather_block(block, flat_specs[i], mesh, flat_gather[i])
+
+    def _reduce(g, i):
+        """The mean over the token axes, then this rank's block."""
+        return local_block(_sum(g) / n_dp, flat_specs[i], mesh,
+                           flat_gather[i])
+
+    return train_step
+
+
+def leaves_of(tree) -> list:
+    """The leaves of a spec or axes tree (tuples taken whole), in
+    ``optim.leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves_of(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves_of(v)]
+    return [tree]
+

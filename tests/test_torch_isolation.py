@@ -43,7 +43,11 @@ SLICE_MODULES = {
     "repro_torch.models.transformer", "repro_torch.models.attention",
     "repro_torch.models.bridge", "repro_torch.models.common",
     "repro_torch.serve.engine", "repro_torch.services.gateway",
-    "repro_torch.services.datafeed", "repro_torch.fabric.registry"}
+    "repro_torch.services.datafeed", "repro_torch.fabric.registry",
+    # distribution: the resolver, the mesh, collectives and the pipeline
+    "repro_torch.distrib", "repro_torch.distrib.sharding",
+    "repro_torch.distrib.collectives", "repro_torch.distrib.pipeline",
+    "repro_torch.launch.mesh"}
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -53,7 +57,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(got["names"]) >= 75, got["names"]   # every module imported
+    assert len(got["names"]) >= 81, got["names"]   # every module imported
     assert SLICE_MODULES <= set(got["names"])
     assert got["leaked"] == [], f"port imported {got['leaked']}"
 

@@ -206,11 +206,22 @@ Phases, in order; any failure exits non-zero:
       AdamW with phase 3i's schedule, 8 x 128 global, capacity factor
       1.25, 4 steps; the loss finite and the last below the first; on
       every rank the router (experts [0, 20) or [20, 40)), the combine's
-      forward and backward and attention's forward and backward once a
-      layer and step; step ms, peak memory and the share of the step in
-      all-reduce printed.  Then granite at 2 layers, f32, TF32 off, 2 x
-      128, dropless, one step, gathered, against one process from the
-      same seed (``TRAIN_PARITY_TOL``).  2: ``sp_decode_attention`` over
+      forward and backward and attention's forward and backward (12 of
+      24 query heads, 4 of 8 key/value heads) once a layer and step;
+      step ms, peak memory and the collectives' calls, bytes and share
+      of the step by kind printed.  Then granite at 2 layers, f32, TF32
+      off, 2 x 128, dropless, one step, gathered, against one process
+      from the same seed (``TRAIN_PARITY_TOL``).  1b: qwen1.5-0.5b at
+      full width, all 24 layers, the same mesh: bf16 compute, AdamW,
+      remat "block", 8 x 128 global, 4 steps; each rank's stored bytes
+      ``bytes_per_device``'s, the loss falling, attention 24 + 24
+      forward and 24 backward a step on every rank, each at 8 of 16
+      query and 8 of 16 key/value heads (tensor parallel: the
+      vocabulary-parallel loss, column- and row-parallel MLPs, each
+      layer's leaves gathered over the data axis only as it runs);
+      step ms, peak memory and the collectives by kind printed; then
+      its 2-layer f32 step against one process (``TRAIN_PARITY_TOL``).
+      2: ``sp_decode_attention`` over
       (data 1, model 4) at qwen1.5-0.5b's heads, B 4, T 32768 (8192 keys
       a rank), bf16, softcap 0 and 30, against the whole-cache kernel and
       the plain version (``TOL``).  3: ``compressed_allreduce_tree`` over
@@ -223,7 +234,10 @@ Phases, in order; any failure exits non-zero:
       on the card.  Rank 0 then checks and times its recorded kernel
       inputs (phase 4) while the others wait.  5 (in this process): a
       one-rank NCCL mesh runs the 2-layer step, held to the step without
-      a mesh (1e-6, bitwise printed).  A ``distrib {json}`` line sums up.
+      a mesh (1e-6, bitwise printed), and ``GatherFromAxes`` /
+      ``ReduceScatterToAxes`` over its one-rank data axis, which NCCL
+      runs in the direct form (its all-gather and reduce-scatter calls,
+      counted).  A ``distrib {json}`` line sums up.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -239,8 +253,9 @@ Phases, in order; any failure exits non-zero:
    forward) as the library yardstick; phases 3h, 3i and 3j add the
    SSD's, the router's, the MoE combine's and the RG-LRU's training
    forwards (the RG-LRU's with its kept states) and backwards; phase 3m
-   adds rank 0's training rows (the router at 20 of 40 experts) and the
-   attention partial of ``sp_decode_attention``.  These rows, with the main
+   adds rank 0's training rows (the router at 20 of 40 experts;
+   attention at granite's and at qwen's local heads) and the attention
+   partial of ``sp_decode_attention``.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -3940,6 +3955,8 @@ DISTRIB_PARITY = dict(layers=2, batch=2)
 # about 1e-8 steps by lr·g/(|g| + eps), which turns the last bits of two
 # equal gradients summed in another order into differences up to lr
 DISTRIB_PARITY_EPS = 1e-3
+TP_ARCH = ARCH                   # qwen1.5-0.5b: every layer at full depth
+TP_HEADS = (8, 8)                # its local query / key-value heads on 2
 DISTRIB_LIMIT_S = 900.0          # the four ranks' whole run
 DISTRIB_BARRIER_S = 600.0        # a rank's wait in one collective
 SP_DECODE = dict(B=4, T=32768, Hq=16, Hkv=16, D=64, softcaps=(0.0, 30.0))
@@ -3949,32 +3966,57 @@ COMPRESS_BOUND = 0.75            # of the shared scale, the reference's
 
 
 class CollectiveClock:
-    """Host time inside ``torch.distributed.all_reduce`` (the card
-    synchronised on both sides of each call, so the time is the
-    collective's own, gloo's staging through the host included)."""
+    """Host time inside every collective of ``torch.distributed`` that
+    the port calls (the card synchronised on both sides of each call, so
+    the time is the collective's own, gloo's staging through the host
+    included), by kind: calls, seconds and bytes.  A call's bytes are
+    those of its larger buffer: the reduced tensor of an all-reduce, the
+    gathered output of an all-gather, the input of a reduce-scatter."""
+
+    # the port's collectives, under the names of newer and older torch
+    KINDS = ("all_reduce", "all_gather_single", "all_gather_into_tensor",
+             "reduce_scatter_single", "reduce_scatter_tensor")
 
     def __init__(self):
-        self.seconds, self.calls, self.bytes = 0.0, 0, 0
-        self._orig = None
+        self.by_kind = {}
+        self._orig = {}
 
     def install(self):
         import torch.distributed as dist
-        self._orig = dist.all_reduce
+        for kind in self.KINDS:
+            if hasattr(dist, kind):
+                self._orig[kind] = getattr(dist, kind)
+                setattr(dist, kind, self._timed(kind, self._orig[kind]))
 
-        def timed(t, *a, **kw):
+    def _timed(self, kind, fn):
+        def timed(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = self._orig(t, *a, **kw)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
-            self.bytes += t.numel() * t.element_size()
+            rec = self.by_kind.setdefault(kind, {"calls": 0, "seconds": 0.0,
+                                                 "bytes": 0})
+            rec["seconds"] += time.perf_counter() - t0
+            rec["calls"] += 1
+            bufs = [t for t in a[:2] if torch.is_tensor(t)]
+            rec["bytes"] += max((t.numel() * t.element_size() for t in bufs),
+                                default=0)
             return out
-        dist.all_reduce = timed
+        return timed
 
     def uninstall(self):
         import torch.distributed as dist
-        dist.all_reduce = self._orig
+        for kind, fn in self._orig.items():
+            setattr(dist, kind, fn)
+
+    def total(self, key):
+        return sum(rec[key] for rec in self.by_kind.values())
+
+    def line(self, n_steps=1) -> str:
+        return "; ".join(f"{kind} {rec['calls'] / n_steps:g} calls "
+                         f"{rec['bytes'] / n_steps / 1e9:.4f} GB "
+                         f"{rec['seconds'] / n_steps:.3f}s"
+                         for kind, rec in sorted(self.by_kind.items()))
 
 
 def distrib_model(n_layers, mesh, capacity_factor=None, **over):
@@ -3998,11 +4040,40 @@ def stored_bytes(state) -> int:
 def distrib_train(mesh, rank):
     """Sub-check 1: DISTRIB_STEPS sharded steps of granite-moe-3b-a800m at
     full width, DISTRIB_LAYERS deep, bf16 compute, AdamW, 8 x 128 global,
-    capacity factor 1.25, under a ``TrainRecorder``.  Returns (results,
-    recorder)."""
-    from repro_torch.distrib.sharding import bytes_per_device
-    model = distrib_model(DISTRIB_LAYERS, mesh)
+    capacity factor 1.25, remat "none".  Returns (results, recorder)."""
     # phase 3i's schedule (its first steps: warmup 5 of 10)
+    return sharded_steps(f"distrib r{rank} {MOE_ARCH} ({DISTRIB_LAYERS} "
+                         f"layers)", distrib_model(DISTRIB_LAYERS, mesh),
+                         mesh, "none")
+
+
+def distrib_tp_train(mesh, rank):
+    """Sub-check 1b: DISTRIB_STEPS sharded steps of qwen1.5-0.5b at full
+    width and depth, bf16 compute, AdamW, 8 x 128 global, remat "block":
+    every layer computes in tensor parallel over the model axis, and
+    attention runs at TP_HEADS local heads on every rank.  Returns
+    (results, recorder)."""
+    model = Model(configs.get(TP_ARCH))
+    tag = f"distrib r{rank} {TP_ARCH} tensor parallel"
+    out, recorder = sharded_steps(tag, model, mesh, "block")
+    heads = sorted({(key[5], key[6]) for key in recorder.seen
+                    if key[0].startswith("flash_attention")})
+    print(f"{tag}: attention at (query, key/value) heads {heads}",
+          flush=True)
+    check(heads == [TP_HEADS], f"{tag}: attention heads {heads}, "
+          f"expected {[TP_HEADS]}")
+    out["heads"] = heads
+    return out, recorder
+
+
+def sharded_steps(tag, model, mesh, remat):
+    """DISTRIB_STEPS steps of ``make_train_step(..., mesh=)`` from seed 0
+    on 8 x 128 global batches, AdamW (warmup 5 of 10), under a
+    ``TrainRecorder`` and a ``CollectiveClock``: the stored bytes held to
+    ``bytes_per_device``, the init peak below the whole tree, the loss
+    falling, every kernel of the layers launched on every step.  Returns
+    (results, recorder)."""
+    from repro_torch.distrib.sharding import bytes_per_device
     ocfg = optim.OptConfig(warmup=5, decay_steps=MOE_TRAIN_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4013,7 +4084,6 @@ def distrib_train(mesh, rank):
     got = stored_bytes(state)
     whole = sum(t.numel() * t.element_size()
                 for t in optim.leaves(shapes["params"]))
-    tag = f"distrib r{rank} {MOE_ARCH} ({DISTRIB_LAYERS} layers)"
     print(f"{tag}: stored {got} bytes, bytes_per_device {want}; init peak "
           f"{init_peak} bytes, the whole parameter tree {whole}", flush=True)
     check(got == want, f"{tag}: stored {got} bytes, bytes_per_device "
@@ -4023,7 +4093,7 @@ def distrib_train(mesh, rank):
     check(init_peak < whole, f"{tag}: init peak {init_peak} bytes holds "
           f"the whole parameter tree ({whole})")
     step = train_step.make_train_step(model, ocfg,
-                                      ParallelConfig(remat="none"), mesh)
+                                      ParallelConfig(remat=remat), mesh)
     source = train_source(model.cfg)
     recorder, clock = TrainRecorder(), CollectiveClock()
     recorder.install()
@@ -4047,33 +4117,43 @@ def distrib_train(mesh, rank):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{tag}: losses {losses}, step ms "
           f"{[round(s * 1e3, 2) for s in step_s]}, peak {peak:.2f} GiB, "
-          f"all_reduce {clock.calls} calls {clock.seconds:.3f}s "
-          f"{clock.bytes / 1e9:.2f} GB", flush=True)
+          f"collectives {clock.total('calls')} calls "
+          f"{clock.total('seconds'):.3f}s {clock.total('bytes') / 1e9:.2f} "
+          f"GB; a step: {clock.line(DISTRIB_STEPS)}", flush=True)
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"{tag}: losses {losses}")
     per_step = check_train_launches(tag, model, recorder, DISTRIB_STEPS,
-                                    "none")
+                                    remat)
     del state, step
     free_card()
     return {"losses": losses, "step_ms": [s * 1e3 for s in step_s],
             "peak_gib": peak, "init_peak_gib": init_peak / 2 ** 30,
             "stored_bytes": got,
             "bytes_per_device": want, "launches_a_step": per_step,
-            "all_reduce_s": clock.seconds, "all_reduce_calls": clock.calls,
-            "all_reduce_bytes": clock.bytes,
-            "all_reduce_share": clock.seconds / sum(step_s)}, recorder
+            "collectives_a_step": {
+                kind: {k: v / DISTRIB_STEPS for k, v in rec.items()}
+                for kind, rec in clock.by_kind.items()},
+            "collective_s": clock.total("seconds"),
+            "collective_bytes": clock.total("bytes"),
+            "collective_share": clock.total("seconds") / sum(step_s)}, \
+        recorder
 
 
-def distrib_parity_step(mesh):
-    """The sharded step's state after one step of granite at
-    DISTRIB_PARITY layers, f32, TF32 off, DISTRIB_PARITY batch x 128, and
-    the model, optimizer and batch it ran (every rank the same).  The
-    capacity factor is 16 (dropless): capacity is per token shard, so at
-    1.25 the shards drop other assignments than one process does."""
+def distrib_parity_step(mesh, arch=MOE_ARCH):
+    """The sharded step's state after one step of ``arch`` (granite, or
+    qwen) at DISTRIB_PARITY layers, f32, TF32 off, DISTRIB_PARITY batch x
+    128, and the model, optimizer and batch it ran (every rank the same).
+    granite's capacity factor is 16 (dropless): capacity is per token
+    shard, so at 1.25 the shards drop other assignments than one process
+    does."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = distrib_model(DISTRIB_PARITY["layers"], mesh,
-                          capacity_factor=16.0, compute_dtype="float32")
+    if arch == MOE_ARCH:
+        model = distrib_model(DISTRIB_PARITY["layers"], mesh,
+                              capacity_factor=16.0, compute_dtype="float32")
+    else:
+        model = Model(configs.get(arch).replace(
+            n_layers=DISTRIB_PARITY["layers"], compute_dtype="float32"))
     ocfg = optim.OptConfig(warmup=1, decay_steps=1, eps=DISTRIB_PARITY_EPS)
     batch = train_batch(train_source(model.cfg, TRAIN_SEQ,
                                      DISTRIB_PARITY["batch"], seed=2), 0)
@@ -4270,6 +4350,17 @@ def distrib_rank(rank: int, folder: str) -> int:
     grid = Mesh(DISTRIB_MESH, ("data", "model"), backend="gloo")
     out = {"rank": rank}
     out["train"], recorder = distrib_train(grid, rank)
+    out["tp_train"], tp_recorder = distrib_tp_train(grid, rank)
+    model, ocfg, par, batch, state, loss = distrib_parity_step(grid,
+                                                               TP_ARCH)
+    whole = gathered_params(model, state, grid)
+    del state
+    if rank == 0:
+        out["tp_parity"] = parity_against_one_process(
+            f"distrib r0 {TP_ARCH} parity ({DISTRIB_PARITY['layers']} "
+            f"layers, f32)", model, ocfg, par, batch, whole, loss,
+            TRAIN_PARITY_TOL)
+    del whole
     model, ocfg, par, batch, state, loss = distrib_parity_step(grid)
     whole = gathered_params(model, state, grid)
     del state
@@ -4298,6 +4389,7 @@ def distrib_rank(rank: int, folder: str) -> int:
     rows = []
     if rank == 0:                  # alone on the card: the others wait
         rows = phase_main_shapes(f"{MOE_ARCH} distrib", recorder)
+        rows += phase_main_shapes(f"{TP_ARCH} distrib", tp_recorder)
         q, k_mine, v_mine, calls = sp_inputs
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         for name, launches, kw in calls:
@@ -4377,18 +4469,31 @@ def phase_distrib() -> list:
         "peak_gib": {r["rank"]: r["train"]["peak_gib"] for r in results},
         "init_peak_gib": {r["rank"]: r["train"]["init_peak_gib"]
                           for r in results},
-        "all_reduce_share": {r["rank"]: r["train"]["all_reduce_share"]
+        "collective_share": {r["rank"]: r["train"]["collective_share"]
                              for r in results},
-        "all_reduce_gb_a_step": results[0]["train"]["all_reduce_bytes"]
+        "collective_gb_a_step": results[0]["train"]["collective_bytes"]
         / DISTRIB_STEPS / 1e9,
+        "collectives_a_step": results[0]["train"]["collectives_a_step"],
         "stored_bytes": {r["rank"]: r["train"]["stored_bytes"]
                          for r in results},
         "parity": results[0]["parity"],
+        "tp": {"arch": TP_ARCH, "heads": results[0]["tp_train"]["heads"],
+               **{key: {r["rank"]: r["tp_train"][key] for r in results}
+                  for key in ("losses", "step_ms", "peak_gib",
+                              "init_peak_gib", "stored_bytes",
+                              "bytes_per_device", "collective_share")},
+               "collective_gb_a_step":
+               results[0]["tp_train"]["collective_bytes"]
+               / DISTRIB_STEPS / 1e9,
+               "collectives_a_step":
+               results[0]["tp_train"]["collectives_a_step"],
+               "parity": results[0]["tp_parity"]},
         "sp_decode": results[0]["sp_decode"],
         "compress": {r["rank"]: r["compress"] for r in results},
         "pipeline": results[0]["pipeline"], "nccl_one_rank": nccl}
     print(f"distrib: phase 3m {wall:.1f}s wall, peak GiB by rank "
-          f"{summary['peak_gib']}")
+          f"{summary['peak_gib']}, {TP_ARCH} tensor parallel "
+          f"{summary['tp']['peak_gib']}")
     print("distrib " + json.dumps(summary))
     return results[0]["rows"]
 
@@ -4396,7 +4501,8 @@ def phase_distrib() -> list:
 def nccl_one_rank() -> dict:
     """Sub-check 5, in this process: a one-rank NCCL world and mesh
     (data 1, model 1); the parity step through it against the step
-    without a mesh, printed bitwise and held to 1e-6."""
+    without a mesh, printed bitwise and held to 1e-6; then the gather
+    rules in NCCL's form (``nccl_forms``)."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
@@ -4411,11 +4517,50 @@ def nccl_one_rank() -> dict:
             loss_err, worst, same = parity_against_one_process(
                 "distrib nccl one rank", model, ocfg, par, batch, whole,
                 loss, 1e-6)
+            forms = nccl_forms(mesh)
         finally:
             dist.destroy_process_group()
     free_card()
     return {"loss_err": loss_err, "worst_leaf_err": worst,
-            "bitwise_leaves": same, "leaves": len(whole)}
+            "bitwise_leaves": same, "leaves": len(whole), "forms": forms}
+
+
+def nccl_forms(mesh) -> dict:
+    """``GatherFromAxes`` and ``ReduceScatterToAxes`` over the one-rank
+    data axis of an NCCL mesh, forward and backward, on a CUDA leaf
+    split on its last dim as ``wo`` is (a spec that names the axis: the
+    resolver splits nothing over one rank, so the one-rank step itself
+    gathers nothing).  NCCL takes the direct form: its all-gather and
+    reduce-scatter calls, counted; over one rank the block and the
+    gradient come back bitwise."""
+    from repro_torch.distrib import collectives as coll
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.randn((16, 64, 1024), generator=gen, device="cuda")
+    gy = torch.randn((16, 64, 1024), generator=gen, device="cuda")
+    spec, axes = (None, None, "data"), ("data",)
+    clock = CollectiveClock()
+    clock.install()
+    try:
+        xg = x.clone().requires_grad_()
+        y = coll.GatherFromAxes.apply(xg, spec, mesh, axes)
+        (y * gy).sum().backward()
+        xs = x.clone().requires_grad_()
+        w = coll.ReduceScatterToAxes.apply(xs, spec, mesh, axes)
+        (w * gy).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        clock.uninstall()
+    form = coll.collective_form(mesh, x)
+    exact = all(torch.equal(a, b) for a, b in
+                ((y, x), (xg.grad, gy), (w, x), (xs.grad, gy)))
+    calls = {k: rec["calls"] for k, rec in clock.by_kind.items()}
+    print(f"distrib nccl one rank: form {form}; calls {calls}; gather and "
+          f"reduce-scatter rules bitwise {exact}", flush=True)
+    check(form == "direct" and exact and set(calls) == {
+        coll._ALL_GATHER, coll._REDUCE_SCATTER},
+          f"nccl forms: form {form}, calls {calls}, bitwise {exact}")
+    return {"form": form, "calls": calls, "bitwise": exact}
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,26 @@
 ``src/repro/distrib/collectives.py``, and the gradient rules of the
 collectives that the expert-parallel MoE layer runs inside autograd.
 
-``all_reduce`` is the one primitive: every collective here is built from
-it, so it runs on gloo (ranks that share a card, or CPU ranks) and NCCL
-alike.  Floating tensors travel in f32 (a bf16 or f16 tensor is widened
-for the reduction and rounded back once), integers in int32 or int64.
+``all_reduce`` reduces over mesh axes.  Floating tensors travel in f32
+(a bf16 or f16 tensor is widened for the reduction and rounded back
+once), integers in int32 or int64.
+
+``all_gather_dim`` / ``reduce_scatter_dim`` gather the blocks of a
+tensor split along one dimension, and sum whole tensors keeping this
+rank's block.  They take one of two forms, which ``collective_form``
+picks from the mesh's backend and the tensor's device, and nothing
+else (no fallback on failure, no flag):
+
+* ``"direct"`` (NCCL; gloo with CPU tensors): one all-gather or one
+  reduce-scatter call over dim 0 of an ``(n, *block)`` buffer.  A
+  block split along another dimension is moved into place after the
+  gather (one copy of the gathered tensor) and out of place before the
+  reduce-scatter (one copy of the whole gradient).
+* ``"all_reduce"`` (gloo with CUDA tensors, which gloo takes only for
+  all-reduce and broadcast): a gather all-reduces a zero buffer holding
+  this rank's block at its place, a reduce-scatter all-reduces the
+  whole tensor and keeps the block.  Ring all-reduce moves about twice
+  the bytes of the direct call.
 
 ``compressed_psum`` — int8-quantised mean all-reduce with error feedback:
 a shared per-tensor scale (an all-reduce MAX), the int8 payload widened
@@ -19,8 +35,9 @@ hand-written attention kernel's non-causal forward, which writes the row
 lse beside the normalised output; an all-reduce MAX of lse and two
 all-reduce SUMs combine them.  The payload is O(B·H·D), independent of T.
 
-The gradient rules (``CopyToAxes``, ``ReduceFromAxes``, ``SumOnce``) are
-named ``autograd.Function``s, each beside the collective it runs.
+The gradient rules (``CopyToAxes``, ``ReduceFromAxes``, ``SumOnce``,
+``GatherFromAxes``, ``ReduceScatterToAxes``) are named
+``autograd.Function``s, each beside the collective it runs.
 """
 from __future__ import annotations
 
@@ -30,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.attention import attention_fwd
+from .sharding import gather_block, local_block, reduce_scatter_block
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
@@ -64,6 +82,80 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
         raise ValueError(f"all_reduce: no wire dtype for {x.dtype}")
     buf = x.to(wire, copy=True).contiguous()
     return all_reduce_(buf, mesh, axes, op).to(x.dtype)
+
+
+# the names of the all-gather and reduce-scatter calls that fill and read
+# a flat (n, *block) buffer: newer torch deprecates the older names
+_ALL_GATHER = ("all_gather_single" if hasattr(dist, "all_gather_single")
+               else "all_gather_into_tensor")
+_REDUCE_SCATTER = ("reduce_scatter_single"
+                   if hasattr(dist, "reduce_scatter_single")
+                   else "reduce_scatter_tensor")
+
+
+def collective_form(mesh, x: torch.Tensor) -> str:
+    """The form a gather or reduce-scatter of ``x`` takes on ``mesh``:
+    ``"all_reduce"`` for gloo with a CUDA tensor, else ``"direct"``."""
+    return "all_reduce" if mesh.backend == "gloo" and x.is_cuda \
+        else "direct"
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of every rank of the mesh axes ``axes`` put together
+    along ``dim``, in the order of ``mesh.axis_index(axes)``."""
+    if collective_form(mesh, x) == "all_reduce":
+        return _gather_by_all_reduce(x, mesh, axes, dim)
+    return _gather_direct(x, mesh, axes, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axes, dim: int
+                       ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes``, and this rank's block
+    of it along ``dim`` (``x.shape[dim]`` divides into the ranks), in
+    ``x``'s dtype."""
+    if collective_form(mesh, x) == "all_reduce":
+        return _scatter_by_all_reduce(x, mesh, axes, dim)
+    return _scatter_direct(x, mesh, axes, dim)
+
+
+def _gather_direct(x, mesh, axes, dim):
+    n = mesh.axis_size(axes)
+    buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    getattr(dist, _ALL_GATHER)(buf, x.contiguous(), group=mesh.group(axes))
+    if dim == 0:
+        return buf
+    shape = list(x.shape)
+    shape[dim] *= n
+    # (n, ..., b, ...) -> (..., n, b, ...): each block moved into place
+    return buf.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
+def _gather_by_all_reduce(x, mesh, axes, dim):
+    n, idx = mesh.axis_size(axes), mesh.axis_index(axes)
+    shape = list(x.shape)
+    shape[dim] *= n
+    whole = x.new_zeros(shape)
+    whole.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
+    return all_reduce(whole, mesh, axes)
+
+
+def _scatter_direct(x, mesh, axes, dim):
+    n = mesh.axis_size(axes)
+    wire = _WIRE[x.dtype]
+    b = x.shape[dim] // n
+    # (..., n·b, ...) -> (n, ..., b, ...): each rank's block in one row
+    src = x.to(wire).reshape(*x.shape[:dim], n, b, *x.shape[dim + 1:]
+                             ).movedim(dim, 0).contiguous()
+    out = src.new_empty(src.shape[1:])
+    getattr(dist, _REDUCE_SCATTER)(out, src.view(-1, *src.shape[2:]),
+                                   group=mesh.group(axes))
+    return out.to(x.dtype)
+
+
+def _scatter_by_all_reduce(x, mesh, axes, dim):
+    n, idx = mesh.axis_size(axes), mesh.axis_index(axes)
+    b = x.shape[dim] // n
+    return all_reduce(x, mesh, axes).narrow(dim, idx * b, b).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +213,48 @@ class SumOnce(torch.autograd.Function):
         if ctx.once_axis is not None and ctx.mesh.coords[ctx.once_axis]:
             g = torch.zeros_like(g)
         return g, None, None, None
+
+
+class GatherFromAxes(torch.autograd.Function):
+    """Forward, ``gather_block`` over ``axes`` and ``same``: this rank's
+    stored block of a leaf made whole over those axes.  Backward, the
+    gradient summed over ``axes`` and this rank's block of the sum kept
+    (``reduce_scatter_block``): over the data axes each rank's gradient
+    is its own tokens' term, and the caller divides by the token ranks.
+    Over ``same`` every rank computed the same whole gradient (a layer
+    run whole on every rank of the model axis), so the backward keeps
+    this rank's block there without a sum."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh, axes, same=()):
+        ctx.spec, ctx.mesh, ctx.axes, ctx.same = spec, mesh, axes, same
+        out = gather_block(x, spec, mesh, tuple(axes) + tuple(same))
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.same:
+            g = local_block(g, ctx.spec, ctx.mesh, ctx.same)
+        return (reduce_scatter_block(g, ctx.spec, ctx.mesh, ctx.axes),
+                None, None, None, None)
+
+
+class ReduceScatterToAxes(torch.autograd.Function):
+    """The reverse of ``GatherFromAxes``: forward, each rank's whole
+    tensor summed over ``axes`` and this rank's block of the sum kept
+    (``reduce_scatter_block``); backward, the block's gradient gathered
+    whole over ``axes`` (``gather_block``): each rank's term of the sum
+    takes the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh, axes):
+        ctx.spec, ctx.mesh, ctx.axes = spec, mesh, axes
+        return reduce_scatter_block(x, spec, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = gather_block(g, ctx.spec, ctx.mesh, ctx.axes)
+        return (out.clone() if out is g else out), None, None, None
 
 
 # ---------------------------------------------------------------------------

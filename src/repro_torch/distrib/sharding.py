@@ -25,7 +25,8 @@ Trees are the port's: nested dicts, lists and tuples whose leaves are
 tensors (meta tensors stand in for shapes); an axes tree has the same
 containers and a tuple of names at each leaf.  ``local_block`` and
 ``gather_block`` act on one tensor: this rank's block of a whole tensor,
-and the inverse, over the named mesh axes only.
+and the inverse, over the named mesh axes only; ``reduce_scatter_block``
+sums every rank's whole tensor and keeps this rank's block.
 """
 from __future__ import annotations
 
@@ -212,21 +213,37 @@ def gather_block(x_local: torch.Tensor, spec: Spec, mesh, axes=None
                  ) -> torch.Tensor:
     """The inverse of ``local_block``: the blocks of every rank that
     differs from this one only on the mesh axes ``axes`` (default all),
-    put together.  One all-reduce (sum) over those axes of a buffer
-    that holds this rank's block at its place and zeros elsewhere; where
-    no such axis splits the tensor, ``x_local`` itself."""
-    from .collectives import all_reduce
-    blocks = _dim_blocks(spec, mesh, axes)
-    used = tuple(a for e in spec for a in entry_axes(e)
-                 if axes is None or a in axes)
-    if not used:
-        return x_local
-    shape = list(x_local.shape)
-    for d, (n, _) in enumerate(blocks):
-        shape[d] *= n
-    whole = x_local.new_zeros(shape)
-    view = whole
-    for d, (n, idx) in enumerate(blocks):
-        view = view.narrow(d, idx * x_local.shape[d], x_local.shape[d])
-    view.copy_(x_local)
-    return all_reduce(whole, mesh, used)
+    put together.  Each dimension split over some of those axes takes
+    one ``collectives.all_gather_dim``, in the form
+    ``collectives.collective_form`` picks (an all-gather; for gloo with
+    CUDA tensors an all-reduce of a zero buffer holding this rank's
+    block).  Where no such axis splits the tensor, ``x_local`` itself."""
+    from .collectives import all_gather_dim
+    _dim_blocks(spec, mesh, axes)
+    x = x_local
+    for d, entry in enumerate(spec):
+        take = tuple(a for a in entry_axes(entry)
+                     if axes is None or a in axes)
+        if take:
+            x = all_gather_dim(x, mesh, take, d)
+    return x
+
+
+def reduce_scatter_block(x: torch.Tensor, spec: Spec, mesh, axes
+                         ) -> torch.Tensor:
+    """The sum of ``x`` (each rank's tensor whole over the mesh axes
+    ``axes``, as ``gather_block`` gives it) over the ranks of ``axes``,
+    and this rank's block of the sum (``local_block``'s): one
+    ``collectives.reduce_scatter_dim`` for each dimension split over some
+    of ``axes``, then an all-reduce over the axes that split none.
+    ``x`` itself where ``axes`` is empty."""
+    from .collectives import all_reduce, reduce_scatter_dim
+    _dim_blocks(spec, mesh, axes)
+    done = set()
+    for d, entry in enumerate(spec):
+        take = tuple(a for a in entry_axes(entry) if a in axes)
+        if take:
+            x = reduce_scatter_dim(x, mesh, take, d)
+            done.update(take)
+    rest = tuple(a for a in axes if a not in done)
+    return all_reduce(x, mesh, rest) if rest else x

@@ -11,6 +11,17 @@ without RoPE and attends without a mask to K/V projected (without RoPE)
 from the encoder's output once per layer.  All of them run on one
 kernel, :func:`repro_torch.kernels.attention.attention`.
 
+**Tensor parallel** (training on a mesh, ``tp``: a
+``distrib.tensor_parallel.Split`` of the heads): ``wq``/``wk``/``wv`` and
+their biases hold this rank's heads (column-parallel) and ``wo`` its
+rows (row-parallel); the input enters through ``tp.enter`` and the
+partial outputs are summed by ``tp.leave``, and the kernel runs on the
+rank's H/n query heads and its key/value heads.  Where the model axis
+does not divide the key/value heads (MQA), they are whole on every rank:
+each rank projects only those its query heads read, and those leaves and
+the qk norms (applied to the rank's heads only) pass ``tp.enter``, which
+sums their partial gradients over the axis.
+
 A layer's KV cache is a pair of (B, T, Hkv, D) tensors.  Where the
 reference returns an updated copy, the chunk and decode paths here write
 the new K/V **in place** into the caller's cache tensors (a slice of the
@@ -77,6 +88,38 @@ def _proj(x, w, cdt):
         *x.shape[:2], H, D)
 
 
+def _local(cfg: ModelConfig, p: dict, tp) -> dict:
+    """``p`` as this rank's query heads use it under the heads' ``Split``
+    ``tp`` (None: ``p`` itself): whole key/value leaves cut to the heads
+    those query heads read, and every leaf whole on every rank passed
+    through ``tp.enter``."""
+    if tp is None:
+        return p
+    out = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = tp.enter(p[name])
+    if p["wk"].shape[1] < cfg.n_kv_heads:          # split like the queries
+        return out
+    hl, group = p["wq"].shape[1], cfg.n_heads // cfg.n_kv_heads
+    first = tp.rank * hl // group
+    if hl % group == 0 or group % hl == 0:
+        # a whole number of groups, or a part of one: plain GQA
+        def take(t, dim):
+            return t.narrow(dim, first, max(hl // group, 1))
+    else:
+        # groups cut across ranks: one key/value head a query head
+        heads = torch.tensor([(tp.rank * hl + j) // group
+                              for j in range(hl)], device=p["wk"].device)
+
+        def take(t, dim):
+            return t.index_select(dim, heads)
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in p:
+            out[name] = take(tp.enter(p[name]), dim)
+    return out
+
+
 def _project_q(cfg, p, x, positions, kind, use_rope=True):
     cdt = dtype_of(cfg.compute_dtype)
     q = _proj(x, p["wq"], cdt)
@@ -120,15 +163,20 @@ def _attend(cfg, q, k, v, kind, q_offset, causal=True, prefix_len=None):
 
 
 def attn_train(cfg: ModelConfig, p: dict, x, *, kind: str = "attn",
-               causal: bool = True, prefix_len=None):
+               causal: bool = True, prefix_len=None, tp=None):
     """Full-sequence self-attention for training and for an encoder
     (``causal=False``), as the reference's ``attn_apply``: positions
     0..S-1, no cache.  ``attention`` carries the gradient
-    (``AttentionFunction``)."""
+    (``AttentionFunction``).  ``tp``: the heads' ``Split`` (see the
+    module docstring), or None."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    p = _local(cfg, p, tp)
+    if tp is not None:
+        x = tp.enter(x)
     q, k, v = _project(cfg, p, x, positions, kind)
-    return _out(cfg, p, _attend(cfg, q, k, v, kind, 0, causal, prefix_len))
+    out = _out(cfg, p, _attend(cfg, q, k, v, kind, 0, causal, prefix_len))
+    return out if tp is None else tp.leave(out)
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, cache_k, cache_v, *,
@@ -193,16 +241,24 @@ def attn_decode(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos, *,
 # ---------------------------------------------------------------------------
 # cross attention (encoder-decoder)
 # ---------------------------------------------------------------------------
-def cross_attn(cfg: ModelConfig, p: dict, x, mem_k, mem_v):
+def cross_attn(cfg: ModelConfig, p: dict, x, mem_k, mem_v, tp=None):
     """Decoder cross attention: queries from x (B,S,d) without RoPE,
-    against the memory's K/V (B,F,Hkv,D), no mask."""
+    against the memory's K/V (B,F,Hkv,D), no mask.  Under ``tp`` the
+    K/V are this rank's (``cross_kv`` with the same ``tp``)."""
+    p = _local(cfg, p, tp)
+    if tp is not None:
+        x = tp.enter(x)
     q = _project_q(cfg, p, x, None, "attn", use_rope=False)
-    return _out(cfg, p, _attend(cfg, q, mem_k, mem_v, "attn", 0,
-                                causal=False))
+    out = _out(cfg, p, _attend(cfg, q, mem_k, mem_v, "attn", 0,
+                               causal=False))
+    return out if tp is None else tp.leave(out)
 
 
-def cross_kv(cfg: ModelConfig, p: dict, memory):
+def cross_kv(cfg: ModelConfig, p: dict, memory, tp=None):
     """The cross attention's K/V (B,F,Hkv,D) from the encoder's output
     (B,F,d), without RoPE: computed once per layer and kept in the
-    cache for decode."""
+    cache for decode.  Under ``tp``, this rank's key/value heads."""
+    p = _local(cfg, p, tp)
+    if tp is not None:
+        memory = tp.enter(memory)
     return _project_kv(cfg, p, memory, None, "attn", use_rope=False)

@@ -6,6 +6,10 @@ Parameters are plain dicts of tensors.  The numerics follow the
 reference: weights are kept in ``cfg.param_dtype`` and cast to
 ``cfg.compute_dtype`` where they are used; norms, RoPE and logits are
 computed in f32.
+
+The MLP, the embedding lookup and the loss take a ``tp``
+(``distrib.tensor_parallel.Split``) in the sharded training step: the
+MLP's ``mlp`` dim, or the vocabulary, is then this rank's slice of it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distrib.collectives import all_reduce
 
 
 def resolve_device(device) -> torch.device:
@@ -116,7 +121,19 @@ def mlp_axes(cfg: ModelConfig) -> dict:
     return p
 
 
-def mlp(cfg: ModelConfig, p: dict, x):
+def mlp(cfg: ModelConfig, p: dict, x, tp=None):
+    """The MLP; under ``tp`` its input products are column-parallel and
+    its output product row-parallel (the rank's slice of ``mlp``): x
+    enters through ``tp.enter`` and the partial outputs are summed by
+    ``tp.leave``."""
+    if tp is None:
+        return mlp_partial(cfg, p, x)
+    return tp.leave(mlp_partial(cfg, p, tp.enter(x)))
+
+
+def mlp_partial(cfg: ModelConfig, p: dict, x):
+    """The MLP over the ``mlp`` columns that ``p`` holds (all of them
+    without tensor parallelism)."""
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
     if cfg.mlp == "swiglu":
@@ -157,9 +174,18 @@ def embed_axes(cfg: ModelConfig) -> dict:
     return p
 
 
-def embed_tokens(cfg: ModelConfig, p: dict, tokens):
+def embed_tokens(cfg: ModelConfig, p: dict, tokens, tp=None):
+    """The token rows (B,S,d) in the compute dtype.  Under ``tp`` the
+    table holds this rank's slice of the vocabulary: the rank looks up
+    the ids in its range, zeros the others, and ``tp.leave`` sums the
+    ranks' rows (one nonzero term each: the rows are exact)."""
     cdt = dtype_of(cfg.compute_dtype)
-    h = p["embedding"][tokens.long()].to(cdt)
+    if tp is None:
+        h = p["embedding"][tokens.long()].to(cdt)
+    else:
+        table = p["embedding"]
+        ids, mine = _vocab_slice(tokens, table.shape[0], tp)
+        h = tp.leave(table[ids].masked_fill(~mine[..., None], 0).to(cdt))
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt,
                              device=h.device)
@@ -176,12 +202,20 @@ def unembed(cfg: ModelConfig, p: dict, h):
     return logits
 
 
+def _vocab_slice(ids, v_local: int, tp):
+    """(ids into this rank's slice of the vocabulary, clamped into it;
+    which ids fall in it)."""
+    local = ids.long() - tp.rank * v_local
+    mine = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), mine
+
+
 # ---------------------------------------------------------------------------
 # cross-entropy (chunked over the sequence)
 # ---------------------------------------------------------------------------
 def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
                     chunk: int = 512, z_coef: float = 1e-4,
-                    ignore_id: int = -1):
+                    ignore_id: int = -1, tp=None):
     """Softmax CE + z-loss without holding (B,S,V) logits at once, as the
     reference's ``chunked_ce_loss``.
 
@@ -190,7 +224,15 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
     logits are formed, reduced and dropped: the chunk runs under
     ``torch.utils.checkpoint``, so autograd keeps only its (B,c,d) input
     and recomputes the logits in the backward.  Returns (loss, {"ce",
-    "z_loss", "tokens"})."""
+    "z_loss", "tokens"}).
+
+    Under ``tp`` (vocabulary-parallel) each rank forms its (B,c,V/n)
+    chunk of logits, softcap applied; the lse takes the max over the
+    ranks (an all-reduce MAX, no gradient) and the sum of their
+    exponentials (``tp.leave``); the target logit comes from the rank
+    whose slice holds it (``tp.leave`` of one nonzero term).  The chunk's
+    input enters through ``tp.enter``, which sums its partial gradients.
+    Every rank then holds the same loss."""
     B, S, _ = h.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -198,10 +240,24 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
         h = F.pad(h, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad), value=ignore_id)
 
+    def lse_and_target(logits, tc):
+        if tp is None:
+            return (torch.logsumexp(logits, dim=-1),
+                    logits.gather(-1, tc.clamp_min(0).long()[..., None])
+                    [..., 0])
+        m = all_reduce(logits.detach().amax(dim=-1), tp.mesh, tp.axis,
+                       "max")
+        lse = m + torch.log(tp.leave(torch.exp(logits - m[..., None])
+                                     .sum(dim=-1)))
+        ids, mine = _vocab_slice(tc, logits.shape[-1], tp)
+        tgt = logits.gather(-1, ids[..., None])[..., 0]
+        return lse, tp.leave(tgt.masked_fill(~mine, 0.0))
+
     def body(hc, tc):
+        if tp is not None:
+            hc = tp.enter(hc)
         logits = unembed(cfg, p, hc)                      # (B,c,V) f32
-        lse = torch.logsumexp(logits, dim=-1)             # (B,c)
-        tgt = logits.gather(-1, tc.clamp_min(0).long()[..., None])[..., 0]
+        lse, tgt = lse_and_target(logits, tc)             # (B,c)
         valid = tc != ignore_id
         nll = torch.where(valid, lse - tgt, 0.0)
         zl = torch.where(valid, torch.square(lse), 0.0)

@@ -49,8 +49,12 @@ forward; backward, the sum over the expert axis of each shard's partial
 gradient), ``ReduceFromAxes`` at the output (the sum forward, identity
 backward), and ``SumOnce`` on the aux sums (the sum over the token axes;
 its gradient summed back over them and counted on one expert shard
-only).  A shared expert (deepseek) runs whole on every shard, outside
-those rules: its input and output are replicated.
+only).  A shared expert (deepseek) is plain tensor parallel, as the
+reference lays it out: where its ``mlp`` dim is split along the expert
+axis, each shard runs its slice on the layer's input (after the same
+``CopyToAxes``) and adds its partial to the experts' partials before the
+one ``ReduceFromAxes`` of the layer.  Where it is whole, it runs whole on
+every shard after that sum.
 """
 from __future__ import annotations
 
@@ -66,7 +70,8 @@ from ..distrib.collectives import (CopyToAxes, ReduceFromAxes, SumOnce,
                                    all_reduce)
 from ..kernels.moe_combine import CombineFunction, moe_combine
 from ..kernels.moe_router import router_dispatch
-from .common import dense_init, dtype_of, mlp, mlp_axes, mlp_params
+from .common import (dense_init, dtype_of, mlp, mlp_axes, mlp_params,
+                     mlp_partial)
 
 
 @dataclass(frozen=True)
@@ -246,10 +251,17 @@ def moe_apply(cfg: ModelConfig, params: dict, x, *,
         cfg, local, x_in, e_pad=e_pad, capacity_factor=cf,
         dropless=dropless, e_start=mesh.coords[ex] * e_local if ex else 0,
         e_local=e_local)
+    shared = params.get("shared")
+    if shared is not None and ex is not None and (
+            shared["wo"].shape[0] < cfg.moe.num_shared_experts * cfg.d_ff):
+        # this shard's slice of the shared expert: its partial joins the
+        # experts' partials
+        y = y + mlp_partial(cfg, shared, x_in)
+        shared = None
     if ex is not None:
         y = ReduceFromAxes.apply(y, mesh, ex)      # combine expert partials
-    if "shared" in params:
-        y = y + mlp(cfg, params["shared"], x2d)
+    if shared is not None:
+        y = y + mlp(cfg, shared, x2d)
     # identical on every expert shard: summed over the token shards
     ps = SumOnce.apply(ps, mesh, tok, ex)
     zs = SumOnce.apply(zs, mesh, tok, ex)

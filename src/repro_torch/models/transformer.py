@@ -72,7 +72,8 @@ from .attention import (attn_axes, attn_decode, attn_params, attn_prefill,
 from .common import (ShapesOnly, chunked_ce_loss, dtype_of, embed_axes,
                      embed_params, embed_tokens, mlp, mlp_axes, mlp_params,
                      ones_init, resolve_device, rms_norm, unembed)
-from .moe import MoESpmd, moe_apply, moe_axes, moe_params, padded_experts
+from ..distrib.tensor_parallel import TensorParallel
+from .moe import moe_apply, moe_axes, moe_params, padded_experts
 from .rglru_block import (rglru_axes, rglru_block_apply, rglru_block_decode,
                           rglru_cache_spec, rglru_params)
 from .ssd_block import (ssd_axes, ssd_block_apply, ssd_block_decode,
@@ -102,6 +103,17 @@ _RECURRENT = {
 def _group(kind: str) -> str:
     """The cache stack a layer of ``kind`` keeps its state in."""
     return "attn" if kind in ATTN_KINDS else kind
+
+
+def _gather(tp: Optional[TensorParallel], part, where):
+    """``part`` (at ``where`` in the parameters) ready for compute: as it
+    is without a mesh, gathered by ``tp`` with one."""
+    return part if tp is None else tp.gather(part, where)
+
+
+def _split(tp: Optional[TensorParallel], where, sub: str):
+    """The ``Split`` of the sub-layer ``sub`` at ``where``, or None."""
+    return None if tp is None else tp.split(tuple(where) + (sub,))
 
 
 class Model:
@@ -240,86 +252,97 @@ class Model:
 
     # ----------------------------------------------------------------- block
     def _ffn(self, p: dict, h, aux: Optional[dict] = None,
-             spmd: Optional[MoESpmd] = None):
+             tp: Optional[TensorParallel] = None, where=()):
         """The feed-forward half.  Serving (``aux`` None) runs MoE layers
         dropless and drops their aux losses; training runs them at the
         config's capacity factor and adds their aux losses to ``aux``;
-        ``spmd`` lays MoE layers out on a mesh (``models/moe.py``)."""
+        ``tp`` lays the layer at ``where`` out on a mesh: an MLP in
+        tensor parallel where its leaves are split, MoE layers through
+        ``tp.moe`` (``models/moe.py``)."""
         if "moe" in p:
-            y, a = moe_apply(self.cfg, p["moe"], h, spmd=spmd,
+            y, a = moe_apply(self.cfg, p["moe"], h,
+                             spmd=tp.moe if tp is not None else None,
                              dropless=aux is None)
             if aux is not None:
                 for key in AUX_KEYS:
                     aux[key] = aux[key] + a[key]
             return y
-        return mlp(self.cfg, p["mlp"], h)
+        return mlp(self.cfg, p["mlp"], h, tp=_split(tp, where, "mlp"))
 
     def _block(self, p: dict, x, mix, aux: Optional[dict] = None,
-               mem_kv=None, spmd: Optional[MoESpmd] = None):
+               mem_kv=None, tp: Optional[TensorParallel] = None, where=()):
         """One pre-norm block; ``mix(h)`` is the mixing half (attention
-        or recurrence; training, prefill, chunk or decode); ``aux`` and
-        ``spmd`` as ``_ffn``'s; ``mem_kv``, the cross attention's (K, V)
-        of an encoder-decoder layer, is attended to after the mixing
-        half."""
+        or recurrence; training, prefill, chunk or decode); ``aux``,
+        ``tp`` and ``where`` as ``_ffn``'s; ``mem_kv``, the cross
+        attention's (K, V) of an encoder-decoder layer, is attended to
+        after the mixing half."""
         cfg = self.cfg
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         a = mix(h)
         if cfg.parallel_block and ("mlp" in p or "moe" in p):
-            return x + a + self._ffn(p, h, aux, spmd)
+            return x + a + self._ffn(p, h, aux, tp, where)
         x = x + a
         if mem_kv is not None:
             x = x + cross_attn(cfg, p["cross"],
                                rms_norm(x, p["cross_norm"], cfg.norm_eps),
-                               *mem_kv)
+                               *mem_kv, tp=_split(tp, where, "cross"))
         if "mlp" not in p and "moe" not in p:
             return x
         return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux,
-                             spmd)
+                             tp, where)
 
-    def _embed_inputs(self, params, tokens, frontend=None):
-        """(h, prefix_len): the token embeddings, and for a VLM with a
-        frontend the projected patches (B,F,d) before them, under
-        ``prefix_lm`` with ``prefix_len`` = F (the patches; the text
-        stays causal)."""
+    def _embed_inputs(self, emb, tokens, frontend=None, tp=None):
+        """(h, prefix_len): the token embeddings (``emb``: the embedding
+        part of the parameters; ``tp`` the vocabulary's ``Split``, or
+        None), and for a VLM with a frontend the projected patches
+        (B,F,d) before them, under ``prefix_lm`` with ``prefix_len`` = F
+        (the patches; the text stays causal)."""
         cfg = self.cfg
-        h = embed_tokens(cfg, params["embed"], tokens)
+        h = embed_tokens(cfg, emb, tokens, tp=tp)
         if cfg.family != "vlm" or frontend is None:
             return h, None
-        patches = self._project_frontend(params, frontend)
+        patches = self._project_frontend(emb, frontend)
         return (torch.cat([patches, h], dim=1),
                 cfg.frontend_seq if cfg.prefix_lm else None)
 
-    def _project_frontend(self, params, frontend):
+    def _project_frontend(self, emb, frontend):
         cdt = dtype_of(self.cfg.compute_dtype)
-        return frontend.to(cdt) @ params["embed"]["frontend_proj"].to(cdt)
+        return frontend.to(cdt) @ emb["frontend_proj"].to(cdt)
 
-    def _encode(self, params, frontend, remat: str = "none"):
+    def _encode(self, params, emb, frontend, remat: str = "none",
+                tp: Optional[TensorParallel] = None):
         """The encoder: frames (B,F,frontend_dim) → memory (B,F,d), each
         layer a non-causal self-attention block (RoPE at 0..F-1) and
-        its MLP, then the encoder's final norm.  ``remat`` as
-        ``loss_fn``'s."""
+        its MLP, then the encoder's final norm.  ``remat`` and ``tp`` as
+        ``loss_fn``'s (``emb``: the embedding part, gathered)."""
         cfg = self.cfg
         if frontend is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: it takes "
                              f"a frontend (frames) beside the tokens")
 
-        def layer(p, h):
+        def layer(p, h, where):
+            p = _gather(tp, p, where)
             return self._block(p, h, lambda x: attn_train(
-                cfg, p["attn"], x, causal=False))
+                cfg, p["attn"], x, causal=False,
+                tp=_split(tp, where, "attn")), tp=tp, where=where)
 
-        h = self._project_frontend(params, frontend)
-        for p in params["encoder"]["layers"]:
-            h = (checkpoint(layer, p, h, use_reentrant=False)
-                 if remat == "block" else layer(p, h))
-        return rms_norm(h, params["encoder"]["final_norm"], cfg.norm_eps)
+        h = self._project_frontend(emb, frontend)
+        for i, p in enumerate(params["encoder"]["layers"]):
+            where = ("encoder", "layers", i)
+            h = (checkpoint(layer, p, h, where, use_reentrant=False)
+                 if remat == "block" else layer(p, h, where))
+        norm = _gather(tp, params["encoder"]["final_norm"],
+                       ("encoder", "final_norm"))
+        return rms_norm(h, norm, cfg.norm_eps)
 
-    def _final(self, params, h):
-        return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+    def _final(self, params, h, tp: Optional[TensorParallel] = None):
+        return rms_norm(h, _gather(tp, params["final_norm"], ("final_norm",)),
+                        self.cfg.norm_eps)
 
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch, *, remat: str = "block",
                 z_coef: float = 1e-4, ce_chunk: int = 512,
-                spmd: Optional[MoESpmd] = None):
+                spmd: Optional[TensorParallel] = None):
         """Teacher-forced LM loss, as the reference's ``loss_fn``.  batch:
         ``tokens`` and ``targets`` (B,S) (-1: no target), and a config
         with a frontend takes ``frontend`` (B,F,frontend_dim) (a VLM's
@@ -328,45 +351,63 @@ class Model:
         activations are recomputed in the backward; the reference wraps
         each period in ``jax.checkpoint``), ``"none"`` keeps them.  MoE
         layers drop over capacity (the config's capacity factor) and their
-        aux losses, summed over the layers, join the loss.  ``spmd`` lays
-        the MoE layers out on a mesh (the batch is then this rank's
-        tokens; the aux losses are over every token of the mesh).
+        aux losses, summed over the layers, join the loss.
+
+        ``spmd`` (``distrib.tensor_parallel.TensorParallel``) runs the
+        sharded step's layout: ``params`` are then this rank's stored
+        blocks and the batch its tokens; each layer gathers its leaves
+        over the data axes as it runs (again in its recompute under
+        remat "block"), the embedding is gathered once for the lookup
+        and the loss, and the sub-layers that the model axis splits
+        compute in tensor parallel (the vocabulary-parallel loss is the
+        same on every rank of the model axis); the MoE layers run
+        expert-parallel (``spmd.moe``) and their aux losses are over
+        every token of the mesh.
         Returns (loss, {"ce", "z_loss", "tokens", "moe_lb", "moe_z",
         "loss"})."""
         cfg = self.cfg
+        tp = spmd
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}: 'none' or 'block'")
 
-        def layer(p, h, kind, memory):
+        def layer(p, h, kind, memory, where):
+            p = _gather(tp, p, where)
             aux = {key: h.new_zeros((), dtype=torch.float32)
                    for key in AUX_KEYS}
             if kind in ATTN_KINDS:
                 def mix(x):
                     return attn_train(cfg, p["attn"], x, kind=kind,
-                                      prefix_len=prefix_len)
+                                      prefix_len=prefix_len,
+                                      tp=_split(tp, where, "attn"))
             else:
                 def mix(x):
                     return _RECURRENT[kind].prefill(cfg, p["rec"], x)[0]
             mem_kv = (None if memory is None
-                      else cross_kv(cfg, p["cross"], memory))
-            h = self._block(p, h, mix, aux, mem_kv, spmd)
+                      else cross_kv(cfg, p["cross"], memory,
+                                    tp=_split(tp, where, "cross")))
+            h = self._block(p, h, mix, aux, mem_kv, tp, where)
             return h, aux["moe_lb"], aux["moe_z"]
 
         frontend = batch.get("frontend")
-        h, prefix_len = self._embed_inputs(params, batch["tokens"], frontend)
-        memory = (self._encode(params, frontend, remat) if self.is_encdec
-                  else None)
+        # the tied table serves the lookup and the loss: gathered once
+        emb = _gather(tp, params["embed"], ("embed",))
+        vocab = _split(tp, (), "embed")
+        h, prefix_len = self._embed_inputs(emb, batch["tokens"], frontend,
+                                           tp=vocab)
+        memory = (self._encode(params, emb, frontend, remat, tp)
+                  if self.is_encdec else None)
         aux = [h.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
-        for p, kind in zip(params["layers"], self.kinds):
+        for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
+            where = ("layers", i)
             if remat == "block":
-                h, *a = checkpoint(layer, p, h, kind, memory,
+                h, *a = checkpoint(layer, p, h, kind, memory, where,
                                    use_reentrant=False)
             else:
-                h, *a = layer(p, h, kind, memory)
+                h, *a = layer(p, h, kind, memory, where)
             aux = [x + y for x, y in zip(aux, a)]
         loss, metrics = chunked_ce_loss(
-            cfg, params["embed"], self._final(params, h), batch["targets"],
-            z_coef=z_coef, chunk=ce_chunk)
+            cfg, emb, self._final(params, h, tp), batch["targets"],
+            z_coef=z_coef, chunk=ce_chunk, tp=vocab)
         for key, value in zip(AUX_KEYS, aux):
             loss = loss + value
             metrics[key] = value
@@ -385,13 +426,13 @@ class Model:
         cfg = self.cfg
         B = tokens.shape[0]
         cdt = dtype_of(cfg.compute_dtype)
-        h, prefix_len = self._embed_inputs(params, tokens, frontend)
+        h, prefix_len = self._embed_inputs(params["embed"], tokens, frontend)
         S = h.shape[1]
         cache = self._kv_stacks(B, cache_len or S, cdt, tokens.device)
         states = {g: [] for g in self.stack_sizes if g != "attn"}
         memory = None
         if self.is_encdec:
-            memory = self._encode(params, frontend)
+            memory = self._encode(params, params["embed"], frontend)
             cache.update(self._cross_stacks(B, memory.shape[1], cdt,
                                             tokens.device))
 

@@ -19,21 +19,29 @@ place, its rules reading each leaf as the reference lays it out
 stored as ``distrib.tree_shardings`` places it under ``DEFAULT_RULES``:
 each rank keeps only its block of every parameter and of m and v, so
 its bytes are ``bytes_per_device``'s.  A step takes the global batch and
-keeps this rank's rows (split over the data-parallel axes), then:
+keeps this rank's rows (split over the data-parallel axes), then runs
+``loss_fn`` on the blocks with the model's ``TensorParallel`` layout
+(``distrib/tensor_parallel.py``):
 
-1. gathers each leaf for compute: a dense leaf whole, an expert leaf
-   over every axis but the expert axis, so that it holds this rank's
-   experts;
-2. runs ``loss_fn`` with the ``MoESpmd`` (``make_moe_spmd``); the MoE
-   layers' gradient rules make every gradient whole on its rank (the
-   router's summed over the expert axis inside autograd);
-3. reduces each gradient to its stored block: the mean over the token
-   axes, then this rank's block;
-4. runs AdamW on the blocks, its clip reading the gradient norm over
+1. each layer gathers its leaves as it runs, over the data axes only
+   (``GatherFromAxes``; a recurrent block's over the model axis too),
+   and again in its recompute under remat "block": a rank holds one
+   layer's gathered leaves at a time beside its blocks and the
+   embedding's, which is gathered once for the lookup and the loss;
+2. attention (on the rank's heads), the MLPs and the shared experts
+   (on the rank's slice of ``mlp``), the embedding and the loss (on its
+   slice of the vocabulary) compute in tensor parallel over the model
+   axis where it splits them; the MoE layers run expert-parallel
+   (``MoESpmd``); SSD and RG-LRU blocks run whole on every rank;
+3. each gradient reaches its stored block through its gather's
+   backward: a reduce-scatter over the data axes (for gloo with CUDA
+   tensors an all-reduce that keeps the block, ``collective_form``),
+   then divided by the data ranks: the mean over the token shards;
+4. AdamW runs on the blocks, its clip reading the gradient norm over
    every rank's blocks.
 
-The dense layers' compute is not tensor-parallel: every rank of a model
-row runs them whole on the same tokens.
+Every collective runs in the forward or in an autograd node's backward,
+so every rank issues them in the same order.
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ import torch
 
 from ..configs.base import ModelConfig, ParallelConfig
 from ..distrib.collectives import all_reduce
-from ..distrib.sharding import (entry_axes, gather_block, local_block,
-                                tree_specs)
+from ..distrib.sharding import entry_axes, local_block, tree_specs
+from ..distrib.tensor_parallel import TensorParallel
 from ..launch.mesh import dp_axes
 from ..models import Model
 from ..models.moe import MoESpmd
@@ -149,7 +157,10 @@ def _blocks(tree, specs, mesh):
 
 def loss_and_grads(model: Model, params, batch, *, remat: str, spmd=None):
     """(loss, metrics, grads) of one (micro)batch: the loss and metrics
-    detached, the gradients a tree shaped like ``params``."""
+    detached, the gradients a tree shaped like ``params``.  With
+    ``spmd`` (the sharded step's ``TensorParallel``), ``params`` are this
+    rank's stored blocks and each gradient is its block's, summed over
+    the token shards."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss, metrics = model.loss_fn(live, batch, remat=remat, spmd=spmd)
     got = iter(torch.autograd.grad(loss, leaves(live)))
@@ -223,29 +234,21 @@ def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
                          f"not {opt_cfg.name!r}")
     cfg = model.cfg
     n_micro = max(par.microbatches, 1)
-    spmd = make_moe_spmd(cfg, par, mesh)
     dp = dp_axes(mesh)
     n_dp = mesh.axis_size(dp)
-    axes = model.param_axes()
-    specs = tree_specs(model.init(device="meta"), axes, mesh)
-    ex = spmd.expert_axis if spmd is not None else None
+    tp = TensorParallel(model, mesh, dp, par.tensor_axis,
+                        moe=make_moe_spmd(cfg, par, mesh))
+    ex = tp.moe.expert_axis if tp.moe is not None else None
+    flat_specs = leaves_of(tp.specs)
+    for spec, names in zip(flat_specs, leaves_of(model.param_axes())):
+        if ex is not None and "experts" in names:
+            d = names.index("experts")
+            if d >= len(spec) or entry_axes(spec[d]) != (ex,):
+                raise ValueError(f"make_train_step: experts of a leaf with "
+                                 f"spec {spec} are not split over {ex!r}; "
+                                 f"build the Model with e_pad a multiple "
+                                 f"of {mesh.shape[ex]}")
     every = tuple(mesh.axis_names)
-
-    def compute_axes(spec, names):
-        """The mesh axes a leaf is gathered over for compute."""
-        if ex is None or "experts" not in names:
-            return every
-        d = names.index("experts")
-        if d >= len(spec) or entry_axes(spec[d]) != (ex,):
-            raise ValueError(f"make_train_step: experts of a leaf with "
-                             f"spec {spec} are not split over {ex!r}; "
-                             f"build the Model with e_pad a multiple of "
-                             f"{mesh.shape[ex]}")
-        return tuple(a for a in every if a != ex)
-
-    flat_specs = leaves_of(specs)
-    flat_gather = [compute_axes(s, n) for s, n in
-                   zip(flat_specs, leaves_of(axes))]
     # each leaf's copies: the ranks that hold the same block
     copies = [mesh.size // math.prod(mesh.shape[a] for e in s
                                      for a in entry_axes(e))
@@ -254,15 +257,13 @@ def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
 
     def train_step(state, batch):
         blocks = state["params"]
-        pos = iter(range(len(flat_specs)))
-        params = tree_map(lambda b: _gather(b, next(pos)), blocks)
         rows = {k: local_block(x, batch_spec, mesh) for k, x in
                 batch.items()}
-        loss, metrics, grads = _accumulate(model, params, rows, par,
-                                           n_micro, spmd)
-        del params
-        pos = iter(range(len(flat_specs)))
-        grads = tree_map(lambda g: _reduce(g, next(pos)), grads)
+        loss, metrics, grads = _accumulate(model, blocks, rows, par,
+                                           n_micro, tp)
+        # the gathers' backwards summed each gradient over the token
+        # shards: their mean
+        grads = tree_map(lambda g: g / n_dp, grads)
         sq = sum(torch.sum(torch.square(g.float())) / c
                  for g, c in zip(leaves(grads), copies))
         gn = torch.sqrt(all_reduce(sq, mesh, every))
@@ -282,14 +283,6 @@ def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
     def _sum(x):
         """The sum over the token axes."""
         return all_reduce(x, mesh, dp) if dp else x
-
-    def _gather(block, i):
-        return gather_block(block, flat_specs[i], mesh, flat_gather[i])
-
-    def _reduce(g, i):
-        """The mean over the token axes, then this rank's block."""
-        return local_block(_sum(g) / n_dp, flat_specs[i], mesh,
-                           flat_gather[i])
 
     return train_step
 

@@ -47,7 +47,9 @@ SLICE_MODULES = {
     # distribution: the resolver, the mesh, collectives and the pipeline
     "repro_torch.distrib", "repro_torch.distrib.sharding",
     "repro_torch.distrib.collectives", "repro_torch.distrib.pipeline",
-    "repro_torch.launch.mesh"}
+    "repro_torch.launch.mesh",
+    # tensor parallelism: the sharded step's layout of the layers
+    "repro_torch.distrib.tensor_parallel"}
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

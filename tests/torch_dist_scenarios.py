@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.distrib import collectives as coll
 from repro_torch.distrib.pipeline import pipeline_apply
-from repro_torch.distrib.sharding import gather_block, local_block
+from repro_torch.distrib.sharding import (entry_axes, gather_block,
+                                         local_block)
 from repro_torch.launch.mesh import Mesh, make_local_mesh, \
     make_production_mesh
 
@@ -155,52 +156,263 @@ def moe_layer(rank, world, args):
 # the sharded training step
 # ---------------------------------------------------------------------------
 def sharded_step(rank, world, args):
+    meshes = {shape: Mesh(shape, ("data", "model"), backend="gloo")
+              for shape in args["meshes"]}
+    return {name: _step_case(rank, meshes[case["mesh"]], case)
+            for name, case in args["cases"].items()}
+
+
+def _step_model(arch, mesh_shape, over=None):
+    """Reduced ``arch`` in f32 (``over`` replacing config fields), a MoE
+    config dropless (capacity factor 16) with its experts padded to the
+    model axis."""
     from repro_torch import configs
-    from repro_torch.configs.base import ParallelConfig
-    from repro_torch.distrib.sharding import tree_specs
     from repro_torch.models import Model
     from repro_torch.models.moe import padded_experts
+    cfg = configs.reduced(arch).replace(compute_dtype="float32",
+                                        **(over or {}))
+    if not cfg.moe.num_experts:
+        return Model(cfg)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    return Model(cfg, e_pad=padded_experts(cfg, mesh_shape[1]))
+
+
+def _step_case(rank, mesh, case):
+    """The sharded steps of one case: its stored state, each step's
+    metrics and (rank 0) the gathered parameters after the steps in
+    ``case["snap"]``."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distrib.sharding import tree_specs
     from repro_torch.train import optim
     from repro_torch.train.optim import leaves
     from repro_torch.train.step import (init_state, leaves_of,
                                         make_train_step)
+    model = _step_model(case["arch"], case["mesh"], case.get("over"))
+    ocfg = optim.OptConfig(**case["opt"])
+    par = ParallelConfig(remat=case["remat"])
+    state = init_state(model, ocfg, 0, device="cpu", mesh=mesh)
+    stored = {"params": [tuple(t.shape) for t in leaves(state["params"])],
+              "m": [tuple(t.shape) for t in leaves(state["opt"]["m"])],
+              "bytes": sum(t.numel() * t.element_size() for t in
+                           leaves(state["params"])
+                           + leaves(state["opt"]["m"])
+                           + leaves(state["opt"]["v"])
+                           + [state["opt"]["count"]])}
+    step = make_train_step(model, ocfg, par, mesh)
+    specs = leaves_of(tree_specs(model.init(device="meta"),
+                                 model.param_axes(), mesh))
+    losses, snaps = [], {}
+    for i, batch in enumerate(case["batches"]):
+        state, met = step(state, {k: _t(v) for k, v in batch.items()})
+        losses.append({k: float(met[k]) for k in
+                       ("loss", "grad_norm", "ce", "tokens")})
+        if i + 1 in case["snap"]:
+            whole = [gather_block(b, s, mesh) for b, s in
+                     zip(leaves(state["params"]), specs)]
+            snaps[i + 1] = [w.clone().numpy() for w in whole] \
+                if rank == 0 else None
+    return dict(stored=stored, losses=losses, snaps=snaps)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the collective forms, the layers, the step
+# ---------------------------------------------------------------------------
+def _by(form, fns, x, spec, mesh, axes):
+    """``x`` through ``fns[form]`` along each dimension of ``spec`` that
+    the axes ``axes`` split (``gather_block``'s and
+    ``reduce_scatter_block``'s loops, in a chosen form)."""
+    for d, entry in enumerate(spec):
+        take = tuple(a for a in entry_axes(entry) if a in axes)
+        if take:
+            x = fns[form](x, mesh, take, d)
+    return x
+
+
+def _forms(mesh, case, rank):
+    """One collective case in both forms: the gathered block and the
+    reduce-scatter of this rank's seeded whole tensor; then
+    ``GatherFromAxes`` / ``ReduceScatterToAxes`` forward and backward
+    in the form the mesh and device pick."""
+    gathers = {"direct": coll._gather_direct,
+               "all_reduce": coll._gather_by_all_reduce}
+    scatters = {"direct": coll._scatter_direct,
+                "all_reduce": coll._scatter_by_all_reduce}
+    spec, axes, same = case["spec"], case["axes"], case.get("same", ())
+    whole = _t(case["x"])
+    block = local_block(whole, spec, mesh)
+    # this rank's tensor, whole over ``axes``
+    mine = local_block(_t(case["g"][rank]), spec, mesh,
+                       tuple(a for a in mesh.axis_names if a not in axes))
+    out = {}
+    for form in ("direct", "all_reduce"):
+        out[f"gather/{form}"] = _by(form, gathers, block, spec, mesh,
+                                    axes).numpy()
+        red = _by(form, scatters, mine, spec, mesh, axes)
+        rest = tuple(a for a in axes
+                     if not any(a in entry_axes(e) for e in spec))
+        if rest:
+            red = coll.all_reduce(red, mesh, rest)
+        out[f"scatter/{form}"] = red.numpy()
+    out["form"] = coll.collective_form(mesh, block)
+    x = block.clone().requires_grad_()
+    y = coll.GatherFromAxes.apply(x, spec, mesh, axes, same)
+    gy = local_block(_t(case["g"][rank]), spec, mesh,
+                     tuple(a for a in mesh.axis_names
+                           if a not in axes + tuple(same)))
+    (y * gy).sum().backward()
+    out["gather_fn"] = (y.detach().numpy(), x.grad.numpy())
+    if not same:
+        z = mine.clone().requires_grad_()
+        w = coll.ReduceScatterToAxes.apply(z, spec, mesh, axes)
+        (w * block).sum().backward()
+        out["scatter_fn"] = (w.detach().numpy(), z.grad.numpy())
+    return out
+
+
+def _local_params(params, axes_tree, mesh):
+    """Each whole leaf's block over the model axis only, as the sharded
+    step's gathers give them to the layers, each a leaf of its own."""
+    from repro_torch.distrib.sharding import DEFAULT_RULES, spec_for
+    out = {}
+    for key, val in params.items():
+        t = _t(val)
+        spec = spec_for(tuple(t.shape), axes_tree[key], mesh, DEFAULT_RULES)
+        out[key] = local_block(t, spec, mesh, ("model",)).requires_grad_()
+    return out
+
+
+def _grads(tree):
+    """The gradients of the leaves the computation used."""
+    return {k: v.grad.numpy() for k, v in tree.items()
+            if v.grad is not None}
+
+
+def _layer_case(mesh, case):
+    """One attention or MLP sub-layer on the rank's share of the model
+    axis (``Split``), forward and backward."""
+    from repro_torch.distrib.tensor_parallel import Split
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import mlp, mlp_axes
+    cfg = _tp_cfg(case)
+    split = Split(mesh, "model")
+    x = _t(case["x"]).requires_grad_()
+    gy = _t(case["gy"])
+    out = {}
+    if case["what"] == "mlp":
+        p = _local_params(case["params"], mlp_axes(cfg), mesh)
+        y = mlp(cfg, p, x, tp=split)
+    elif case["what"] == "cross":
+        p = _local_params(case["params"], attn.attn_axes(cfg), mesh)
+        mem = _t(case["memory"]).requires_grad_()
+        k, v = attn.cross_kv(cfg, p, mem, tp=split)
+        y = attn.cross_attn(cfg, p, x, k, v, tp=split)
+    else:
+        p = _local_params(case["params"], attn.attn_axes(cfg), mesh)
+        y = attn.attn_train(cfg, p, x, kind=case["kind"], tp=split)
+    (y * gy).sum().backward()
+    out.update(y=y.detach().numpy(), dx=x.grad.numpy(), grads=_grads(p))
+    if case["what"] == "cross":
+        out["dmem"] = mem.grad.numpy()
+    return out
+
+
+def _tp_cfg(case):
+    from repro_torch import configs
+    return configs.reduced(case["arch"]).replace(**case["over"])
+
+
+def _vocab_case(mesh, case):
+    """The vocabulary-parallel lookup and loss on the rank's slice of the
+    vocabulary, forward and backward."""
+    from repro_torch.distrib.tensor_parallel import Split
+    from repro_torch.models.common import chunked_ce_loss, embed_tokens
+    cfg = _tp_cfg(case)
+    split = Split(mesh, "model")
+    n, r = split.n, split.rank
+
+    def mine(name, dim):
+        t = _t(case[name])
+        b = t.shape[dim] // n
+        return t.narrow(dim, r * b, b).clone().requires_grad_()
+    p = {"embedding": mine("table", 0)}
+    if "head" in case:
+        p["head"] = mine("head", 1)
+    h = _t(case["h"]).requires_grad_()
+    loss, met = chunked_ce_loss(cfg, p, h, _t(case["targets"]),
+                                chunk=case["chunk"], z_coef=case["z_coef"],
+                                tp=split)
+    loss.backward()
+    look = {"embedding": mine("table", 0)}
+    emb = embed_tokens(cfg, look, _t(case["tokens"]), tp=split)
+    (emb.float() * _t(case["gy"])).sum().backward()
+    return dict(loss=float(loss), ce=float(met["ce"]),
+                z=float(met["z_loss"]), tokens=int(met["tokens"]),
+                dh=h.grad.numpy(), grads=_grads(p),
+                emb=emb.detach().float().numpy(),
+                demb=look["embedding"].grad.numpy())
+
+
+def _scope_case(rank, mesh, case):
+    """One remat "block" forward and backward of the sharded layout,
+    watching each gathered leaf: the gathers counted by (sub-layer,
+    axes), and at each gather the parts other than the one gathering
+    (and the embedding, and an encoder's final norm, which its memory's
+    norm keeps for the decoder) that still hold a live gathered leaf."""
+    import weakref
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distrib.tensor_parallel import TensorParallel
+    from repro_torch.train import optim
+    from repro_torch.train.step import (init_state, loss_and_grads,
+                                        make_moe_spmd)
+    keep = {("embed",), ("encoder", "final_norm")}
+    live, worst = [], []
+
+    def part(path):
+        n = 3 if path[0] == "encoder" and path[1] == "layers" else 2
+        return tuple(path[:n]) if path[0] in ("layers", "encoder") \
+            else tuple(path[:1])
+
+    class Watched(TensorParallel):
+        def _gather(self, part_, spec, path):
+            out = super()._gather(part_, spec, path)
+            if torch.is_tensor(out):
+                now = part(path)
+                others = ({p for p, ref in live if ref() is not None}
+                          - keep - {now})
+                worst.append(sorted(map(str, others)))
+                live.append((now, weakref.ref(out)))
+            return out
+
+    model = _step_model(case["arch"], case["mesh"])
+    tp = Watched(model, mesh, ("data",), "model",
+                 moe=make_moe_spmd(model.cfg, ParallelConfig(), mesh))
+    blocks = init_state(model, optim.OptConfig(), 0, device="cpu",
+                        mesh=mesh)["params"]
+    rows = {k: local_block(_t(v), ("data",), mesh)
+            for k, v in case["batch"].items()}
+    loss, _, grads = loss_and_grads(model, blocks, rows, remat="block",
+                                    spmd=tp)
+    return dict(gathers={f"{k[0]}|{','.join(k[1])}": n
+                         for k, n in tp.gathers.items()},
+                others=[w for w in worst if w], n_gathers=len(worst),
+                loss=float(loss))
+
+
+def tensor_parallel(rank, world, args):
     meshes = {shape: Mesh(shape, ("data", "model"), backend="gloo")
               for shape in args["meshes"]}
-    out = {}
-    for name, case in args["cases"].items():
-        mesh = meshes[case["mesh"]]
-        cfg = configs.reduced(case["arch"]).replace(
-            compute_dtype="float32")
-        if cfg.moe.num_experts:
-            cfg = cfg.replace(moe=dataclasses.replace(
-                cfg.moe, capacity_factor=16.0))
-            model = Model(cfg, e_pad=padded_experts(cfg,
-                                                    mesh.shape["model"]))
-        else:
-            model = Model(cfg)
-        ocfg = optim.OptConfig(**case["opt"])
-        par = ParallelConfig(remat=case["remat"])
-        state = init_state(model, ocfg, 0, device="cpu", mesh=mesh)
-        stored = {"params": [tuple(t.shape) for t in
-                             leaves(state["params"])],
-                  "m": [tuple(t.shape) for t in leaves(state["opt"]["m"])],
-                  "bytes": sum(t.numel() * t.element_size() for t in
-                               leaves(state["params"])
-                               + leaves(state["opt"]["m"])
-                               + leaves(state["opt"]["v"])
-                               + [state["opt"]["count"]])}
-        step = make_train_step(model, ocfg, par, mesh)
-        specs = leaves_of(tree_specs(model.init(device="meta"),
-                                     model.param_axes(), mesh))
-        losses, snaps = [], {}
-        for i, batch in enumerate(case["batches"]):
-            state, met = step(state, {k: _t(v) for k, v in batch.items()})
-            losses.append({k: float(met[k]) for k in
-                           ("loss", "grad_norm", "ce", "tokens")})
-            if i + 1 in case["snap"]:
-                whole = [gather_block(b, s, mesh) for b, s in
-                         zip(leaves(state["params"]), specs)]
-                snaps[i + 1] = [w.clone().numpy() for w in whole] \
-                    if rank == 0 else None
-        out[name] = dict(stored=stored, losses=losses, snaps=snaps)
+    out = {"forms": {}, "layers": {}, "vocab": {}, "steps": {},
+           "scope": {}}
+    for name, case in args["forms"].items():
+        out["forms"][name] = _forms(meshes[case["mesh"]], case, rank)
+    for name, case in args["layers"].items():
+        out["layers"][name] = _layer_case(meshes[case["mesh"]], case)
+    for name, case in args["vocab"].items():
+        out["vocab"][name] = _vocab_case(meshes[case["mesh"]], case)
+    for name, case in args["scope"].items():
+        out["scope"][name] = _scope_case(rank, meshes[case["mesh"]], case)
+    for name, case in args["steps"].items():
+        out["steps"][name] = _step_case(rank, meshes[case["mesh"]], case)
+    out["coords"] = {shape: dict(m.coords) for shape, m in meshes.items()}
     return out

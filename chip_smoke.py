@@ -221,6 +221,19 @@ Phases, in order; any failure exits non-zero:
       layer's leaves gathered over the data axis only as it runs);
       step ms, peak memory and the collectives by kind printed; then
       its 2-layer f32 step against one process (``TRAIN_PARITY_TOL``).
+      1c: mamba2-1.3b at full width cut to 12 of 48 layers, the same
+      mesh, bf16, AdamW, remat "block", 8 x 128 global, 3 steps: the SSD
+      blocks in tensor parallel, SSD forward 12 + 12 and backward 12 a
+      step on every rank, each at 32 of 64 heads (P 64, G 1, N 128);
+      stored bytes, the falling loss, step ms, peak and collectives as
+      1b; then its 2-layer f32 step against one process.  1d:
+      recurrentgemma-9b at full width cut to 3 layers (rec, rec, local),
+      the same mesh and schedule, sequence-parallel as the reference's
+      rule chooses it (``seq_parallel_for``: d_model 4096, dense, 128
+      divisible by 2): RG-LRU 2 + 2 forward and 2 backward a step at 2048
+      of 4096 channels, attention 1 + 1 and 1 at 8 of 16 query heads
+      (the key/value head whole), every layer's input 64 of the 128
+      positions; then its 3-layer f32 step against one process.
       2: ``sp_decode_attention`` over
       (data 1, model 4) at qwen1.5-0.5b's heads, B 4, T 32768 (8192 keys
       a rank), bf16, softcap 0 and 30, against the whole-cache kernel and
@@ -254,8 +267,10 @@ Phases, in order; any failure exits non-zero:
    SSD's, the router's, the MoE combine's and the RG-LRU's training
    forwards (the RG-LRU's with its kept states) and backwards; phase 3m
    adds rank 0's training rows (the router at 20 of 40 experts;
-   attention at granite's and at qwen's local heads) and the attention
-   partial of ``sp_decode_attention``.  These rows, with the main
+   attention at granite's, qwen's and recurrentgemma's local heads; the
+   SSD at 32 of mamba2's 64 heads and the RG-LRU at 2048 of
+   recurrentgemma's 4096 channels, forward and backward) and the
+   attention partial of ``sp_decode_attention``.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -3957,6 +3972,13 @@ DISTRIB_PARITY = dict(layers=2, batch=2)
 DISTRIB_PARITY_EPS = 1e-3
 TP_ARCH = ARCH                   # qwen1.5-0.5b: every layer at full depth
 TP_HEADS = (8, 8)                # its local query / key-value heads on 2
+TP_SSM_LAYERS = 12               # mamba2-1.3b cut from 48 (time)
+TP_SSM_HEADS = (32, 64, 1, 128)  # its local SSD heads on 2 (H, P, G, N)
+SP_ARCH = HYBRID_ARCH            # recurrentgemma-9b: wide, dense
+SP_LAYERS = 3                    # one period: rec, rec, local (memory)
+SP_LRU = 2048                    # its local RG-LRU channels on 2
+SP_HEADS = (8, 1)                # its local query / key-value heads on 2
+TP_REC_STEPS = 3                 # steps of sub-checks 1c and 1d
 DISTRIB_LIMIT_S = 900.0          # the four ranks' whole run
 DISTRIB_BARRIER_S = 600.0        # a rank's wait in one collective
 SP_DECODE = dict(B=4, T=32768, Hq=16, Hkv=16, D=64, softcaps=(0.0, 30.0))
@@ -4066,19 +4088,80 @@ def distrib_tp_train(mesh, rank):
     return out, recorder
 
 
-def sharded_steps(tag, model, mesh, remat):
-    """DISTRIB_STEPS steps of ``make_train_step(..., mesh=)`` from seed 0
-    on 8 x 128 global batches, AdamW (warmup 5 of 10), under a
-    ``TrainRecorder`` and a ``CollectiveClock``: the stored bytes held to
-    ``bytes_per_device``, the init peak below the whole tree, the loss
-    falling, every kernel of the layers launched on every step.  Returns
-    (results, recorder)."""
+def distrib_ssm_train(mesh, rank):
+    """Sub-check 1c: TP_REC_STEPS sharded steps of mamba2-1.3b at full
+    width, TP_SSM_LAYERS deep, bf16 compute, AdamW, 8 x 128 global,
+    remat "block": every SSD block computes in tensor parallel over the
+    model axis, its kernels (forward and backward) on TP_SSM_HEADS on
+    every rank.  Returns (results, recorder)."""
+    model = Model(configs.get(SSM_ARCH).replace(n_layers=TP_SSM_LAYERS))
+    tag = f"distrib r{rank} {SSM_ARCH} tensor parallel"
+    out, recorder = sharded_steps(tag, model, mesh, "block",
+                                  n_steps=TP_REC_STEPS)
+    heads = sorted({key[4:8] for key in recorder.seen
+                    if key[0] in ("ssd", "ssd_bwd")})
+    print(f"{tag}: SSD forward and backward at (heads, P, G, N) {heads}",
+          flush=True)
+    check(heads == [TP_SSM_HEADS], f"{tag}: SSD at {heads}, expected "
+          f"{[TP_SSM_HEADS]}")
+    out["ssd_heads"] = heads
+    return out, recorder
+
+
+def distrib_sp_train(mesh, rank):
+    """Sub-check 1d: TP_REC_STEPS sharded steps of recurrentgemma-9b at
+    full width, SP_LAYERS deep, bf16 compute, AdamW, 8 x 128 global,
+    remat "block", sequence-parallel as the reference's rule chooses it
+    (``seq_parallel_for``): the RG-LRU blocks on SP_LRU channels and
+    attention on SP_HEADS on every rank, and each layer's input this
+    rank's half of the positions.  Returns (results, recorder)."""
+    from repro_torch.distrib.tensor_parallel import seq_parallel_for
+    model = Model(configs.get(SP_ARCH).replace(n_layers=SP_LAYERS))
+    tag = f"distrib r{rank} {SP_ARCH} sequence parallel"
+    chosen = seq_parallel_for(model.cfg, mesh, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"{tag}: the rule chooses sequence parallelism: {chosen}",
+          flush=True)
+    check(chosen, f"{tag}: the rule does not choose sequence parallelism")
+    # its 4.19 GB embedding, drawn whole (twice over while it is drawn),
+    # outweighs the rest of the 3-layer tree: the init peak cannot stay
+    # below the whole tree, though only one part is ever whole
+    out, recorder = sharded_steps(tag, model, mesh, "block",
+                                  n_steps=TP_REC_STEPS, seq_parallel=chosen,
+                                  init_below_whole=False)
+    lru = sorted({key[4] for key in recorder.seen
+                  if key[0] in ("rglru", "rglru_bwd")})
+    heads = sorted({(key[5], key[6]) for key in recorder.seen
+                    if key[0].startswith("flash_attention")})
+    want = TRAIN_SEQ // mesh.shape["model"]
+    print(f"{tag}: RG-LRU at {lru} channels, attention at (query, "
+          f"key/value) heads {heads}, layer inputs at "
+          f"{out['stream_positions']} of {TRAIN_SEQ} positions", flush=True)
+    check(lru == [SP_LRU] and heads == [SP_HEADS]
+          and out["stream_positions"] == [want],
+          f"{tag}: RG-LRU {lru}, attention {heads}, layer inputs "
+          f"{out['stream_positions']}; expected [{SP_LRU}], {[SP_HEADS]}, "
+          f"[{want}]")
+    out.update(lru_channels=lru, heads=heads, seq_parallel=chosen)
+    return out, recorder
+
+
+def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
+                  seq_parallel=False, init_below_whole=True):
+    """``n_steps`` steps of ``make_train_step(..., mesh=, seq_parallel=)``
+    from seed 0 on 8 x 128 global batches, AdamW (warmup 5 of 10), under
+    a ``TrainRecorder`` and a ``CollectiveClock``: the stored bytes held
+    to ``bytes_per_device``, the init peak (what the state's init
+    allocates beyond what the card held before it) below the whole tree
+    where ``init_below_whole``, the loss falling, every kernel of the
+    layers launched on every step; the positions each layer's input
+    holds are recorded.  Returns (results, recorder)."""
     from repro_torch.distrib.sharding import bytes_per_device
     ocfg = optim.OptConfig(warmup=5, decay_steps=MOE_TRAIN_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
-    init_peak = torch.cuda.max_memory_allocated()
+    init_peak = torch.cuda.max_memory_allocated() - before
     shapes, axes = train_step.init_state_axes(model, ocfg)
     want = bytes_per_device(shapes, axes, mesh)
     got = stored_bytes(state)
@@ -4090,21 +4173,29 @@ def sharded_steps(tag, model, mesh, remat):
           f"{want}")
     # the blocks are kept one layer at a time: the whole tree is never
     # held on the card
-    check(init_peak < whole, f"{tag}: init peak {init_peak} bytes holds "
-          f"the whole parameter tree ({whole})")
+    check(init_peak < whole or not init_below_whole,
+          f"{tag}: init peak {init_peak} bytes holds the whole parameter "
+          f"tree ({whole})")
     step = train_step.make_train_step(model, ocfg,
-                                      ParallelConfig(remat=remat), mesh)
+                                      ParallelConfig(remat=remat), mesh,
+                                      seq_parallel=seq_parallel)
     source = train_source(model.cfg)
     recorder, clock = TrainRecorder(), CollectiveClock()
+    positions, block = set(), Model._block
+
+    def watched(self, p, x, *a, **kw):
+        positions.add(x.shape[1])
+        return block(self, p, x, *a, **kw)
     recorder.install()
     for fn in TRAIN_COUNTED:
         fn.launches = 0
     clock.install()
+    Model._block = watched
     losses, step_s = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        for i in range(DISTRIB_STEPS):
+        for i in range(n_steps):
             batch = train_batch(source, i)
             torch.cuda.synchronize()
             t0 = time.monotonic()
@@ -4112,6 +4203,7 @@ def sharded_steps(tag, model, mesh, remat):
             losses.append(float(met["loss"]))
             step_s.append(time.monotonic() - t0)
     finally:
+        Model._block = block
         clock.uninstall()
         recorder.uninstall()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4119,19 +4211,19 @@ def sharded_steps(tag, model, mesh, remat):
           f"{[round(s * 1e3, 2) for s in step_s]}, peak {peak:.2f} GiB, "
           f"collectives {clock.total('calls')} calls "
           f"{clock.total('seconds'):.3f}s {clock.total('bytes') / 1e9:.2f} "
-          f"GB; a step: {clock.line(DISTRIB_STEPS)}", flush=True)
+          f"GB; a step: {clock.line(n_steps)}", flush=True)
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"{tag}: losses {losses}")
-    per_step = check_train_launches(tag, model, recorder, DISTRIB_STEPS,
-                                    remat)
+    per_step = check_train_launches(tag, model, recorder, n_steps, remat)
     del state, step
     free_card()
     return {"losses": losses, "step_ms": [s * 1e3 for s in step_s],
             "peak_gib": peak, "init_peak_gib": init_peak / 2 ** 30,
             "stored_bytes": got,
             "bytes_per_device": want, "launches_a_step": per_step,
+            "stream_positions": sorted(positions),
             "collectives_a_step": {
-                kind: {k: v / DISTRIB_STEPS for k, v in rec.items()}
+                kind: {k: v / n_steps for k, v in rec.items()}
                 for kind, rec in clock.by_kind.items()},
             "collective_s": clock.total("seconds"),
             "collective_bytes": clock.total("bytes"),
@@ -4139,29 +4231,53 @@ def sharded_steps(tag, model, mesh, remat):
         recorder
 
 
-def distrib_parity_step(mesh, arch=MOE_ARCH):
-    """The sharded step's state after one step of ``arch`` (granite, or
-    qwen) at DISTRIB_PARITY layers, f32, TF32 off, DISTRIB_PARITY batch x
-    128, and the model, optimizer and batch it ran (every rank the same).
-    granite's capacity factor is 16 (dropless): capacity is per token
-    shard, so at 1.25 the shards drop other assignments than one process
-    does."""
+def distrib_parity_step(mesh, arch=MOE_ARCH, n_layers=None,
+                        seq_parallel=False):
+    """The sharded step's state after one step of ``arch`` (granite, qwen,
+    mamba2 or recurrentgemma) at ``n_layers`` (default DISTRIB_PARITY's)
+    layers, f32, TF32 off, DISTRIB_PARITY batch x 128, and the model,
+    optimizer and batch it ran (every rank the same).  granite's capacity
+    factor is 16 (dropless): capacity is per token shard, so at 1.25 the
+    shards drop other assignments than one process does."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    n_layers = n_layers or DISTRIB_PARITY["layers"]
     if arch == MOE_ARCH:
-        model = distrib_model(DISTRIB_PARITY["layers"], mesh,
-                              capacity_factor=16.0, compute_dtype="float32")
+        model = distrib_model(n_layers, mesh, capacity_factor=16.0,
+                              compute_dtype="float32")
     else:
         model = Model(configs.get(arch).replace(
-            n_layers=DISTRIB_PARITY["layers"], compute_dtype="float32"))
+            n_layers=n_layers, compute_dtype="float32"))
     ocfg = optim.OptConfig(warmup=1, decay_steps=1, eps=DISTRIB_PARITY_EPS)
     batch = train_batch(train_source(model.cfg, TRAIN_SEQ,
                                      DISTRIB_PARITY["batch"], seed=2), 0)
     par = ParallelConfig(remat="none")
     state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
-    state, met = train_step.make_train_step(model, ocfg, par, mesh)(state,
-                                                                    batch)
+    state, met = train_step.make_train_step(
+        model, ocfg, par, mesh, seq_parallel=seq_parallel)(state, batch)
     return model, ocfg, par, batch, state, float(met["loss"])
+
+
+def distrib_parity(rank, grid, tag, arch, n_layers=None,
+                   seq_parallel=False, everywhere=False):
+    """``distrib_parity_step`` of ``arch`` on every rank, then on rank 0
+    its gathered parameters against one process (``TRAIN_PARITY_TOL``);
+    the gathered parameters are kept on rank 0 only, unless
+    ``everywhere``, and every rank frees the rest first.  Returns (rank
+    0's parity, or None; the model, batch and gathered parameters)."""
+    model, ocfg, par, batch, state, loss = distrib_parity_step(
+        grid, arch, n_layers, seq_parallel)
+    free_card()
+    whole = gathered_params(model, state, grid, keep=everywhere or rank == 0)
+    del state
+    free_card()
+    parity = None
+    if rank == 0:
+        parity = parity_against_one_process(
+            f"distrib r0 {tag} parity ({n_layers or DISTRIB_PARITY['layers']}"
+            f" layers, f32)", model, ocfg, par, batch, whole, loss,
+            TRAIN_PARITY_TOL)
+    return parity, (model, batch, whole)
 
 
 def parity_against_one_process(tag, model, ocfg, par, batch, whole, loss,
@@ -4187,12 +4303,19 @@ def parity_against_one_process(tag, model, ocfg, par, batch, whole, loss,
     return loss_err, max(errs), same
 
 
-def gathered_params(model, state, mesh):
+def gathered_params(model, state, mesh, keep=True):
+    """Every parameter leaf put together from the ranks' blocks, leaf by
+    leaf (a collective each); a rank that does not ``keep`` them drops
+    each at once (None in its place)."""
     from repro_torch.distrib.sharding import gather_block, tree_specs
     specs = train_step.leaves_of(tree_specs(model.init(device="meta"),
                                             model.param_axes(), mesh))
-    return [gather_block(b, s, mesh).clone()
-            for b, s in zip(optim.leaves(state["params"]), specs)]
+    out = []
+    for b, s in zip(optim.leaves(state["params"]), specs):
+        w = gather_block(b, s, mesh)
+        out.append((w.clone() if w is b else w) if keep else None)
+        del w
+    return out
 
 
 def distrib_sp_decode(rank):
@@ -4336,7 +4459,7 @@ def distrib_pipeline(rank):
 def distrib_rank(rank: int, folder: str) -> int:
     """One rank of phase 3m (this script with ``--distrib-rank``): joins
     the gloo world through a FileStore in ``folder``, runs sub-checks
-    1-4 and the NCCL refusal, and rank 0 then checks and times the
+    1-1d and 2-4 and the NCCL refusal, and rank 0 then checks and times the
     kernels on its recorded inputs (phase 4) while the others wait;
     writes its results to ``folder/rank<rank>.json``."""
     import torch.distributed as dist
@@ -4351,23 +4474,16 @@ def distrib_rank(rank: int, folder: str) -> int:
     out = {"rank": rank}
     out["train"], recorder = distrib_train(grid, rank)
     out["tp_train"], tp_recorder = distrib_tp_train(grid, rank)
-    model, ocfg, par, batch, state, loss = distrib_parity_step(grid,
-                                                               TP_ARCH)
-    whole = gathered_params(model, state, grid)
-    del state
-    if rank == 0:
-        out["tp_parity"] = parity_against_one_process(
-            f"distrib r0 {TP_ARCH} parity ({DISTRIB_PARITY['layers']} "
-            f"layers, f32)", model, ocfg, par, batch, whole, loss,
-            TRAIN_PARITY_TOL)
-    del whole
-    model, ocfg, par, batch, state, loss = distrib_parity_step(grid)
-    whole = gathered_params(model, state, grid)
-    del state
-    if rank == 0:
-        out["parity"] = parity_against_one_process(
-            f"distrib r0 parity ({DISTRIB_PARITY['layers']} layers, f32)",
-            model, ocfg, par, batch, whole, loss, TRAIN_PARITY_TOL)
+    out["tp_parity"], _ = distrib_parity(rank, grid, TP_ARCH, TP_ARCH)
+    out["ssm_train"], ssm_recorder = distrib_ssm_train(grid, rank)
+    out["ssm_parity"], _ = distrib_parity(rank, grid, SSM_ARCH, SSM_ARCH)
+    out["sp_train"], sp_recorder = distrib_sp_train(grid, rank)
+    out["sp_parity"], _ = distrib_parity(
+        rank, grid, f"{SP_ARCH} sequence parallel", SP_ARCH, SP_LAYERS,
+        seq_parallel=True)
+    # every rank's gradient tree at the gathered weights: sub-check 3
+    out["parity"], (model, _, whole) = distrib_parity(
+        rank, grid, MOE_ARCH, MOE_ARCH, everywhere=True)
     out["sp_decode"], sp_inputs = distrib_sp_decode(rank)
     out["compress"] = distrib_compress(rank, model, whole,
                                        train_batch(train_source(
@@ -4390,6 +4506,8 @@ def distrib_rank(rank: int, folder: str) -> int:
     if rank == 0:                  # alone on the card: the others wait
         rows = phase_main_shapes(f"{MOE_ARCH} distrib", recorder)
         rows += phase_main_shapes(f"{TP_ARCH} distrib", tp_recorder)
+        rows += phase_main_shapes(f"{SSM_ARCH} distrib", ssm_recorder)
+        rows += phase_main_shapes(f"{SP_ARCH} distrib", sp_recorder)
         q, k_mine, v_mine, calls = sp_inputs
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         for name, launches, kw in calls:
@@ -4488,12 +4606,30 @@ def phase_distrib() -> list:
                "collectives_a_step":
                results[0]["tp_train"]["collectives_a_step"],
                "parity": results[0]["tp_parity"]},
+        **{name: {"arch": arch, "layers": layers,
+                  **{key: {r["rank"]: r[train][key] for r in results}
+                     for key in ("losses", "step_ms", "peak_gib",
+                                 "init_peak_gib", "stored_bytes",
+                                 "bytes_per_device", "collective_share",
+                                 "stream_positions")},
+                  "collective_gb_a_step":
+                  results[0][train]["collective_bytes"] / TP_REC_STEPS
+                  / 1e9,
+                  "collectives_a_step":
+                  results[0][train]["collectives_a_step"],
+                  "parity": results[0][parity]}
+           for name, arch, layers, train, parity in (
+               ("tp_ssm", SSM_ARCH, TP_SSM_LAYERS, "ssm_train",
+                "ssm_parity"),
+               ("sp", SP_ARCH, SP_LAYERS, "sp_train", "sp_parity"))},
         "sp_decode": results[0]["sp_decode"],
         "compress": {r["rank"]: r["compress"] for r in results},
         "pipeline": results[0]["pipeline"], "nccl_one_rank": nccl}
     print(f"distrib: phase 3m {wall:.1f}s wall, peak GiB by rank "
           f"{summary['peak_gib']}, {TP_ARCH} tensor parallel "
-          f"{summary['tp']['peak_gib']}")
+          f"{summary['tp']['peak_gib']}, {SSM_ARCH} "
+          f"{summary['tp_ssm']['peak_gib']}, {SP_ARCH} "
+          f"{summary['sp']['peak_gib']}")
     print("distrib " + json.dumps(summary))
     return results[0]["rows"]
 

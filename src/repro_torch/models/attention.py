@@ -19,8 +19,10 @@ partial outputs are summed by ``tp.leave``, and the kernel runs on the
 rank's H/n query heads and its key/value heads.  Where the model axis
 does not divide the key/value heads (MQA), they are whole on every rank:
 each rank projects only those its query heads read, and those leaves and
-the qk norms (applied to the rank's heads only) pass ``tp.enter``, which
-sums their partial gradients over the axis.
+the qk norms (applied to the rank's heads only) pass ``tp.shared``,
+which sums their partial gradients over the axis.  Under sequence
+parallelism ``tp.enter`` puts the sequence together first, so RoPE's
+positions, the window and the causal mask see the whole of it.
 
 A layer's KV cache is a pair of (B, T, Hkv, D) tensors.  Where the
 reference returns an updated copy, the chunk and decode paths here write
@@ -92,13 +94,13 @@ def _local(cfg: ModelConfig, p: dict, tp) -> dict:
     """``p`` as this rank's query heads use it under the heads' ``Split``
     ``tp`` (None: ``p`` itself): whole key/value leaves cut to the heads
     those query heads read, and every leaf whole on every rank passed
-    through ``tp.enter``."""
+    through ``tp.shared``."""
     if tp is None:
         return p
     out = dict(p)
     for name in ("q_norm", "k_norm"):
         if name in p:
-            out[name] = tp.enter(p[name])
+            out[name] = tp.shared(p[name])
     if p["wk"].shape[1] < cfg.n_kv_heads:          # split like the queries
         return out
     hl, group = p["wq"].shape[1], cfg.n_heads // cfg.n_kv_heads
@@ -116,7 +118,7 @@ def _local(cfg: ModelConfig, p: dict, tp) -> dict:
             return t.index_select(dim, heads)
     for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
         if name in p:
-            out[name] = take(tp.enter(p[name]), dim)
+            out[name] = take(tp.shared(p[name]), dim)
     return out
 
 
@@ -169,11 +171,10 @@ def attn_train(cfg: ModelConfig, p: dict, x, *, kind: str = "attn",
     0..S-1, no cache.  ``attention`` carries the gradient
     (``AttentionFunction``).  ``tp``: the heads' ``Split`` (see the
     module docstring), or None."""
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)[None, :]
     p = _local(cfg, p, tp)
     if tp is not None:
         x = tp.enter(x)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project(cfg, p, x, positions, kind)
     out = _out(cfg, p, _attend(cfg, q, k, v, kind, 0, causal, prefix_len))
     return out if tp is None else tp.leave(out)
@@ -260,5 +261,5 @@ def cross_kv(cfg: ModelConfig, p: dict, memory, tp=None):
     cache for decode.  Under ``tp``, this rank's key/value heads."""
     p = _local(cfg, p, tp)
     if tp is not None:
-        memory = tp.enter(memory)
+        memory = tp.shared(memory)
     return _project_kv(cfg, p, memory, None, "attn", use_rope=False)

@@ -10,6 +10,9 @@ computed in f32.
 The MLP, the embedding lookup and the loss take a ``tp``
 (``distrib.tensor_parallel.Split``) in the sharded training step: the
 MLP's ``mlp`` dim, or the vocabulary, is then this rank's slice of it.
+Under sequence parallelism the MLP's input and output and the lookup's
+rows are this rank's positions (``Split.enter`` / ``Split.leave``); the
+loss always takes the whole sequence.
 """
 from __future__ import annotations
 
@@ -178,7 +181,8 @@ def embed_tokens(cfg: ModelConfig, p: dict, tokens, tp=None):
     """The token rows (B,S,d) in the compute dtype.  Under ``tp`` the
     table holds this rank's slice of the vocabulary: the rank looks up
     the ids in its range, zeros the others, and ``tp.leave`` sums the
-    ranks' rows (one nonzero term each: the rows are exact)."""
+    ranks' rows (one nonzero term each: the rows are exact); under
+    sequence parallelism it keeps this rank's positions of the sum."""
     cdt = dtype_of(cfg.compute_dtype)
     if tp is None:
         h = p["embedding"][tokens.long()].to(cdt)
@@ -229,10 +233,10 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
     Under ``tp`` (vocabulary-parallel) each rank forms its (B,c,V/n)
     chunk of logits, softcap applied; the lse takes the max over the
     ranks (an all-reduce MAX, no gradient) and the sum of their
-    exponentials (``tp.leave``); the target logit comes from the rank
-    whose slice holds it (``tp.leave`` of one nonzero term).  The chunk's
-    input enters through ``tp.enter``, which sums its partial gradients.
-    Every rank then holds the same loss."""
+    exponentials (``tp.sum``); the target logit comes from the rank
+    whose slice holds it (``tp.sum`` of one nonzero term).  The chunk's
+    input, whole on every rank, passes ``tp.shared``, which sums its
+    partial gradients.  Every rank then holds the same loss."""
     B, S, _ = h.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -247,15 +251,15 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
                     [..., 0])
         m = all_reduce(logits.detach().amax(dim=-1), tp.mesh, tp.axis,
                        "max")
-        lse = m + torch.log(tp.leave(torch.exp(logits - m[..., None])
-                                     .sum(dim=-1)))
+        lse = m + torch.log(tp.sum(torch.exp(logits - m[..., None])
+                                   .sum(dim=-1)))
         ids, mine = _vocab_slice(tc, logits.shape[-1], tp)
         tgt = logits.gather(-1, ids[..., None])[..., 0]
-        return lse, tp.leave(tgt.masked_fill(~mine, 0.0))
+        return lse, tp.sum(tgt.masked_fill(~mine, 0.0))
 
     def body(hc, tc):
         if tp is not None:
-            hc = tp.enter(hc)
+            hc = tp.shared(hc)
         logits = unembed(cfg, p, hc)                      # (B,c,V) f32
         lse, tgt = lse_and_target(logits, tc)             # (B,c)
         valid = tc != ignore_id

@@ -9,6 +9,14 @@ per-channel affine functions of the conv output, as in the reference.
 Decode state: the LRU hidden (B,W) f32 and the conv tail (B,cw-1,W).  A
 prompt shorter than ``cw - 1`` tokens leaves a one-row conv tail, as in
 the reference (see ``ssd_block``).
+
+**Tensor parallel** (the sharded training step, ``tp``: a
+``distrib.tensor_parallel.Split`` of ``lru``): every leaf is on ``lru``,
+so the block is channel-parallel end to end.  ``w_gate`` and ``w_x`` are
+column-parallel, the conv, the gates and ``log_lambda`` hold this rank's
+W/n channels (the scan kernels run at W/n), ``w_out`` is row-parallel;
+the input enters through ``tp.enter`` and the partial output leaves
+through ``tp.leave``.
 """
 from __future__ import annotations
 
@@ -73,14 +81,18 @@ def _gates(p, u):
 
 
 def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
-                      want_cache: bool = False
+                      want_cache: bool = False, tp=None
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Train / prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None).
 
     Training runs the same algebra with gradients on: the conv promotes
     the branch to f32 against the f32 conv weights (its backward sums the
     ``cw`` shifted slices of one padded tensor in a fixed order), so the
-    recurrence, ``RGLRUFunction``, runs in f32 at any compute dtype."""
+    recurrence, ``RGLRUFunction``, runs in f32 at any compute dtype.
+    ``tp``: the ``lru`` channels' ``Split`` (see the module docstring);
+    a cache then holds this rank's channels."""
+    if tp is not None:
+        x = tp.enter(x)
     B, S, d = x.shape
     cw = cfg.rglru.conv_width
     gate, conv_in = _branches(cfg, p, x)
@@ -89,6 +101,8 @@ def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
     h, h_fin = rglru(u, r_pre, i_pre, p["log_lambda"], None)
     cdt = dtype_of(cfg.compute_dtype)
     out = (h.to(cdt) * gate) @ p["w_out"].to(cdt)
+    if tp is not None:
+        out = tp.leave(out)
     cache = None
     if want_cache:
         # a negative start (S < cw - 1) keeps one row, as the reference

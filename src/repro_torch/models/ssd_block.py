@@ -21,6 +21,21 @@ As in the reference, a prompt shorter than ``cw - 1`` tokens leaves a
 one-row conv tail (``u[:, S-(cw-1):]`` with a negative start); the
 engine writes that row to row 0 of the slot's tail and leaves the
 others as they were.
+
+**Tensor parallel** (the sharded training step, ``tp``: a
+``distrib.tensor_parallel.Split`` of ``inner`` and ``ssm_heads``): this
+rank computes its H/n heads.  ``wz``, ``wx`` and ``wdt`` are
+column-parallel, ``dt_bias``, ``A_log``, ``D`` and ``norm`` hold its
+share, ``wo`` is row-parallel and its partial output leaves through
+``tp.leave``; the input enters through ``tp.enter``.  ``wB``, ``wC``,
+``conv_w`` and ``conv_b`` are whole on every rank (every rank computes
+B and C) and pass ``tp.shared``, their partial gradients summed: the
+rank's conv runs on its slice of the xs channels and all the B/C
+channels, columns cut out of the whole ``conv_w``.  The kernels get the
+groups its heads read (``head_groups``).  The gated RMS norm runs over
+the whole ``d_in``: each rank's sum of squares is summed over the axis
+forward (``tp.sum``) and, since every rank's output reads every rank's
+y, its gradient is summed backward (``tp.shared``).
 """
 from __future__ import annotations
 
@@ -30,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distrib.tensor_parallel import head_groups
 from ..kernels.ssd import ssd, ssd_decode_step
 from .common import dense_init, dtype_of, ones_init, rms_norm, zeros_init
 
@@ -96,10 +112,30 @@ def _conv_step(u_t, tail, w, b):
     return y, window[:, 1:]
 
 
-def _split_conv_channels(cfg: ModelConfig, conv_out):
-    d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+def _split_conv_channels(cfg: ModelConfig, conv_out, d_in=None):
+    """(xs, B, C) of the conv's output; ``d_in``: the xs channels it holds
+    (default all)."""
+    full, _, _, G, N, _, _ = _dims(cfg)
+    d_in = d_in or full
     return (conv_out[..., :d_in], conv_out[..., d_in:d_in + G * N],
             conv_out[..., d_in + G * N:])
+
+
+def _local(cfg: ModelConfig, p: dict, tp) -> dict:
+    """``p`` as this rank's heads use it under ``tp``: the leaves whole on
+    every rank passed through ``tp.shared``, and the conv's columns cut
+    to this rank's xs channels and all the B/C channels."""
+    d_in = _dims(cfg)[0]
+    dl = p["wx"].shape[1]
+    out = dict(p)
+    for name in ("wB", "wC"):
+        out[name] = tp.shared(p[name])
+    for name in ("conv_w", "conv_b"):
+        t = tp.shared(p[name])
+        out[name] = torch.cat([t.narrow(-1, tp.rank * dl, dl),
+                               t.narrow(-1, d_in, t.shape[-1] - d_in)],
+                              dim=-1)
+    return out
 
 
 def _project(cfg: ModelConfig, p, x):
@@ -112,13 +148,26 @@ def _project(cfg: ModelConfig, p, x):
     return z, u, dt_raw
 
 
-def _finish(cfg, p, y_heads, z, shape):
+def _finish(cfg, p, y_heads, z, shape, tp=None):
     B, S = shape
     cdt = dtype_of(cfg.compute_dtype)
     y = y_heads.reshape(B, S, z.shape[-1])
-    y = rms_norm(y, p["norm"], cfg.norm_eps) * \
+    y = (rms_norm(y, p["norm"], cfg.norm_eps) if tp is None
+         else _split_rms_norm(cfg, y, p["norm"], tp)) * \
         F.silu(z.float()).to(cdt)
-    return y.to(cdt) @ p["wo"].to(cdt)
+    out = y.to(cdt) @ p["wo"].to(cdt)
+    return out if tp is None else tp.leave(out)
+
+
+def _split_rms_norm(cfg, y, weight, tp):
+    """``rms_norm`` over all of ``d_in`` where y (B,S,d_in/n) and
+    ``weight`` hold this rank's channels: the sum of squares summed over
+    the axis, its gradient summed back."""
+    yf = y.float()
+    ss = tp.shared(tp.sum((yf * yf).sum(dim=-1, keepdim=True)))
+    var = ss / (y.shape[-1] * tp.n)
+    return (yf * torch.rsqrt(var + cfg.norm_eps) * weight.float()).to(
+        y.dtype)
 
 
 def _decay_inputs(p, dt_raw):
@@ -128,18 +177,28 @@ def _decay_inputs(p, dt_raw):
 
 
 def ssd_block_apply(cfg: ModelConfig, p: dict, x, *,
-                    want_cache: bool = False
+                    want_cache: bool = False, tp=None
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None)."""
-    B, S, d = x.shape
+    """Prefill. x: (B,S,d). Returns (out, {"h", "conv"} or None).
+    ``tp``: the heads' ``Split`` (see the module docstring); a cache then
+    holds this rank's heads and conv channels."""
     d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    if tp is not None:
+        x = tp.enter(x)
+        p = _local(cfg, p, tp)
+    B, S, d = x.shape
     z, u, dt_raw = _project(cfg, p, x)
     conv_out = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
-    xs, Bm, Cm = _split_conv_channels(cfg, conv_out)
+    xs, Bm, Cm = _split_conv_channels(cfg, conv_out, z.shape[-1])
+    Bm, Cm = Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N)
+    if tp is not None:
+        # the groups this rank's heads read
+        g0, n_g = head_groups(H, G, tp.n, tp.rank)
+        Bm, Cm = Bm[:, :, g0:g0 + n_g], Cm[:, :, g0:g0 + n_g]
     dt, A = _decay_inputs(p, dt_raw)
-    y, h_fin = ssd(xs.reshape(B, S, H, Pd), dt, A, Bm.reshape(B, S, G, N),
-                   Cm.reshape(B, S, G, N), p["D"], None, chunk=cfg.ssm.chunk)
-    out = _finish(cfg, p, y, z, (B, S))
+    y, h_fin = ssd(xs.reshape(B, S, -1, Pd), dt, A, Bm, Cm, p["D"], None,
+                   chunk=cfg.ssm.chunk)
+    out = _finish(cfg, p, y, z, (B, S), tp)
     cache = None
     if want_cache:
         # a negative start (S < cw - 1) keeps one row, as the reference

@@ -116,6 +116,11 @@ def _split(tp: Optional[TensorParallel], where, sub: str):
     return None if tp is None else tp.split(tuple(where) + (sub,))
 
 
+def _on_stream(tp: Optional[TensorParallel], leaf):
+    """A norm's weight as the residual stream's layout applies it."""
+    return leaf if tp is None else tp.on_stream(leaf)
+
+
 class Model:
     """One architecture, parameterized by its config."""
 
@@ -252,12 +257,13 @@ class Model:
 
     # ----------------------------------------------------------------- block
     def _ffn(self, p: dict, h, aux: Optional[dict] = None,
-             tp: Optional[TensorParallel] = None, where=()):
+             tp: Optional[TensorParallel] = None, where=(), split=None):
         """The feed-forward half.  Serving (``aux`` None) runs MoE layers
         dropless and drops their aux losses; training runs them at the
         config's capacity factor and adds their aux losses to ``aux``;
         ``tp`` lays the layer at ``where`` out on a mesh: an MLP in
-        tensor parallel where its leaves are split, MoE layers through
+        tensor parallel where its leaves are split (``split``, where
+        given, in place of its own ``Split``), MoE layers through
         ``tp.moe`` (``models/moe.py``)."""
         if "moe" in p:
             y, a = moe_apply(self.cfg, p["moe"], h,
@@ -267,7 +273,8 @@ class Model:
                 for key in AUX_KEYS:
                     aux[key] = aux[key] + a[key]
             return y
-        return mlp(self.cfg, p["mlp"], h, tp=_split(tp, where, "mlp"))
+        return mlp(self.cfg, p["mlp"], h,
+                   tp=split or _split(tp, where, "mlp"))
 
     def _block(self, p: dict, x, mix, aux: Optional[dict] = None,
                mem_kv=None, tp: Optional[TensorParallel] = None, where=()):
@@ -275,12 +282,22 @@ class Model:
         or recurrence; training, prefill, chunk or decode); ``aux``,
         ``tp`` and ``where`` as ``_ffn``'s; ``mem_kv``, the cross
         attention's (K, V) of an encoder-decoder layer, is attended to
-        after the mixing half."""
+        after the mixing half.  Under ``tp`` the norms' weights pass
+        ``tp.on_stream``; a parallel block whose attention and MLP the
+        model axis both splits enters its input once and sums the two
+        halves' partials in one exit, ``mix(h, split=)`` then taking the
+        fused ``Split``."""
         cfg = self.cfg
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        a = mix(h)
+        h = rms_norm(x, _on_stream(tp, p["norm1"]), cfg.norm_eps)
         if cfg.parallel_block and ("mlp" in p or "moe" in p):
-            return x + a + self._ffn(p, h, aux, tp, where)
+            both = (_split(tp, where, "attn" if "attn" in p else "rec")
+                    if "mlp" in p else None)
+            if both is not None and _split(tp, where, "mlp") is not None:
+                hh, inner = both.enter(h), both.fused()
+                return x + both.leave(mix(hh, split=inner) + self._ffn(
+                    p, hh, aux, tp, where, split=inner))
+            return x + mix(h) + self._ffn(p, h, aux, tp, where)
+        a = mix(h)
         x = x + a
         if mem_kv is not None:
             x = x + cross_attn(cfg, p["cross"],
@@ -288,8 +305,8 @@ class Model:
                                *mem_kv, tp=_split(tp, where, "cross"))
         if "mlp" not in p and "moe" not in p:
             return x
-        return x + self._ffn(p, rms_norm(x, p["norm2"], cfg.norm_eps), aux,
-                             tp, where)
+        return x + self._ffn(p, rms_norm(x, _on_stream(tp, p["norm2"]),
+                                         cfg.norm_eps), aux, tp, where)
 
     def _embed_inputs(self, emb, tokens, frontend=None, tp=None):
         """(h, prefix_len): the token embeddings (``emb``: the embedding
@@ -336,8 +353,8 @@ class Model:
         return rms_norm(h, norm, cfg.norm_eps)
 
     def _final(self, params, h, tp: Optional[TensorParallel] = None):
-        return rms_norm(h, _gather(tp, params["final_norm"], ("final_norm",)),
-                        self.cfg.norm_eps)
+        norm = _gather(tp, params["final_norm"], ("final_norm",))
+        return rms_norm(h, _on_stream(tp, norm), self.cfg.norm_eps)
 
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch, *, remat: str = "block",
@@ -362,26 +379,35 @@ class Model:
         compute in tensor parallel (the vocabulary-parallel loss is the
         same on every rank of the model axis); the MoE layers run
         expert-parallel (``spmd.moe``) and their aux losses are over
-        every token of the mesh.
+        every token of the mesh.  Where ``spmd.stream`` splits the
+        residual stream over the sequence, each layer's input and output
+        are this rank's S/n positions (so is the embedding's output: the
+        vocabulary-parallel lookup reduce-scatters its sum, the
+        whole-vocabulary one looks up this rank's tokens only), the final
+        norm runs on them, and the loss on the hidden states put back
+        together.
         Returns (loss, {"ce", "z_loss", "tokens", "moe_lb", "moe_z",
         "loss"})."""
         cfg = self.cfg
         tp = spmd
         if remat not in ("none", "block"):
             raise ValueError(f"remat {remat!r}: 'none' or 'block'")
+        stream = None if tp is None else tp.stream
+        if stream is not None:
+            tp.check_seq_len(batch["tokens"].shape[1])
 
         def layer(p, h, kind, memory, where):
             p = _gather(tp, p, where)
             aux = {key: h.new_zeros((), dtype=torch.float32)
                    for key in AUX_KEYS}
             if kind in ATTN_KINDS:
-                def mix(x):
+                def mix(x, split=_split(tp, where, "attn")):
                     return attn_train(cfg, p["attn"], x, kind=kind,
-                                      prefix_len=prefix_len,
-                                      tp=_split(tp, where, "attn"))
+                                      prefix_len=prefix_len, tp=split)
             else:
-                def mix(x):
-                    return _RECURRENT[kind].prefill(cfg, p["rec"], x)[0]
+                def mix(x, split=_split(tp, where, "rec")):
+                    return _RECURRENT[kind].prefill(cfg, p["rec"], x,
+                                                    tp=split)[0]
             mem_kv = (None if memory is None
                       else cross_kv(cfg, p["cross"], memory,
                                     tp=_split(tp, where, "cross")))
@@ -392,8 +418,16 @@ class Model:
         # the tied table serves the lookup and the loss: gathered once
         emb = _gather(tp, params["embed"], ("embed",))
         vocab = _split(tp, (), "embed")
-        h, prefix_len = self._embed_inputs(emb, batch["tokens"], frontend,
-                                           tp=vocab)
+        if stream is not None and vocab is None:
+            # the whole vocabulary: this rank's positions looked up, the
+            # table's partial gradient summed
+            s = batch["tokens"].shape[1] // stream.n
+            h, prefix_len = self._embed_inputs(
+                dict(emb, embedding=stream.shared(emb["embedding"])),
+                batch["tokens"][:, stream.rank * s:(stream.rank + 1) * s])
+        else:
+            h, prefix_len = self._embed_inputs(emb, batch["tokens"],
+                                               frontend, tp=vocab)
         memory = (self._encode(params, emb, frontend, remat, tp)
                   if self.is_encdec else None)
         aux = [h.new_zeros((), dtype=torch.float32) for _ in AUX_KEYS]
@@ -405,9 +439,12 @@ class Model:
             else:
                 h, *a = layer(p, h, kind, memory, where)
             aux = [x + y for x, y in zip(aux, a)]
-        loss, metrics = chunked_ce_loss(
-            cfg, emb, self._final(params, h, tp), batch["targets"],
-            z_coef=z_coef, chunk=ce_chunk, tp=vocab)
+        h = self._final(params, h, tp)
+        if stream is not None:
+            h = stream.whole(h)
+        loss, metrics = chunked_ce_loss(cfg, emb, h, batch["targets"],
+                                        z_coef=z_coef, chunk=ce_chunk,
+                                        tp=vocab)
         for key, value in zip(AUX_KEYS, aux):
             loss = loss + value
             metrics[key] = value

@@ -24,21 +24,32 @@ keeps this rank's rows (split over the data-parallel axes), then runs
 (``distrib/tensor_parallel.py``):
 
 1. each layer gathers its leaves as it runs, over the data axes only
-   (``GatherFromAxes``; a recurrent block's over the model axis too),
-   and again in its recompute under remat "block": a rank holds one
-   layer's gathered leaves at a time beside its blocks and the
-   embedding's, which is gathered once for the lookup and the loss;
+   (``GatherFromAxes``; a recurrent block that the model axis does not
+   split, over the model axis too), and again in its recompute under
+   remat "block": a rank holds one layer's gathered leaves at a time
+   beside its blocks and the embedding's, which is gathered once for
+   the lookup and the loss;
 2. attention (on the rank's heads), the MLPs and the shared experts
-   (on the rank's slice of ``mlp``), the embedding and the loss (on its
-   slice of the vocabulary) compute in tensor parallel over the model
-   axis where it splits them; the MoE layers run expert-parallel
-   (``MoESpmd``); SSD and RG-LRU blocks run whole on every rank;
-3. each gradient reaches its stored block through its gather's
+   (on the rank's slice of ``mlp``), the SSD blocks (on its heads and
+   its slice of ``inner``), the RG-LRU blocks (on its ``lru``
+   channels), the embedding and the loss (on its slice of the
+   vocabulary) compute in tensor parallel over the model axis where it
+   splits them; the MoE layers run expert-parallel (``MoESpmd``); a
+   recurrent block that the model axis splits in part is refused;
+3. with ``seq_parallel`` (off unless asked for, as in the reference's
+   step; ``seq_parallel_for`` is the reference's rule for a wide dense
+   model) the residual stream between the sub-layers holds the rank's
+   S/n positions: a sub-layer's input is all-gathered over the model
+   axis along the sequence and its output reduce-scattered back, the
+   norms' weights' gradients are summed over the model axis, and the
+   loss sees the whole sequence;
+4. each gradient reaches its stored block through its gather's
    backward: a reduce-scatter over the data axes (for gloo with CUDA
    tensors an all-reduce that keeps the block, ``collective_form``),
    then divided by the data ranks: the mean over the token shards;
-4. AdamW runs on the blocks, its clip reading the gradient norm over
-   every rank's blocks.
+5. AdamW runs on the blocks, its clip reading the gradient norm over
+   every rank's blocks (each block counted once over the ranks that
+   hold a copy of it).
 
 Every collective runs in the forward or in an autograd node's backward,
 so every rank issues them in the same order.
@@ -169,7 +180,8 @@ def loss_and_grads(model: Model, params, batch, *, remat: str, spmd=None):
 
 
 def make_train_step(model: Model, opt_cfg: optim.OptConfig,
-                    par: ParallelConfig, mesh=None) -> Callable:
+                    par: ParallelConfig, mesh=None,
+                    seq_parallel: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the state
     is updated in place and returned; ``batch`` holds ``tokens`` and
     ``targets`` (B,S) on the state's device (and ``frontend``
@@ -177,9 +189,14 @@ def make_train_step(model: Model, opt_cfg: optim.OptConfig,
     ``par.microbatches``.  With a ``mesh`` the state is the sharded one
     of ``init_state(..., mesh=mesh)``, ``batch`` is the global batch (B
     divisible by the data-parallel ranks times the microbatches), and
-    the metrics are the global batch's."""
+    the metrics are the global batch's; ``seq_parallel`` splits the
+    residual stream over the sequence (S divisible by the model axis;
+    see the module docstring)."""
     if mesh is not None:
-        return _sharded_step(model, opt_cfg, par, mesh)
+        return _sharded_step(model, opt_cfg, par, mesh, seq_parallel)
+    if seq_parallel:
+        raise ValueError("make_train_step: sequence parallelism needs a "
+                         "mesh")
     n_micro = max(par.microbatches, 1)
 
     def train_step(state, batch):
@@ -227,7 +244,8 @@ def _accumulate(model, params, batch, par, n_micro, spmd=None):
 
 
 def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
-                  par: ParallelConfig, mesh) -> Callable:
+                  par: ParallelConfig, mesh, seq_parallel: bool
+                  ) -> Callable:
     """The step on a mesh (see the module docstring)."""
     if opt_cfg.name != "adamw":
         raise ValueError(f"make_train_step: the sharded step runs AdamW, "
@@ -237,7 +255,8 @@ def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
     dp = dp_axes(mesh)
     n_dp = mesh.axis_size(dp)
     tp = TensorParallel(model, mesh, dp, par.tensor_axis,
-                        moe=make_moe_spmd(cfg, par, mesh))
+                        moe=make_moe_spmd(cfg, par, mesh),
+                        seq_parallel=seq_parallel)
     ex = tp.moe.expert_axis if tp.moe is not None else None
     flat_specs = leaves_of(tp.specs)
     for spec, names in zip(flat_specs, leaves_of(model.param_axes())):

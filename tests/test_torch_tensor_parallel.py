@@ -16,12 +16,18 @@ the unsharded yardsticks run in this process on the same inputs.
   and ``ReduceScatterToAxes`` forward and backward against numpy.
 * Attention on the rank's heads (MHA with QKV biases, GQA, MQA with a
   window, GQA whose key/value heads the model axis does not divide,
-  groups cut across ranks, qk-norm, cross attention) and the column- and
-  row-parallel MLPs (SwiGLU, GeGLU, GELU, squared ReLU), f32: the output,
-  the input's gradient and every leaf's gradient (split leaves put back
-  together, whole leaves on every rank) within 1e-5 of the largest
-  entry of the unsharded ones (the key bias's, zero in exact
-  arithmetic, of the input gradient's).
+  groups cut across ranks, qk-norm, cross attention), the column- and
+  row-parallel MLPs (SwiGLU, GeGLU, GELU, squared ReLU), the SSD block
+  on the rank's heads (one group; two groups, whole on a model axis of
+  2 and one a rank on 4; one rank's channels 30 times the others', so
+  that a gated norm over the local channels alone would fail) and the
+  RG-LRU block on its channels, f32: the output, the input's gradient
+  and every leaf's gradient (split leaves put back together, whole
+  leaves on every rank) within 1e-5 of the largest entry of the
+  unsharded ones (the key bias's, zero in exact arithmetic, of the input
+  gradient's); the SSD and RG-LRU outputs also within 1e-5 of the
+  reference's ``ssd_block_apply`` / ``rglru_block_apply`` (``impl="ref"``)
+  on the same weights.
 * The vocabulary-parallel lookup (bitwise, f32 and bf16 with the embed
   scale) and ``chunked_ce_loss`` (tied and untied tables, softcap,
   z-loss, ``ignore_id`` targets, a padded last chunk): loss and metrics
@@ -33,18 +39,22 @@ the unsharded yardsticks run in this process on the same inputs.
   2e-4, every parameter after 1 and 3 steps within 1e-5, stored bytes
   ``bytes_per_device``'s): deepseek-moe-16b (shared expert, dense first
   layer), paligemma-3b (MQA, the VLM frontend), recurrentgemma-9b
-  (attention beside whole RG-LRU blocks), mamba2-1.3b (the
-  vocabulary-parallel loss around SSD blocks), seamless-m4t-large-v2
-  (cross attention), each on both meshes; and qwen1.5-0.5b with a
-  vocabulary of 509, which the model axis does not divide (every rank
-  runs the whole-vocabulary loss).
+  (attention beside tensor-parallel RG-LRU blocks), mamba2-1.3b
+  (tensor-parallel SSD blocks and the vocabulary-parallel loss),
+  seamless-m4t-large-v2 (cross attention), each on both meshes; and
+  qwen1.5-0.5b with a vocabulary of 509, which the model axis does not
+  divide (every rank runs the whole-vocabulary loss).
 * The gathers' scope, through ``TensorParallel.gathers`` and a
   subclass that watches each gathered leaf: under remat "block" no leaf
-  of an attention, MLP, MoE layer
-  or embedding is gathered over the model axis (a recurrent block's
-  is), and when a part gathers, no other layer still holds a gathered
-  leaf (the embedding, gathered once, aside).
+  is gathered over the model axis (recurrent blocks included, now that
+  the model axis splits them), and when a part gathers, no other layer
+  still holds a gathered leaf (the embedding, gathered once, aside).
+* Without ranks: a recurrent block that the model axis splits in part
+  (``inner`` but not ``ssm_heads``), and SSD heads that would cut a
+  group across ranks, refuse; a model axis that splits none of a
+  block's dims runs it whole.
 """
+import dataclasses
 import math
 from types import SimpleNamespace
 
@@ -65,6 +75,10 @@ from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.common import (chunked_ce_loss,  # noqa: E402
                                        embed_tokens, mlp, mlp_axes,
                                        mlp_params)
+from repro_torch.models.rglru_block import (rglru_axes,  # noqa: E402
+                                            rglru_block_apply, rglru_params)
+from repro_torch.models.ssd_block import (ssd_axes,  # noqa: E402
+                                          ssd_block_apply, ssd_params)
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.optim import leaves  # noqa: E402
 from repro_torch.train.step import (init_state,  # noqa: E402
@@ -99,7 +113,16 @@ LAYERS = {
     "mlp-geglu": ("gemma3-12b", {}, "mlp", None),
     "mlp-gelu": ("seamless-m4t-large-v2", {}, "mlp", None),
     "mlp-relu2": ("nemotron-4-340b", {}, "mlp", None),
+    "ssd": ("mamba2-1.3b", {}, "ssd", None),
+    "ssd-groups": ("mamba2-1.3b", dict(ssm=dict(ngroups=2)), "ssd", None),
+    "ssd-norm": ("mamba2-1.3b", {}, "ssd", "norm"),
+    "rglru": ("recurrentgemma-9b", {}, "rglru", None),
 }
+RECURRENT = {"ssd": (ssd_params, ssd_axes, ssd_block_apply),
+             "rglru": (rglru_params, rglru_axes, rglru_block_apply)}
+# the recurrent blocks' leaves drawn at a constant (0 or 1), moved off it
+OFF_INIT = ("dt_bias", "D", "norm", "conv_b", "a_gate_w", "a_gate_b",
+            "i_gate_w", "i_gate_b")
 LB, LS = 2, 12
 
 # ---- the vocabulary: config fields, untied head, chunk, z_coef
@@ -123,7 +146,7 @@ B, S = 8, 16
 
 # ---- the gathers' scope
 SCOPE = ("qwen1.5-0.5b", "deepseek-moe-16b", "recurrentgemma-9b",
-         "seamless-m4t-large-v2")
+         "seamless-m4t-large-v2", "mamba2-1.3b")
 # parts whose gathered leaves live across layers: the embedding (the
 # lookup and the loss) and an encoder's final norm (kept by the norm of
 # the memory every decoder layer reads)
@@ -171,22 +194,41 @@ def _np(t):
     return t.detach().float().numpy()
 
 
+def _cfg(arch, over):
+    """Reduced ``arch`` with ``over`` (its ``ssm`` a dict of SSM fields)."""
+    over = dict(over)
+    cfg = configs.reduced(arch)
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    return cfg.replace(**over)
+
+
 def _layer_inputs(name, mesh):
     arch, over, what, kind = LAYERS[name]
-    cfg = configs.reduced(arch).replace(compute_dtype="float32", **over)
+    over = dict(over, compute_dtype="float32")
+    cfg = _cfg(arch, over)
     gen = torch.Generator().manual_seed(5)
     p = (mlp_params(cfg, gen) if what == "mlp"
+         else RECURRENT[what][0](cfg, gen) if what in RECURRENT
          else attn.attn_params(cfg, gen))
     rng = np.random.default_rng(5)
     params = {}
     for key, t in p.items():
         a = t.numpy()
-        if key.startswith(("b", "q_norm", "k_norm")):
+        if key.startswith(("b", "q_norm", "k_norm")) or (
+                what in RECURRENT and key in OFF_INIT):
             # biases and norm weights away from their 0 / 1 init
             a = a + rng.standard_normal(a.shape).astype(np.float32) * 0.3
         params[key] = a
+    if kind == "norm":
+        # the first quarter of the xs channels (one rank's, or half of
+        # one) 30 times the rest: the gated norm's sum of squares differs
+        # across ranks
+        d_in = params["wx"].shape[1]
+        params["wx"] = params["wx"].copy()
+        params["wx"][:, :d_in // 4] *= 30.0
     d = cfg.d_model
-    case = dict(arch=arch, over=dict(over, compute_dtype="float32"),
+    case = dict(arch=arch, over=over,
                 what=what, kind=kind, mesh=mesh, params=params,
                 x=rng.standard_normal((LB, LS, d)).astype(np.float32),
                 gy=rng.standard_normal((LB, LS, d)).astype(np.float32))
@@ -344,11 +386,13 @@ def test_gather_and_reduce_scatter_rules(run, name):
 # the layers
 # ---------------------------------------------------------------------------
 def _unsharded_layer(case):
-    cfg = configs.reduced(case["arch"]).replace(**case["over"])
+    cfg = _cfg(case["arch"], case["over"])
     p = {k: torch.from_numpy(v).requires_grad_()
          for k, v in case["params"].items()}
     x = torch.from_numpy(case["x"]).requires_grad_()
-    if case["what"] == "mlp":
+    if case["what"] in RECURRENT:
+        y = RECURRENT[case["what"]][2](cfg, p, x)[0]
+    elif case["what"] == "mlp":
         y = mlp(cfg, p, x)
     elif case["what"] == "cross":
         mem = torch.from_numpy(case["memory"]).requires_grad_()
@@ -384,7 +428,8 @@ def test_layer_matches_unsharded(run, layer, mesh):
     case = args["layers"][name]
     cfg, want = _unsharded_layer(case)
     axes_tree = (mlp_axes(cfg) if case["what"] == "mlp"
-                 else attn.attn_axes(cfg))
+                 else RECURRENT[case["what"]][1](cfg)
+                 if case["what"] in RECURRENT else attn.attn_axes(cfg))
     row = [r for r in range(4) if _coords(r, mesh)["data"] == 0]
     for res in ranks:
         got = res["layers"][name]
@@ -392,6 +437,11 @@ def test_layer_matches_unsharded(run, layer, mesh):
         assert _rel(got["dx"], want["dx"]) <= TOL
         if "dmem" in want:
             assert _rel(got["dmem"], want["dmem"]) <= TOL
+    if case["what"] in RECURRENT:
+        ref = _reference_block(case)
+        assert _rel(want["y"], ref) <= TOL
+        for res in ranks:
+            assert _rel(res["layers"][name]["y"], ref) <= TOL
     for key, g in want["grads"].items():
         # a key bias adds one logit to every key a query sees: its
         # gradient is zero in exact arithmetic, both sides' noise held
@@ -401,6 +451,24 @@ def test_layer_matches_unsharded(run, layer, mesh):
         for joined in _put_together(name, axes_tree[key], g.shape, ranks,
                                     key, mesh, row):
             assert np.abs(joined - g).max() <= TOL * scale, key
+
+
+def _reference_block(case):
+    """The reference's SSD or RG-LRU block (its sequential oracle) on the
+    case's weights and input."""
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import rglru_block, ssd_block
+    over = dict(case["over"])
+    cfg = ref_configs.reduced(case["arch"])
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    cfg = cfg.replace(**over)
+    apply = (ssd_block.ssd_block_apply if case["what"] == "ssd"
+             else rglru_block.rglru_block_apply)
+    y, _ = apply(cfg, {k: jnp.asarray(v) for k, v in case["params"].items()},
+                 jnp.asarray(case["x"]), impl="ref")
+    return np.asarray(y)
 
 
 def test_kv_heads_the_model_axis_does_not_divide_are_whole():
@@ -556,10 +624,11 @@ def test_dense_leaves_are_gathered_over_the_data_axis_only(run, arch):
         for key, n in gathers.items():
             sub, axes = key.split("|")
             assert n > 0
-            assert axes == ("data,model" if sub == "rec" else "data"), key
+            assert axes == "data", key
         subs = {k.split("|")[0] for k in gathers}
         assert {"embed", "norm1"} <= subs
-        assert ("rec" in subs) == (arch == "recurrentgemma-9b")
+        assert ("rec" in subs) == (arch in ("recurrentgemma-9b",
+                                             "mamba2-1.3b"))
 
 
 @pytest.mark.parametrize("arch", SCOPE)
@@ -570,3 +639,43 @@ def test_one_layer_of_gathered_leaves_at_a_time(run, arch):
         assert got["n_gathers"] > 0
         late = [w for w in got["others"] if set(w) - set(KEPT)]
         assert not late, late[:5]
+
+
+# ---------------------------------------------------------------------------
+# recurrent blocks the model axis splits in part, or not at all
+# ---------------------------------------------------------------------------
+def _layout(cfg, model_axis):
+    mesh = SimpleNamespace(shape={"data": 1, "model": model_axis},
+                           coords={"data": 0, "model": 0})
+    return TensorParallel(Model(cfg), mesh, ("data",), "model")
+
+
+def test_a_partial_split_of_a_recurrent_block_refuses():
+    """mamba2 with heads of 64 on a model axis of 4: ``inner`` (128)
+    splits, ``ssm_heads`` (2) does not."""
+    cfg = _cfg("mamba2-1.3b", dict(ssm=dict(head_dim=64)))
+    with pytest.raises(ValueError, match=r"splits .*wz\[inner\].* but not "
+                       r".*wdt\[ssm_heads\]"):
+        _layout(cfg, 4)
+    # on 2 both split: the block runs in tensor parallel
+    assert _layout(cfg, 2).split(("layers", 0, "rec")) is not None
+
+
+def test_ssd_heads_that_cut_a_group_refuse():
+    """24 heads in 12 groups of 2 on a model axis of 8: 3 heads a rank
+    read parts of two groups."""
+    cfg = _cfg("mamba2-1.3b", dict(d_model=192, ssm=dict(ngroups=12)))
+    with pytest.raises(ValueError, match="groups"):
+        _layout(cfg, 8)
+    assert _layout(cfg, 4).split(("layers", 0, "rec")) is not None
+
+
+def test_a_block_the_model_axis_does_not_split_runs_whole():
+    """An RG-LRU width of 66 does not divide by 4: every leaf of the block
+    whole over the model axis, gathered over it (``same``)."""
+    cfg = _cfg("recurrentgemma-9b", {}).replace(
+        rglru=dataclasses.replace(configs.reduced(
+            "recurrentgemma-9b").rglru, lru_width=66))
+    tp = _layout(cfg, 4)
+    assert tp.split(("layers", 0, "rec")) is None
+    assert tp.split(("layers", 0, "mlp")) is not None

@@ -190,6 +190,7 @@ def _step_case(rank, mesh, case):
     model = _step_model(case["arch"], case["mesh"], case.get("over"))
     ocfg = optim.OptConfig(**case["opt"])
     par = ParallelConfig(remat=case["remat"])
+    seq = case.get("seq_parallel", False)
     state = init_state(model, ocfg, 0, device="cpu", mesh=mesh)
     stored = {"params": [tuple(t.shape) for t in leaves(state["params"])],
               "m": [tuple(t.shape) for t in leaves(state["opt"]["m"])],
@@ -198,7 +199,7 @@ def _step_case(rank, mesh, case):
                            + leaves(state["opt"]["m"])
                            + leaves(state["opt"]["v"])
                            + [state["opt"]["count"]])}
-    step = make_train_step(model, ocfg, par, mesh)
+    step = make_train_step(model, ocfg, par, mesh, seq_parallel=seq)
     specs = leaves_of(tree_specs(model.init(device="meta"),
                                  model.param_axes(), mesh))
     losses, snaps = [], {}
@@ -288,17 +289,24 @@ def _grads(tree):
 
 
 def _layer_case(mesh, case):
-    """One attention or MLP sub-layer on the rank's share of the model
-    axis (``Split``), forward and backward."""
+    """One attention, MLP, SSD or RG-LRU sub-layer on the rank's share of
+    the model axis (``Split``), forward and backward."""
     from repro_torch.distrib.tensor_parallel import Split
     from repro_torch.models import attention as attn
     from repro_torch.models.common import mlp, mlp_axes
+    from repro_torch.models.rglru_block import rglru_axes, rglru_block_apply
+    from repro_torch.models.ssd_block import ssd_axes, ssd_block_apply
     cfg = _tp_cfg(case)
     split = Split(mesh, "model")
     x = _t(case["x"]).requires_grad_()
     gy = _t(case["gy"])
     out = {}
-    if case["what"] == "mlp":
+    if case["what"] in ("ssd", "rglru"):
+        axes, apply = ((ssd_axes, ssd_block_apply) if case["what"] == "ssd"
+                       else (rglru_axes, rglru_block_apply))
+        p = _local_params(case["params"], axes(cfg), mesh)
+        y = apply(cfg, p, x, tp=split)[0]
+    elif case["what"] == "mlp":
         p = _local_params(case["params"], mlp_axes(cfg), mesh)
         y = mlp(cfg, p, x, tp=split)
     elif case["what"] == "cross":
@@ -317,8 +325,14 @@ def _layer_case(mesh, case):
 
 
 def _tp_cfg(case):
+    """The case's reduced config, ``over`` replacing its fields (an
+    ``ssm`` dict replacing the SSM config's)."""
     from repro_torch import configs
-    return configs.reduced(case["arch"]).replace(**case["over"])
+    over = dict(case["over"])
+    cfg = configs.reduced(case["arch"])
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    return cfg.replace(**over)
 
 
 def _vocab_case(mesh, case):
@@ -415,4 +429,109 @@ def tensor_parallel(rank, world, args):
     for name, case in args["steps"].items():
         out["steps"][name] = _step_case(rank, meshes[case["mesh"]], case)
     out["coords"] = {shape: dict(m.coords) for shape, m in meshes.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the steps, the stream's shard, the collectives
+# ---------------------------------------------------------------------------
+class _Counted:
+    """Every collective of ``torch.distributed`` the port calls, counted
+    by kind: calls and the bytes of the larger of its first two tensors
+    (as ``chip_smoke.py``'s ``CollectiveClock``, ``tools/tp_bytes.py``)."""
+
+    KINDS = ("all_reduce", "all_gather_single", "all_gather_into_tensor",
+             "reduce_scatter_single", "reduce_scatter_tensor")
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.dist, self.by_kind, self._orig = dist, {}, {}
+
+    def __enter__(self):
+        for kind in self.KINDS:
+            if hasattr(self.dist, kind):
+                self._orig[kind] = getattr(self.dist, kind)
+                setattr(self.dist, kind, self._wrap(kind, self._orig[kind]))
+        return self
+
+    def _wrap(self, kind, fn):
+        def counted(*a, **kw):
+            rec = self.by_kind.setdefault(kind, {"calls": 0, "bytes": 0})
+            rec["calls"] += 1
+            rec["bytes"] += max(t.numel() * t.element_size()
+                                for t in a[:2] if torch.is_tensor(t))
+            return fn(*a, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for kind, fn in self._orig.items():
+            setattr(self.dist, kind, fn)
+
+
+def _shard_case(mesh, case):
+    """One remat "block" forward and backward of the sequence-parallel
+    layout, each block's residual-stream input (its positions) recorded
+    in the forward and in the recompute."""
+    from repro_torch.models import Model
+    from repro_torch.train.step import loss_and_grads
+    model = _step_model(case["arch"], case["mesh"])
+    tp, blocks = _layout(model, mesh, True)
+    seen = []
+    block = Model._block
+
+    def watched(self, p, x, *a, **kw):
+        seen.append(tuple(x.shape))
+        return block(self, p, x, *a, **kw)
+    rows = {k: local_block(_t(v), ("data",), mesh)
+            for k, v in case["batch"].items()}
+    Model._block = watched
+    try:
+        loss_and_grads(model, blocks, rows, remat="block", spmd=tp)
+    finally:
+        Model._block = block
+    return dict(inputs=seen, layers=model.cfg.n_layers)
+
+
+def _layout(model, mesh, seq_parallel):
+    """(the step's ``TensorParallel`` layout, this rank's stored blocks)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distrib.tensor_parallel import TensorParallel
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_moe_spmd
+    tp = TensorParallel(model, mesh, ("data",), "model",
+                        moe=make_moe_spmd(model.cfg, ParallelConfig(), mesh),
+                        seq_parallel=seq_parallel)
+    blocks = init_state(model, optim.OptConfig(), 0, device="cpu",
+                        mesh=mesh)["params"]
+    return tp, blocks
+
+
+def _count_case(mesh, case):
+    """The collectives of one sharded step, counted by kind."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import Model
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch import configs
+    model = Model(configs.reduced(case["arch"]))
+    ocfg = optim.OptConfig()
+    state = init_state(model, ocfg, 0, device="cpu", mesh=mesh)
+    step = make_train_step(model, ocfg, ParallelConfig(remat=case["remat"]),
+                           mesh, seq_parallel=case["seq_parallel"])
+    batch = {k: _t(v) for k, v in case["batch"].items()}
+    with _Counted() as counted:
+        step(state, batch)
+    return counted.by_kind
+
+
+def seq_parallel(rank, world, args):
+    meshes = {shape: Mesh(shape, ("data", "model"), backend="gloo")
+              for shape in args["meshes"]}
+    out = {"steps": {}, "shard": {}, "counts": {}}
+    for name, case in args["shard"].items():
+        out["shard"][name] = _shard_case(meshes[case["mesh"]], case)
+    for name, case in args["counts"].items():
+        out["counts"][name] = _count_case(meshes[case["mesh"]], case)
+    for name, case in args["steps"].items():
+        out["steps"][name] = _step_case(rank, meshes[case["mesh"]], case)
     return out

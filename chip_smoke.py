@@ -251,6 +251,31 @@ Phases, in order; any failure exits non-zero:
       ``ReduceScatterToAxes`` over its one-rank data axis, which NCCL
       runs in the direct form (its all-gather and reduce-scatter calls,
       counted).  A ``distrib {json}`` line sums up.
+   n. (after m) Serving on a mesh: 4 rank subprocesses
+      (``--serve-rank``) on the one card over gloo, mesh (data 2, model
+      2), ``Model.prefill`` / ``decode_step`` with ``spmd=``:
+      qwen1.5-0.5b at full width and depth, bf16, 4 prompts of 512 (2 a
+      rank) into a cache of 1024 (512 positions a rank), then
+      ``SERVE_STEPS`` greedy decode steps; then granite-moe-3b-a800m at
+      16 layers (expert-parallel), mamba2-1.3b at 12 and
+      recurrentgemma-9b at 3 (rec, rec, local) with the same prompts and
+      cache and 4 steps each (``SERVE_RUNS``; MoE prefill at capacity
+      factor 2.0).  On every rank prefill launches attention (the
+      rank's heads), the router and the combine (the rank's experts),
+      the SSD (its heads) and the RG-LRU (its channels) once a layer,
+      and each decode step the attention partial of
+      ``sp_decode_attention`` once an attention layer; prefill ms,
+      decode ms a token, all-reduces and their bytes a step and each
+      rank's peak memory printed.  Parity: each arch at 2
+      layers (recurrentgemma 3) in f32, TF32 off, against one process's
+      unsharded prefill and decode (``SERVE_PARITY_TOL`` of the largest
+      logit, greedy tokens equal).  Memory: each rank's peak of each run
+      beside the dry run's ``peak_bytes`` of the same cells, traced in a
+      subprocess of this script (``launch/dryrun.py``, a fake world of 4)
+      in the direct form and with gathers in the all-reduce form gloo
+      takes here, within ``SERVE_MEM_TOL`` of the direct form's.  Rank
+      0 then checks and times its recorded kernel inputs (phase 4).  A
+      ``serve {json}`` line sums up.
    d. mamba2-1.3b and e. recurrentgemma-9b serving at full width: the
       launcher's ``--demo``, then in place of sessions a long-prompt
       phase: four prompts of 600, 1100, 2000 and 2600 tokens at once
@@ -300,6 +325,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import queue
 import subprocess
 import sys
@@ -323,6 +349,10 @@ from repro_torch.core.types import MercuryError, Ret  # noqa: E402
 from repro_torch.kernels import SOURCES  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.cost import (  # noqa: E402
+    attn_bwd_bound, bound_ms, combine_bound, combine_bwd_bound,
+    combine_kept, fletcher_bound, rglru_bound, rglru_bwd_bound, router_bound,
+    router_bwd_bound, ssd_bound, ssd_bwd_bound, visible)
 from repro_torch.kernels import fletcher as fl  # noqa: E402
 from repro_torch.kernels import moe_combine as kc  # noqa: E402
 from repro_torch.kernels import moe_router as kr  # noqa: E402
@@ -330,6 +360,7 @@ from repro_torch.kernels import rglru as krg  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.configs.base import ATTN_KINDS, ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
+from repro_torch.distrib.sharding import local_block  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention as attn_layer  # noqa: E402
@@ -351,10 +382,6 @@ HYBRID_ARCH = "recurrentgemma-9b"
 VLM_ARCH = "paligemma-3b"
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 FRONTEND_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
-HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
-                  torch.float32: 67e12}    # f32 outside the tensor cores
-TF32_OPS_PER_S = 495e12                    # dense TF32 tensor cores
 # attention's error, element by element: |got - want| <= TOL + ULP *
 # |want|.  Both sides round the output to its dtype, so they may part by
 # one unit in the last place, 2^-7 of the value in bf16: past |want| = 4
@@ -561,51 +588,6 @@ def host_read_ms(fn, flush, iters: int = 5) -> float:
     return total / iters
 
 
-def bound_of(nbytes: float, ops: float, dtype, peak=None) -> tuple:
-    """(least ms, "bytes" | "operations"): bytes over 3.35 TB/s or
-    operations over ``peak`` (default the dtype's), whichever is
-    larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / (PEAK_OPS_PER_S[dtype] if peak is None else peak)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def visible(S: int, T: int, offsets, causal: bool, window: int, prefix,
-            device="cpu") -> torch.Tensor:
-    """(B, S, T) mask of the (query, key) pairs the masks leave visible."""
-    qpos = torch.tensor(offsets, device=device)[:, None, None] + \
-        torch.arange(S, device=device)[None, :, None]
-    kpos = torch.arange(T, device=device)[None, None, :]
-    m = torch.ones(len(offsets), S, T, dtype=torch.bool, device=device)
-    if causal:
-        cm = kpos <= qpos
-        if prefix is not None:
-            cm = cm | (kpos < prefix)
-        m = m & cm
-    if window > 0:
-        m = m & (kpos > qpos - window)
-    return m
-
-
-def bound_ms(q, k, offsets, causal, window, prefix):
-    """Attention's least time: bytes (q read, the K/V rows some query can
-    see read once, the output written) or operations (2·D multiply-adds
-    per visible pair, for Q·Kᵀ and P·V), counted for this run's
-    offsets."""
-    B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    elt = q.element_size()
-    kv_rows = 0
-    for off in offsets:
-        last = T if not causal else min(T, max(off + S, prefix or 0))
-        first = max(0, off - window + 1) if window > 0 else 0
-        kv_rows += max(last - first, 0)
-    nbytes = 2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt
-    pairs = int(visible(S, T, offsets, causal, window, prefix).sum())
-    return bound_of(nbytes, 4 * D * Hq * pairs, q.dtype)
-
-
 def sdpa_ms(q, k, v, offsets, causal, window, prefix, flush):
     """``scaled_dot_product_attention`` on the same inputs and masks, as a
     yardstick only (the port never calls it)."""
@@ -690,18 +672,6 @@ def attention_case(name, B, S, T, Hq, Hkv, D, dtype, *, causal=True,
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off,
               prefix_len=prefix)
     return check_kernel(name, q, k, v, kw, flush, n_split)
-
-
-def attn_bwd_bound(q, k, kw):
-    """The backward's least time: bytes (q, k, v, o, dO and lse read once,
-    dq, dk and dv written once) or operations (2.5x the forward's 4·D
-    multiply-adds per visible pair), at the dtype's peak."""
-    B, S, Hq, D = q.shape
-    elt = q.element_size()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * elt + B * Hq * S * 4
-    pairs = int(visible(S, k.shape[1], [0] * B, kw["causal"], kw["window"],
-                        kw["prefix_len"]).sum())
-    return bound_of(nbytes, 2.5 * 4 * D * Hq * pairs, q.dtype)
 
 
 def sdpa_args(q, k, v, kw):
@@ -1023,9 +993,8 @@ def check_router(name, logits, k, n_real=None, capacity=None, e_start=0,
         # logits read; probs, w, idx, slot, src, load, prob_sum and z_sum
         # written; per element a max, an exp, a sum, a divide and a
         # compare per round
-        row["bound_ms"], row["bound_by"] = bound_of(
-            8 * T * E + 12 * T * k + 4 * e_local * capacity + 8 * E + 4,
-            (4 + 2 * k) * T * E, torch.float32)
+        row["bound_ms"], row["bound_by"] = router_bound(T, E, k, e_local,
+                                                        capacity)
     print("kernel-check", json.dumps(row))
     return row
 
@@ -1053,26 +1022,6 @@ def _scan_row(kernel, name, shape, got, want, dtype):
     return {"kernel": kernel, "case": name, "shape": shape,
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
             "tol": tol, "ok": ok}
-
-
-def ssd_bound(x, B, has_D, has_h0):
-    """The SSD's least time: bytes (x, dt, B and C read once, y written,
-    A, D, h0 read and h_final written) or operations of the function,
-    not of an algorithm for it: per token and head, the recurrent form's
-    P.N multiply-adds of the state update and P.N of C.h^T, plus P for
-    the D skip, at 2 operations a multiply-add.  A chunked algorithm's
-    in-chunk C.B^T and score.x products are not counted: they are work
-    that a chunk length chooses (a longer chunk does more of it), not
-    work the function needs.  The kernels' products run on the tensor
-    cores in 3xTF32 (f32 and bf16 inputs alike), so the operations count
-    at TF32's peak."""
-    Bb, S, H, P = x.shape
-    N = B.shape[3]
-    elt = x.element_size()
-    nbytes = (2 * x.numel() + 2 * B.numel()) * elt + 4 * Bb * S * H \
-        + 4 * H * (1 + has_D) + 4 * Bb * H * P * N * (1 + has_h0)
-    fma = Bb * S * H * (2 * P * N + P * has_D)
-    return bound_of(nbytes, 2 * fma, x.dtype, peak=TF32_OPS_PER_S)
 
 
 def check_ssd(name, x, dt, A, B, C, D, h0, chunk, flush=None):
@@ -1127,14 +1076,6 @@ def grad_errors(got, want):
     scaled = max(e / m if m > 0 else (0.0 if e == 0 else math.inf)
                  for e, m in zip(errs, tops))
     return scaled, errs, tops
-
-
-def router_bwd_bound(T, E, k):
-    """logits and probs read, idx, w and dw read, dprob_sum and dz_sum
-    read, dlogits written; per element a max, an exp, a sum and a
-    multiply-add or two (8 operations), at the CUDA cores' f32 rate."""
-    nbytes = 12 * T * E + 12 * T * k + 4 * E + 4
-    return bound_of(nbytes, 8 * T * E + 4 * T * k, torch.float32)
 
 
 def check_router_bwd(name, logits, probs, idx, w, dw, dprob_sum, dz_sum,
@@ -1199,25 +1140,6 @@ def router_bwd_case(name, T, E, k, *, n_real=None, cf=1.25, flush=None,
     print("kernel-check router_bwd autograd", name, json.dumps(
         {k_: row[k_] for k_ in ("autograd_err", "dropped", "same_picks")}))
     return row
-
-
-def ssd_bwd_bound(x, B, has_D, has_h0, has_dh, nc):
-    """The SSD backward's least time: bytes (x, dy, B, C, dt read, the
-    forward's entering states and decays read, A, D, h0 and dh_final
-    read; dx, dB, dC, ddt, dA, dD written) or operations of the recurrent form's backward:
-    per token and head 5 P.N multiply-adds (dh += dy (x) C, dC = h^T dy,
-    dx = dh B, dB = dh^T x, the decay's sum of dh * h) and 2 P for D, at
-    2 operations a multiply-add.  As the forward's bound, at TF32's peak
-    (3xTF32 keeps f32 accuracy on the tensor cores)."""
-    Bb, S, H, P = x.shape
-    N = B.shape[3]
-    elt = x.element_size()
-    nbytes = (3 * x.numel() + 4 * B.numel()) * elt + 8 * Bb * S * H \
-        + 4 * H * (2 + 2 * has_D) + 4 * Bb * H * P * N * (has_h0 + has_dh)
-    if nc > 1:
-        nbytes += 4 * Bb * nc * H * (P * N + 1)
-    fma = Bb * S * H * (5 * P * N + 2 * P * has_D)
-    return bound_of(nbytes, 2 * fma, x.dtype, peak=TF32_OPS_PER_S)
 
 
 def check_ssd_bwd(name, x, dt, A, B, C, D, h0, dy, dh, states, decay,
@@ -1306,32 +1228,6 @@ def ssd_bwd_case(name, B, S, H, P, G, N, dtype, *, use_D=True,
     _, _, states, decay = kssd._ssd_cuda(x, dt, A, Bm, Cm, D, h0, keep=True)
     return check_ssd_bwd(name, x, dt, A, Bm, Cm, D, h0, dy, dh, states,
                          decay, flush, with_dh0=with_dh0)
-
-
-def rglru_bound(x, has_h0, nc_kept=1):
-    """The RG-LRU's least time: bytes (x and two gates read, h written,
-    lambda and h0 read, h_final written; training's forward also writes
-    the f32 states entering its ``nc_kept`` > 1 chunks) or operations, 15
-    an element (two sigmoids of an exp, an add and a divide; three
-    multiplies, two exps, a subtract, a max, a sqrt, a multiply-add)."""
-    Bb, S, W = x.shape
-    nbytes = 4 * x.numel() * x.element_size() + 4 * W \
-        + 4 * Bb * W * (1 + has_h0) + 4 * Bb * W * nc_kept * (nc_kept > 1)
-    return bound_of(nbytes, 15 * x.numel(), x.dtype)
-
-
-def rglru_bwd_bound(x, has_h0, has_dh, nc):
-    """The RG-LRU backward's least time: bytes (x, the two gates and dh
-    read, dx and the gates' gradients written, in x's dtype; lambda, h0,
-    dh_final and the forward's kept states read, dlambda and dh0 written,
-    f32; the kernel's own scratch, the chunk pairs and dlambda partials,
-    not counted) or operations, 30 an element (the forward's 15 to
-    rebuild h and a, and the reverse step's products: g, dx, di, dlog a,
-    dr, the partial), at the CUDA cores' f32 rate."""
-    Bb, S, W = x.shape
-    nbytes = 7 * x.numel() * x.element_size() + 8 * W \
-        + 4 * Bb * W * (has_h0 + has_dh + 1) + 4 * Bb * W * nc * (nc > 1)
-    return bound_of(nbytes, 30 * x.numel(), torch.float32)
 
 
 def check_rglru_bwd(name, x, rg, ig, ll, h0, dh, dh_final, states,
@@ -1504,12 +1400,7 @@ def check_fletcher(name, xs, flush=None, flips=()):
         row["plain_ms"] = host_read_ms(lambda: fl.fletcher64_many_plain(xs),
                                        flush)
         row["library_ms"] = None
-        # every byte and the table (3 words a shard and one) read once,
-        # 8 bytes a shard written; two integer multiply-adds a word (s1
-        # and sum i*w), counted at the CUDA cores' f32 rate
-        words = sum((x.numel() * x.element_size() + 3) // 4 for x in xs)
-        row["bound_ms"], row["bound_by"] = bound_of(
-            nbytes + 32 * len(xs) + 8, 2 * words, torch.float32)
+        row["bound_ms"], row["bound_by"] = fletcher_bound(xs)
         del batch
     print("kernel-check", json.dumps(row))
     return row
@@ -1524,35 +1415,6 @@ def fletcher_words(n, seed=0):
 # ---------------------------------------------------------------------------
 # kernel against its plain version: the MoE combine and its backward
 # ---------------------------------------------------------------------------
-def combine_kept(slot, n_slots) -> int:
-    return int((slot < n_slots).sum())
-
-
-def combine_bound(out_buf, slot):
-    """The kept rows of out_buf read, w and slot read, y written; a
-    multiply-add per kept element, at the CUDA cores' f32 rate."""
-    (n_slots, d), (T, k) = out_buf.shape, slot.shape
-    size = out_buf.element_size()
-    kept = combine_kept(slot, n_slots)
-    return bound_of(kept * d * size + 8 * T * k + T * d * size,
-                    2 * kept * d, torch.float32)
-
-
-def combine_bwd_bound(out_buf, slot, E):
-    """dy and the kept rows of out_buf read, every row of d_out_buf
-    written; w, slot, idx, src, logits and probs read, dlogits written;
-    per kept element a multiply-add (dw) and a multiply (d_out), and the
-    router's row (router_bwd_bound's operations), at the CUDA cores' f32
-    rate."""
-    (n_slots, d), (T, k) = out_buf.shape, slot.shape
-    size = out_buf.element_size()
-    kept = combine_kept(slot, n_slots)
-    nbytes = ((T + kept + n_slots) * d * size + 12 * T * k + 4 * n_slots
-              + 12 * T * E + 4 * E + 4)
-    return bound_of(nbytes, 3 * kept * d + 8 * T * E + 4 * T * k,
-                    torch.float32)
-
-
 def differ_share(got, want) -> float:
     """The share of the bf16 outputs' entries that differ at all (0.0 for
     f32, which COMBINE_TOL alone holds)."""
@@ -1810,6 +1672,70 @@ def backward_rows(flush):
     return rows
 
 
+def head_dim_192_cases() -> list:
+    """nemotron-4-340b's head dim 192, which the kernels have no tile for
+    and run zero-padded to 256 (the dry run's nemotron cells lean on
+    it): the forward, its lse and the backward against the plain
+    versions, bf16 and f32, at its 6 / 2 reduced heads."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(attention_case("nemotron-hd192", B=2, S=256, T=256,
+                                   Hq=6, Hkv=2, D=192, dtype=dtype))
+        rows.append(bwd_case("nemotron-hd192-bwd", 2, 160, 6, 2, 192, True,
+                             0, 0.0, None, dtype=dtype))
+    return rows
+
+
+# the sequence-parallel decode partial at phase 3n's shapes (qwen, a
+# rank's 2 rows, every head against its 512 of 1024 keys): the query's
+# offset in the rank's block before it (no key visible: lse -1e30, o 0),
+# part-way into it, at its start and past its end
+SP_PARTIAL = dict(B=2, T=512, Hq=16, Hkv=16, D=64)
+SP_PARTIAL_OFFSETS = ([-1, -512], [-3, 200], [0, 511], [37, 600])
+
+
+def sp_partial_cases() -> list:
+    """``attention_fwd``'s o and lse, as ``sp_decode_attention``'s partial
+    calls it (causal at the query's offset in the rank's block of keys),
+    against ``attention_fwd_plain``: bf16 unsplit and at 4 key splits,
+    f32; a row that sees no key must give lse -1e30 and o 0."""
+    B, T, Hq, Hkv, D = (SP_PARTIAL[k] for k in ("B", "T", "Hq", "Hkv", "D"))
+    rows = []
+    for dtype, splits in ((torch.bfloat16, (1, 4)), (torch.float32, (1,))):
+        for i, offsets in enumerate(SP_PARTIAL_OFFSETS):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(i)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for shape in
+                       ((B, 1, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+            off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+            kw = dict(causal=True, window=0, softcap=0.0, prefix_len=None,
+                      q_offset=off)
+            want_o, want_lse = fa.attention_fwd_plain(q, k, v, **kw)
+            for n_split in splits:
+                o, lse = fa._attention_cuda(q, k, v, n_split=n_split,
+                                            with_lse=True, **kw)
+                torch.cuda.synchronize()
+                o_err = float((o.float() - want_o.float()).abs().max())
+                lse_err = float((lse - want_lse).abs().max())
+                blind = [j for j, t in enumerate(offsets) if t < 0]
+                empty_ok = all(bool((lse[j] == fa.NEG_INF).all())
+                               and not bool(o[j].any()) for j in blind)
+                row = {"kernel": "flash_attention",
+                       "case": f"sp-partial-off{offsets}",
+                       "shape": f"B{B} S1 T{T} Hq{Hq} Hkv{Hkv}",
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "n_split": n_split, "max_abs_err": o_err,
+                       "lse_err": lse_err, "tol": TOL[dtype],
+                       "lse_tol": LSE_TOL, "empty_rows": blind,
+                       "empty_rows_ok": empty_ok,
+                       "ok": (o_err <= TOL[dtype] and lse_err <= LSE_TOL
+                              and empty_ok)}
+                print("kernel-check", json.dumps(row))
+                rows.append(row)
+    return rows
+
+
 def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1839,6 +1765,8 @@ def phase_kernels():
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(attention_case(name, dtype=dtype, flush=flush,
                                        **shape))
+    rows += head_dim_192_cases()
+    rows += sp_partial_cases()
     for i, case in enumerate(ATTN_SWEEP):
         S, T, Hq, Hkv, D, causal, window, softcap, prefix, _ = case
         Sc = min(24, S // 2)
@@ -2003,16 +1931,21 @@ class MainPathRecorder:
         rec["launches"] += launches
         rec["inputs"] = inputs
 
+    @staticmethod
+    def _copy(t):
+        """A recorded input's copy (None stays None)."""
+        return None if t is None else t.clone()
+
     def _attention(self, q, k, v, **kw):
         before = fa.attention.launches
         out = fa.attention(q, k, v, **kw)
         B, S, Hq, D = q.shape
         off = kw["q_offset"]
-        off = off.clone() if torch.is_tensor(off) else off
+        off = self._copy(off) if torch.is_tensor(off) else off
         self._record(("flash_attention", self.kind, B, S, k.shape[1], Hq,
                       k.shape[2], D, q.dtype, mask_tag(kw)),
                      fa.attention.launches - before,
-                     (q.clone(), k.clone(), v.clone(),
+                     (self._copy(q), self._copy(k), self._copy(v),
                       dict(kw, q_offset=off)))
         return out
 
@@ -2025,7 +1958,7 @@ class MainPathRecorder:
         self._record(("moe_router", self.kind) + tuple(logits.shape)
                      + (k, n_real, capacity),
                      kr.router_dispatch.launches - before,
-                     (logits.clone(), k, n_real, capacity))
+                     (self._copy(logits), k, n_real, capacity))
         return out
 
     def _combine(self, out_buf, w, slot):
@@ -2034,25 +1967,25 @@ class MainPathRecorder:
         self._record(("moe_combine", self.kind) + tuple(slot.shape)
                      + tuple(out_buf.shape) + (out_buf.dtype,),
                      kc.moe_combine.launches - before,
-                     (out_buf.clone(), w.clone(), slot.clone()))
+                     tuple(map(self._copy, (out_buf, w, slot))))
         return out
 
     def _ssd(self, x, dt, A, B, C, D=None, h0=None, *, chunk=256):
         before = kssd.ssd.launches
         out = kssd.ssd(x, dt, A, B, C, D, h0, chunk=chunk)
-        clone = (lambda t: None if t is None else t.clone())
         self._record(("ssd", self.kind) + tuple(x.shape) + tuple(B.shape[2:])
                      + (x.dtype,), kssd.ssd.launches - before,
-                     tuple(map(clone, (x, dt, A, B, C, D, h0))) + (chunk,))
+                     tuple(map(self._copy, (x, dt, A, B, C, D, h0)))
+                     + (chunk,))
         return out
 
     def _rglru(self, x, r_gate, i_gate, log_lambda, h0=None):
         before = krg.rglru.launches
         out = krg.rglru(x, r_gate, i_gate, log_lambda, h0)
-        clone = (lambda t: None if t is None else t.clone())
         self._record(("rglru", self.kind) + tuple(x.shape) + (x.dtype,),
                      krg.rglru.launches - before,
-                     tuple(map(clone, (x, r_gate, i_gate, log_lambda, h0))))
+                     tuple(map(self._copy, (x, r_gate, i_gate, log_lambda,
+                                            h0))))
         return out
 
     def by_kind(self, kernel):
@@ -4532,51 +4465,9 @@ def phase_distrib() -> list:
     card over gloo with CUDA tensors (the kernels built here first, the
     card's memory freed), then the one-rank NCCL check here.  Returns
     rank 0's phase 4 rows with its launches."""
-    import tempfile
     free_card()
     t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(prefix="distrib-") as folder:
-        procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--distrib-rank", str(r), "--distrib-dir", folder],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(DISTRIB_RANKS)]
-        tails = [[] for _ in procs]
-
-        def pump(i):
-            for line in procs[i].stdout:
-                line = line.rstrip("\n")
-                tails[i] = (tails[i] + [line])[-40:]
-                if i == 0 or line.startswith("distrib ") or "Error" in line:
-                    sys.stdout.write(line + "\n")
-                    sys.stdout.flush()
-        readers = [threading.Thread(target=pump, args=(i,), daemon=True)
-                   for i in range(len(procs))]
-        for t in readers:
-            t.start()
-        deadline = time.monotonic() + DISTRIB_LIMIT_S
-        try:
-            while any(p.poll() is None for p in procs):
-                failed = [i for i, p in enumerate(procs) if p.poll()]
-                check(not failed, f"distrib: rank {failed} failed (rc "
-                      f"{[procs[i].returncode for i in failed]}):\n"
-                      + "\n".join(tails[failed[0]] if failed else []))
-                check(time.monotonic() < deadline,
-                      f"distrib: ranks still running after "
-                      f"{DISTRIB_LIMIT_S}s")
-                time.sleep(0.2)
-            for t in readers:
-                t.join(timeout=10)
-            bad = [i for i, p in enumerate(procs) if p.returncode]
-            check(not bad, f"distrib: rank {bad} failed:\n"
-                  + "\n".join(tails[bad[0]] if bad else []))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait(timeout=60)
-        results = [json.loads(Path(folder, f"rank{r}.json").read_text())
-                   for r in range(DISTRIB_RANKS)]
+    results = run_rank_procs("--distrib-rank", "distrib ", DISTRIB_LIMIT_S)
     wall = time.monotonic() - t0
     nccl = nccl_one_rank()
     summary = {
@@ -4631,6 +4522,423 @@ def phase_distrib() -> list:
           f"{summary['tp_ssm']['peak_gib']}, {SP_ARCH} "
           f"{summary['sp']['peak_gib']}")
     print("distrib " + json.dumps(summary))
+    return results[0]["rows"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: serving on a mesh, four ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+SERVE_MESH = (2, 2)                 # (data, model)
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 4, 512, 1024
+SERVE_STEPS = 16                    # qwen's greedy decode steps
+SERVE_STEPS_CUT = 4                 # granite's, mamba2's, recurrentgemma's
+# (arch, layers, decode steps): the other three take 4 steps, not 16, for
+# the phase's time: a decode step gathers every layer's leaves over the
+# data axis, a gloo call each through the host (on one H100 over gloo:
+# qwen 2.4-3.7 s a token, granite 5.9-7.4, mamba2 1.2-2.1,
+# recurrentgemma 4.3-6.8)
+SERVE_RUNS = ((ARCH, None, SERVE_STEPS), (MOE_ARCH, 16, SERVE_STEPS_CUT),
+              (SSM_ARCH, 12, SERVE_STEPS_CUT), (HYBRID_ARCH, 3, SERVE_STEPS_CUT))
+SERVE_CF = 2.0                      # MoE prefill's capacity factor, as the
+                                    # dry run's (the reference's) cells
+SERVE_PARITY = ((ARCH, 2), (MOE_ARCH, 2), (SSM_ARCH, 2), (HYBRID_ARCH, 3))
+SERVE_PARITY_STEPS = 2
+SERVE_PARITY_TOL = 1e-4             # of the largest logit, f32
+SERVE_MEM_TOL = 0.10                # a rank's peak against the dry run's
+SERVE_LIMIT_S = 600.0
+SERVE_DRY = """
+import json, sys
+from repro_torch import configs
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distrib import collectives as coll
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+B, S, T = map(int, sys.argv[1:4])
+dryrun.fake_world(4)
+mesh = Mesh((2, 2), ("data", "model"), backend="fake")
+out = {}
+for form in ("direct", "all_reduce"):
+    if form == "all_reduce":
+        coll.collective_form = lambda mesh, x: "all_reduce"
+    for arch, layers in json.loads(sys.argv[4]):
+        cfg = configs.get(arch)
+        cfg = cfg.replace(n_layers=layers or cfg.n_layers)
+        for kind, seq, cache in (("prefill", S, T), ("decode", T, None)):
+            _, peak, _ = dryrun.trace_production(
+                arch, ShapeSpec(name="serve", kind=kind, seq_len=seq,
+                                global_batch=B), mesh, cfg=cfg,
+                cache_len=cache)
+            out.setdefault(arch, {})[f"{kind}/{form}"] = peak
+print("DRYPEAK " + json.dumps(out))
+"""
+
+
+def serve_model(arch, n_layers, mesh, **over):
+    """``arch`` at full width, ``n_layers`` deep (None: all), a MoE
+    config's experts padded to the model axis."""
+    cfg = configs.get(arch)
+    cfg = cfg.replace(n_layers=n_layers or cfg.n_layers, **over)
+    if not cfg.moe.num_experts:
+        return Model(cfg)
+    return Model(cfg, e_pad=moe_layer.padded_experts(cfg,
+                                                     mesh.shape["model"]))
+
+
+def serve_layout(model, mesh):
+    """The batch over the data axis, the experts over the model axis."""
+    from repro_torch.distrib.tensor_parallel import TensorParallel
+    moe = None
+    if model.cfg.moe.num_experts:
+        moe = moe_layer.MoESpmd(mesh=mesh, token_axes=("data",),
+                                expert_axis="model")
+    return TensorParallel(model, mesh, ("data",), "model", moe=moe)
+
+
+def serve_blocks(model, tp, seed=0):
+    """This rank's blocks of the seeded weights, drawn a part at a
+    time."""
+    return model.init(seed, device="cuda", keep=lambda path, part:
+                      train_step._blocks(part, tp.spec_at(path), tp.mesh))
+
+
+def serve_prompts(cfg, seed=5):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randint(1, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=gen, device="cuda")
+
+
+def serve_greedy(model, params, toks, steps, **kw):
+    """(prefill logits, decode logits (steps, B, V), greedy tokens)."""
+    logits, cache = model.prefill(params, toks, cache_len=SERVE_CACHE,
+                                  **kw.get("prefill", {}))
+    nxt, outs, picked = logits.argmax(-1), [], []
+    for i in range(steps):
+        picked.append(nxt)
+        out, cache = model.decode_step(params, cache, nxt[:, None],
+                                       SERVE_PROMPT + i,
+                                       **kw.get("decode", {}))
+        outs.append(out)
+        nxt = out.argmax(-1)
+    return logits, torch.stack(outs), torch.stack(picked, 1)
+
+
+def serve_counts() -> dict:
+    return {"flash_attention": fa.attention.launches,
+            "moe_router": kr.router_dispatch.launches,
+            "moe_combine": kc.moe_combine.launches,
+            "ssd": kssd.ssd.launches, "rglru": krg.rglru.launches}
+
+
+class ServeRecorder(MainPathRecorder):
+    """``MainPathRecorder`` that also records the attention partial of
+    ``sp_decode_attention`` (the kernel's forward with lse), under the
+    entry point ``"decode sp"``, and holds its copies on the host, so
+    that the rank's peak on the card is its serving path's own;
+    ``to_card`` moves them back for phase 4."""
+
+    @staticmethod
+    def _copy(t):
+        return None if t is None else t.detach().to("cpu")
+
+    def to_card(self):
+        def card(x):
+            if torch.is_tensor(x):
+                return x.to("cuda")
+            return {k: card(v) for k, v in x.items()} \
+                if isinstance(x, dict) else x
+        for rec in self.seen.values():
+            rec["inputs"] = tuple(map(card, rec["inputs"]))
+
+    def install(self):
+        super().install()
+        from repro_torch.distrib import collectives as dcoll
+        dcoll.attention_fwd = self._partial
+
+    def uninstall(self):
+        super().uninstall()
+        from repro_torch.distrib import collectives as dcoll
+        dcoll.attention_fwd = fa.attention_fwd
+
+    def _partial(self, q, k, v, **kw):
+        before = fa.attention.launches
+        out = fa.attention_fwd(q, k, v, **kw)
+        B, S, Hq, D = q.shape
+        off = kw.get("q_offset", 0)
+        off = self._copy(off) if torch.is_tensor(off) else off
+        kw = dict(kw, q_offset=off)
+        self._record(("flash_attention", "decode sp", B, S, k.shape[1], Hq,
+                      k.shape[2], D, q.dtype, mask_tag(kw)),
+                     fa.attention.launches - before,
+                     (self._copy(q), self._copy(k), self._copy(v), kw))
+        return out
+
+
+def serve_run(mesh, rank, arch, n_layers, steps, recorder=None):
+    """One arch's sharded prefill and ``steps`` greedy decode steps in
+    bf16: times, collectives, peaks and launches, each checked."""
+    import torch.distributed as dist
+    from repro_torch.distrib import collectives as dcoll
+    model = serve_model(arch, n_layers, mesh)
+    cfg = model.cfg
+    tp = serve_layout(model, mesh)
+    blocks = serve_blocks(model, tp)
+    toks = local_block(serve_prompts(cfg), ("data",), mesh)
+    n = {"flash_attention": sum(k in ATTN_KINDS for k in model.kinds),
+         "ssd": sum(k == "ssd" for k in model.kinds),
+         "rglru": sum(k == "rglru" for k in model.kinds)}
+    n["moe_router"] = n["moe_combine"] = (
+        cfg.n_layers - model.prefix_count if cfg.moe.num_experts else 0)
+    if recorder is not None:
+        recorder.install()
+    try:
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        before = serve_counts()
+        t0 = time.perf_counter()
+        with dcoll.record() as pre_recs:
+            logits, cache = model.prefill(blocks, toks,
+                                          cache_len=SERVE_CACHE, spmd=tp,
+                                          capacity_factor=SERVE_CF)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_peak = torch.cuda.max_memory_allocated()
+        mid = serve_counts()
+        torch.cuda.reset_peak_memory_stats()
+        nxt = logits.argmax(-1)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with dcoll.record() as dec_recs:
+            for i in range(steps):
+                out, cache = model.decode_step(
+                    blocks, cache, nxt[:, None], SERVE_PROMPT + i, spmd=tp,
+                    cache_len=SERVE_CACHE)
+                nxt = out.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+        decode_peak = torch.cuda.max_memory_allocated()
+        after = serve_counts()
+    finally:
+        if recorder is not None:
+            recorder.uninstall()
+    prefill_n = {k: mid[k] - before[k] for k in n}
+    decode_n = {k: after[k] - mid[k] for k in n}
+    want_decode = dict(n, ssd=0, rglru=0)
+    check(prefill_n == n, f"serve {arch}: prefill launches {prefill_n}, "
+          f"want one a layer {n}")
+    check(decode_n == {k: v * steps for k, v in want_decode.items()},
+          f"serve {arch}: {steps} decode steps launched {decode_n}, want "
+          f"{want_decode} a step")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(out).all()),
+          f"serve {arch}: logits not finite")
+    reduces = [r for r in dec_recs if r["op"] == "all-reduce"]
+    res = {"arch": arch, "layers": cfg.n_layers, "steps": steps,
+           "prefill_ms": prefill_ms, "decode_ms_a_token": decode_ms,
+           "prefill_peak": prefill_peak, "decode_peak": decode_peak,
+           "prefill_collectives": len(pre_recs),
+           "prefill_bytes": sum(r["result_bytes"] for r in pre_recs),
+           "all_reduces_a_step": len(reduces) / steps,
+           "all_reduce_bytes_a_step":
+           sum(r["result_bytes"] for r in reduces) / steps,
+           "collectives_a_step": len(dec_recs) / steps,
+           "prefill_launches": prefill_n, "decode_launches": decode_n,
+           "cache": {k: list(v.shape) for k, v in cache.items()}}
+    print(f"serve r{rank} {arch} ({cfg.n_layers} layers): prefill "
+          f"{prefill_ms:.1f} ms, decode {decode_ms:.1f} ms a token, "
+          f"{res['all_reduces_a_step']:g} all-reduces of "
+          f"{res['all_reduce_bytes_a_step'] / 1e9:.4f} GB a step "
+          f"({res['collectives_a_step']:g} collectives), peak "
+          f"{prefill_peak / 2**30:.2f} / {decode_peak / 2**30:.2f} GiB, "
+          f"launches prefill {prefill_n} decode {decode_n}", flush=True)
+    del blocks, cache, logits, out
+    free_card()
+    return res
+
+
+def serve_parity(mesh, rank, arch, n_layers):
+    """``arch`` at ``n_layers`` in f32, TF32 off: this rank's rows of the
+    sharded prefill and decode against one process's unsharded ones."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = serve_model(arch, n_layers, mesh, compute_dtype="float32")
+    tp = serve_layout(model, mesh)
+    toks = serve_prompts(model.cfg, seed=6)
+    whole = serve_greedy(model, model.init(0, device="cuda"), toks,
+                         SERVE_PARITY_STEPS)
+    free_card()
+    got = serve_greedy(model, serve_blocks(model, tp),
+                       local_block(toks, ("data",), mesh),
+                       SERVE_PARITY_STEPS, prefill={"spmd": tp},
+                       decode={"spmd": tp, "cache_len": SERVE_CACHE})
+    b = SERVE_BATCH // mesh.shape["data"]
+    i = mesh.coords["data"]
+    want = (whole[0][i * b:(i + 1) * b], whole[1][:, i * b:(i + 1) * b],
+            whole[2][i * b:(i + 1) * b])
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got[:2], want[:2])]
+    same = bool(torch.equal(got[2], want[2]))
+    res = {"arch": arch, "layers": n_layers, "prefill_err": errs[0],
+           "decode_err": errs[1], "tol": SERVE_PARITY_TOL,
+           "tokens_equal": same}
+    print(f"serve r{rank} {arch} parity ({n_layers} layers, f32): "
+          f"prefill {errs[0]:.3g}, decode {errs[1]:.3g} of the largest "
+          f"logit, greedy tokens equal {same}", flush=True)
+    check(max(errs) <= SERVE_PARITY_TOL and same,
+          f"serve parity {arch}: {res}")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    del whole, got
+    free_card()
+    return res
+
+
+def serve_rank(rank: int, folder: str) -> int:
+    """One rank of phase 3n (this script with ``--serve-rank``)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{folder}/store", rank=rank,
+        world_size=DISTRIB_RANKS,
+        timeout=timedelta(seconds=DISTRIB_BARRIER_S))
+    mesh = Mesh(SERVE_MESH, ("data", "model"), backend="gloo")
+    recorder = ServeRecorder(chunkable=False) if rank == 0 else None
+    out = {"rank": rank, "runs": [], "parity": []}
+    for arch, n_layers, steps in SERVE_RUNS:
+        out["runs"].append(serve_run(mesh, rank, arch, n_layers, steps,
+                                     recorder))
+    for arch, n_layers in SERVE_PARITY:
+        out["parity"].append(serve_parity(mesh, rank, arch, n_layers))
+    dist.barrier()
+    rows = []
+    if rank == 0:                  # alone on the card: the others wait
+        recorder.to_card()
+        rows = phase_main_shapes("serve", recorder)
+    out["rows"] = rows
+    dist.barrier()
+    Path(folder, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_rank_procs(flag: str, tag: str, limit_s: float) -> list:
+    """``DISTRIB_RANKS`` subprocesses of this script with ``flag`` (a rank
+    each) and a rendezvous folder, their lines starting ``tag`` (and
+    rank 0's all) echoed; fails if one fails or the run passes
+    ``limit_s``.  Returns each rank's ``rank<r>.json``."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix=tag) as folder:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+             "--distrib-dir", folder],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DISTRIB_RANKS)]
+        tails = [[] for _ in procs]
+
+        def pump(i):
+            for line in procs[i].stdout:
+                line = line.rstrip("\n")
+                tails[i] = (tails[i] + [line])[-40:]
+                if i == 0 or line.startswith(tag) or "Error" in line:
+                    sys.stdout.write(line + "\n")
+                    sys.stdout.flush()
+        readers = [threading.Thread(target=pump, args=(i,), daemon=True)
+                   for i in range(len(procs))]
+        for t in readers:
+            t.start()
+        deadline = time.monotonic() + limit_s
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = [i for i, p in enumerate(procs) if p.poll()]
+                check(not failed, f"{tag}: rank {failed} failed (rc "
+                      f"{[procs[i].returncode for i in failed]}):\n"
+                      + "\n".join(tails[failed[0]] if failed else []))
+                check(time.monotonic() < deadline,
+                      f"{tag}: ranks still running after {limit_s}s")
+                time.sleep(0.2)
+            for t in readers:
+                t.join(timeout=10)
+            bad = [i for i, p in enumerate(procs) if p.returncode]
+            check(not bad, f"{tag}: rank {bad} failed:\n"
+                  + "\n".join(tails[bad[0]] if bad else []))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+        return [json.loads(Path(folder, f"rank{r}.json").read_text())
+                for r in range(DISTRIB_RANKS)]
+
+
+def phase_serve() -> list:
+    """Phase 3n: the serving ranks, and beside them (on the host) the dry
+    run's trace of each run's same cells; each rank's peaks against it,
+    within ``SERVE_MEM_TOL``.  Returns rank 0's phase 4 rows."""
+    free_card()
+    t0 = time.monotonic()
+    dry = subprocess.Popen(
+        [sys.executable, "-c", SERVE_DRY, str(SERVE_BATCH),
+         str(SERVE_PROMPT), str(SERVE_CACHE),
+         json.dumps([[arch, layers] for arch, layers, _ in SERVE_RUNS])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        results = run_rank_procs("--serve-rank", "serve ", SERVE_LIMIT_S)
+        out, err = dry.communicate(timeout=SERVE_LIMIT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait(timeout=60)
+    check(dry.returncode == 0, f"serve: the dry run failed:\n{err[-3000:]}")
+    peaks = json.loads([x for x in out.splitlines()
+                        if x.startswith("DRYPEAK ")][-1][8:])
+    wall = time.monotonic() - t0
+    memory = {}
+    for r in results:
+        for run in r["runs"]:
+            dry_run = peaks[run["arch"]]
+            for kind in ("prefill", "decode"):
+                got = run[f"{kind}_peak"]
+                direct = dry_run[f"{kind}/direct"]
+                form = dry_run[f"{kind}/all_reduce"]
+                memory.setdefault(f"{run['arch']} {kind}", {})[r["rank"]] = {
+                    "card": got, "dry_direct": direct,
+                    "dry_all_reduce": form, "off_direct": got / direct - 1,
+                    "off_all_reduce": got / form - 1,
+                    "within": abs(got / direct - 1) <= SERVE_MEM_TOL}
+    summary = {"wall_s": wall, "card": torch.cuda.get_device_name(0),
+               "mesh": SERVE_MESH, "batch": SERVE_BATCH,
+               "prompt": SERVE_PROMPT, "cache": SERVE_CACHE,
+               "runs": {run["arch"]: {
+                   key: {r["rank"]: r["runs"][i][key] for r in results}
+                   for key in ("prefill_ms", "decode_ms_a_token",
+                               "prefill_peak", "decode_peak")}
+                   | {key: results[0]["runs"][i][key] for key in (
+                       "layers", "steps", "all_reduces_a_step",
+                       "all_reduce_bytes_a_step", "collectives_a_step",
+                       "prefill_collectives", "prefill_bytes",
+                       "prefill_launches", "decode_launches", "cache")}
+                   for i, run in enumerate(results[0]["runs"])},
+               "parity": {r["rank"]: r["parity"] for r in results},
+               "memory": memory, "dry_peaks": peaks}
+    for kind, ranks in memory.items():
+        print(f"serve memory {kind}: " + "; ".join(
+            f"r{rk} card {m['card'] / 2**30:.3f} GiB, dry run "
+            f"{m['dry_direct'] / 2**30:.3f} ({m['off_direct']:+.1%}), "
+            f"all-reduce form {m['dry_all_reduce'] / 2**30:.3f} "
+            f"({m['off_all_reduce']:+.1%})" for rk, m in ranks.items()))
+    print(f"serve: phase 3n {wall:.1f}s wall")
+    print("serve " + json.dumps(summary))
+    missed = {f"{key} r{rk}": f"{m['off_direct']:+.1%}"
+              for key, ranks in memory.items() for rk, m in ranks.items()
+              if not m["within"]}
+    check(not missed, f"serve: a rank's peak is not within "
+          f"{SERVE_MEM_TOL:.0%} of the dry run's: {missed}")
     return results[0]["rows"]
 
 
@@ -4795,7 +5103,10 @@ def main(argv=None) -> int:
                     help="run one rank of phase 3m (phase 3m starts "
                          "these itself)")
     ap.add_argument("--distrib-dir", metavar="DIR",
-                    help="phase 3m's rendezvous folder")
+                    help="phase 3m's and 3n's rendezvous folder")
+    ap.add_argument("--serve-rank", type=int, metavar="RANK",
+                    help="run one rank of phase 3n (phase 3n starts "
+                         "these itself)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4805,6 +5116,8 @@ def main(argv=None) -> int:
         return fabric_replica(args.fabric_replica)
     if args.distrib_rank is not None:
         return distrib_rank(args.distrib_rank, args.distrib_dir)
+    if args.serve_rank is not None:
+        return serve_rank(args.serve_rank, args.distrib_dir)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -4845,6 +5158,7 @@ def main(argv=None) -> int:
     for n in (HYBRID_PARITY_LAYERS, HYBRID_TRAIN_LAYERS):
         phase_train_parity(HYBRID_ARCH, n_layers=n)
     rows += phase_distrib()
+    rows += phase_serve()
 
     lost = {}
     for r in rows:

@@ -31,9 +31,16 @@ The reference's arithmetic in the reference's order.
 
 ``sp_decode_attention`` — the two-pass sequence-parallel decode softmax
 over a KV cache sharded along the sequence: each rank's partial is the
-hand-written attention kernel's non-causal forward, which writes the row
-lse beside the normalised output; an all-reduce MAX of lse and two
-all-reduce SUMs combine them.  The payload is O(B·H·D), independent of T.
+hand-written attention kernel's forward over its block of keys, which
+writes the row lse beside the normalised output; an all-reduce MAX of
+lse and two all-reduce SUMs combine them.  The payload is O(B·H·D),
+independent of T.
+
+``record()`` lists every collective call the functions here make, as
+``{"op", "result_bytes", "group"}`` (the reference dry run's records of
+its compiled program: the result's bytes, the ranks of its group): a
+real run's and a dry run's list can be held against each other call for
+call.
 
 The gradient rules (``CopyToAxes``, ``ReduceFromAxes``, ``SumOnce``,
 ``GatherFromAxes``, ``ReduceScatterToAxes``) are named
@@ -41,7 +48,8 @@ The gradient rules (``CopyToAxes``, ``ReduceFromAxes``, ``SumOnce``,
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,6 +66,31 @@ _WIRE = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.int8: torch.int32, torch.uint8: torch.int32}
 
 
+_records: Optional[list] = None     # record()'s list while it is active
+
+
+@contextlib.contextmanager
+def record():
+    """Yields the list of the collective calls made under it, in order:
+    ``{"op": "all-reduce" | "all-gather" | "reduce-scatter", "result_bytes":
+    the result's bytes, "group": its ranks, "span": the consecutive ranks
+    from its lowest to its highest}``."""
+    global _records
+    prev, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = prev
+
+
+def _note(op: str, result: torch.Tensor, mesh, axes) -> None:
+    if _records is not None:
+        _records.append({"op": op, "group": mesh.axis_size(axes),
+                         "span": mesh.span(axes),
+                         "result_bytes": result.numel()
+                         * result.element_size()})
+
+
 def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum"
                 ) -> torch.Tensor:
     """Reduce ``x`` over the mesh axes ``axes`` in place and return it;
@@ -70,6 +103,7 @@ def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum"
     # a 0-d tensor travels as one element of the same storage
     dist.all_reduce(x.view(-1) if x.ndim == 0 else x, op=_OPS[op],
                     group=mesh.group(axes))
+    _note("all-reduce", x, mesh, axes)
     return x
 
 
@@ -122,6 +156,7 @@ def _gather_direct(x, mesh, axes, dim):
     n = mesh.axis_size(axes)
     buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     getattr(dist, _ALL_GATHER)(buf, x.contiguous(), group=mesh.group(axes))
+    _note("all-gather", buf, mesh, axes)
     if dim == 0:
         return buf
     shape = list(x.shape)
@@ -149,6 +184,7 @@ def _scatter_direct(x, mesh, axes, dim):
     out = src.new_empty(src.shape[1:])
     getattr(dist, _REDUCE_SCATTER)(out, src.view(-1, *src.shape[2:]),
                                    group=mesh.group(axes))
+    _note("reduce-scatter", out, mesh, axes)
     return out.to(x.dtype)
 
 
@@ -308,19 +344,30 @@ def compressed_allreduce_tree(tree, err_tree, mesh, axis):
 # ---------------------------------------------------------------------------
 # sequence-parallel decode attention
 # ---------------------------------------------------------------------------
-def sp_decode_attention(q, k_local, v_local, mesh, seq_axis: str = "model",
-                        softcap: float = 0.0) -> torch.Tensor:
+def sp_decode_attention(q, k_local, v_local, mesh, seq_axis="model",
+                        softcap: float = 0.0, pos=None,
+                        window: int = 0) -> torch.Tensor:
     """Two-pass sequence-parallel decode attention.
 
-    q: (B, 1, Hq, D), the same on every rank of ``seq_axis``; k_local,
-    v_local: (B, T/n, Hkv, D), this rank's slice of the cache along the
-    sequence (the query sees every key: decode at the cache's end).
-    Each rank's partial (o, lse) is ``attention_fwd`` non-causal: the
-    hand-written kernel on the card, its plain version on the CPU.  Then
-    m = max lse over the ranks, and out = Σ o·e^(lse−m) / Σ e^(lse−m).
-    Returns (B, 1, Hq, D) in q's dtype."""
-    o, lse = attention_fwd(q, k_local, v_local, causal=False,
-                           softcap=softcap)            # lse (B, Hq, 1)
+    q: (B, 1, Hq, D), the same on every rank of ``seq_axis`` (a mesh axis
+    or a tuple of them, the first slowest); k_local, v_local: (B, T/n,
+    Hkv, D), this rank's block of the cache along the sequence, block
+    ``mesh.axis_index(seq_axis)``.  ``pos`` (an int, a 0-d or a (B,)
+    tensor): the query's position in the whole cache, so that the rank's
+    partial sees only the keys at or below it (and within ``window``);
+    None: every key (decode at the cache's end).  Each rank's partial
+    (o, lse) is ``attention_fwd``: the hand-written kernel on the card,
+    its plain version on the CPU; a rank whose keys the query cannot see
+    gives lse -1e30 and o 0.  Then m = max lse over the ranks, and out =
+    Σ o·e^(lse−m) / Σ e^(lse−m).  Returns (B, 1, Hq, D) in q's dtype."""
+    if pos is None:
+        o, lse = attention_fwd(q, k_local, v_local, causal=False,
+                               softcap=softcap)
+    else:
+        start = mesh.axis_index(seq_axis) * k_local.shape[1]
+        o, lse = attention_fwd(q, k_local, v_local, causal=True,
+                               window=window, softcap=softcap,
+                               q_offset=pos - start)     # lse (B, Hq, 1)
     lse = lse.transpose(1, 2)                           # (B, 1, Hq)
     m = all_reduce(lse, mesh, seq_axis, "max")
     w = torch.exp(lse - m)

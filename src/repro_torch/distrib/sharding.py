@@ -148,6 +148,16 @@ def tree_specs(shape_tree, axes_tree, mesh, rules: Optional[Rules] = None):
                                          rules), shape_tree, axes_tree)
 
 
+def block_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a tensor of ``shape`` under
+    ``spec`` (each split dimension divided by its axes' product)."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] //= math.prod(sizes[a] for a in entry_axes(entry))
+    return tuple(out)
+
+
 class Sharding(NamedTuple):
     """A leaf's spec on a live mesh (the reference's ``NamedSharding``)."""
     mesh: object

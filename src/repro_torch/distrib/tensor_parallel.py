@@ -176,23 +176,34 @@ def seq_parallel_for(cfg, mesh, global_batch: int, seq_len: int,
 
 
 class TensorParallel:
-    """The layout of ``model`` on ``mesh``: tokens split over
+    """The layout of ``model`` on ``mesh``: leaves gathered over
     ``data_axes``, the tensor-parallel dims over ``model_axis`` (None:
     no such axis), ``moe`` the MoE layers' view (``models.moe.MoESpmd``,
     or None), the residual stream split over the sequence along the
     model axis when ``seq_parallel`` (``stream``, its ``Split``; None
     when the stream is whole).  ``gathers`` counts the leaves gathered
-    by (sub-layer, mesh axes)."""
+    by (sub-layer, mesh axes).
+
+    Serving on the mesh (``Model.prefill`` / ``decode_step`` with
+    ``spmd=``) also reads ``batch_axes``, the axes that split the batch
+    (default ``data_axes``; ``()`` where the batch is whole on every
+    rank), and ``rules``, the resolver's overrides for this layout (a
+    cell's ``{"kv_seq": ("data", "model")}``), which place the cache's
+    blocks."""
 
     def __init__(self, model, mesh, data_axes: Tuple[str, ...],
                  model_axis: Optional[str], moe=None,
-                 seq_parallel: bool = False):
+                 seq_parallel: bool = False, *, batch_axes=None,
+                 rules=None):
         self.mesh = mesh
         self.data_axes = tuple(data_axes)
+        self.batch_axes = self.data_axes if batch_axes is None \
+            else tuple(batch_axes)
+        self.rules = dict(rules or {})
         self.model_axis = model_axis if model_axis in mesh.shape else None
         self.moe = moe
         self.specs = tree_specs(model.init(device="meta"),
-                                model.param_axes(), mesh)
+                                model.param_axes(), mesh, self.rules)
         self.gathers: Counter = Counter()
         self._splits = {}
         n = mesh.shape[self.model_axis] if self.model_axis else 1

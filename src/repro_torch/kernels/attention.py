@@ -41,8 +41,11 @@ no host sync.
 
 ``attention`` dispatches on the device of ``q``: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.  There is no
-fallback.  ``attention.launches`` counts one per call on the card,
-split or not (the combine is part of the call).
+fallback.  A fake tensor (the dry run's, ``kernels/cost.py``) takes the
+card's branch up to the launch: it allocates what the launch would,
+adds the call's work to the dry run's tally and launches nothing.
+``attention.launches`` counts one per call on the card, split or not
+(the combine is part of the call).
 
 **The gradient.**  The reference has no backward kernel (it trains
 through XLA's autodiff of ``ops.attention``); here the forward is a
@@ -76,6 +79,8 @@ import math
 from typing import Optional
 
 import torch
+
+from . import cost
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -264,13 +269,14 @@ def combine_plain(m, l, o, dtype):
 
 def attention_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
-                        prefix_len: Optional[int] = None):
-    """(o, lse) at ``q_offset`` 0, as the kernels write them for training:
-    o (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32 = m + log l over the
-    scaled and soft-capped logits, -1e30 (NEG_INF) for a row that sees no
-    key (whose o is 0)."""
+                        prefix_len: Optional[int] = None, q_offset=0):
+    """(o, lse), as the kernels write them for training (``q_offset`` 0)
+    and for a sequence-parallel decode's partial: o (B,S,Hq,D) in q's
+    dtype, lse (B,Hq,S) f32 = m + log l over the scaled and soft-capped
+    logits, -1e30 (NEG_INF) for a row that sees no key (whose o is 0)."""
     m, l, o = attention_partial_plain(q, k, v, 0, k.shape[1], causal=causal,
                                       window=window, softcap=softcap,
+                                      q_offset=q_offset,
                                       prefix_len=prefix_len)
     o = o / l.clamp_min(1e-30)[..., None]
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), NEG_INF)
@@ -366,17 +372,17 @@ def dkdv_reduce_plain(dk_part, dv_part, dtype):
 
 
 def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                  softcap: float = 0.0, prefix_len: Optional[int] = None):
-    """(o, lse) at ``q_offset`` 0, for the backward: the plain version on
-    the CPU, the forward kernel (which then also writes lse) on the
-    card."""
+                  softcap: float = 0.0, prefix_len: Optional[int] = None,
+                  q_offset=0):
+    """(o, lse): the plain version on the CPU, the forward kernel (which
+    then also writes lse) on the card.  ``q_offset`` 0 for the backward;
+    a sequence-parallel decode's partial passes the query's position
+    relative to its block of keys."""
     kw = dict(causal=causal, window=window, softcap=softcap,
-              prefix_len=prefix_len)
-    if q.device.type == "cpu":
+              prefix_len=prefix_len, q_offset=q_offset)
+    if cost.route(q, "attention") == "plain":
         return attention_fwd_plain(q, k, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {q.device}")
-    return _attention_cuda(q, k, v, q_offset=0, with_lse=True, **kw)
+    return _attention_cuda(q, k, v, with_lse=True, **kw)
 
 
 def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -386,10 +392,8 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kernels on the card; no fallback."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               prefix_len=prefix_len)
-    if q.device.type == "cpu":
+    if cost.route(q, "attention") == "plain":
         return attention_bwd_plain(q, k, v, o, lse, do, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {q.device}")
     return _attention_bwd_cuda(q, k, v, o, lse, do, **kw)
 
 
@@ -434,10 +438,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                        prefix_len)
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset, prefix_len=prefix_len)
-    if q.device.type == "cpu":
+    if cost.route(q, "attention") == "plain":
         return attention_plain(q, k, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: no kernel for device {q.device}")
     return _attention_cuda(q, k, v, **kw)
 
 
@@ -477,14 +479,34 @@ def _bwd_kernel():
     return _bwd
 
 
+def _kernel_dim(D: int, dims, name: str) -> int:
+    """The head dim the kernels run ``D`` at, a multiple of 16 they have
+    no tile for: the next of ``dims`` above it (nemotron's 192 runs at
+    256, the backward's 16 and 32 at 64).  Any other head dim outside
+    ``dims`` is refused."""
+    for d in dims:
+        if d >= D and D % 16 == 0:
+            return d
+    raise ValueError(f"{name}: head_dim {D} not in {dims}")
+
+
+def _pad_dim(t, D: int):
+    """``t`` with its last dim zero-padded to ``D``."""
+    return torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+
+
 def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset=0,
                     prefix_len: Optional[int] = None,
-                    n_split: Optional[int] = None, with_lse: bool = False):
+                    n_split: Optional[int] = None, with_lse: bool = False,
+                    scale: Optional[float] = None):
     """One launch on the card (two with the combine).  ``n_split`` forces
     the number of key splits of a bf16 call (tests and the smoke run
     only); None takes ``plan``'s.  ``with_lse`` returns (out, lse), lse
-    (B,Hq,S) f32 written by the same launches."""
+    (B,Hq,S) f32 written by the same launches.  A head dim the kernels
+    have no tile for runs at the next one they have, q, k and v
+    zero-padded (the padding adds nothing to q·k, and o's padded dims
+    are dropped) at the scale of the true head dim."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("attention: this raw launch has no backward; "
                            "inputs that need a gradient go through "
@@ -500,7 +522,13 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"attention: Hq={Hq} is not a multiple of "
                          f"Hkv={Hkv}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"attention: head_dim {D} not in {HEAD_DIMS}")
+        Dk = _kernel_dim(D, HEAD_DIMS, "attention")
+        got = _attention_cuda(
+            _pad_dim(q, Dk), _pad_dim(k, Dk), _pad_dim(v, Dk), causal=causal,
+            window=window, softcap=softcap, q_offset=q_offset,
+            prefix_len=prefix_len, n_split=n_split, with_lse=with_lse,
+            scale=1.0 / math.sqrt(D))
+        return (got[0][..., :D], got[1]) if with_lse else got[..., :D]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}"
                          f"; the kernel takes one of {_DTYPES} for all")
@@ -519,7 +547,9 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          device=q.device)
     off = off.contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+    fake = cost.is_fake(q)
+    if not fake and (q.data_ptr() % 16 or k.data_ptr() % 16
+                     or v.data_ptr() % 16):
         raise ValueError("attention: q, k and v must be 16-byte aligned "
                          "(the kernels stage them 16 bytes at a time)")
     out = torch.empty_like(q)
@@ -531,6 +561,14 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              device=q.device)
         ml_part = torch.empty((n_split, B, S, Hq, 2), dtype=torch.float32,
                               device=q.device)
+    if fake:
+        # a position a fake tensor holds is unread: the cache's end
+        offsets = ([T - S] * B if isinstance(q_offset, torch.Tensor)
+                   else [int(q_offset)] * B)
+        cost.add("flash_attention", *cost.attention_work(
+            B, S, T, Hq, Hkv, D, q.element_size(), offsets, causal, window,
+            prefix_len))
+        return (out, lse) if with_lse else out
 
     fn = _kernel()
     with torch.cuda.device(q.device):
@@ -543,7 +581,8 @@ def _attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                  B, S, T, Hq, Hkv, D, int(path == "tc"), int(bool(causal)),
                  int(window), float(softcap),
                  -1 if prefix_len is None else int(prefix_len),
-                 1.0 / math.sqrt(D), n_split, stream)
+                 1.0 / math.sqrt(D) if scale is None else scale, n_split,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -557,13 +596,15 @@ BWD_HEAD_DIMS = (64, 128, 256)
 def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0,
                         prefix_len: Optional[int] = None,
-                        n_split: Optional[int] = None):
+                        n_split: Optional[int] = None,
+                        scale: Optional[float] = None):
     """The backward on the card, one ``attention_bwd.launches`` a call:
     bf16 ``attn_bwd_dq_tc``, ``attn_bwd_dkdv_tc`` (and
     ``attn_bwd_dkdv_reduce`` when split), f32 ``attn_bwd_pre``,
     ``attn_bwd_dkdv``, ``attn_bwd_dq``.  ``n_split`` forces the row splits
     of a bf16 call (tests and the smoke run only); None takes
-    ``bwd_plan``'s."""
+    ``bwd_plan``'s.  A head dim the kernels have no tile for runs at
+    the next one, as the forward's."""
     B, S, Hq, D = q.shape
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or o.shape != q.shape or do.shape != q.shape:
@@ -575,8 +616,13 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"attention_bwd: Hq={Hq} is not a multiple of "
                          f"Hkv={Hkv}")
     if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"attention_bwd: head_dim {D} not in "
-                         f"{BWD_HEAD_DIMS}")
+        Dk = _kernel_dim(D, BWD_HEAD_DIMS, "attention_bwd")
+        grads = _attention_bwd_cuda(
+            *(_pad_dim(t, Dk) for t in (q, k, v, o)), lse, _pad_dim(do, Dk),
+            causal=causal, window=window, softcap=softcap,
+            prefix_len=prefix_len, n_split=n_split,
+            scale=1.0 / math.sqrt(D))
+        return tuple(g[..., :D] for g in grads)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype
                                      for t in (k, v, o, do)):
         raise ValueError(f"attention_bwd: q, k, v, o and do must share one "
@@ -592,7 +638,9 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"attention_bwd: n_split {n_split} on the {path} "
                          f"path (f32 runs unsplit)")
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
-    if path == "tc" and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+    fake = cost.is_fake(q)
+    if path == "tc" and not fake and any(t.data_ptr() % 16
+                                         for t in (q, k, v, o, do)):
         raise ValueError("attention_bwd: q, k, v, o and do must be 16-byte "
                          "aligned (the kernels stage them 16 bytes at a "
                          "time)")
@@ -602,6 +650,11 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if n_split > 1:        # the splits' f32 dK (scaled) and dV, summed
         part = torch.empty((n_split, 2, B, T, Hkv, D), dtype=torch.float32,
                            device=q.device)
+    if fake:
+        cost.add("flash_attention_bwd", *cost.attention_bwd_work(
+            B, S, T, Hq, Hkv, D, q.element_size(), causal, window,
+            prefix_len))
+        return dq, dk, dv
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -612,7 +665,8 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                  B, S, T, Hq, Hkv, D, int(path == "tc"),
                  int(bool(causal)), int(window), float(softcap),
                  -1 if prefix_len is None else int(prefix_len),
-                 1.0 / math.sqrt(D), n_split, stream)
+                 1.0 / math.sqrt(D) if scale is None else scale, n_split,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

@@ -19,7 +19,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 # nvcc's output per source (``-Xptxas -v``: registers, shared memory,
 # spills), kept for whoever wants to print it
 build_logs: Dict[str, str] = {}
@@ -63,26 +63,33 @@ def local_sources(src: Path) -> list:
     return seen
 
 
-def source_tag(src: Path) -> str:
+def _flags(defines=()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def source_tag(src: Path, defines=()) -> str:
     """The library's tag: a hash of ``src``, its local headers (each by
-    name and content) and the flags."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    name and content) and the flags (``defines`` among them)."""
+    h = hashlib.sha1(" ".join(_flags(defines)).encode())
     for path in local_sources(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     return h.hexdigest()[:12]
 
 
-def build(name: str) -> Path:
+def build(name: str, defines=()) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    raises with the compiler's output if the build fails."""
+    raises with the compiler's output if the build fails.  ``defines``
+    (macro names, ``-D``) select a diagnostic build of a source; the main
+    path never passes any."""
     src = CSRC / f"{name}.cu"
-    tag = source_tag(src)
+    tag = source_tag(src, defines)
     out = BUILD_DIR / f"lib{name}-{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp),
+                           str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     build_logs[name] = proc.stdout
@@ -100,10 +107,12 @@ def build_all(names: Iterable[str]) -> None:
             done.result()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines``),
+    built if needed."""
+    key = (name,) + tuple(defines)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            lib = _libs[key] = ctypes.CDLL(str(build(name, defines)))
         return lib

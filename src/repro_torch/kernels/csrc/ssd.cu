@@ -225,6 +225,24 @@ __device__ __forceinline__ void warp_mma3(float (&acc)[NT][4],
                                           int live) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+#ifdef REPRO_SSD_F32_PRODUCTS
+  // A diagnostic build only (tools/train_parity_depth.py asks for it):
+  // each fragment element as a plain f32 sum of products on the CUDA
+  // cores, in k order, instead of 3xTF32.
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= live) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* ar = A + (m0 + g + 8 * (e >> 1)) * am;
+      const float* bc = Bm + (n0 + 8 * j + 2 * t + (e & 1)) * bn;
+      float s = 0.f;
+      for (int k = 0; k < K; ++k) s = fmaf(ar[k * ak], bc[k * bk], s);
+      acc[j][e] += s;
+    }
+  }
+  return;
+#endif
   const float* a0 = A + (m0 + g) * am + t * ak;
   const float* b0 = Bm + t * bk + (n0 + g) * bn;
   for (int k = 0; k < K; k += 8) {

@@ -44,7 +44,9 @@ sentinel e_local·C and so reads as dropped.
 rows: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.  There is no fallback; every check comes before the
 library is built or bound.  ``moe_combine.launches`` and
-``moe_combine_bwd.launches`` count launches.  ``CombineFunction`` is the
+``moe_combine_bwd.launches`` count launches.  A fake tensor (the dry
+run's) takes the card's branch up to the launch, as ``kernels/cost.py``
+says.  ``CombineFunction`` is the
 MoE layer's combine with a gradient: ``moe_combine`` forward,
 ``moe_combine_bwd`` backward, the aux sums passed through so that their
 gradients reach it.
@@ -54,6 +56,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import cost
 
 from .moe_router import MAX_EXPERTS, MAX_K, router_bwd_plain
 
@@ -102,11 +106,8 @@ def moe_combine_bwd_plain(dy, out_buf, logits, probs, idx, w, slot, src,
 def moe_combine(out_buf, w, slot) -> torch.Tensor:
     """``moe_combine_plain`` on the CPU, the combine kernel on the card;
     no fallback."""
-    if out_buf.device.type == "cpu":
+    if cost.route(out_buf, "moe_combine") == "plain":
         return moe_combine_plain(out_buf, w, slot)
-    if out_buf.device.type != "cuda":
-        raise ValueError(f"moe_combine: no kernel for device "
-                         f"{out_buf.device}")
     return _moe_combine_cuda(out_buf, w, slot)
 
 
@@ -117,13 +118,10 @@ def moe_combine_bwd(dy, out_buf, logits, probs, idx, w, slot, src,
                     dprob_sum, dz_sum, *, n_real: int):
     """``moe_combine_bwd_plain`` on the CPU, the backward kernel on the
     card; no fallback."""
-    if out_buf.device.type == "cpu":
+    if cost.route(out_buf, "moe_combine_bwd") == "plain":
         return moe_combine_bwd_plain(dy, out_buf, logits, probs, idx, w,
                                      slot, src, dprob_sum, dz_sum,
                                      n_real=n_real)
-    if out_buf.device.type != "cuda":
-        raise ValueError(f"moe_combine_bwd: no kernel for device "
-                         f"{out_buf.device}")
     return _moe_combine_bwd_cuda(dy, out_buf, logits, probs, idx, w, slot,
                                  src, dprob_sum, dz_sum, n_real=n_real)
 
@@ -224,6 +222,11 @@ def _moe_combine_cuda(out_buf, w, slot) -> torch.Tensor:
         raise ValueError("moe_combine: every input must be on one device")
     out_buf, w, slot = (t.contiguous() for t in (out_buf, w, slot))
     y = torch.empty((T, d), dtype=out_buf.dtype, device=out_buf.device)
+    if cost.is_fake(out_buf):
+        cost.add("moe_combine", *cost.combine_work(
+            n_slots, d, T, k, out_buf.element_size(),
+            cost.combine_kept(slot, n_slots)))
+        return y
     fn = _kernel()
     with torch.cuda.device(out_buf.device):
         stream = torch.cuda.current_stream(out_buf.device).cuda_stream
@@ -282,6 +285,11 @@ def _moe_combine_bwd_cuda(dy, out_buf, logits, probs, idx, w, slot, src,
                                    (dy, out_buf, idx, slot, src))
     d_out = torch.empty_like(out_buf)
     dlogits = torch.empty((T, E), dtype=torch.float32, device=dev)
+    if cost.is_fake(out_buf):
+        cost.add("moe_combine_bwd", *cost.combine_bwd_work(
+            n_slots, d, T, k, E, out_buf.element_size(),
+            cost.combine_kept(slot, n_slots)))
+        return d_out, dlogits
     fn = _bwd_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -27,7 +27,10 @@ same sums on every run.
 ``router_dispatch`` and ``router_topk`` dispatch on the device of
 ``logits``: a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises.  There is no fallback.  ``router_dispatch.launches``
-counts kernel launches (``router_topk`` launches the same kernel).
+counts kernel launches (``router_topk`` launches the same kernel).  A
+fake tensor (the dry run's) takes the card's branch up to the launch: it
+allocates what the launch would and adds the call's work to the dry
+run's tally (``kernels/cost.py``).
 
 **The backward** (training; the reference differentiates
 ``ref.router_topk_ref`` and the aux sums with XLA, there is no Pallas
@@ -50,6 +53,8 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from . import cost
 
 MAX_EXPERTS = 512
 MAX_K = 32
@@ -233,11 +238,8 @@ def _route(logits, k, *, n_real, capacity, dispatch, e_start=0,
     """The forward by device: the plain version or the kernel."""
     kw = dict(n_real=n_real, capacity=capacity, e_start=e_start,
               e_local=e_local)
-    if logits.device.type == "cpu":
+    if cost.route(logits, "router_dispatch") == "plain":
         return router_dispatch_plain(logits, k, dispatch=dispatch, **kw)
-    if logits.device.type != "cuda":
-        raise ValueError(f"router_dispatch: no kernel for device "
-                         f"{logits.device}")
     return _router_dispatch_cuda(logits, k, **kw)
 
 
@@ -347,6 +349,10 @@ def _router_dispatch_cuda(logits, k: int, *, n_real: int, capacity: int,
                 probs=out(T, E), slot=out(T, k, dtype=torch.int32),
                 src=out(e_local * capacity, dtype=torch.int32), load=out(E),
                 prob_sum=out(E), z_sum=out())
+    if cost.is_fake(logits):
+        cost.add("moe_router", *cost.router_work(T, E, k, e_local,
+                                                 capacity))
+        return r
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -36,7 +36,10 @@ in turn, and the chunk's own part e_c is summed from zero.
 ``rglru`` dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernels or raises.  There is no
 fallback.  ``rglru.launches`` counts calls (one per layer's prefill or
-training forward) that launched the kernels.
+training forward) that launched the kernels.  A fake tensor (the dry
+run's) takes the card's branch up to the launch: it allocates what the
+launch would and adds the call's work to the dry run's tally
+(``kernels/cost.py``).
 
 **The backward** (training; ``csrc/rglru_bwd.cu``).  The reference has no
 Pallas backward: XLA differentiates ``ops.rglru``.  With gₜ the gradient
@@ -72,6 +75,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import cost
 
 RGLRU_C = 8.0
 # The kernels' chunk length L.  Timed at recurrentgemma-9b's W 4096, B 1,
@@ -340,11 +345,9 @@ def rglru_bwd(x, r_gate, i_gate, log_lambda, h0, dh, dh_final=None, *,
     on the CPU, the backward kernel on the card, which reads the forward's
     ``states`` (the state entering each chunk) when the sequence has more
     than one chunk; no fallback."""
-    if x.device.type == "cpu":
+    if cost.route(x, "rglru_bwd") == "plain":
         return rglru_bwd_plain(x, r_gate, i_gate, log_lambda, h0, dh,
                                dh_final)
-    if x.device.type != "cuda":
-        raise ValueError(f"rglru_bwd: no kernel for device {x.device}")
     return _rglru_bwd_cuda(x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
                            states)
 
@@ -360,14 +363,12 @@ class RGLRUFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, r_gate, i_gate, log_lambda, h0):
-        if x.device.type == "cpu":
+        if cost.route(x, "rglru") == "plain":
             h, hf = rglru_plain(x, r_gate, i_gate, log_lambda, h0)
             states = None
-        elif x.device.type == "cuda":
+        else:
             h, hf, states = _rglru_cuda(x, r_gate, i_gate, log_lambda, h0,
                                         keep=True)
-        else:
-            raise ValueError(f"rglru: no kernel for device {x.device}")
         ctx.save_for_backward(x, r_gate, i_gate, log_lambda, h0, states)
         ctx.set_materialize_grads(False)
         return h, hf
@@ -388,10 +389,8 @@ def rglru(x, r_gate, i_gate, log_lambda, h0=None
             t is not None and t.requires_grad
             for t in (x, r_gate, i_gate, log_lambda, h0)):
         return RGLRUFunction.apply(x, r_gate, i_gate, log_lambda, h0)
-    if x.device.type == "cpu":
+    if cost.route(x, "rglru") == "plain":
         return rglru_plain(x, r_gate, i_gate, log_lambda, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"rglru: no kernel for device {x.device}")
     return _rglru_cuda(x, r_gate, i_gate, log_lambda, h0)
 
 
@@ -506,6 +505,11 @@ def _rglru_cuda(x, r_gate, i_gate, log_lambda, h0, chunk_len=None,
             if nc > 1 else None)
     states = (torch.empty((Bb, nc, W), dtype=torch.float32, device=dev)
               if keep and nc > 1 else None)
+    if cost.is_fake(x):
+        cost.add("rglru_scan", *cost.rglru_work(
+            Bb, S, W, x.element_size(), h0 is not None,
+            nc if keep else 1))
+        return (out, hf, states) if keep else (out, hf)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -556,6 +560,12 @@ def _rglru_bwd_cuda(x, r_gate, i_gate, log_lambda, h0, dh, dh_final,
     pairs = (torch.empty((2, Bb, nc, W), dtype=torch.float32, device=dev)
              if nc > 1 else None)
     partials = torch.empty((Bb, nc, W), dtype=torch.float32, device=dev)
+    if cost.is_fake(x):
+        cost.add("rglru_bwd", *cost.rglru_bwd_work(
+            Bb, S, W, x.element_size(), h0 is not None,
+            dh_final is not None, nc))
+        return (dx, dr, di, dll.to(log_lambda.dtype),
+                dh0 if h0 is None else dh0.to(h0.dtype))
     fn = _bwd_kernel()
     is_bf16 = int(x.dtype == torch.bfloat16)
     sync = _sync_words(dev, _sync_ints(Bb, S, W, is_bf16))

@@ -38,7 +38,9 @@ cumulative decay is summed and differenced in f64.
 ``ssd`` dispatches on the device of ``x``: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernels or raises.  There is no
 fallback.  ``ssd.launches`` counts calls (one per layer's prefill) that
-launched the kernels.
+launched the kernels.  A fake tensor (the dry run's) takes the card's
+branch up to the launch: it allocates what the launch would and adds the
+call's work to the dry run's tally (``kernels/cost.py``).
 
 **The backward** (training; the reference differentiates ``ops.ssd``
 with XLA, there is no Pallas backward).  When an input needs a
@@ -67,6 +69,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from . import cost
 from .attention import SMS
 
 MAX_P = 64       # head dim the kernel's state tile covers
@@ -526,11 +529,9 @@ def ssd_bwd(x, dt, A, B, C, D, h0, dy, dh_final=None, *, states=None,
     the card, which read the forward's ``states`` (the state entering each
     chunk) and ``decay`` (each chunk's exp(cum_Q)) when the sequence has
     more than one chunk; no fallback."""
-    if x.device.type == "cpu":
+    if cost.route(x, "ssd_bwd") == "plain":
         return ssd_bwd_plain(x, dt, A, B, C, D, h0, dy, dh_final,
                              chunk=chunk, with_dh0=with_dh0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_bwd: no kernel for device {x.device}")
     return _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay,
                          with_dh0=with_dh0)
 
@@ -546,14 +547,12 @@ class SSDFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0, chunk):
-        if x.device.type == "cpu":
+        if cost.route(x, "ssd") == "plain":
             y, hf = ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
             states = decay = None
-        elif x.device.type == "cuda":
+        else:
             y, hf, states, decay = _ssd_cuda(x, dt, A, B, C, D, h0,
                                              keep=True)
-        else:
-            raise ValueError(f"ssd: no kernel for device {x.device}")
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, A, B, C, D, h0, states, decay)
         ctx.set_materialize_grads(False)
@@ -580,10 +579,8 @@ def ssd(x, dt, A, B, C, D=None, h0=None, *, chunk: int = 256
             t is not None and t.requires_grad
             for t in (x, dt, A, B, C, D, h0)):
         return SSDFunction.apply(x, dt, A, B, C, D, h0, chunk)
-    if x.device.type == "cpu":
+    if cost.route(x, "ssd") == "plain":
         return ssd_plain(x, dt, A, B, C, D, h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd: no kernel for device {x.device}")
     return _ssd_cuda(x, dt, A, B, C, D, h0)
 
 
@@ -692,6 +689,10 @@ def _ssd_cuda(x, dt, A, B, C, D, h0, keep: bool = False):
         # each chunk's C·Bᵀ, shared by the heads of a group
         cb = torch.empty((Bb, nc, G, CHUNK, CHUNK), dtype=torch.float32,
                          device=dev)
+    if cost.is_fake(x):
+        cost.add("ssd", *cost.ssd_work(Bb, S, H, P, G, N, x.element_size(),
+                                       D is not None, h0 is not None))
+        return (y, hf, states, decay) if keep else (y, hf)
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -764,9 +765,28 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
     dA, dD = f32(H), f32(H)
     dh0 = f32(Bb, H, P, N) if with_dh0 else None
+    if cost.is_fake(x):
+        cost.add("ssd_bwd", *cost.ssd_bwd_work(
+            Bb, S, H, P, G, N, x.element_size(), D is not None,
+            h0 is not None, dh_final is not None, nc))
+    else:
+        _launch_bwd(xc, dtf, Af, Bc, Cc, Df, dyc, hin, decay, dhf, dS, cb,
+                    dx, ddt, dBp, dCp, dA_part, dD_part, dB, dC, dA, dD,
+                    dh0, Bb, S, H, P, G, N, hs, h0 is not None)
+    grads = (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
+             None if D is None else dD.to(D.dtype))
+    if not with_dh0:
+        return grads
+    return grads + (dh0 if h0 is None else dh0.to(h0.dtype),)
 
+
+def _launch_bwd(xc, dtf, Af, Bc, Cc, Df, dyc, hin, decay, dhf, dS, cb, dx,
+                ddt, dBp, dCp, dA_part, dD_part, dB, dC, dA, dD, dh0, Bb, S,
+                H, P, G, N, hs, has_h0):
+    """The backward's one C call (three kernels) on the card."""
     def ptr(t):
         return None if t is None else t.data_ptr()
+    dev = xc.device
     fn = _bwd_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -774,16 +794,11 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, h0, dy, dh_final, states, decay, *,
                  ptr(dyc), ptr(hin), ptr(decay), ptr(dhf), ptr(dS), ptr(cb),
                  ptr(dx), ptr(ddt), ptr(dBp), ptr(dCp), ptr(dA_part),
                  ptr(dD_part), ptr(dB), ptr(dC), ptr(dA), ptr(dD), ptr(dh0),
-                 Bb, S, H, P, G, N, hs, int(h0 is not None),
-                 int(x.dtype == torch.bfloat16), stream)
+                 Bb, S, H, P, G, N, hs, int(has_h0),
+                 int(xc.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd backward launch failed: CUDA error {err}")
     ssd_bwd.launches += 1
-    grads = (dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC,
-             None if D is None else dD.to(D.dtype))
-    if not with_dh0:
-        return grads
-    return grads + (dh0 if h0 is None else dh0.to(h0.dtype),)
 
 
 def ssd_bwd_launch_plan(B: int, S: int, H: int, G: int, N: int,

@@ -17,6 +17,9 @@ The backend is the caller's choice and nothing switches it on failure:
 * ``"gloo"``: ranks that share a card or run on the CPU.  Gloo takes CUDA
   tensors for ``all_reduce`` and ``broadcast`` (staging them through the
   host), which is all the port's collectives use.
+* ``"fake"``: the dry run's world (``launch/dryrun.py``), one process
+  standing for one rank of 256 or 512 whose collectives move nothing;
+  taken only where the world itself was initialised with that backend.
 
 The caller initialises the world (``init_process_group`` with its own
 address, world size and rank) before it builds a mesh.  Groups of one
@@ -32,7 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-BACKENDS = ("gloo", "nccl")
+BACKENDS = ("gloo", "nccl", "fake")
 
 
 def _device_id(device: int) -> str:
@@ -53,6 +56,9 @@ class Mesh:
         if not dist.is_initialized():
             raise RuntimeError("Mesh: torch.distributed is not initialised; "
                                "call init_process_group first")
+        if (backend == "fake") != (dist.get_backend() == "fake"):
+            raise ValueError(f"Mesh: backend {backend!r} in a world "
+                             f"initialised with {dist.get_backend()!r}")
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes}")
         world = dist.get_world_size()
@@ -131,6 +137,13 @@ class Mesh:
             idx = idx * self.shape[a] + self.coords[a]
         return idx
 
+    def span(self, axes) -> int:
+        """How many consecutive ranks this rank's group over ``axes``
+        spans, from its lowest rank to its highest."""
+        if isinstance(axes, str):
+            axes = (axes,)
+        return 1 + sum((self.shape[a] - 1) * self._strides[a] for a in axes)
+
     def __repr__(self):
         return (f"Mesh({self.shape}, backend={self.backend!r}, "
                 f"rank={self.rank}, coords={self.coords})")
@@ -162,3 +175,16 @@ def make_local_mesh(model_axis: int = 1, *, backend: str) -> Mesh:
 def dp_axes(mesh) -> Tuple[str, ...]:
     """The data-parallel axes present on a mesh, in (pod, data) order."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+# NVIDIA H100 SXM5 80GB, data-sheet figures (the dry run's roofline
+# denominators and the kernels' bounds, ``kernels/cost.py``; the
+# counterpart of the reference's TPU v5e table)
+HW = {
+    "peak_flops_bf16": 989e12,      # dense bf16 tensor cores, per card
+    "hbm_bw": 3.35e12,              # bytes/s per card
+    "hbm_bytes": 80e9,              # 80 GB per card
+    "nvlink_bw": 450e9,             # bytes/s each way, a card within a node
+    "node_size": 8,                 # cards a node, joined by NVLink
+    "nic_bw": 50e9,                 # one 400 Gb/s NIC a card across nodes
+}

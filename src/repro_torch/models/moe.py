@@ -215,13 +215,16 @@ def _aux_from_stats(cfg: ModelConfig, load_sum, prob_sum, z_sum, t_total):
 def moe_apply(cfg: ModelConfig, params: dict, x, *,
               spmd: Optional[MoESpmd] = None,
               capacity_factor: Optional[float] = None,
-              dropless: bool = False) -> Tuple[torch.Tensor, dict]:
+              dropless: bool = False,
+              want_aux: bool = True) -> Tuple[torch.Tensor, dict]:
     """MoE FFN over x: (B, S, d).  Returns (y, aux_losses).
 
     With ``spmd``, x holds this rank's tokens, the router is whole and
     the expert tensors hold this rank's experts along
     ``spmd.expert_axis``; y is the sum over the expert shards and the aux
-    losses are over every token of the mesh."""
+    losses are over every token of the mesh.  Serving, which drops the
+    aux losses, passes ``want_aux=False``: their sums over the mesh are
+    then not taken (aux_losses is {})."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     cf = capacity_factor if capacity_factor is not None \
@@ -262,6 +265,8 @@ def moe_apply(cfg: ModelConfig, params: dict, x, *,
         y = ReduceFromAxes.apply(y, mesh, ex)      # combine expert partials
     if shared is not None:
         y = y + mlp(cfg, shared, x2d)
+    if not want_aux:
+        return y.reshape(B, S, d), {}
     # identical on every expert shard: summed over the token shards
     ps = SumOnce.apply(ps, mesh, tok, ex)
     zs = SumOnce.apply(zs, mesh, tok, ex)

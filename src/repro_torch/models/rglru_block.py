@@ -111,9 +111,13 @@ def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
     return out, cache
 
 
-def rglru_block_decode(cfg: ModelConfig, p: dict, x, cache: dict
+def rglru_block_decode(cfg: ModelConfig, p: dict, x, cache: dict, tp=None
                        ) -> Tuple[torch.Tensor, dict]:
-    """One-token decode. x: (B,1,d); cache {"h", "conv"}."""
+    """One-token decode. x: (B,1,d); cache {"h", "conv"}.  ``tp``: the
+    ``lru`` channels' ``Split``; the cache then holds this rank's
+    channels."""
+    if tp is not None:
+        x = tp.enter(x)
     gate, u = _branches(cfg, p, x)
     conv_y, new_tail = _conv_step(u[:, 0], cache["conv"].to(u.dtype),
                                   p["conv_w"], p["conv_b"])
@@ -122,6 +126,8 @@ def rglru_block_decode(cfg: ModelConfig, p: dict, x, cache: dict
                                  p["log_lambda"])
     cdt = dtype_of(cfg.compute_dtype)
     out = (h_new.to(cdt)[:, None] * gate) @ p["w_out"].to(cdt)
+    if tp is not None:
+        out = tp.leave(out)
     return out, {"h": h_new.float(),
                  "conv": new_tail.to(cache["conv"].dtype)}
 

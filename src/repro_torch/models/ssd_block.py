@@ -207,23 +207,47 @@ def ssd_block_apply(cfg: ModelConfig, p: dict, x, *,
     return out, cache
 
 
-def ssd_block_decode(cfg: ModelConfig, p: dict, x, cache: dict
+def ssd_block_decode(cfg: ModelConfig, p: dict, x, cache: dict, tp=None
                      ) -> Tuple[torch.Tensor, dict]:
     """One-token decode. x: (B,1,d); cache {"h", "conv"}.  Returns (out,
-    new {"h", "conv"})."""
+    new {"h", "conv"}).  ``tp``: the heads' ``Split``; ``h`` then holds
+    this rank's heads and ``conv`` the whole tail (``whole_conv_tail``)."""
     B = x.shape[0]
     d_in, H, Pd, G, N, cw, conv_ch = _dims(cfg)
+    tail = cache["conv"]
+    if tp is not None:
+        x = tp.enter(x)
+        p = _local(cfg, p, tp)
+        dl = p["wx"].shape[1]
+        tail = torch.cat([tail.narrow(-1, tp.rank * dl, dl),
+                          tail.narrow(-1, d_in, conv_ch - d_in)], dim=-1)
     z, u, dt_raw = _project(cfg, p, x)
-    conv_y, new_tail = _conv_step(u[:, 0], cache["conv"].to(u.dtype),
+    conv_y, new_tail = _conv_step(u[:, 0], tail.to(u.dtype),
                                   p["conv_w"], p["conv_b"])
-    xs, Bm, Cm = _split_conv_channels(cfg, F.silu(conv_y))
+    xs, Bm, Cm = _split_conv_channels(cfg, F.silu(conv_y), z.shape[-1])
+    Bm, Cm = Bm.reshape(B, G, N), Cm.reshape(B, G, N)
+    if tp is not None:
+        g0, n_g = head_groups(H, G, tp.n, tp.rank)
+        Bm, Cm = Bm[:, g0:g0 + n_g], Cm[:, g0:g0 + n_g]
     dt, A = _decay_inputs(p, dt_raw[:, 0])
-    y_t, h_new = ssd_decode_step(cache["h"], xs.reshape(B, H, Pd), dt, A,
-                                 Bm.reshape(B, G, N), Cm.reshape(B, G, N),
-                                 p["D"])
-    out = _finish(cfg, p, y_t[:, None], z, (B, 1))
+    y_t, h_new = ssd_decode_step(cache["h"], xs.reshape(B, -1, Pd), dt, A,
+                                 Bm, Cm, p["D"])
+    out = _finish(cfg, p, y_t[:, None], z, (B, 1), tp)
+    if tp is not None:
+        new_tail = whole_conv_tail(cfg, new_tail, tp)
     return out, {"h": h_new.float(),
                  "conv": new_tail.to(cache["conv"].dtype)}
+
+
+def whole_conv_tail(cfg: ModelConfig, tail, tp):
+    """A rank's conv tail (B, cw-1, d_in/n + 2GN), its xs channels and all
+    the B/C channels, made whole (B, cw-1, conv_ch): the xs channels
+    all-gathered over the heads' axis."""
+    from ..distrib.collectives import all_gather_dim
+    dl = tail.shape[-1] - (_dims(cfg)[-1] - _dims(cfg)[0])
+    xs = all_gather_dim(tail[..., :dl].contiguous(), tp.mesh, tp.axis,
+                        tail.ndim - 1)
+    return torch.cat([xs, tail[..., dl:]], dim=-1)
 
 
 def ssd_cache_spec(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

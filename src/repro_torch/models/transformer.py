@@ -58,6 +58,19 @@ encoder-decoder (``n_enc_layers``) runs its frames through the encoder,
 (``cross``, after its self-attention and before its MLP) through K/V it
 projects once, which prefill keeps in the cache (``cross_k``/``cross_v``)
 for decode.  Neither kind chunks its prefill, as in the reference.
+
+**Serving on a mesh** (``prefill`` / ``decode_step`` with
+``spmd=TensorParallel``, forward only).  The parameters are the rank's
+stored blocks, each layer's leaves gathered over the data axes as it
+runs; the tokens are the rank's rows (split over ``spmd.batch_axes``);
+the cache is the rank's blocks of ``cache_axes``' tree as ``tree_specs``
+places it under ``spmd.rules`` (``serve_layout``): K/V split along the
+positions over the model axis (over (data, model) under ``long_500k``'s
+rule), recurrent states at the rank's heads or channels, an SSD conv
+tail whole, cross K/V at the rank's heads where the model axis divides
+them.  Sub-layers compute on the rank's share as in training; decode
+attention over positions split across ranks is ``sp_decode_attention``;
+the logits are vocabulary-parallel, then gathered whole (B, V).
 """
 from __future__ import annotations
 
@@ -67,17 +80,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_KINDS, ModelConfig
-from .attention import (attn_axes, attn_decode, attn_params, attn_prefill,
-                        attn_prefill_chunk, attn_train, cross_attn, cross_kv)
+from .attention import (KVLayout, attn_axes, attn_decode, attn_params,
+                        attn_prefill, attn_prefill_chunk, attn_train,
+                        cross_attn, cross_kv, kv_heads_read)
 from .common import (ShapesOnly, chunked_ce_loss, dtype_of, embed_axes,
                      embed_params, embed_tokens, mlp, mlp_axes, mlp_params,
                      ones_init, resolve_device, rms_norm, unembed)
+from ..distrib.collectives import all_gather_dim
+from ..distrib.sharding import block_shape, entry_axes, tree_specs
 from ..distrib.tensor_parallel import TensorParallel
 from .moe import moe_apply, moe_axes, moe_params, padded_experts
 from .rglru_block import (rglru_axes, rglru_block_apply, rglru_block_decode,
                           rglru_cache_spec, rglru_params)
 from .ssd_block import (ssd_axes, ssd_block_apply, ssd_block_decode,
-                        ssd_cache_spec, ssd_params)
+                        ssd_cache_spec, ssd_params, whole_conv_tail)
 
 
 AUX_KEYS = ("moe_lb", "moe_z")
@@ -257,18 +273,21 @@ class Model:
 
     # ----------------------------------------------------------------- block
     def _ffn(self, p: dict, h, aux: Optional[dict] = None,
-             tp: Optional[TensorParallel] = None, where=(), split=None):
+             tp: Optional[TensorParallel] = None, where=(), split=None,
+             cf: Optional[float] = None):
         """The feed-forward half.  Serving (``aux`` None) runs MoE layers
-        dropless and drops their aux losses; training runs them at the
-        config's capacity factor and adds their aux losses to ``aux``;
-        ``tp`` lays the layer at ``where`` out on a mesh: an MLP in
-        tensor parallel where its leaves are split (``split``, where
-        given, in place of its own ``Split``), MoE layers through
-        ``tp.moe`` (``models/moe.py``)."""
+        dropless, or at the capacity factor ``cf`` where given, and drops
+        their aux losses; training runs them at the config's capacity
+        factor and adds their aux losses to ``aux``; ``tp`` lays the
+        layer at ``where`` out on a mesh: an MLP in tensor parallel where
+        its leaves are split (``split``, where given, in place of its own
+        ``Split``), MoE layers through ``tp.moe`` (``models/moe.py``)."""
         if "moe" in p:
             y, a = moe_apply(self.cfg, p["moe"], h,
                              spmd=tp.moe if tp is not None else None,
-                             dropless=aux is None)
+                             capacity_factor=cf,
+                             dropless=aux is None and cf is None,
+                             want_aux=aux is not None)
             if aux is not None:
                 for key in AUX_KEYS:
                     aux[key] = aux[key] + a[key]
@@ -277,7 +296,8 @@ class Model:
                    tp=split or _split(tp, where, "mlp"))
 
     def _block(self, p: dict, x, mix, aux: Optional[dict] = None,
-               mem_kv=None, tp: Optional[TensorParallel] = None, where=()):
+               mem_kv=None, tp: Optional[TensorParallel] = None, where=(),
+               cf: Optional[float] = None):
         """One pre-norm block; ``mix(h)`` is the mixing half (attention
         or recurrence; training, prefill, chunk or decode); ``aux``,
         ``tp`` and ``where`` as ``_ffn``'s; ``mem_kv``, the cross
@@ -295,8 +315,8 @@ class Model:
             if both is not None and _split(tp, where, "mlp") is not None:
                 hh, inner = both.enter(h), both.fused()
                 return x + both.leave(mix(hh, split=inner) + self._ffn(
-                    p, hh, aux, tp, where, split=inner))
-            return x + mix(h) + self._ffn(p, h, aux, tp, where)
+                    p, hh, aux, tp, where, split=inner, cf=cf))
+            return x + mix(h) + self._ffn(p, h, aux, tp, where, cf=cf)
         a = mix(h)
         x = x + a
         if mem_kv is not None:
@@ -306,7 +326,8 @@ class Model:
         if "mlp" not in p and "moe" not in p:
             return x
         return x + self._ffn(p, rms_norm(x, _on_stream(tp, p["norm2"]),
-                                         cfg.norm_eps), aux, tp, where)
+                                         cfg.norm_eps), aux, tp, where,
+                             cf=cf)
 
     def _embed_inputs(self, emb, tokens, frontend=None, tp=None):
         """(h, prefix_len): the token embeddings (``emb``: the embedding
@@ -453,50 +474,68 @@ class Model:
 
     # ------------------------------------------------------------------ serve
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None,
-                frontend=None):
+                frontend=None, spmd: Optional[TensorParallel] = None,
+                capacity_factor: Optional[float] = None):
         """Prompt pass over tokens (B,S) (and ``frontend``
         (B,F,frontend_dim) for a config with one: a VLM's patches come
         first, F + S positions).  Returns (last-position logits (B,V)
         f32, cache of length ``cache_len``: K/V in the compute dtype,
         recurrent ``h`` in f32, conv tails in the compute dtype, an
-        encoder-decoder's cross K/V in the compute dtype)."""
+        encoder-decoder's cross K/V in the compute dtype).  MoE layers
+        run dropless, or at ``capacity_factor`` where given.
+
+        ``spmd`` serves on a mesh (see the module docstring): ``params``
+        are then this rank's stored blocks, ``tokens`` (and ``frontend``)
+        its rows of the batch, and the cache returned is this rank's
+        blocks (``serve_layout``); the MoE layers run expert-parallel
+        (``spmd.moe``) and the logits are gathered whole (B, V)."""
         cfg = self.cfg
+        tp = spmd
         B = tokens.shape[0]
         cdt = dtype_of(cfg.compute_dtype)
-        h, prefix_len = self._embed_inputs(params["embed"], tokens, frontend)
-        S = h.shape[1]
-        cache = self._kv_stacks(B, cache_len or S, cdt, tokens.device)
+        emb, vocab = _gather(tp, params["embed"], ("embed",)), \
+            _split(tp, (), "embed")
+        h, prefix_len = self._embed_inputs(emb, tokens, frontend, tp=vocab)
+        T = cache_len or h.shape[1]
+        specs, layout, cross_split = self.serve_layout(tp, B, T)
+        memory = (self._encode(params, emb, frontend, tp=tp)
+                  if self.is_encdec else None)
+        cache = self._zero_cache(specs, tp, B, T, memory, cdt, tokens.device)
         states = {g: [] for g in self.stack_sizes if g != "attn"}
-        memory = None
-        if self.is_encdec:
-            memory = self._encode(params, params["embed"], frontend)
-            cache.update(self._cross_stacks(B, memory.shape[1], cdt,
-                                            tokens.device))
-
-        def recurrent(kind, p, x):
-            out, st = _RECURRENT[kind].prefill(cfg, p, x, want_cache=True)
-            states[kind].append(st)
-            return out
 
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
+            where = ("layers", i)
+            p = _gather(tp, p, where)
             j = self.cache_index[i]
             mem_kv = None
             if memory is not None:
-                mem_kv = cross_kv(cfg, p["cross"], memory)
-                cache["cross_k"][i] = mem_kv[0]
-                cache["cross_v"][i] = mem_kv[1]
+                split = _split(tp, where, "cross")
+                kv = cross_kv(cfg, p["cross"], memory,
+                              tp=split if cross_split else None)
+                cache["cross_k"][i], cache["cross_v"][i] = kv
+                mem_kv = self._cross_read(p, kv, split, cross_split)
             if kind in ATTN_KINDS:
-                h = self._block(p, h, lambda x: attn_prefill(
-                    cfg, p["attn"], x, cache["k"][j], cache["v"][j],
-                    kind=kind, prefix_len=prefix_len), mem_kv=mem_kv)
+                def mix(x, split=_split(tp, where, "attn"), p=p, j=j,
+                        kind=kind):
+                    return attn_prefill(
+                        cfg, p["attn"], x, cache["k"][j], cache["v"][j],
+                        kind=kind, prefix_len=prefix_len, layout=layout,
+                        tp=split)
             else:
-                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x),
-                                mem_kv=mem_kv)
+                def mix(x, split=_split(tp, where, "rec"), p=p, kind=kind):
+                    out, st = _RECURRENT[kind].prefill(
+                        cfg, p["rec"], x, want_cache=True, tp=split)
+                    if kind == "ssd" and split is not None:
+                        st = dict(st, conv=whole_conv_tail(cfg, st["conv"],
+                                                           split))
+                    states[kind].append(st)
+                    return out
+            h = self._block(p, h, mix, mem_kv=mem_kv, tp=tp, where=where,
+                            cf=capacity_factor)
         for g, sts in states.items():
             for name in ("h", "conv"):
                 cache[f"{g}_{name}"] = torch.stack([st[name] for st in sts])
-        return unembed(cfg, params["embed"], self._final(params, h)[:, -1]), \
-            cache
+        return self._logits(params, emb, h[:, -1], tp, vocab), cache
 
     def prefill_chunk(self, params, cache, tokens, offset: int):
         """One prefill chunk: tokens (B,C) at absolute positions
@@ -514,34 +553,149 @@ class Model:
                 kind=kind))
         return unembed(cfg, params["embed"], self._final(params, h)), cache
 
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos, *,
+                    spmd: Optional[TensorParallel] = None,
+                    cache_len: Optional[int] = None):
         """One token per row: tokens (B,1); ``pos`` a scalar or a (B,)
         tensor. Returns (logits (B,V), cache), the cache updated in
-        place."""
+        place.  ``spmd`` serves on a mesh: ``cache`` is then this rank's
+        blocks (``prefill``'s) of one whose K/V hold ``cache_len``
+        positions, ``tokens`` its rows; attention over K/V split along
+        the positions runs ``sp_decode_attention``, the recurrent blocks
+        step their rank's heads or channels."""
         cfg = self.cfg
-        h = embed_tokens(cfg, params["embed"], tokens)
-
-        def recurrent(kind, p, x, j):
-            h_, conv = cache[f"{kind}_h"][j], cache[f"{kind}_conv"][j]
-            out, st = _RECURRENT[kind].decode(cfg, p, x,
-                                              {"h": h_, "conv": conv})
-            h_.copy_(st["h"])
-            conv.copy_(st["conv"])
-            return out
+        tp = spmd
+        if tp is not None and "k" in cache and cache_len is None:
+            raise ValueError("decode_step on a mesh: pass cache_len, the "
+                             "whole cache's positions")
+        specs, layout, cross_split = self.serve_layout(
+            tp, tokens.shape[0], cache_len or 1)
+        emb, vocab = _gather(tp, params["embed"], ("embed",)), \
+            _split(tp, (), "embed")
+        h = embed_tokens(cfg, emb, tokens, tp=vocab)
 
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
+            where = ("layers", i)
+            p = _gather(tp, p, where)
             j = self.cache_index[i]
-            mem_kv = ((cache["cross_k"][i], cache["cross_v"][i])
-                      if self.is_encdec else None)
+            mem_kv = None
+            if self.is_encdec:
+                mem_kv = self._cross_read(
+                    p, (cache["cross_k"][i], cache["cross_v"][i]),
+                    _split(tp, where, "cross"), cross_split)
             if kind in ATTN_KINDS:
-                h = self._block(p, h, lambda x: attn_decode(
-                    cfg, p["attn"], x, cache["k"][j], cache["v"][j], pos,
-                    kind=kind), mem_kv=mem_kv)
+                def mix(x, split=_split(tp, where, "attn"), p=p, j=j,
+                        kind=kind):
+                    return attn_decode(
+                        cfg, p["attn"], x, cache["k"][j], cache["v"][j],
+                        pos, kind=kind, layout=layout, tp=split)
             else:
-                h = self._block(p, h, lambda x: recurrent(kind, p["rec"], x,
-                                                          j), mem_kv=mem_kv)
-        return unembed(cfg, params["embed"], self._final(params, h))[:, 0], \
-            cache
+                def mix(x, split=_split(tp, where, "rec"), p=p, j=j,
+                        kind=kind):
+                    h_, conv = cache[f"{kind}_h"][j], cache[f"{kind}_conv"][j]
+                    out, st = _RECURRENT[kind].decode(
+                        cfg, p["rec"], x, {"h": h_, "conv": conv}, tp=split)
+                    h_.copy_(st["h"])
+                    conv.copy_(st["conv"])
+                    return out
+            h = self._block(p, h, mix, mem_kv=mem_kv, tp=tp, where=where)
+        return self._logits(params, emb, h, tp, vocab)[:, 0], cache
+
+    # ------------------------------------------------------ serve on a mesh
+    def serve_layout(self, tp: Optional[TensorParallel], batch_size: int,
+                     cache_len: int):
+        """(spec of each cache stack, the K/V blocks' ``KVLayout`` or
+        None, whether the model axis splits the cross K/V's heads) of a
+        cache of ``batch_size`` rows (this rank's) and ``cache_len``
+        positions on ``tp``'s mesh: ``tree_specs`` of ``cache_axes``
+        under ``tp.rules``, the batch over ``tp.batch_axes``.  Without a
+        mesh (``tp`` None) the cache is whole: (None, None, False)."""
+        if tp is None:
+            return None, None, False
+        mesh = tp.mesh
+        B = batch_size * mesh.axis_size(tp.batch_axes)
+        shapes, axes = self.cache_axes(B, cache_len)
+        rules = dict(tp.rules, batch=tp.batch_axes)
+        specs = tree_specs(shapes, axes, mesh, rules)
+        for name, spec in specs.items():
+            got = entry_axes(spec[1]) if len(spec) > 1 else ()
+            if mesh.axis_size(got) != mesh.axis_size(tp.batch_axes):
+                raise ValueError(f"{self.cfg.name}: a batch of {B} rows "
+                                 f"does not split over {tp.batch_axes} in "
+                                 f"the cache's {name!r} ({spec})")
+        layout = None
+        if "k" in specs:
+            spec = specs["k"] + (None,) * 5
+            if spec[3] is not None and spec[2] is not None:
+                raise ValueError(f"K/V cache spec {specs['k']}: positions "
+                                 f"and heads both split")
+            layout = KVLayout(mesh, entry_axes(spec[2]),
+                              spec[3] is not None, cache_len)
+        cross = "cross_k" in specs and len(specs["cross_k"]) > 3 and \
+            specs["cross_k"][3] is not None
+        return specs, layout, cross
+
+    def cache_axes(self, batch_size: int, cache_len: int):
+        """(``cache_specs``' cache as meta tensors, its axes tree): each
+        stack's logical axes as the reference's ``cache_specs`` tags its
+        leaves, behind the stack's leading ``"layers"`` (never split)::
+
+            k, v                ("layers", "batch", "kv_seq", "kv_heads",
+                                 "head_dim")
+            cross_k, cross_v    ("layers", "batch", "enc_seq", "kv_heads",
+                                 "head_dim")
+            ssd_h               ("layers", "batch", "ssm_heads", "head_dim",
+                                 "state")
+            ssd_conv            ("layers", "batch", "conv", "conv_ch")
+            rglru_h             ("layers", "batch", "lru")
+            rglru_conv          ("layers", "batch", "conv", "lru")
+        """
+        shapes = self.cache_specs(batch_size, cache_len, device="meta")
+        names = {"k": ("kv_seq", "kv_heads", "head_dim"),
+                 "v": ("kv_seq", "kv_heads", "head_dim"),
+                 "cross_k": ("enc_seq", "kv_heads", "head_dim"),
+                 "cross_v": ("enc_seq", "kv_heads", "head_dim"),
+                 "ssd_h": ("ssm_heads", "head_dim", "state"),
+                 "ssd_conv": ("conv", "conv_ch"),
+                 "rglru_h": ("lru",),
+                 "rglru_conv": ("conv", "lru")}
+        return shapes, {k: ("layers", "batch") + names[k] for k in shapes}
+
+    def _zero_cache(self, specs, tp, batch_size, cache_len, memory, dtype,
+                    device) -> dict:
+        """Zeroed K/V stacks of ``cache_len`` positions and, beside an
+        encoder's ``memory``, cross stacks of its frames, for
+        ``batch_size`` rows: this rank's blocks of them under ``tp``
+        (``specs``: ``serve_layout``'s), the whole of them without."""
+        B = batch_size if tp is None else \
+            batch_size * tp.mesh.axis_size(tp.batch_axes)
+        whole = self._kv_stacks(B, cache_len, dtype, "meta")
+        if memory is not None:
+            whole.update(self._cross_stacks(B, memory.shape[1], dtype,
+                                            "meta"))
+        return {k: torch.zeros(t.shape if tp is None else
+                               block_shape(t.shape, specs[k], tp.mesh),
+                               dtype=dtype, device=device)
+                for k, t in whole.items()}
+
+    def _logits(self, params, emb, h, tp, vocab):
+        """The final norm and the logits (B,V) f32; under a vocabulary
+        ``Split`` this rank's slice of them, all-gathered whole over the
+        model axis."""
+        logits = unembed(self.cfg, emb, self._final(params, h, tp))
+        if vocab is None:
+            return logits
+        return all_gather_dim(logits, tp.mesh, vocab.axis, logits.ndim - 1)
+
+    def _cross_read(self, p, mem_kv, split, cross_split):
+        """The cross attention's K/V as this rank's query heads read them,
+        from the cached (or just projected) K/V of every head, or of this
+        rank's heads where the model axis splits them."""
+        if split is None or cross_split:
+            return mem_kv
+        take = kv_heads_read(self.cfg, split, p["cross"]["wq"].shape[1],
+                             mem_kv[0].device)
+        return take(mem_kv[0], 2), take(mem_kv[1], 2)
 
     @property
     def supports_chunked_prefill(self) -> bool:

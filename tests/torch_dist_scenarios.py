@@ -535,3 +535,124 @@ def seq_parallel(rank, world, args):
     for name, case in args["steps"].items():
         out["steps"][name] = _step_case(rank, meshes[case["mesh"]], case)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: sharded prefill and decode against one process's
+# ---------------------------------------------------------------------------
+def _serve_model(arch, n_model):
+    """Reduced ``arch`` in f32, a MoE config's experts padded to the
+    model axis."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+    from repro_torch.models.moe import padded_experts
+    cfg = configs.reduced(arch).replace(compute_dtype="float32")
+    if not cfg.moe.num_experts:
+        return Model(cfg)
+    return Model(cfg, e_pad=padded_experts(cfg, n_model))
+
+
+def _greedy(model, params, tokens, frontend, cache_len, steps, **kw):
+    """(prefill logits, each decode step's logits, the greedy tokens)."""
+    logits, cache = model.prefill(params, tokens, cache_len=cache_len,
+                                  frontend=frontend, **kw.get("prefill", {}))
+    pos = tokens.shape[1] + (model.cfg.frontend_seq
+                             if model.cfg.family == "vlm" else 0)
+    steps_out, picked = [], []
+    nxt = logits.argmax(-1)
+    for i in range(steps):
+        picked.append(nxt)
+        out, cache = model.decode_step(params, cache, nxt[:, None], pos + i,
+                                       **kw.get("decode", {}))
+        steps_out.append(out)
+        nxt = out.argmax(-1)
+    return logits, torch.stack(steps_out), torch.stack(picked, 1), cache
+
+
+def serve_layout(model, mesh, batch, rules):
+    """The serving ``TensorParallel`` of ``model`` on ``mesh``: the batch
+    over the data axis where it divides, the experts over the model
+    axis."""
+    from repro_torch.distrib.tensor_parallel import TensorParallel
+    from repro_torch.models.moe import MoESpmd
+    batch_axes = ("data",) if batch % mesh.shape["data"] == 0 else ()
+    moe = None
+    if model.cfg.moe.num_experts:
+        moe = MoESpmd(mesh=mesh, token_axes=batch_axes,
+                      expert_axis="model" if mesh.shape["model"] > 1
+                      else None)
+    return TensorParallel(model, mesh, ("data",), "model", moe=moe,
+                          batch_axes=batch_axes, rules=rules)
+
+
+def _serve_case(rank, mesh, case):
+    from repro_torch.train import optim
+    from repro_torch.train.step import init_state
+    model = _serve_model(case["arch"], mesh.shape["model"])
+    tokens = _t(case["tokens"])
+    frontend = (None if case.get("frontend") is None
+                else _t(case["frontend"]))
+    out = {}
+    tp = serve_layout(model, mesh, tokens.shape[0], case.get("rules"))
+    if case.get("weights") is not None:
+        # weights from elsewhere (the reference's, bridged): every rank
+        # keeps its blocks
+        from repro_torch.models import params_from_numpy
+        from repro_torch.train.step import _blocks
+        blocks = _blocks(params_from_numpy(case["weights"], device="cpu"),
+                         tp.specs, mesh)
+    else:
+        if rank == 0:
+            params = model.init(0, device="cpu")
+            out["whole"] = [t.numpy() for t in _greedy(
+                model, params, tokens, frontend, case["cache_len"],
+                case["steps"])[:3]]
+        blocks = init_state(model, optim.OptConfig(), 0, device="cpu",
+                            mesh=mesh)["params"]
+    rows = (lambda t: t) if not tp.batch_axes else (
+        lambda t: local_block(t, (tp.batch_axes,), mesh))
+    from repro_torch.distrib import collectives as coll
+    with coll.record() as recs:
+        got = _greedy(model, blocks, rows(tokens),
+                      None if frontend is None else rows(frontend),
+                      case["cache_len"], case["steps"],
+                      prefill={"spmd": tp}, decode={
+                          "spmd": tp, "cache_len": case["cache_len"]})
+    out["sharded"] = [t.numpy() for t in got[:3]]
+    out["batch_axes"] = tp.batch_axes
+    out["n_batch"] = mesh.axis_size(tp.batch_axes)
+    out["coords"] = dict(mesh.coords)
+    out["cache"] = {k: tuple(v.shape) for k, v in got[3].items()}
+    out["colls"] = recs
+    return out
+
+
+def sharded_serve(rank, world, args):
+    meshes = {shape: Mesh(shape, ("data", "model"), backend="gloo")
+              for shape in args["meshes"]}
+    return {name: _serve_case(rank, meshes[case["mesh"]], case)
+            for name, case in args["cases"].items()}
+
+
+# ---------------------------------------------------------------------------
+# the dry run's cells as a real run: the collectives they issue
+# ---------------------------------------------------------------------------
+def dry_collectives(rank, world, args):
+    """Each cell of ``args`` (name -> (arch, kind, batch, seq)) at reduced
+    size, run for real by ``launch.dryrun.lower_cell`` on a gloo (data 2,
+    model 2) mesh: the collectives it issues, in order."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distrib import collectives as coll
+    from repro_torch.launch import dryrun
+    mesh = Mesh((2, 2), ("data", "model"), backend="gloo")
+    out = {}
+    for name, (arch, kind, batch, seq) in args.items():
+        shape = ShapeSpec(name=name, kind=kind, seq_len=seq,
+                          global_batch=batch)
+        run, _, _ = dryrun.lower_cell(arch, shape, mesh,
+                                      cfg=configs.reduced(arch))
+        with coll.record() as recs:
+            run()
+        out[name] = list(recs)
+    return out

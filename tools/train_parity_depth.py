@@ -14,17 +14,24 @@ and gradients by ``train.step.loss_and_grads`` through four SSD paths:
   function;
 - ``kernels``: ``SSDFunction`` on the card, the forward kernels
   (3xTF32 products) and the backward kernels;
+- ``kernels_f32``: the same with the forward kernels built with
+  ``REPRO_SSD_F32_PRODUCTS`` (a diagnostic build of ``csrc/ssd.cu``
+  that only this tool loads): every product of the forward a plain f32
+  sum on the CUDA cores;
 - ``kfwd_pbwd`` / ``pfwd_kbwd``: the forward kernels with
   ``ssd_bwd_plain``, and the plain forward with the backward kernels.
 
 For each of the last four against ``plain256``: the worst leaf's
 max |difference| / max |plain256| and the loss's relative difference,
 one ``DEPTH {json}`` line a depth.  Then the two plain chunkings at full
-depth under two more weight seeds (``SEED`` lines).
+depth under two more weight seeds (``SEED`` lines), and the forward's
+time in both builds at mamba2's heads, f32, in turns (``FWD_MS``).
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -43,6 +50,17 @@ from repro_torch.train.step import loss_and_grads  # noqa: E402
 ARCH = "mamba2-1.3b"
 DEPTHS = (2, 4, 8, 16, 48)
 RAW_FWD, RAW_BWD = kssd._ssd_cuda, kssd._ssd_bwd_cuda
+F32_PRODUCTS = ("REPRO_SSD_F32_PRODUCTS",)
+
+
+def forward_entry(defines=()):
+    """The forward's C entry of a build of ``csrc/ssd.cu`` with
+    ``defines``, bound as ``kssd._kernel`` binds the main one."""
+    from repro_torch.kernels.build import load
+    fn = load("ssd", defines).repro_ssd_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = kssd._kernel().argtypes
+    return fn
 
 
 def plain_forward(x, dt, A, B, C, D, h0, keep=False):
@@ -66,11 +84,14 @@ def gradients(model, params, batch, path):
         kssd._ssd_bwd_cuda = plain_backward
     elif path == "pfwd_kbwd":
         kssd._ssd_cuda = plain_forward
+    elif path == "kernels_f32":
+        kssd._fn = forward_entry(F32_PRODUCTS)
     try:
         loss, _, grads = loss_and_grads(model, params, batch, remat="none")
     finally:
         ssd_block.ssd = kssd.ssd
         kssd._ssd_cuda, kssd._ssd_bwd_cuda = RAW_FWD, RAW_BWD
+        kssd._fn = forward_entry()
     return float(loss), flatten_named(grads)
 
 
@@ -100,11 +121,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0))
+    print("CARD", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip(), flush=True)
     for layers in DEPTHS:
         model, params, batch = setup(layers, 2)
         base_loss, base = gradients(model, params, batch, "plain256")
         row = {"layers": layers}
-        for path in ("plain64", "kernels", "kfwd_pbwd", "pfwd_kbwd"):
+        for path in ("plain64", "kernels", "kernels_f32", "kfwd_pbwd",
+                     "pfwd_kbwd"):
             loss, grads = gradients(model, params, batch, path)
             err, leaf = worst(grads, base)
             row[path] = {"worst": err, "leaf": leaf,
@@ -122,7 +148,42 @@ def main() -> int:
                                   "leaf": leaf}), flush=True)
         del params, base, other
         torch.cuda.empty_cache()
+    forward_times()
     return 0
+
+
+def forward_times(rounds: int = 4, iters: int = 20):
+    """The forward kernels' ms a call in both builds, f32, at mamba2's
+    heads (H 64, P 64, G 1, N 128) on 2 x 2048 and 8 x 128, the builds in
+    turns (main, f32, f32, main, ...)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    builds = {"3xtf32": forward_entry(), "f32": forward_entry(F32_PRODUCTS)}
+    for B, S in ((2, 2048), (8, 128)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x, Bm, Cm = rnd(B, S, 64, 64), rnd(B, S, 1, 128), rnd(B, S, 1, 128)
+        dt = torch.rand((B, S, 64), generator=gen, device="cuda") * 0.1
+        A = -torch.linspace(1.0, 16.0, 64, device="cuda")
+        D = torch.ones(64, device="cuda")
+        times = {k: [] for k in builds}
+        order = [k for r in range(rounds) for k in
+                 (("3xtf32", "f32") if r % 2 == 0 else ("f32", "3xtf32"))]
+        for name in order:
+            kssd._fn = builds[name]
+            kssd._ssd_cuda(x, dt, A, Bm, Cm, D, None)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                kssd._ssd_cuda(x, dt, A, Bm, Cm, D, None)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+        kssd._fn = builds["3xtf32"]
+        print("FWD_MS", json.dumps({"shape": [B, S, 64, 64, 128],
+                                    "ms": times}), flush=True)
 
 
 if __name__ == "__main__":

@@ -60,7 +60,8 @@ def dense_init(gen: torch.Generator, shape, dtype,
     fan_in = in_dim if in_dim is not None else shape[0]
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w / math.sqrt(max(fan_in, 1))).to(dtype)
+    # scaled in place: a bf16 leaf's draw holds one f32 copy, not two
+    return w.div_(math.sqrt(max(fan_in, 1))).to(dtype)
 
 
 def zeros_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:

@@ -6,7 +6,7 @@ computes.
 
     python3 tools/tp_bytes.py [--arch qwen1.5-0.5b] [--mesh 2 2]
                               [--batch 8] [--seq 128] [--remat block]
-                              [--seq-parallel] [--reduced]
+                              [--seq-parallel] [--reduced] [--layers N]
 
 For a model of attention, SSD and RG-LRU blocks with dense MLPs (no
 MoE, frontend or encoder) on a (data, model) mesh, from
@@ -95,8 +95,10 @@ def _leaves(tree, spec, path=()):
 
 
 def reckon(arch, mesh_shape, batch, seq, remat, reduced=False,
-           seq_parallel=False):
+           seq_parallel=False, n_layers=None):
     cfg = configs.reduced(arch) if reduced else configs.get(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     if cfg.moe.num_experts or cfg.frontend != "none" or cfg.n_enc_layers:
         raise SystemExit(f"{arch}: this count covers attention, SSD and "
                          f"RG-LRU blocks with dense MLPs only")
@@ -213,7 +215,8 @@ def reckon(arch, mesh_shape, batch, seq, remat, reduced=False,
     stored = bytes_per_device(shapes, axes, mesh.shape)
     params = sum(nbytes(t) for _, t, _ in _leaves(meta, tp.specs))
     blocks = bytes_per_device(meta, model.param_axes(), mesh.shape)
-    return {"arch": arch, "reduced": reduced, "mesh": list(mesh_shape),
+    return {"arch": arch, "reduced": reduced, "layers": cfg.n_layers,
+            "mesh": list(mesh_shape),
             "batch": batch, "seq": seq, "remat": remat,
             "seq_parallel": sp, "vocab_split": vocab,
             "calls_a_step": calls,
@@ -235,10 +238,13 @@ def main(argv=None):
                     help="the residual stream split over the sequence")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's reduced size (the CPU tests')")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     args = ap.parse_args(argv)
     print("TP_BYTES " + json.dumps(reckon(args.arch, args.mesh, args.batch,
                                           args.seq, args.remat,
-                                          args.reduced, args.seq_parallel)))
+                                          args.reduced, args.seq_parallel,
+                                          args.layers)))
 
 
 if __name__ == "__main__":

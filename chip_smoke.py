@@ -238,7 +238,31 @@ Phases, in order; any failure exits non-zero:
       step at 2048 of 4096 channels, attention 1 + 1 and 1 at 8 of 16
       query heads (the key/value head whole), every layer's input 64 of
       the 128 positions, the collectives as 1b; then its 3-layer f32
-      step against one process.
+      step against one process.  1e: Adafactor on the mesh, qwen1.5-0.5b
+      at full width cut to 2 layers, bf16, remat "block", 8 x 128
+      global, 2 steps: each rank's stored bytes ``bytes_per_device`` of
+      the Adafactor state (the reference's plus the stated copies of the
+      norm scales' columns), the loss falling, attention at 8 of 16
+      heads forward and backward on every rank, the collectives a step
+      (the two rounds of factor sums included) ``tools/tp_bytes.py
+      --opt adafactor``'s; then a 2-layer f32 Adafactor step against one
+      process.  1f: the dry run's ``param_gather=bfloat16``, qwen at 2
+      layers, AdamW, the same mesh, 2 steps: every f32 block cast to
+      bf16 before its gather, so its gather and its gradient's
+      reduce-scatter (all-reduces in gloo's CUDA form) travel in bf16;
+      the collectives a step ``tools/tp_bytes.py``'s for the variant,
+      their bf16 bytes half of a layer's f32 gathers in 1b's reckoning;
+      then the 2-layer f32 loss and gradients against one process's over
+      the same bf16-cast parameters (``GRAD_TOL`` bf16).  1g: the dry
+      run's ``flat_dp``, granite-moe-3b-a800m at full width cut to 2
+      layers, AdamW, the batch over all 4 ranks, 2 steps, capacity
+      factor 1.25: no tensor parallelism, every collective over all 4
+      ranks, the router over all 40 experts and the combine forward and
+      backward on every rank, attention at all 24 / 8 heads, the
+      collectives ``tools/tp_bytes.py``'s; then a 2-layer f32 dropless
+      step against one process.  Each rank's peak in 1e-1g is printed
+      beside the dry run's trace of the same cell and variant (on the
+      host, both collective forms).
       2: ``sp_decode_attention`` over
       (data 1, model 4) at qwen1.5-0.5b's heads, B 4, T 32768 (8192 keys
       a rank), bf16, softcap 0 and 30, against the whole-cache kernel and
@@ -329,10 +353,11 @@ Phases, in order; any failure exits non-zero:
    forward) as the library yardstick; phases 3h, 3i and 3j add the
    SSD's, the router's, the MoE combine's and the RG-LRU's training
    forwards (the RG-LRU's with its kept states) and backwards; phase 3m
-   adds rank 0's training rows (the router at 20 of 40 experts;
-   attention at granite's, qwen's and recurrentgemma's local heads; the
-   SSD at 32 of mamba2's 64 heads and the RG-LRU at 2048 of
-   recurrentgemma's 4096 channels, forward and backward) and the
+   adds rank 0's training rows (the router at 20 of 40 experts, and at
+   all 40 under ``flat_dp``; attention at granite's, qwen's and
+   recurrentgemma's local heads, and at all of granite's under
+   ``flat_dp``; the SSD at 32 of mamba2's 64 heads and the RG-LRU at
+   2048 of recurrentgemma's 4096 channels, forward and backward) and the
    attention partial of ``sp_decode_attention``.  These rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
@@ -4263,6 +4288,8 @@ SP_LAYERS = 3                    # one period: rec, rec, local (memory)
 SP_LRU = 2048                    # its local RG-LRU channels on 2
 SP_HEADS = (8, 1)                # its local query / key-value heads on 2
 TP_REC_STEPS = 2                 # steps of sub-checks 1c and 1d
+VARIANT_LAYERS = 2               # qwen and granite in sub-checks 1e-1g
+FLAT_HEADS = (24, 8)             # all of granite's query / key-value heads
 DISTRIB_LIMIT_S = 900.0          # the four ranks' whole run
 DISTRIB_BARRIER_S = 600.0        # a rank's wait in one collective
 SP_DECODE = dict(B=4, T=32768, Hq=16, Hkv=16, D=64, softcaps=(0.0, 30.0))
@@ -4285,6 +4312,7 @@ class CollectiveClock:
 
     def __init__(self):
         self.by_kind = {}
+        self.by_dtype = {}          # the bytes of the calls by dtype
         self._orig = {}
 
     def install(self):
@@ -4305,8 +4333,12 @@ class CollectiveClock:
             rec["seconds"] += time.perf_counter() - t0
             rec["calls"] += 1
             bufs = [t for t in a[:2] if torch.is_tensor(t)]
-            rec["bytes"] += max((t.numel() * t.element_size() for t in bufs),
-                                default=0)
+            nbytes = max((t.numel() * t.element_size() for t in bufs),
+                         default=0)
+            rec["bytes"] += nbytes
+            if bufs:
+                dt = str(bufs[0].dtype).replace("torch.", "")
+                self.by_dtype[dt] = self.by_dtype.get(dt, 0) + nbytes
             return out
         return timed
 
@@ -4337,10 +4369,10 @@ def distrib_model(n_layers, mesh, capacity_factor=None, **over):
 
 
 def stored_bytes(state) -> int:
-    opt = state["opt"]
+    """The bytes of the parameters and the optimizer's state (AdamW's m
+    and v, Adafactor's factors, the count)."""
     return sum(t.numel() * t.element_size() for t in
-               optim.leaves(state["params"]) + optim.leaves(opt["m"])
-               + optim.leaves(opt["v"]) + [opt["count"]])
+               optim.leaves(state["params"]) + optim.leaves(state["opt"]))
 
 
 def distrib_train(mesh, rank):
@@ -4433,47 +4465,208 @@ def distrib_sp_train(mesh, rank):
     return out, recorder
 
 
-def check_reckoned(tag, out, model, remat, seq_parallel=False):
-    """A step's collectives (``sharded_steps``' ``collectives_a_step``),
-    calls and bytes by kind, equal to what ``tools/tp_bytes.py`` reckons
-    from the code for the same model, mesh, batch and remat in the form
-    the mesh's backend takes (gloo with CUDA tensors: every call an
-    all-reduce)."""
+def distrib_adafactor_train(mesh, rank):
+    """Sub-check 1e: DISTRIB_STEPS sharded Adafactor steps of qwen1.5-0.5b
+    at full width, VARIANT_LAYERS deep, bf16 compute, remat "block", 8 x
+    128 global: each rank's stored bytes ``bytes_per_device`` of the
+    Adafactor state (the reference's plus ``adafactor_column_copies``),
+    attention at TP_HEADS on every rank, the collectives a step (with
+    the factors' two rounds of sums) as ``tools/tp_bytes.py --opt
+    adafactor`` reckons them.  Returns (results, recorder)."""
+    model = Model(configs.get(TP_ARCH).replace(n_layers=VARIANT_LAYERS))
+    tag = f"distrib r{rank} {TP_ARCH} adafactor"
+    # at 2 layers the embedding's draw alone tops the whole tree (1b)
+    out, recorder = sharded_steps(tag, model, mesh, "block",
+                                  opt="adafactor", init_below_whole=False)
+    check_reckoned(tag, out, model, "block", opt="adafactor")
+    copies = train_step.adafactor_column_copies(model, mesh)
+    print(f"{tag}: the reference's bytes_per_device "
+          f"{out['bytes_per_device'] - copies} and {copies} bytes of the "
+          f"norm scales' column copies", flush=True)
+    heads = sorted({(key[5], key[6]) for key in recorder.seen
+                    if key[0].startswith("flash_attention")})
+    check(heads == [TP_HEADS], f"{tag}: attention heads {heads}, "
+          f"expected {[TP_HEADS]}")
+    out.update(heads=heads, column_copies=copies)
+    return out, recorder
+
+
+def distrib_pg_train(mesh, rank):
+    """Sub-check 1f: DISTRIB_STEPS sharded AdamW steps of qwen1.5-0.5b at
+    full width, VARIANT_LAYERS deep, under the dry run's
+    ``param_gather=bfloat16``: each f32 block cast to bf16 before its
+    gather, so the gathers and the gradients' reduce-scatters (gloo's
+    CUDA form: all-reduces) travel in bf16.  The collectives a step as
+    ``tools/tp_bytes.py`` reckons the variant; the bf16 bytes measured a
+    step the reckoned parameters' collectives; a layer's of those half
+    of a layer's in 1b's f32 reckoning.  Returns (results, recorder)."""
+    model = Model(configs.get(TP_ARCH).replace(n_layers=VARIANT_LAYERS))
+    tag = f"distrib r{rank} {TP_ARCH} param_gather"
+    par = ParallelConfig(remat="block", param_gather_dtype="bfloat16")
+    out, recorder = sharded_steps(tag, model, mesh, "block", par=par,
+                                  init_below_whole=False)
+    pg = check_reckoned(tag, out, model, "block",
+                        variant="param_gather=bfloat16")
+    base = tp_bytes_module().reckon(TP_ARCH, DISTRIB_MESH, TRAIN_BATCH,
+                                    TRAIN_SEQ, "block", n_layers=TP_LAYERS)
+    got16 = out["collective_bytes_by_dtype_a_step"].get("bfloat16", 0)
+    want16 = pg["param_collectives"]["total"]
+    layer16 = pg["param_collectives"]["layer"]
+    layer32 = base["param_collectives"]["layer"]
+    print(f"{tag}: bf16 bytes a step {got16}, the parameters' collectives "
+          f"reckoned {want16}; a layer's {layer16} against 1b's f32 "
+          f"{layer32}", flush=True)
+    check(got16 == want16 and 2 * layer16 == layer32,
+          f"{tag}: bf16 bytes {got16} (reckoned {want16}); a layer "
+          f"{layer16} against {layer32}")
+    heads = sorted({(key[5], key[6]) for key in recorder.seen
+                    if key[0].startswith("flash_attention")})
+    check(heads == [TP_HEADS], f"{tag}: attention heads {heads}")
+    out.update(heads=heads, bf16_bytes_a_step=got16,
+               layer_param_bytes=layer16, layer_param_bytes_f32=layer32)
+    return out, recorder
+
+
+def distrib_pg_parity(rank, grid):
+    """Sub-check 1f's parity: qwen at VARIANT_LAYERS, f32 compute, TF32
+    off, DISTRIB_PARITY batch x 128: the sharded gradients under
+    ``param_gather=bfloat16`` (``make_sharded_grads``, the step's own),
+    gathered, and the loss against one process's over the same
+    bf16-cast parameters (each gradient the bf16 leaf's, widened as the
+    cast's backward widens it), within
+    ``GRAD_TOL`` bf16 of each leaf's largest entry.  Returns rank 0's
+    (loss error, worst leaf error), else None."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Model(configs.get(TP_ARCH).replace(
+        n_layers=VARIANT_LAYERS, compute_dtype="float32"))
+    ocfg = optim.OptConfig()
+    par = ParallelConfig(remat="none", param_gather_dtype="bfloat16")
+    batch = train_batch(train_source(model.cfg, TRAIN_SEQ,
+                                     DISTRIB_PARITY["batch"], seed=2), 0)
+    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=grid)
+    grads_of = train_step.make_sharded_grads(model, par, grid)
+    loss, _, grads = grads_of(state["params"], batch)
+    loss = float(loss)
+    del state
+    free_card()
+    whole = gathered_leaves(optim.leaves(grads),
+                            train_step.leaves_of(grads_of.layout.specs),
+                            grid, keep=rank == 0)
+    del grads
+    free_card()
+    if rank:
+        return None
+    tag = (f"distrib r0 {TP_ARCH} param_gather parity ({VARIANT_LAYERS} "
+           f"layers, f32)")
+    params = optim.tree_map(
+        lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t,
+        train_step.init_state(model, ocfg, 0, device="cuda")["params"])
+    want_loss, _, want = train_step.loss_and_grads(model, params, batch,
+                                                   remat="none")
+    want = [g.float() for g in optim.leaves(want)]
+    errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(whole, want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    loss_err = abs(loss - float(want_loss)) / abs(float(want_loss))
+    tol = GRAD_TOL[torch.bfloat16]
+    print(f"{tag}: loss {loss} against {float(want_loss)} (rel "
+          f"{loss_err:.3g}); worst gradient leaf {max(errs):.3g} of its "
+          f"largest entry (leaf {worst}, {tuple(want[worst].shape)}; "
+          f"tolerance {tol:.4g}); leaves by error "
+          f"{sorted(round(e, 5) for e in errs)[-5:]}", flush=True)
+    check(loss_err <= tol and max(errs) <= tol,
+          f"{tag}: loss {loss_err:.3g}, worst leaf {max(errs):.3g} > {tol}")
+    del params, want, whole
+    free_card()
+    return loss_err, max(errs)
+
+
+def distrib_flat_train(mesh, rank):
+    """Sub-check 1g: DISTRIB_STEPS sharded AdamW steps of
+    granite-moe-3b-a800m at full width, VARIANT_LAYERS deep, bf16, remat
+    "block", capacity factor 1.25, under the dry run's ``flat_dp``: the
+    batch over all 4 ranks, every collective over all 4, the router over
+    all 40 experts (range [0, 40)) and the combine on every rank,
+    attention at all FLAT_HEADS; the collectives a step as
+    ``tools/tp_bytes.py`` reckons the variant.  Returns (results,
+    recorder)."""
+    from repro_torch.distrib.tensor_parallel import flat_dp_rules
+    model = distrib_model(VARIANT_LAYERS, mesh)
+    tag = f"distrib r{rank} {MOE_ARCH} flat_dp"
+    out, recorder = sharded_steps(tag, model, mesh, "block",
+                                  rules=flat_dp_rules(mesh))
+    check_reckoned(tag, out, model, "block", variant="flat_dp")
+    groups = out["collective_groups"]
+    experts = sorted({(key[3], key[7], key[8]) for key in recorder.seen
+                      if key[0] == "moe_router"})
+    heads = sorted({(key[5], key[6]) for key in recorder.seen
+                    if key[0].startswith("flash_attention")})
+    e_pad = model.init(device="meta")["layers"][0]["moe"]["router"].shape[1]
+    print(f"{tag}: collective groups (ranks, span) {groups}; the router at "
+          f"(E, e_start, e_local) {experts}; attention at (query, "
+          f"key/value) heads {heads}", flush=True)
+    check(groups == [(DISTRIB_RANKS, DISTRIB_RANKS)]
+          and experts == [(e_pad, 0, e_pad)] and heads == [FLAT_HEADS],
+          f"{tag}: groups {groups}, router {experts}, attention {heads}")
+    out.update(heads=heads, router=experts)
+    return out, recorder
+
+
+def tp_bytes_module():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "tp_bytes", ROOT / "tools" / "tp_bytes.py")
     tp_bytes = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tp_bytes)
-    want = tp_bytes.reckon(model.cfg.name, DISTRIB_MESH, TRAIN_BATCH,
-                           TRAIN_SEQ, remat, seq_parallel=seq_parallel,
-                           n_layers=model.cfg.n_layers)["calls_a_step"]
-    want = want["all_reduce"]
+    return tp_bytes
+
+
+def check_reckoned(tag, out, model, remat, seq_parallel=False, variant="",
+                   opt="adamw"):
+    """A step's collectives (``sharded_steps``' ``collectives_a_step``),
+    calls and bytes by kind, equal to what ``tools/tp_bytes.py`` reckons
+    from the code for the same model, mesh, batch, remat, optimizer and
+    variant in the form the mesh's backend takes (gloo with CUDA
+    tensors: every call an all-reduce).  Returns the reckoning."""
+    reckoned = tp_bytes_module().reckon(
+        model.cfg.name, DISTRIB_MESH, TRAIN_BATCH, TRAIN_SEQ, remat,
+        seq_parallel=seq_parallel, n_layers=model.cfg.n_layers,
+        variant=variant, opt=opt)
+    want = reckoned["calls_a_step"]["all_reduce"]
     got = {kind: {k: rec[k] for k in ("calls", "bytes")}
            for kind, rec in out["collectives_a_step"].items()}
     print(f"{tag}: collectives a step {got}, tools/tp_bytes.py reckons "
           f"{want}", flush=True)
     check(got == want, f"{tag}: collectives a step {got}, reckoned {want}")
+    return reckoned
 
 
 def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
-                  seq_parallel=False, init_below_whole=True):
-    """``n_steps`` steps of ``make_train_step(..., mesh=, seq_parallel=)``
-    from seed 0 on 8 x 128 global batches, AdamW (warmup 5 of 10), under
+                  seq_parallel=False, init_below_whole=True, opt="adamw",
+                  par=None, rules=None):
+    """``n_steps`` steps of ``make_train_step(..., mesh=, seq_parallel=,
+    rules=)`` from seed 0 on 8 x 128 global batches, ``opt`` (AdamW or
+    Adafactor, warmup 5 of 10), ``par`` (default ``remat`` alone), under
     a ``TrainRecorder`` and a ``CollectiveClock``: the stored bytes held
     to ``bytes_per_device``, the init peak (what the state's init
     allocates beyond what the card held before it) below the whole tree
     where ``init_below_whole``, the loss falling, every kernel of the
     layers launched on every step; the positions each layer's input
-    holds are recorded.  Returns (results, recorder)."""
+    holds and the groups of the first step's collectives are recorded.
+    Returns (results, recorder)."""
+    from repro_torch.distrib import collectives as coll
     from repro_torch.distrib.sharding import bytes_per_device
-    ocfg = optim.OptConfig(warmup=5, decay_steps=MOE_TRAIN_STEPS)
+    ocfg = optim.OptConfig(name=opt, warmup=5, decay_steps=MOE_TRAIN_STEPS)
+    par = par or ParallelConfig(remat=remat)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
+    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh,
+                                  rules=rules)
     init_peak = torch.cuda.max_memory_allocated() - before
     shapes, axes = train_step.init_state_axes(model, ocfg)
-    want = bytes_per_device(shapes, axes, mesh)
+    want = bytes_per_device(shapes, axes, mesh, rules)
     got = stored_bytes(state)
     whole = sum(t.numel() * t.element_size()
                 for t in optim.leaves(shapes["params"]))
@@ -4486,9 +4679,8 @@ def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
     check(init_peak < whole or not init_below_whole,
           f"{tag}: init peak {init_peak} bytes holds the whole parameter "
           f"tree ({whole})")
-    step = train_step.make_train_step(model, ocfg,
-                                      ParallelConfig(remat=remat), mesh,
-                                      seq_parallel=seq_parallel)
+    step = train_step.make_train_step(model, ocfg, par, mesh,
+                                      seq_parallel=seq_parallel, rules=rules)
     source = train_source(model.cfg)
     recorder, clock = TrainRecorder(), CollectiveClock()
     positions, block = set(), Model._block
@@ -4501,7 +4693,7 @@ def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
         fn.launches = 0
     clock.install()
     Model._block = watched
-    losses, step_s = [], []
+    losses, step_s, groups = [], [], None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -4509,9 +4701,12 @@ def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
             batch = train_batch(source, i)
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            state, met = step(state, batch)
+            with coll.record() as recs:
+                state, met = step(state, batch)
             losses.append(float(met["loss"]))
             step_s.append(time.monotonic() - t0)
+            groups = groups or sorted({(r["group"], r["span"])
+                                       for r in recs})
     finally:
         Model._block = block
         clock.uninstall()
@@ -4529,12 +4724,16 @@ def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
     free_card()
     return {"losses": losses, "step_ms": [s * 1e3 for s in step_s],
             "peak_gib": peak, "init_peak_gib": init_peak / 2 ** 30,
+            "held_before_gib": before / 2 ** 30,
             "stored_bytes": got,
             "bytes_per_device": want, "launches_a_step": per_step,
             "stream_positions": sorted(positions),
             "collectives_a_step": {
                 kind: {k: v / n_steps for k, v in rec.items()}
                 for kind, rec in clock.by_kind.items()},
+            "collective_bytes_by_dtype_a_step": {
+                dt: b / n_steps for dt, b in clock.by_dtype.items()},
+            "collective_groups": groups,
             "collective_s": clock.total("seconds"),
             "collective_bytes": clock.total("bytes"),
             "collective_share": clock.total("seconds") / sum(step_s)}, \
@@ -4542,10 +4741,12 @@ def sharded_steps(tag, model, mesh, remat, n_steps=DISTRIB_STEPS,
 
 
 def distrib_parity_step(mesh, arch=MOE_ARCH, n_layers=None,
-                        seq_parallel=False):
+                        seq_parallel=False, opt="adamw", rules=None,
+                        batch_size=None):
     """The sharded step's state after one step of ``arch`` (granite, qwen,
     mamba2 or recurrentgemma) at ``n_layers`` (default DISTRIB_PARITY's)
-    layers, f32, TF32 off, DISTRIB_PARITY batch x 128, and the model,
+    layers, f32, TF32 off, ``batch_size`` (default DISTRIB_PARITY's) x
+    128, ``opt`` (AdamW or Adafactor) under ``rules``, and the model,
     optimizer and batch it ran (every rank the same).  granite's capacity
     factor is 16 (dropless): capacity is per token shard, so at 1.25 the
     shards drop other assignments than one process does."""
@@ -4558,27 +4759,33 @@ def distrib_parity_step(mesh, arch=MOE_ARCH, n_layers=None,
     else:
         model = Model(configs.get(arch).replace(
             n_layers=n_layers, compute_dtype="float32"))
-    ocfg = optim.OptConfig(warmup=1, decay_steps=1, eps=DISTRIB_PARITY_EPS)
-    batch = train_batch(train_source(model.cfg, TRAIN_SEQ,
-                                     DISTRIB_PARITY["batch"], seed=2), 0)
+    ocfg = optim.OptConfig(name=opt, warmup=1, decay_steps=1,
+                           eps=DISTRIB_PARITY_EPS)
+    batch = train_batch(train_source(
+        model.cfg, TRAIN_SEQ, batch_size or DISTRIB_PARITY["batch"],
+        seed=2), 0)
     par = ParallelConfig(remat="none")
-    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh)
+    state = train_step.init_state(model, ocfg, 0, device="cuda", mesh=mesh,
+                                  rules=rules)
     state, met = train_step.make_train_step(
-        model, ocfg, par, mesh, seq_parallel=seq_parallel)(state, batch)
+        model, ocfg, par, mesh, seq_parallel=seq_parallel,
+        rules=rules)(state, batch)
     return model, ocfg, par, batch, state, float(met["loss"])
 
 
 def distrib_parity(rank, grid, tag, arch, n_layers=None,
-                   seq_parallel=False, everywhere=False):
+                   seq_parallel=False, everywhere=False, opt="adamw",
+                   rules=None, batch_size=None):
     """``distrib_parity_step`` of ``arch`` on every rank, then on rank 0
     its gathered parameters against one process (``TRAIN_PARITY_TOL``);
     the gathered parameters are kept on rank 0 only, unless
     ``everywhere``, and every rank frees the rest first.  Returns (rank
     0's parity, or None; the model, batch and gathered parameters)."""
     model, ocfg, par, batch, state, loss = distrib_parity_step(
-        grid, arch, n_layers, seq_parallel)
+        grid, arch, n_layers, seq_parallel, opt, rules, batch_size)
     free_card()
-    whole = gathered_params(model, state, grid, keep=everywhere or rank == 0)
+    whole = gathered_params(model, state, grid, keep=everywhere or rank == 0,
+                            rules=rules)
     del state
     free_card()
     parity = None
@@ -4613,15 +4820,21 @@ def parity_against_one_process(tag, model, ocfg, par, batch, whole, loss,
     return loss_err, max(errs), same
 
 
-def gathered_params(model, state, mesh, keep=True):
-    """Every parameter leaf put together from the ranks' blocks, leaf by
-    leaf (a collective each); a rank that does not ``keep`` them drops
-    each at once (None in its place)."""
-    from repro_torch.distrib.sharding import gather_block, tree_specs
+def gathered_params(model, state, mesh, keep=True, rules=None):
+    """Every parameter leaf put together from the ranks' blocks (placed
+    under ``rules``), leaf by leaf (a collective each); a rank that does
+    not ``keep`` them drops each at once (None in its place)."""
+    from repro_torch.distrib.sharding import tree_specs
     specs = train_step.leaves_of(tree_specs(model.init(device="meta"),
-                                            model.param_axes(), mesh))
+                                            model.param_axes(), mesh, rules))
+    return gathered_leaves(optim.leaves(state["params"]), specs, mesh, keep)
+
+
+def gathered_leaves(blocks, specs, mesh, keep=True):
+    """``gathered_params``' loop over any blocks and their specs."""
+    from repro_torch.distrib.sharding import gather_block
     out = []
-    for b, s in zip(optim.leaves(state["params"]), specs):
+    for b, s in zip(blocks, specs):
         w = gather_block(b, s, mesh)
         out.append((w.clone() if w is b else w) if keep else None)
         del w
@@ -4832,6 +5045,20 @@ def distrib_rank(rank: int, folder: str, grid) -> None:
         out["sp_parity"], _ = distrib_parity(
             rank, grid, f"{SP_ARCH} sequence parallel", SP_ARCH, SP_LAYERS,
             seq_parallel=True)
+    from repro_torch.distrib.tensor_parallel import flat_dp_rules
+    with clock(f"3m r{rank} 1e {TP_ARCH} adafactor"):
+        out["ada_train"], ada_recorder = distrib_adafactor_train(grid, rank)
+        out["ada_parity"], _ = distrib_parity(
+            rank, grid, f"{TP_ARCH} adafactor", TP_ARCH, VARIANT_LAYERS,
+            opt="adafactor")
+    with clock(f"3m r{rank} 1f {TP_ARCH} param_gather"):
+        out["pg_train"], pg_recorder = distrib_pg_train(grid, rank)
+        out["pg_parity"] = distrib_pg_parity(rank, grid)
+    with clock(f"3m r{rank} 1g {MOE_ARCH} flat_dp"):
+        out["flat_train"], flat_recorder = distrib_flat_train(grid, rank)
+        out["flat_parity"], _ = distrib_parity(
+            rank, grid, f"{MOE_ARCH} flat_dp", MOE_ARCH, VARIANT_LAYERS,
+            rules=flat_dp_rules(grid), batch_size=DISTRIB_RANKS)
     with clock(f"3m r{rank} 1 parity, 2, 3"):
         # every rank's gradient tree at the gathered weights: sub-check 3
         out["parity"], (model, _, whole) = distrib_parity(
@@ -4862,6 +5089,12 @@ def distrib_rank(rank: int, folder: str, grid) -> None:
         rows += phase_main_shapes(f"{TP_ARCH} distrib", tp_recorder)
         rows += phase_main_shapes(f"{SSM_ARCH} distrib", ssm_recorder)
         rows += phase_main_shapes(f"{SP_ARCH} distrib", sp_recorder)
+        rows += phase_main_shapes(f"{TP_ARCH} adafactor distrib",
+                                  ada_recorder)
+        rows += phase_main_shapes(f"{TP_ARCH} param_gather distrib",
+                                  pg_recorder)
+        rows += phase_main_shapes(f"{MOE_ARCH} flat_dp distrib",
+                                  flat_recorder)
         q, k_mine, v_mine, calls = sp_inputs
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         for name, launches, kw in calls:
@@ -4881,21 +5114,73 @@ def distrib_rank(rank: int, folder: str, grid) -> None:
     write_result(folder, f"distrib{rank}", out)
 
 
+# sub-checks 1e-1g: (name, results key, arch, layers, optimizer, variant)
+DISTRIB_VARIANTS = (
+    ("adafactor", "ada", TP_ARCH, VARIANT_LAYERS, "adafactor", ""),
+    ("param_gather", "pg", TP_ARCH, VARIANT_LAYERS, "adamw",
+     "param_gather=bfloat16"),
+    ("flat_dp", "flat", MOE_ARCH, VARIANT_LAYERS, "adamw", "flat_dp"))
+TRAIN_DRY = """
+import json, sys
+from repro_torch import configs
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distrib import collectives as coll
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh
+from repro_torch.train import optim
+B, S = map(int, sys.argv[1:3])
+dryrun.fake_world(4)
+mesh = Mesh((2, 2), ("data", "model"), backend="fake")
+out = {}
+for form in ("direct", "all_reduce"):
+    if form == "all_reduce":
+        coll.collective_form = lambda mesh, x: "all_reduce"
+    for name, arch, layers, opt, variant in json.loads(sys.argv[3]):
+        cfg = configs.get(arch).replace(n_layers=layers)
+        _, peak, _ = dryrun.trace_production(
+            arch, ShapeSpec(name="train", kind="train", seq_len=S,
+                            global_batch=B), mesh, cfg=cfg,
+            overrides=dryrun.parse_variant(variant),
+            opt=optim.OptConfig(name=opt))
+        out.setdefault(name, {})[form] = peak
+print("DRYPEAK " + json.dumps(out))
+"""
+
+
 def phase_distrib(ranks=None) -> list:
     """Phase 3m: DISTRIB_RANKS rank subprocesses of this script on the one
     card over gloo with CUDA tensors (the kernels built here first, the
     card's memory freed; ``ranks``, a ``RankProcs`` started with
-    ``--distrib-rank``, or started here), and the one-rank NCCL check
-    here while they start up.  Returns rank 0's phase 4 rows with its
-    launches."""
+    ``--distrib-rank``, or started here), the one-rank NCCL check here
+    while they start up, and beside them (on the host) the dry run's
+    trace of sub-checks 1e-1g's cells, each rank's peak printed against
+    it.  Returns rank 0's phase 4 rows with its launches."""
     free_card()
     t0 = time.monotonic()
-    with contextlib.ExitStack() as own:
-        if ranks is None:
-            ranks = own.enter_context(RankProcs(("--distrib-rank",),
-                                                ("distrib ",)))
-        nccl = nccl_one_rank()
-        results = ranks.results("distrib", DISTRIB_LIMIT_S)
+    dry = subprocess.Popen(
+        [sys.executable, "-c", TRAIN_DRY, str(TRAIN_BATCH), str(TRAIN_SEQ),
+         json.dumps([[name, arch, layers, opt, variant] for
+                     name, _, arch, layers, opt, variant in
+                     DISTRIB_VARIANTS])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        with contextlib.ExitStack() as own:
+            if ranks is None:
+                ranks = own.enter_context(RankProcs(("--distrib-rank",),
+                                                    ("distrib ",)))
+            nccl = nccl_one_rank()
+            results = ranks.results("distrib", DISTRIB_LIMIT_S)
+        dry_out, dry_err = dry.communicate(timeout=DISTRIB_LIMIT_S)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait(timeout=60)
+    check(dry.returncode == 0,
+          f"distrib: the dry run failed:\n{dry_err[-3000:]}")
+    dry_peaks = json.loads([x for x in dry_out.splitlines()
+                            if x.startswith("DRYPEAK ")][-1][8:])
     wall = time.monotonic() - t0
     summary = {
         "wall_s": wall, "card": torch.cuda.get_device_name(0),
@@ -4941,9 +5226,38 @@ def phase_distrib(ranks=None) -> list:
                ("tp_ssm", SSM_ARCH, TP_SSM_LAYERS, "ssm_train",
                 "ssm_parity"),
                ("sp", SP_ARCH, SP_LAYERS, "sp_train", "sp_parity"))},
+        **{name: {"arch": arch, "layers": layers, "opt": opt,
+                  "variant": variant,
+                  **{k: {r["rank"]: r[f"{key}_train"][k] for r in results}
+                     for k in ("losses", "step_ms", "peak_gib",
+                               "init_peak_gib", "stored_bytes",
+                               "bytes_per_device", "collective_share")},
+                  "collective_gb_a_step":
+                  results[0][f"{key}_train"]["collective_bytes"]
+                  / DISTRIB_STEPS / 1e9,
+                  "collectives_a_step":
+                  results[0][f"{key}_train"]["collectives_a_step"],
+                  "collective_bytes_by_dtype_a_step":
+                  results[0][f"{key}_train"][
+                      "collective_bytes_by_dtype_a_step"],
+                  "dry_peak_bytes": dry_peaks[name],
+                  "parity": results[0][f"{key}_parity"]}
+           for name, key, arch, layers, opt, variant in DISTRIB_VARIANTS},
         "sp_decode": results[0]["sp_decode"],
         "compress": {r["rank"]: r["compress"] for r in results},
         "pipeline": results[0]["pipeline"], "nccl_one_rank": nccl}
+    for name, key, *_ in DISTRIB_VARIANTS:
+        direct, form = (dry_peaks[name][f] for f in ("direct", "all_reduce"))
+        # the step's own peak: what the rank held before the state's
+        # init (earlier sub-checks' recorded kernel inputs) left out
+        peaks = [(r["rank"], (r[f"{key}_train"]["peak_gib"]
+                              - r[f"{key}_train"]["held_before_gib"])
+                  * 2 ** 30) for r in results]
+        print(f"distrib memory {name}: " + "; ".join(
+            f"r{rank} card {got / 2**30:.3f} GiB, dry run "
+            f"{direct / 2**30:.3f} ({got / direct - 1:+.1%}), all-reduce "
+            f"form {form / 2**30:.3f} ({got / form - 1:+.1%})"
+            for rank, got in peaks))
     print(f"distrib: phase 3m {wall:.1f}s wall, peak GiB by rank "
           f"{summary['peak_gib']}, {TP_ARCH} tensor parallel "
           f"{summary['tp']['peak_gib']}, {SSM_ARCH} "

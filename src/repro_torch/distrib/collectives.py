@@ -4,7 +4,10 @@ collectives that the expert-parallel MoE layer runs inside autograd.
 
 ``all_reduce`` reduces over mesh axes.  Floating tensors travel in f32
 (a bf16 or f16 tensor is widened for the reduction and rounded back
-once), integers in int32 or int64.
+once), integers in int32 or int64.  With ``keep_dtype`` a tensor travels
+in its own dtype: the 16-bit parameter gathers and their gradients'
+reduce-scatters (``ParallelConfig.param_gather_dtype``) move 16-bit
+values in every form, and a backend that refuses the dtype raises.
 
 ``all_gather_dim`` / ``reduce_scatter_dim`` gather the blocks of a
 tensor split along one dimension, and sum whole tensors keeping this
@@ -107,10 +110,17 @@ def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum"
     return x
 
 
-def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
-               ) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum",
+               keep_dtype: bool = False) -> torch.Tensor:
     """A new tensor: ``x`` reduced over the mesh axes ``axes`` (``op``:
-    sum, max or min), in ``x``'s dtype."""
+    sum, max or min), in ``x``'s dtype; with ``keep_dtype`` it travels in
+    that dtype too."""
+    if keep_dtype:
+        buf = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf.view(-1) if buf.ndim == 0 else buf,
+                        op=_OPS[op], group=mesh.group(axes))
+        _note("all-reduce", buf, mesh, axes)
+        return buf
     wire = _WIRE.get(x.dtype)
     if wire is None:
         raise ValueError(f"all_reduce: no wire dtype for {x.dtype}")
@@ -134,22 +144,25 @@ def collective_form(mesh, x: torch.Tensor) -> str:
         else "direct"
 
 
-def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int,
+                   keep_dtype: bool = False) -> torch.Tensor:
     """The blocks of every rank of the mesh axes ``axes`` put together
-    along ``dim``, in the order of ``mesh.axis_index(axes)``."""
+    along ``dim``, in the order of ``mesh.axis_index(axes)``;
+    ``keep_dtype``: the all-reduce form's buffer travels in ``x``'s dtype
+    (the direct form always does)."""
     if collective_form(mesh, x) == "all_reduce":
-        return _gather_by_all_reduce(x, mesh, axes, dim)
+        return _gather_by_all_reduce(x, mesh, axes, dim, keep_dtype)
     return _gather_direct(x, mesh, axes, dim)
 
 
-def reduce_scatter_dim(x: torch.Tensor, mesh, axes, dim: int
-                       ) -> torch.Tensor:
+def reduce_scatter_dim(x: torch.Tensor, mesh, axes, dim: int,
+                       keep_dtype: bool = False) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axes``, and this rank's block
     of it along ``dim`` (``x.shape[dim]`` divides into the ranks), in
-    ``x``'s dtype."""
+    ``x``'s dtype; ``keep_dtype``: summed in it too."""
     if collective_form(mesh, x) == "all_reduce":
-        return _scatter_by_all_reduce(x, mesh, axes, dim)
-    return _scatter_direct(x, mesh, axes, dim)
+        return _scatter_by_all_reduce(x, mesh, axes, dim, keep_dtype)
+    return _scatter_direct(x, mesh, axes, dim, keep_dtype)
 
 
 def _gather_direct(x, mesh, axes, dim):
@@ -165,18 +178,18 @@ def _gather_direct(x, mesh, axes, dim):
     return buf.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
 
 
-def _gather_by_all_reduce(x, mesh, axes, dim):
+def _gather_by_all_reduce(x, mesh, axes, dim, keep_dtype=False):
     n, idx = mesh.axis_size(axes), mesh.axis_index(axes)
     shape = list(x.shape)
     shape[dim] *= n
     whole = x.new_zeros(shape)
     whole.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
-    return all_reduce(whole, mesh, axes)
+    return all_reduce(whole, mesh, axes, keep_dtype=keep_dtype)
 
 
-def _scatter_direct(x, mesh, axes, dim):
+def _scatter_direct(x, mesh, axes, dim, keep_dtype=False):
     n = mesh.axis_size(axes)
-    wire = _WIRE[x.dtype]
+    wire = x.dtype if keep_dtype else _WIRE[x.dtype]
     b = x.shape[dim] // n
     # (..., n·b, ...) -> (n, ..., b, ...): each rank's block in one row
     src = x.to(wire).reshape(*x.shape[:dim], n, b, *x.shape[dim + 1:]
@@ -188,10 +201,11 @@ def _scatter_direct(x, mesh, axes, dim):
     return out.to(x.dtype)
 
 
-def _scatter_by_all_reduce(x, mesh, axes, dim):
+def _scatter_by_all_reduce(x, mesh, axes, dim, keep_dtype=False):
     n, idx = mesh.axis_size(axes), mesh.axis_index(axes)
     b = x.shape[dim] // n
-    return all_reduce(x, mesh, axes).narrow(dim, idx * b, b).contiguous()
+    return all_reduce(x, mesh, axes, keep_dtype=keep_dtype).narrow(
+        dim, idx * b, b).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -259,20 +273,25 @@ class GatherFromAxes(torch.autograd.Function):
     is its own tokens' term, and the caller divides by the token ranks.
     Over ``same`` every rank computed the same whole gradient (a layer
     run whole on every rank of the model axis), so the backward keeps
-    this rank's block there without a sum."""
+    this rank's block there without a sum.  ``keep_dtype``: both
+    directions travel in the block's dtype (a 16-bit parameter's gather
+    and its gradient's reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, x, spec, mesh, axes, same=()):
+    def forward(ctx, x, spec, mesh, axes, same=(), keep_dtype=False):
         ctx.spec, ctx.mesh, ctx.axes, ctx.same = spec, mesh, axes, same
-        out = gather_block(x, spec, mesh, tuple(axes) + tuple(same))
+        ctx.keep_dtype = keep_dtype
+        out = gather_block(x, spec, mesh, tuple(axes) + tuple(same),
+                           keep_dtype)
         return x.view_as(x) if out is x else out
 
     @staticmethod
     def backward(ctx, g):
         if ctx.same:
             g = local_block(g, ctx.spec, ctx.mesh, ctx.same)
-        return (reduce_scatter_block(g, ctx.spec, ctx.mesh, ctx.axes),
-                None, None, None, None)
+        return (reduce_scatter_block(g, ctx.spec, ctx.mesh, ctx.axes,
+                                     ctx.keep_dtype),
+                None, None, None, None, None)
 
 
 class ReduceScatterToAxes(torch.autograd.Function):

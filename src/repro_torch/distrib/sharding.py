@@ -219,15 +219,16 @@ def local_block(x: torch.Tensor, spec: Spec, mesh, axes=None
     return x.contiguous().clone()
 
 
-def gather_block(x_local: torch.Tensor, spec: Spec, mesh, axes=None
-                 ) -> torch.Tensor:
+def gather_block(x_local: torch.Tensor, spec: Spec, mesh, axes=None,
+                 keep_dtype: bool = False) -> torch.Tensor:
     """The inverse of ``local_block``: the blocks of every rank that
     differs from this one only on the mesh axes ``axes`` (default all),
     put together.  Each dimension split over some of those axes takes
     one ``collectives.all_gather_dim``, in the form
     ``collectives.collective_form`` picks (an all-gather; for gloo with
     CUDA tensors an all-reduce of a zero buffer holding this rank's
-    block).  Where no such axis splits the tensor, ``x_local`` itself."""
+    block).  Where no such axis splits the tensor, ``x_local`` itself.
+    ``keep_dtype``: as ``collectives.all_gather_dim``'s."""
     from .collectives import all_gather_dim
     _dim_blocks(spec, mesh, axes)
     x = x_local
@@ -235,25 +236,26 @@ def gather_block(x_local: torch.Tensor, spec: Spec, mesh, axes=None
         take = tuple(a for a in entry_axes(entry)
                      if axes is None or a in axes)
         if take:
-            x = all_gather_dim(x, mesh, take, d)
+            x = all_gather_dim(x, mesh, take, d, keep_dtype)
     return x
 
 
-def reduce_scatter_block(x: torch.Tensor, spec: Spec, mesh, axes
-                         ) -> torch.Tensor:
+def reduce_scatter_block(x: torch.Tensor, spec: Spec, mesh, axes,
+                         keep_dtype: bool = False) -> torch.Tensor:
     """The sum of ``x`` (each rank's tensor whole over the mesh axes
     ``axes``, as ``gather_block`` gives it) over the ranks of ``axes``,
     and this rank's block of the sum (``local_block``'s): one
     ``collectives.reduce_scatter_dim`` for each dimension split over some
     of ``axes``, then an all-reduce over the axes that split none.
-    ``x`` itself where ``axes`` is empty."""
+    ``x`` itself where ``axes`` is empty.  ``keep_dtype``: every call
+    sums in ``x``'s dtype (``collectives.all_reduce``'s)."""
     from .collectives import all_reduce, reduce_scatter_dim
     _dim_blocks(spec, mesh, axes)
     done = set()
     for d, entry in enumerate(spec):
         take = tuple(a for a in entry_axes(entry) if a in axes)
         if take:
-            x = reduce_scatter_dim(x, mesh, take, d)
+            x = reduce_scatter_dim(x, mesh, take, d, keep_dtype)
             done.update(take)
     rest = tuple(a for a in axes if a not in done)
-    return all_reduce(x, mesh, rest) if rest else x
+    return all_reduce(x, mesh, rest, keep_dtype=keep_dtype) if rest else x

@@ -48,6 +48,18 @@ model axis); the loss runs on the hidden states put back together
 or an encoder, and where some sub-layer runs whole; over a model axis
 of one rank it changes nothing.  ``seq_parallel_for`` is the
 reference's rule for choosing it (``act_sharding_for``).
+
+**Flat data parallelism** (the dry run's ``flat_dp``): rules that
+split nothing over the model axis and spread ``embed`` and the batch
+over every axis, with the model axis among ``data_axes``.  No sub-layer
+is then split (every ``split`` is None) and each leaf is gathered over
+all the axes.
+
+**16-bit gathers** (``param_dtype``, ``ParallelConfig.param_gather_dtype``):
+each f32 stored block is cast to that dtype before its gather, as the
+reference's ``cast_params`` runs before the loss; the gather and its
+gradient's reduce-scatter then travel in 16 bits (``keep_dtype``), and
+the cast's backward hands the f32 block its gradient.
 """
 from __future__ import annotations
 
@@ -55,6 +67,8 @@ import dataclasses
 from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import torch
 
 from .collectives import (CopyToAxes, GatherFromAxes, ReduceFromAxes,
                           ReduceScatterToAxes)
@@ -157,6 +171,19 @@ def head_groups(n_heads: int, n_groups: int, n: int, rank: int
                      f"into {n} shares of whole groups or of one group")
 
 
+def flat_dp_rules(mesh) -> dict:
+    """The reference dry run's ``flat_dp`` rules on ``mesh`` (a live or
+    abstract mesh): no tensor parallelism, every tensor-parallel dim
+    whole, ``embed`` and ``batch`` over every axis (the data-parallel
+    axes, then the model axis)."""
+    every = tuple(a for a in ("pod", "data") if a in mesh_shape(mesh)) \
+        + ("model",)
+    return {**{name: () for name in ("heads", "kv_heads", "mlp", "vocab",
+                                     "experts", "inner", "lru",
+                                     "ssm_heads")},
+            "embed": every, "batch": every}
+
+
 def seq_parallel_for(cfg, mesh, global_batch: int, seq_len: int,
                      kind: str = "train") -> bool:
     """Whether the reference's rule (``act_sharding_for``) splits the
@@ -178,11 +205,13 @@ def seq_parallel_for(cfg, mesh, global_batch: int, seq_len: int,
 class TensorParallel:
     """The layout of ``model`` on ``mesh``: leaves gathered over
     ``data_axes``, the tensor-parallel dims over ``model_axis`` (None:
-    no such axis), ``moe`` the MoE layers' view (``models.moe.MoESpmd``,
-    or None), the residual stream split over the sequence along the
-    model axis when ``seq_parallel`` (``stream``, its ``Split``; None
-    when the stream is whole).  ``gathers`` counts the leaves gathered
-    by (sub-layer, mesh axes).
+    no such axis, or one of ``data_axes``: flat data parallelism), ``moe``
+    the MoE layers' view (``models.moe.MoESpmd``, or None), the residual
+    stream split over the sequence along the model axis when
+    ``seq_parallel`` (``stream``, its ``Split``; None when the stream is
+    whole), ``param_dtype`` the dtype f32 blocks are cast to before
+    their gathers (None: gathered as stored).  ``gathers`` counts the
+    leaves gathered by (sub-layer, mesh axes).
 
     Serving on the mesh (``Model.prefill`` / ``decode_step`` with
     ``spmd=``) also reads ``batch_axes``, the axes that split the batch
@@ -194,13 +223,16 @@ class TensorParallel:
     def __init__(self, model, mesh, data_axes: Tuple[str, ...],
                  model_axis: Optional[str], moe=None,
                  seq_parallel: bool = False, *, batch_axes=None,
-                 rules=None):
+                 rules=None, param_dtype: Optional[torch.dtype] = None):
         self.mesh = mesh
         self.data_axes = tuple(data_axes)
         self.batch_axes = self.data_axes if batch_axes is None \
             else tuple(batch_axes)
         self.rules = dict(rules or {})
-        self.model_axis = model_axis if model_axis in mesh.shape else None
+        self.model_axis = model_axis if (model_axis in mesh.shape and
+                                         model_axis not in self.data_axes) \
+            else None
+        self.param_dtype = param_dtype
         self.moe = moe
         self.specs = tree_specs(model.init(device="meta"),
                                 model.param_axes(), mesh, self.rules)
@@ -240,8 +272,11 @@ class TensorParallel:
             rec = path[:path.index("rec") + 1]
             if self.split(rec) is None:
                 same = (self.model_axis,)
+        cast = self.param_dtype is not None and part.dtype == torch.float32
+        if cast:
+            part = part.to(self.param_dtype)
         out = GatherFromAxes.apply(part, spec, self.mesh, self.data_axes,
-                                   same)
+                                   same, cast)
         self.gathers[(sublayer(path), self.data_axes + same)] += 1
         return out
 

@@ -32,6 +32,26 @@ allocated, and the hand-written kernels' wrappers take their shape paths
   wire bytes / the ring's link (NVLink's 450 GB/s where its group lies
   within 8 consecutive ranks, a node; else the 50 GB/s NIC).
 
+**Variants** (the reference's hillclimb ``overrides``, ``--variant``: a
+comma list of ``k=v`` or bare flags), each recorded with ``variant`` and
+``overrides`` in a file of its own (``…__<variant>.json``, ``,`` → ``+``
+and ``=`` → ``-``):
+
+* ``moe_dispatch=cumsum``: a MoE config's router dispatches by cumsum;
+* ``param_gather=bfloat16`` (train): the step casts each f32 block to
+  16 bits before its gather (``ParallelConfig.param_gather_dtype``), so
+  the gathers and the gradients' reduce-scatters move 16-bit values;
+* ``flat_dp`` (every kind): no tensor parallelism (``flat_dp_rules``):
+  every tensor-parallel dim whole, ``embed`` and the batch over every
+  axis, the MoE layers' tokens over every axis and all experts on every
+  rank, no sequence parallelism;
+* ``gather_once`` (train): one gather of a block's post-norm input for
+  both branches.  The port's layers already enter each sub-layer's input
+  once (a parallel block once for both halves), so the variant traces
+  the base cell's collectives;
+* ``microbatches=N`` (train): the global batch in N microbatches, each
+  split over the data-parallel ranks.
+
 Rank 0 stands for all: every rank runs the same shapes, save where a
 rank's share differs (a rank's expert range holds other experts of the
 same count; a vocabulary the model axis does not divide, granite's
@@ -44,10 +64,12 @@ Usage:
   python -m repro_torch.launch.dryrun --arch qwen1.5-0.5b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
                                       [--no-cost] [--skip-done]
+                                      [--variant flat_dp,microbatches=4]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
@@ -63,12 +85,13 @@ from .. import configs
 from ..configs.base import ModelConfig, ParallelConfig, SHAPES, ShapeSpec
 from ..distrib import collectives as coll
 from ..distrib.sharding import block_shape, bytes_per_device, tree_specs
-from ..distrib.tensor_parallel import TensorParallel, seq_parallel_for
+from ..distrib.tensor_parallel import (TensorParallel, flat_dp_rules,
+                                       seq_parallel_for)
 from ..kernels import cost
 from ..models import Model
 from ..models.moe import MoESpmd, padded_experts
 from ..train import optim
-from ..train.step import init_state_axes, make_train_step
+from ..train.step import data_axes_of, init_state_axes, make_train_step
 from .mesh import HW, dp_axes, make_production_mesh
 
 OUT_DIR = Path("experiments/dryrun_torch")
@@ -127,18 +150,53 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec, kind: str) -> dict:
     return {"tokens": ((B, 1), torch.int32)}
 
 
-def batch_axes_for(mesh, batch: int) -> tuple:
-    """The data-parallel axes where the batch divides them, else none
-    (the reference's ``batch_shardings``)."""
-    dp = dp_axes(mesh)
-    return dp if batch % mesh.axis_size(dp) == 0 else ()
+def batch_axes_for(mesh, batch: int, rules=None) -> tuple:
+    """The data-parallel axes under ``rules`` (``data_axes_of``) where the
+    batch divides them, else none (the reference's ``batch_shardings``).
+    Under ``flat_dp``'s rules every axis first; where the batch does not
+    divide them, the pod and data axes, as the reference's activations
+    are still constrained (``act_sharding_for``)."""
+    for dp in (data_axes_of(mesh, rules), dp_axes(mesh)):
+        if batch % mesh.axis_size(dp) == 0:
+            return dp
+    return ()
 
 
-def cell_rules(shape: ShapeSpec) -> dict:
+def cell_rules(shape: ShapeSpec, mesh=None, overrides=None) -> dict:
+    """The cell's resolver overrides; under ``flat_dp`` (``mesh``
+    given) the flat rules on top, as the reference's ``lower_cell``."""
+    rules = {}
     if shape.name == "long_500k":
         # batch=1: spread the KV sequence over (data, model) = 256-way
-        return {"kv_seq": ("data", "model")}
-    return {}
+        rules["kv_seq"] = ("data", "model")
+    if (overrides or {}).get("flat_dp"):
+        rules.update(flat_dp_rules(mesh))
+    return rules
+
+
+def parse_variant(text: str) -> Dict[str, Any]:
+    """The reference's ``--variant``: a comma list of ``k=v`` (a string)
+    or a bare flag (True)."""
+    overrides: Dict[str, Any] = {}
+    for item in text.split(","):
+        if not item:
+            continue
+        if "=" in item:
+            k, v = item.split("=", 1)
+            overrides[k] = v
+        else:
+            overrides[item] = True
+    return overrides
+
+
+def variant_name(text: str) -> str:
+    """A variant's name in records and file names: ``,`` → ``+``,
+    ``=`` → ``-``."""
+    return text.replace(",", "+").replace("=", "-")
+
+
+KNOWN = ("moe_dispatch", "param_gather", "flat_dp", "gather_once",
+         "microbatches")
 
 
 def opt_for(cfg: ModelConfig) -> optim.OptConfig:
@@ -199,11 +257,12 @@ def _blocks(tree, specs, mesh):
                        dtype=tree.dtype)
 
 
-def analytic(model: Model, shape: ShapeSpec, mesh) -> Dict[str, int]:
+def analytic(model: Model, shape: ShapeSpec, mesh, overrides=None
+             ) -> Dict[str, int]:
     """The reference's analytic bytes a device: the train state's or the
     parameters', and a decode cell's cache (``bytes_per_device`` under
-    the cell's rules)."""
-    rules = cell_rules(shape)
+    the cell's rules and ``overrides``)."""
+    rules = cell_rules(shape, mesh, overrides)
     out = {}
     if shape.kind == "train":
         shapes, axes = init_state_axes(model, opt_for(model.cfg))
@@ -219,7 +278,9 @@ def analytic(model: Model, shape: ShapeSpec, mesh) -> Dict[str, int]:
 
 def lower_cell(arch: str, shape, mesh, *, unroll_periods: int = 0,
                cfg: Optional[ModelConfig] = None,
-               cache_len: Optional[int] = None):
+               cache_len: Optional[int] = None,
+               overrides: Optional[dict] = None,
+               opt: Optional[optim.OptConfig] = None):
     """Build one cell's inputs and return ``(run, meta, held)``: ``run()``
     runs the cell's step as this rank, ``held`` the tensors the rank
     holds before it starts (its stored blocks, its batch, its cache).
@@ -229,38 +290,54 @@ def lower_cell(arch: str, shape, mesh, *, unroll_periods: int = 0,
     config of ``arch`` (a reduced one); ``unroll_periods`` > 0: a cost
     trace at that many periods, remat "none"; ``cache_len``: a serving
     cell's cache positions, past its prompt (default the shape's
-    ``seq_len``; decode writes the cache's last position)."""
+    ``seq_len``; decode writes the cache's last position);
+    ``overrides``: a variant's (``parse_variant``); ``opt``: a train
+    cell's optimizer (default ``opt_for``'s)."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
+    overrides = dict(overrides or {})
+    unknown = sorted(set(overrides) - set(KNOWN))
+    if unknown:
+        raise ValueError(f"unknown overrides {unknown}; known: {KNOWN}")
+    cfg = cfg or configs.get(arch)
+    if overrides.get("moe_dispatch") and cfg.moe.num_experts:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, dispatch=overrides["moe_dispatch"]))
     model = model_for(arch, mesh, unroll_periods, cfg)
     cfg = model.cfg
-    rules = cell_rules(shape)
+    flat = bool(overrides.get("flat_dp"))
+    rules = cell_rules(shape, mesh, overrides)
     meta: Dict[str, Any] = {"arch": arch, "shape": shape.name,
                             "kind": shape.kind, "n_layers": cfg.n_layers}
     B, S = shape.global_batch, shape.seq_len
     bspec = batch_specs(cfg, shape, shape.kind)
 
     if shape.kind == "train":
-        shapes, axes = init_state_axes(model, opt_for(cfg))
+        opt = opt or opt_for(cfg)
+        shapes, axes = init_state_axes(model, opt)
         state = _blocks(shapes, tree_specs(shapes, axes, mesh, rules), mesh)
         batch = {k: torch.zeros(s, dtype=dt) for k, (s, dt) in bspec.items()}
-        par = par_for(cfg, mesh, shape)
+        par = par_for(cfg, mesh, shape).replace(
+            microbatches=int(overrides.get("microbatches", 1)),
+            param_gather_dtype=overrides.get("param_gather") or "")
         if unroll_periods:
             par = par.replace(remat="none")
-        seq = seq_parallel_for(cfg, mesh, B, S)
-        meta["seq_parallel"] = seq
-        step = make_train_step(model, opt_for(cfg), par, mesh,
-                               seq_parallel=seq)
+        seq = not flat and seq_parallel_for(cfg, mesh, B, S)
+        bax = batch_axes_for(mesh, B, rules)
+        meta.update(seq_parallel=seq, batch_axes=list(bax))
+        step = make_train_step(model, opt, par, mesh, seq_parallel=seq,
+                               rules=rules, batch_axes=bax)
 
         def run():
             return step(state, batch)
         return run, meta, _tensors(state) + _tensors(batch)
 
-    bax = batch_axes_for(mesh, B)
+    bax = batch_axes_for(mesh, B, rules)
     moe = None
     if cfg.moe.num_experts:
-        moe = MoESpmd(mesh=mesh, token_axes=bax, expert_axis="model")
-    tp = TensorParallel(model, mesh, dp_axes(mesh), "model", moe=moe,
-                        batch_axes=bax, rules=rules)
+        moe = MoESpmd(mesh=mesh, token_axes=bax,
+                      expert_axis=None if flat else "model")
+    tp = TensorParallel(model, mesh, data_axes_of(mesh, rules), "model",
+                        moe=moe, batch_axes=bax, rules=rules)
     params = _blocks(model.init(device="meta"), tp.specs, mesh)
     rows = B // mesh.axis_size(bax)
     batch = {k: torch.zeros((rows,) + s[1:], dtype=dt)
@@ -319,13 +396,15 @@ def _tensors(tree):
 
 
 def trace_cost(arch: str, shape, mesh, unroll_periods: int,
-               cfg: Optional[ModelConfig] = None):
+               cfg: Optional[ModelConfig] = None,
+               overrides: Optional[dict] = None):
     """One cost trace: (flops, bytes, collective records, kernel calls)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     with FakeTensorMode():
         run, _, _ = lower_cell(arch, shape, mesh,
-                               unroll_periods=unroll_periods, cfg=cfg)
+                               unroll_periods=unroll_periods, cfg=cfg,
+                               overrides=overrides)
         flops = FlopCounterMode(display=False)
         nbytes = ByteCount()
         with cost.tallying() as tally, coll.record() as recs, flops, \
@@ -337,14 +416,18 @@ def trace_cost(arch: str, shape, mesh, unroll_periods: int,
 
 def trace_production(arch: str, shape, mesh, *,
                      cfg: Optional[ModelConfig] = None,
-                     cache_len: Optional[int] = None):
+                     cache_len: Optional[int] = None,
+                     overrides: Optional[dict] = None,
+                     opt: Optional[optim.OptConfig] = None):
     """The full-depth trace: (meta, peak live bytes, kernel calls);
-    ``cfg`` and ``cache_len`` as ``lower_cell``'s."""
+    ``cfg``, ``cache_len``, ``overrides`` and ``opt`` as
+    ``lower_cell``'s."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     with FakeTensorMode():
         run, meta, held = lower_cell(arch, shape, mesh, cfg=cfg,
-                                     cache_len=cache_len)
+                                     cache_len=cache_len,
+                                     overrides=overrides, opt=opt)
         tracker = MemTracker()
         tracker.track_external(*held)
         with cost.tallying() as tally, tracker:
@@ -368,17 +451,25 @@ def fake_world(size: int):
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
-             with_cost: bool = True, verbose: bool = True) -> dict:
+             with_cost: bool = True, verbose: bool = True,
+             overrides: Optional[dict] = None, variant: str = "") -> dict:
+    """One cell's record; ``overrides`` and ``variant`` (its name,
+    ``variant_name``'s) a hillclimb variant's."""
     shape_, _ = MESHES[mesh_kind]
     fake_world(math.prod(shape_))
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"),
                                 backend="fake")
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                            "mesh": mesh_kind, "ok": False, "rank": 0}
+    if variant:
+        rec["variant"] = variant
+        rec["overrides"] = {k: str(v) for k, v in (overrides or {}).items()}
     t0 = time.monotonic()
-    meta, peak, calls = trace_production(arch, shape_name, mesh)
+    meta, peak, calls = trace_production(arch, shape_name, mesh,
+                                         overrides=overrides)
     rec.update(meta)
-    rec.update(analytic(model_for(arch, mesh), SHAPES[shape_name], mesh))
+    rec.update(analytic(model_for(arch, mesh), SHAPES[shape_name], mesh,
+                        overrides))
     rec["trace_s"] = round(time.monotonic() - t0, 1)
     rec["memory"] = {"peak_bytes": int(peak),
                      "hbm_bytes": int(HW["hbm_bytes"]),
@@ -389,8 +480,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     if with_cost and mesh_kind == "single":
         fits = {}
         for k in (1, 2):
-            flops, nbytes, recs, kcalls = trace_cost(arch, shape_name, mesh,
-                                                     k)
+            flops, nbytes, recs, kcalls = trace_cost(
+                arch, shape_name, mesh, k, overrides=overrides)
             summary = parse(recs)
             fits[k] = {"flops": float(flops), "bytes": float(nbytes),
                        "coll_wire": summary["wire"],
@@ -424,10 +515,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     return rec
 
 
+def rec_path(arch: str, shape: str, mesh_kind: str, variant: str = ""
+             ) -> Path:
+    """A record's file: ``{arch}_{shape}_{mesh}[__{variant}].json``."""
+    suffix = f"__{variant}" if variant else ""
+    return OUT_DIR / f"{arch}_{shape}_{mesh_kind}{suffix}.json"
+
+
 def save_rec(rec: dict):
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    name = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}.json"
-    (OUT_DIR / name).write_text(json.dumps(rec, indent=1))
+    rec_path(rec["arch"], rec["shape"], rec["mesh"],
+             rec.get("variant", "")).write_text(json.dumps(rec, indent=1))
 
 
 def main(argv=None):
@@ -439,7 +537,13 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-cost", action="store_true")
     ap.add_argument("--skip-done", action="store_true")
+    ap.add_argument("--variant", default="",
+                    help="hillclimb variant: comma list of "
+                         "moe_dispatch=cumsum, param_gather=bfloat16, "
+                         "flat_dp, gather_once, microbatches=N")
     args = ap.parse_args(argv)
+    overrides = parse_variant(args.variant)
+    variant = variant_name(args.variant)
 
     if args.all:
         cells = configs.all_cells()
@@ -455,16 +559,21 @@ def main(argv=None):
     torch.set_num_threads(1)
     for mk in meshes:                 # one fake world a mesh size
         for arch, shape in cells:
-            out = OUT_DIR / f"{arch}_{shape}_{mk}.json"
+            out = rec_path(arch, shape, mk, variant)
             if args.skip_done and out.exists() and \
                     json.loads(out.read_text()).get("ok"):
                 continue
             try:
-                rec = run_cell(arch, shape, mk, with_cost=not args.no_cost)
+                rec = run_cell(arch, shape, mk, with_cost=not args.no_cost,
+                               overrides=overrides, variant=variant)
             except Exception as e:
                 traceback.print_exc()
                 rec = {"arch": arch, "shape": shape, "mesh": mk, "rank": 0,
                        "ok": False, "error": f"{type(e).__name__}: {e}"}
+                if variant:
+                    rec["variant"] = variant
+                    rec["overrides"] = {k: str(v)
+                                        for k, v in overrides.items()}
                 failures.append((arch, shape, mk))
             save_rec(rec)
     if dist.is_initialized():

@@ -88,7 +88,9 @@ def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
     Training runs the same algebra with gradients on: the conv promotes
     the branch to f32 against the f32 conv weights (its backward sums the
     ``cw`` shifted slices of one padded tensor in a fixed order), so the
-    recurrence, ``RGLRUFunction``, runs in f32 at any compute dtype.
+    recurrence, ``RGLRUFunction``, runs in f32 at any compute dtype (and
+    with 16-bit weights, ``param_gather``, the branch is widened for
+    it).
     ``tp``: the ``lru`` channels' ``Split`` (see the module docstring);
     a cache then holds this rank's channels."""
     if tp is not None:
@@ -98,7 +100,7 @@ def rglru_block_apply(cfg: ModelConfig, p: dict, x, *,
     gate, conv_in = _branches(cfg, p, x)
     u = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
     r_pre, i_pre = _gates(p, u)
-    h, h_fin = rglru(u, r_pre, i_pre, p["log_lambda"], None)
+    h, h_fin = rglru(u.float(), r_pre, i_pre, p["log_lambda"], None)
     cdt = dtype_of(cfg.compute_dtype)
     out = (h.to(cdt) * gate) @ p["w_out"].to(cdt)
     if tp is not None:

@@ -187,29 +187,74 @@ def _states(params, fstate) -> list:
     return [fstate]
 
 
-def _factored(decay, g2, row, col):
-    """The reference's factored second moment of ``g2`` (..., r, c):
-    (vhat, new row, new col)."""
-    row = decay * row + (1 - decay) * g2.mean(-1)
-    col = decay * col + (1 - decay) * g2.mean(-2)
-    rmean = row.mean(-1, keepdim=True)
-    vhat = (row / torch.clamp(rmean, min=1e-30))[..., None] * \
-        col[..., None, :]
-    return vhat, row, col
+def _entry_axes(spec, dim: int, ndim: int) -> tuple:
+    """The mesh axes that split dimension ``dim`` (negative) of a block of
+    ``ndim`` dimensions under ``spec`` (no spec: none)."""
+    from ..distrib.sharding import entry_axes
+    at = ndim + dim
+    return entry_axes(spec[at]) if spec is not None and at < len(spec) \
+        else ()
+
+
+class _Means:
+    """Means over dimensions that mesh axes may split, taken in rounds.
+    ``mean(x, dim, axes)`` gives a function returning the mean: at once
+    where no axis splits ``dim`` (``x.mean(dim)``, as without a mesh);
+    else a partial sum, queued by its axis set, that ``reduce`` sums over
+    those axes (one all-reduce of every queued sum of a set, in the
+    order the sets were first queued, the same on every rank) and the
+    function divides by the whole dimension."""
+
+    def __init__(self, mesh):
+        self.mesh, self.queued = mesh, {}
+
+    def mean(self, x, dim: int, axes: tuple):
+        if not axes:
+            m = x.mean(dim)
+            return lambda: m
+        part = x.sum(dim)
+        self.queued.setdefault(axes, []).append(part)
+        n = x.shape[dim] * self.mesh.axis_size(axes)
+        return lambda: part / n
+
+    def reduce(self):
+        from ..distrib.collectives import all_reduce_
+        for axes, parts in self.queued.items():
+            flat = torch.cat([q.reshape(-1) for q in parts])
+            all_reduce_(flat, self.mesh, axes)
+            off = 0
+            for q in parts:
+                q.copy_(flat[off:off + q.numel()].view_as(q))
+                off += q.numel()
+        self.queued = {}
 
 
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
-                     stacks=()):
+                     stacks=(), grad_norm=None, mesh=None, specs=None):
     """One Adafactor step; writes ``params`` and ``fstate`` in place.
+    ``grad_norm`` (default ``global_norm(grads)``) as ``adamw_update``'s.
+
+    On a ``mesh`` (the sharded step), ``params``, ``grads`` and
+    ``fstate`` are this rank's blocks and ``specs`` each leaf's spec (in
+    ``leaves`` order): a factor's mean over a dimension that mesh axes
+    split is a partial sum, summed over those axes.  A row (the mean
+    over dim -1) over the axes of the leaf's dim -1, a column (over dim
+    -2) and the row's own mean over those of its dim -2; a stacked 1-D
+    leaf's row over its one dimension's axes, its column and the row's
+    mean (over the group's layers, which no axis splits) at once.  The
+    sums go in two rounds, rows and columns then the rows' means, one
+    all-reduce a round for each axis set.
     Returns (params, fstate, count + 1, {"grad_norm", "lr"})."""
     count = count + 1
     lr = schedule(cfg, count)
     decay = 1.0 - (count.float() + 1.0) ** -0.8
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     clip = _clip(cfg, gn)
     ps, gs, sts = leaves(params), leaves(grads), _states(params, fstate)
     nds = _ref_ndims(params, stacks)
+    specs = list(specs) if specs is not None else [None] * len(ps)
+    means = _Means(mesh)
 
     def apply(i, g, vhat):
         step = g / torch.sqrt(vhat + cfg.eps)
@@ -217,33 +262,62 @@ def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
             step = step + cfg.weight_decay * ps[i].float()
         ps[i].copy_(ps[i].float() - lr * step)
 
-    grouped = set()
+    def grad(ids, stacked):
+        """The clipped gradient of a leaf or of a stacked group (its
+        leaves along a new dim 0) and its square."""
+        g = (torch.stack([gs[i].float() for i in ids]) if stacked
+             else gs[ids[0]].float()) * clip
+        return g, torch.square(g) + 1e-30
+
+    # the factored items: a stacked group of 1-D leaves (one (layers, d)
+    # tensor in the reference: its column is a mean over the group's
+    # layers, so the group updates together) or one leaf of 2 or more
+    # dimensions; round 1 queues their rows' and columns' means
+    items, grouped = [], set()
     for group in stacks:
         if ps[group[0]].ndim != 1:
             continue
-        # one (layers, d) tensor in the reference: its column is a mean
-        # over the group's layers, so the group updates together
         grouped.update(group)
-        st = [sts[i] for i in group]
-        g = torch.stack([gs[i].float() for i in group]) * clip
-        vhat, row, col = _factored(decay, torch.square(g) + 1e-30,
-                                   torch.stack([s["row"] for s in st]),
-                                   st[0]["col"])
-        for i, s, gi, r, vi in zip(group, st, g, row, vhat):
-            s["row"].copy_(r)
-            s["col"].copy_(col)
+        _, g2 = grad(group, True)
+        axes = _entry_axes(specs[group[0]], -1, 1)
+        items.append((list(group), True, means.mean(g2, -1, axes),
+                      means.mean(g2, -2, ()), ()))
+    for i, p in enumerate(ps):
+        if i in grouped or nds[i] < 2:
+            continue
+        _, g2 = grad([i], False)
+        a1, a2 = (_entry_axes(specs[i], d, p.ndim) for d in (-1, -2))
+        items.append(([i], False, means.mean(g2, -1, a1),
+                      means.mean(g2, -2, a2), a2))
+    means.reduce()
+    # round 2: the rows' means over their last dimension
+    rows = []
+    for ids, stacked, row_mean, col_mean, a2 in items:
+        st = [sts[i] for i in ids]
+        row = torch.stack([s["row"] for s in st]) if stacked \
+            else st[0]["row"]
+        row = decay * row + (1 - decay) * row_mean()
+        col = decay * st[0]["col"] + (1 - decay) * col_mean()
+        rows.append((row, col, means.mean(row, -1, a2)))
+    means.reduce()
+    for (ids, stacked, *_), (row, col, rmean) in zip(items, rows):
+        vhat = (row / torch.clamp(rmean().unsqueeze(-1), min=1e-30))[
+            ..., None] * col[..., None, :]
+        g, _ = grad(ids, stacked)
+        if not stacked:
+            sts[ids[0]]["row"].copy_(row)
+            sts[ids[0]]["col"].copy_(col)
+            apply(ids[0], g, vhat)
+            continue
+        for i, gi, r, vi in zip(ids, g, row, vhat):
+            sts[i]["row"].copy_(r)
+            sts[i]["col"].copy_(col)
             apply(i, gi, vi)
     for i, (g, st) in enumerate(zip(gs, sts)):
-        if i in grouped:
+        if i in grouped or nds[i] >= 2:
             continue
         g = g.float() * clip
-        g2 = torch.square(g) + 1e-30
-        if nds[i] >= 2:
-            vhat, row, col = _factored(decay, g2, st["row"], st["col"])
-            st["row"].copy_(row)
-            st["col"].copy_(col)
-        else:
-            vhat = decay * st["v"] + (1 - decay) * g2
-            st["v"].copy_(vhat)
+        vhat = decay * st["v"] + (1 - decay) * (torch.square(g) + 1e-30)
+        st["v"].copy_(vhat)
         apply(i, g, vhat)
     return params, fstate, count, {"grad_norm": gn, "lr": lr}

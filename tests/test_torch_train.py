@@ -103,6 +103,47 @@ def _tbatch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+# The reference's init folds each parameter's path into its key with
+# Python's ``hash`` (``src/repro/models/common.py``), so a process draws
+# weights that depend on its ``PYTHONHASHSEED``.  The weights are drawn
+# in a subprocess under a fixed hash seed, so every run and every test
+# worker holds the same ones.
+_REFERENCE_INIT = """
+import sys
+import jax
+import numpy as np
+from repro import configs
+from repro.models import Model, unzip
+cfg = configs.reduced(sys.argv[1]).replace(compute_dtype="float32")
+params, _ = unzip(Model(cfg).init(jax.random.PRNGKey(0)))
+np.savez(sys.argv[2], *[np.asarray(x)
+                        for x in jax.tree_util.tree_leaves(params)])
+"""
+
+
+def _reference_params(jm, arch):
+    """The reference's seeded parameters of ``jm`` (the reduced ``arch``
+    in f32 compute), drawn under ``PYTHONHASHSEED=0``."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+    shapes, _ = unzip(jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
+    with tempfile.TemporaryDirectory(prefix="ref-init-") as tmp:
+        out = os.path.join(tmp, "params.npz")
+        subprocess.run(
+            [sys.executable, "-c", _REFERENCE_INIT, arch, out], check=True,
+            env={**os.environ, "PYTHONHASHSEED": "0", "JAX_PLATFORMS": "cpu",
+                 "PYTHONPATH": str(Path(__file__).resolve().parents[1]
+                                   / "src")})
+        with np.load(out) as got:
+            arrays = [got[f"arr_{i}"] for i in range(len(got.files))]
+    treedef = jax.tree_util.tree_structure(shapes)
+    return jax.tree_util.tree_unflatten(treedef,
+                                        [jnp.asarray(a) for a in arrays])
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     """(reference model, its params, port model, the same params) of the
@@ -110,7 +151,7 @@ def _pair(arch):
     jcfg = jconfigs.reduced(arch).replace(compute_dtype="float32")
     cfg = configs.reduced(arch).replace(compute_dtype="float32")
     jm = JModel(jcfg)
-    jp, _ = unzip(jm.init(jax.random.PRNGKey(0)))
+    jp = _reference_params(jm, arch)
     return jm, jp, Model(cfg), _port(jp)
 
 
@@ -145,8 +186,9 @@ JIMPL = {ARCH: "xla", MOE_ARCH: "xla", SSM_ARCH: "ref", HYBRID_ARCH: "xla",
 # eps parts by up to lr between the two sides after one step; from then
 # on the gradient norms differ by up to 1.8e-5 (mamba2) and 7e-6
 # (granite) over 32 weight draws (the reference's init hashes parameter
-# paths with Python's ``hash``: each process draws other weights;
-# ``tools/cpu_tolerance_scan.py``).  qwen keeps its 1e-5, and so does
+# paths with Python's ``hash``, so each hash seed draws other weights;
+# ``tools/cpu_tolerance_scan.py``; the tests draw under a fixed one,
+# ``_reference_params``).  qwen keeps its 1e-5, and so does
 # recurrentgemma (7.5e-7 at most over 12 draws); the loss at 1e-4 and
 # every parameter leaf within lr / 2 hold for all four.
 GRAD_NORM_RTOL = {ARCH: 1e-5, MOE_ARCH: 1e-4, SSM_ARCH: 1e-4,
@@ -357,13 +399,14 @@ def _run_both(pair, ocfg, steps, microbatches=1, b=B):
     from the same weights on the same batches.  Yields, after each step,
     (port state, port metrics, reference state as the port's trees,
     reference metrics)."""
-    jm, _, tm, tp = pair
+    jm, jp, tm, tp = pair
     par = dict(remat="none", microbatches=microbatches)
     jstep = jax.jit(jmake_train_step(jm, joptim.OptConfig(**ocfg),
                                      JParallelConfig(**par),
                                      impl=JIMPL[tm.cfg.name]))
     jstate, _ = jinit_state(jm, joptim.OptConfig(**ocfg),
                             jax.random.PRNGKey(0))
+    jstate = dict(jstate, params=jp)      # the pair's weights
     params = tree_map(torch.clone, tp)
     stacks = stack_groups(tm, params)
     opt = (optim.adafactor_init(params, stacks)

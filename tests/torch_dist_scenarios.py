@@ -180,31 +180,40 @@ def _step_model(arch, mesh_shape, over=None):
 def _step_case(rank, mesh, case):
     """The sharded steps of one case: its stored state, each step's
     metrics and (rank 0) the gathered parameters after the steps in
-    ``case["snap"]``."""
+    ``case["snap"]``.  A case may name ``microbatches``, ``flat_dp``
+    (the flat rules), ``batch_axes`` and ``param_gather`` (a dtype name)
+    beside its optimizer."""
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.distrib.sharding import tree_specs
+    from repro_torch.distrib.tensor_parallel import flat_dp_rules
     from repro_torch.train import optim
     from repro_torch.train.optim import leaves
     from repro_torch.train.step import (init_state, leaves_of,
                                         make_train_step)
     model = _step_model(case["arch"], case["mesh"], case.get("over"))
     ocfg = optim.OptConfig(**case["opt"])
-    par = ParallelConfig(remat=case["remat"])
+    par = ParallelConfig(remat=case["remat"],
+                         microbatches=case.get("microbatches", 1),
+                         param_gather_dtype=case.get("param_gather", ""))
     seq = case.get("seq_parallel", False)
-    state = init_state(model, ocfg, 0, device="cpu", mesh=mesh)
+    rules = flat_dp_rules(mesh) if case.get("flat_dp") else None
+    state = init_state(model, ocfg, 0, device="cpu", mesh=mesh, rules=rules)
+    opt = {k: leaves(v) for k, v in state["opt"].items() if k != "count"}
     stored = {"params": [tuple(t.shape) for t in leaves(state["params"])],
-              "m": [tuple(t.shape) for t in leaves(state["opt"]["m"])],
+              **{k: [tuple(t.shape) for t in v] for k, v in opt.items()},
               "bytes": sum(t.numel() * t.element_size() for t in
                            leaves(state["params"])
-                           + leaves(state["opt"]["m"])
-                           + leaves(state["opt"]["v"])
+                           + [t for v in opt.values() for t in v]
                            + [state["opt"]["count"]])}
-    step = make_train_step(model, ocfg, par, mesh, seq_parallel=seq)
+    step = make_train_step(model, ocfg, par, mesh, seq_parallel=seq,
+                           rules=rules, batch_axes=case.get("batch_axes"))
     specs = leaves_of(tree_specs(model.init(device="meta"),
-                                 model.param_axes(), mesh))
-    losses, snaps = [], {}
+                                 model.param_axes(), mesh, rules))
+    losses, snaps, colls = [], {}, None
     for i, batch in enumerate(case["batches"]):
-        state, met = step(state, {k: _t(v) for k, v in batch.items()})
+        with coll.record() as recs:
+            state, met = step(state, {k: _t(v) for k, v in batch.items()})
+        colls = list(recs) if colls is None else colls
         losses.append({k: float(met[k]) for k in
                        ("loss", "grad_norm", "ce", "tokens")})
         if i + 1 in case["snap"]:
@@ -212,7 +221,37 @@ def _step_case(rank, mesh, case):
                      zip(leaves(state["params"]), specs)]
             snaps[i + 1] = [w.clone().numpy() for w in whole] \
                 if rank == 0 else None
-    return dict(stored=stored, losses=losses, snaps=snaps)
+    return dict(stored=stored, losses=losses, snaps=snaps,
+                collectives=colls)
+
+
+def param_gather_grads(rank, world, args):
+    """The sharded gradients under ``param_gather`` on a gloo (data 2,
+    model 2) mesh from the whole parameters ``args["params"]`` (numpy
+    leaves in ``leaves`` order): (loss, metrics, rank 0's gradients
+    gathered whole)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.train.optim import leaves, tree_map
+    from repro_torch.train.step import leaves_of, make_sharded_grads
+    mesh = Mesh((2, 2), ("data", "model"), backend="gloo")
+    model = _step_model(args["arch"], (2, 2))
+    par = ParallelConfig(remat=args["remat"],
+                         param_gather_dtype=args["param_gather"])
+    grads_of = make_sharded_grads(model, par, mesh)
+    specs = leaves_of(grads_of.layout.specs)
+    whole = iter(_t(a) for a in args["params"])
+    blocks = tree_map(lambda _: next(whole), model.init(device="meta"))
+    spec_it = iter(specs)
+    blocks = tree_map(lambda t: local_block(t, next(spec_it), mesh), blocks)
+    batch = {k: _t(v) for k, v in args["batch"].items()}
+    with coll.record() as recs:
+        loss, metrics, grads = grads_of(blocks, batch)
+    out = [gather_block(g, s, mesh).numpy() for g, s in
+           zip(leaves(grads), specs)]
+    return dict(loss=float(loss),
+                metrics={k: float(v) for k, v in metrics.items()},
+                grads=out if rank == 0 else None, collectives=list(recs),
+                dtypes=sorted({str(g.dtype) for g in leaves(grads)}))
 
 
 # ---------------------------------------------------------------------------
@@ -638,20 +677,21 @@ def sharded_serve(rank, world, args):
 # the dry run's cells as a real run: the collectives they issue
 # ---------------------------------------------------------------------------
 def dry_collectives(rank, world, args):
-    """Each cell of ``args`` (name -> (arch, kind, batch, seq)) at reduced
-    size, run for real by ``launch.dryrun.lower_cell`` on a gloo (data 2,
-    model 2) mesh: the collectives it issues, in order."""
+    """Each cell of ``args`` (name -> (arch, kind, batch, seq[, variant]))
+    at reduced size, run for real by ``launch.dryrun.lower_cell`` on a
+    gloo (data 2, model 2) mesh: the collectives it issues, in order."""
     from repro_torch import configs
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distrib import collectives as coll
     from repro_torch.launch import dryrun
     mesh = Mesh((2, 2), ("data", "model"), backend="gloo")
     out = {}
-    for name, (arch, kind, batch, seq) in args.items():
+    for name, (arch, kind, batch, seq, *variant) in args.items():
         shape = ShapeSpec(name=name, kind=kind, seq_len=seq,
                           global_batch=batch)
-        run, _, _ = dryrun.lower_cell(arch, shape, mesh,
-                                      cfg=configs.reduced(arch))
+        run, _, _ = dryrun.lower_cell(
+            arch, shape, mesh, cfg=configs.reduced(arch),
+            overrides=dryrun.parse_variant(variant[0] if variant else ""))
         with coll.record() as recs:
             run()
         out[name] = list(recs)

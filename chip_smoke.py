@@ -332,20 +332,38 @@ Phases, in order; any failure exits non-zero:
       served in bf16 weights (32.8 and 60.6 GB; no launcher takes a
       dtype, so the engines are built here): the demo's six requests
       through ``gen.submit`` / ``gen.result`` into 4 slots of 128, then
-      the sessions of 3a.  Each path: attention (and the router and the
+      the sessions of 3a.  v. (after 3q) nemotron-4-340b the same way,
+      in bf16 weights cut to 4 of its 96 layers (46.5 GB: 96 query and
+      8 key/value heads of 192, run on the kernels' 256 tiles
+      zero-padded, the squared-ReLU MLP of 73728, untied 256000 x 18432
+      tables).  Each path: attention (and the router and the
       combine, deepseek) must launch on prefill, chunk and decode and
       nowhere else, at least two turns must resume a session, every
       token must lie in the vocabulary and nothing may be shed; the
       weights' bytes, the card's peak, the time to first token, each
-      entry point's ms a call (the card synchronised around it) and the
-      launches by entry point are printed, with a ``breadth {json}``
-      line.
-   r. (after 3q) qwen1.5-0.5b at full width, 8 x 128: 10 Adafactor steps
+      entry point's ms a call (the card synchronised around it), the
+      split of one decode step and the launches by entry point are
+      printed, with a ``breadth {json}`` line.
+   r. (after 3v) qwen1.5-0.5b at full width, 8 x 128: 10 Adafactor steps
       through ``init_state`` / ``make_train_step``, batches over RPC,
       then 10 steps of ``launch.train.main`` with ``--microbatches 2``
       (AdamW, its save at the end); attention's forward and backward
       once a layer and microbatch, the loss falling, then each one's
       repeat check (3 steps twice, ``REPEAT_ATOL``).
+   s-u. (after 3r) three more configurations trained at full width in
+      f32 weights and bf16 compute, cut in depth to hold every layer
+      kind (``TRAIN_BREADTH``), through ``train_over_rpc``: s.
+      gemma3-12b's one period (5 local layers, 1 global) with AdamW at
+      2 x 1536, so that the local layers' window of 1024 binds in the
+      forward and the backward; t. deepseek-moe-16b's dense layer 0 and
+      3 MoE layers with AdamW at 8 x 128 (the router at T 1024, E 64, k
+      6, capacity factor 1.25; the combine's forward and backward beside
+      the 2 shared experts); u. command-r-35b's 4 parallel blocks with
+      Adafactor at 8 x 128.  Each prints its parameters', gradients' and
+      optimizer state's reckoned bytes before they are made and the
+      card's peak over the steps beside them; the loss must fall, every
+      kernel of the layers launch on every step, and the repeat check
+      pass at the same cut and shape.
 4. The main paths' own shapes: each kernel against its plain version on
    the recorded inputs, timed and bounded as in phase 2 (an attention
    row names its ``path`` and ``n_split``); phase 3g's attention
@@ -358,7 +376,12 @@ Phases, in order; any failure exits non-zero:
    recurrentgemma's local heads, and at all of granite's under
    ``flat_dp``; the SSD at 32 of mamba2's 64 heads and the RG-LRU at
    2048 of recurrentgemma's 4096 channels, forward and backward) and the
-   attention partial of ``sp_decode_attention``.  These rows, with the main
+   attention partial of ``sp_decode_attention``; phases 3s-3u their
+   training rows (attention at head_dim 256 with the window binding, the
+   router and the combine at E 64, k 6), 3v nemotron's attention at
+   head_dim 192, bounded at 192 so that the padding shows as lost time,
+   with SDPA (and its backward alone) beside each attention row.  These
+   rows, with the main
    paths' launch counts, make the kernels' JSON summary; phase 3f's
    surviving replicas each check their own recorded inputs before they
    exit and send the rows back.
@@ -379,8 +402,12 @@ Phases, in order; any failure exits non-zero:
    exact arithmetic, held against the largest gradient entry.  Serving
    parity also for gemma3-12b at full depth with 2 x 1100 (its window
    binds in prefill), deepseek-moe-16b at 8 layers (the dense layer 0
-   and 7 MoE layers) and command-r-35b at 4, both in the bf16 weights
-   they are served in (``BREADTH_PARITY``), each run's launches exact.
+   and 7 MoE layers), command-r-35b at 4 and nemotron-4-340b at 2, the
+   last three in the bf16 weights they are served in
+   (``BREADTH_PARITY``), each run's launches exact; and their training
+   parity (``TRAIN_BREADTH_PARITY``): gemma3-12b at 6 layers and 1 x
+   1100 (the window binding), deepseek-moe-16b at 2 (the dense layer 0
+   and one MoE layer) and command-r-35b at 2.
 
 Each phase's wall seconds are printed on a line of its own as it ends,
 and all of them on a ``phase seconds {json}`` line before the summary.
@@ -583,28 +610,81 @@ HYBRID_PARITY_LAYERS = 5
 # mamba2's whole training path (forward and backward kernels) is held to
 # TRAIN_PARITY_TOL at this depth (ssm_train_parity says why not at 48)
 SSM_PARITY_LAYERS = 4
-# phases 3o-3q: three more configurations served at full width and depth
+# phases 3o-3q and 3v: four more configurations served at full width
 # (phase, arch, the dtype its weights are served in: None for the
-# config's own).  gemma3-12b's f32 weights (47.1 GB) fit one card;
-# deepseek-moe-16b (65.5 GB in f32) and command-r-35b (121.1 GB) are
-# served in bf16 (32.8 and 60.6 GB)
-BREADTH = (("3o", "gemma3-12b", None),
-           ("3p", "deepseek-moe-16b", "bfloat16"),
-           ("3q", "command-r-35b", "bfloat16"))
+# config's own; layers: None for all).  gemma3-12b's f32 weights (47.1
+# GB) fit one card; deepseek-moe-16b (65.5 GB in f32) and command-r-35b
+# (121.1 GB) are served in bf16 (32.8 and 60.6 GB); nemotron-4-340b in
+# bf16, cut to 4 of its 96 layers (46.5 GB: its untied 256000 x 18432
+# tables alone are 18.9 GB), attention at head_dim 192 on the kernels'
+# 256 tiles
+BREADTH = (("3o", "gemma3-12b", None, None),
+           ("3p", "deepseek-moe-16b", "bfloat16", None),
+           ("3q", "command-r-35b", "bfloat16", None),
+           ("3v", "nemotron-4-340b", "bfloat16", 4))
 # phase 3o's window-crossing request: a prompt longer than gemma3's
 # 1024-token window, in chunks of 64, into a slot of 2048
 WINDOW_PROMPT, WINDOW_MAX_LEN, WINDOW_NEW = 1536, 2048, 8
-# phase 5's parity of those three: (arch, prompt length, layers (None:
+# phase 5's parity of those four: (arch, prompt length, layers (None:
 # all), weights' dtype).  gemma3 at S 1100, so that its local layers'
 # window binds in prefill; deepseek's dense layer 0 and 7 MoE layers;
-# both bf16 configs in the dtype they are served in, at f32 compute
+# the bf16 configs in the dtype they are served in, at f32 compute
 BREADTH_PARITY = (("gemma3-12b", 1100, None, None),
                   ("deepseek-moe-16b", 128, 8, "bfloat16"),
-                  ("command-r-35b", 128, 4, "bfloat16"))
+                  ("command-r-35b", 128, 4, "bfloat16"),
+                  ("nemotron-4-340b", 128, 2, "bfloat16"))
 # phase 3r: qwen1.5-0.5b at full width, 8 x 128, 10 steps with Adafactor
 # through init_state / make_train_step, then 10 steps of the launcher
 # with --microbatches 2; each then the repeat check
 OPT_STEPS, OPT_MICROBATCHES = 10, 2
+# phases 3s-3u: three more configurations trained at full width, cut in
+# depth to a cut that holds every layer kind of the config (phase, arch,
+# layers, optimizer, learning rate, batch, seq, steps), f32 weights, the
+# config's bf16 compute, through train_over_rpc.  gemma3-12b's 6 layers
+# are one period (5 local, 1 global: both RoPE bases) at 2 x 1536, so
+# that the local layers' 1024-token window binds in the forward and the
+# backward; deepseek-moe-16b's 4 are its dense layer 0 and 3 MoE layers
+# (E 64, k 6, 2 shared experts; T 1024 at the training capacity factor
+# 1.25); command-r-35b's 4 parallel blocks train with Adafactor (with
+# AdamW 4 layers need 78.7 GB of params, gradients, m and v).  AdamW at
+# the launcher's learning rate; Adafactor's step is about lr an element
+# whatever the gradient's scale (no first moment), and at d_model 8192
+# the launcher's 3e-4 overshoots (the loss 13.0 to 26.7 in 8 steps, 10.95
+# at 1e-4; 8.35 at 1e-5).  Full depth waits for a mesh of cards
+# (train_state_bytes reckons each row's state)
+TRAIN_BREADTH = (("3s", "gemma3-12b", 6, "adamw", 3e-4, 2, 1536, 8),
+                 ("3t", "deepseek-moe-16b", 4, "adamw", 3e-4, 8, 128, 8),
+                 ("3u", "command-r-35b", 4, "adafactor", 1e-5, 8, 128, 8))
+# phase 5's training parity of those three at full width, f32: (arch,
+# layers, batch, seq).  gemma3 at S 1100, so that the local layers'
+# window binds; deepseek's dense layer 0 and one MoE layer
+TRAIN_BREADTH_PARITY = (("gemma3-12b", 6, 1, 1100),
+                        ("deepseek-moe-16b", 2, 2, 128),
+                        ("command-r-35b", 2, 2, 128))
+
+
+def train_state_bytes(arch, n_layers=None, opt="adamw") -> dict:
+    """The bytes a training state of ``arch`` cut to ``n_layers`` holds on
+    the card, reckoned from the shapes ``Model.init(device="meta")``
+    gives (nothing allocated): the parameters, their gradients (the
+    parameters' shapes and dtype) and the optimizer's state (AdamW's m and
+    v, Adafactor's rows, columns and v, as ``init_state`` makes them)."""
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = Model(cfg)
+    params = model.init(device="meta")
+    if opt == "adafactor":
+        state = optim.adafactor_init(params,
+                                     train_step.stack_groups(model, params))
+    else:
+        state = optim.adamw_init(params)
+    size = (lambda tree: sum(t.numel() * t.element_size()
+                             for t in optim.leaves(tree)))
+    out = {"params": size(params), "grads": size(params),
+           "opt": size(state)}
+    out["total"] = sum(out.values())
+    return out
 
 
 class PhaseError(RuntimeError):
@@ -2458,23 +2538,25 @@ def decode_split(model, params) -> dict:
             "device_launches": sum(e.count for e in kernels)}
 
 
-def breadth_path(arch, param_dtype=None):
-    """Phases 3o-3q: one more configuration served at full width and
-    depth through the gateway over tcp, the kernels' counts zeroed just
-    before and read just after.  A config served in its own dtype
-    (``param_dtype`` None: gemma3-12b, f32) runs the launcher's
-    ``--demo`` first, then the card is freed (two copies do not fit);
-    one served in another (deepseek-moe-16b, command-r-35b in bf16)
-    builds its engines here, as no launcher takes a dtype, and runs the
-    demo's requests through ``gen.submit``.  Then, on one draw of the
-    weights, the session phase and, for a config with a window, the
-    window-crossing request (``phase_window``).  Prints the weights'
-    bytes, the card's peak, the time to first token, the ms of a decode
-    step and each kernel's launches by entry point.  Returns the
-    recorder."""
+def breadth_path(arch, param_dtype=None, n_layers=None):
+    """Phases 3o-3q and 3v: one more configuration served at full width
+    (``n_layers`` cuts the depth) through the gateway over tcp, the
+    kernels' counts zeroed just before and read just after.  A config
+    served in its own dtype (``param_dtype`` None: gemma3-12b, f32) runs
+    the launcher's ``--demo`` first, then the card is freed (two copies
+    do not fit); one served in another (deepseek-moe-16b, command-r-35b
+    and nemotron-4-340b in bf16) builds its engines here, as no launcher
+    takes a dtype, and runs the demo's requests through ``gen.submit``.
+    Then, on one draw of the weights, the session phase and, for a
+    config with a window, the window-crossing request (``phase_window``).
+    Prints the weights' bytes, the card's peak, the time to first token,
+    the ms of a decode step and each kernel's launches by entry point.
+    Returns the recorder."""
     cfg = configs.get(arch)
     if param_dtype is not None:
         cfg = cfg.replace(param_dtype=param_dtype)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg)
     kernels = path_kernels(model)
     recorder = MainPathRecorder(model.supports_chunked_prefill, timed=True)
@@ -2511,6 +2593,7 @@ def breadth_path(arch, param_dtype=None):
           for kind, n in recorder.calls.items()}
     out = {"arch": arch, "param_dtype": cfg.param_dtype,
            "compute_dtype": cfg.compute_dtype, "layers": cfg.n_layers,
+           "head_dim": cfg.hd,
            "weight_bytes": weight_bytes, "peak_bytes": peak,
            "ttft_ms": {part: {"p50": _pct(v, 0.5), "max": max(v)}
                        for part, v in ttft.items()},
@@ -3623,13 +3706,15 @@ def restart_check(model):
     free_card()
 
 
-def repeat_check(arch, n_layers=None, opt="adamw", microbatches=1):
+def repeat_check(arch, n_layers=None, opt="adamw", microbatches=1,
+                 batch=None, seq=None):
     """REPEAT_STEPS steps of ``opt`` (AdamW or Adafactor) twice from one
-    seed on the same batches, each split into ``microbatches``: the
-    parameters must agree within REPEAT_ATOL (no atomics on the path);
-    prints whether they are bitwise equal.  The first run's parameters
-    wait on the host while the second runs.  ``n_layers`` cuts the depth
-    (printed)."""
+    seed on the same batches (``batch`` x ``seq``, default TRAIN_BATCH x
+    TRAIN_SEQ), each split into ``microbatches``: the parameters must
+    agree within REPEAT_ATOL (no atomics on the path); prints whether
+    they are bitwise equal.  The first run's parameters wait on the host
+    while the second runs, and go back to the card a leaf at a time to
+    be compared.  ``n_layers`` cuts the depth (printed)."""
     cfg = configs.get(arch)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
@@ -3637,7 +3722,7 @@ def repeat_check(arch, n_layers=None, opt="adamw", microbatches=1):
     ocfg = optim.OptConfig(name=opt, lr=1e-3, warmup=0, decay_steps=100)
     step = train_step.make_train_step(
         model, ocfg, ParallelConfig(remat="none", microbatches=microbatches))
-    source = train_source(cfg, seed=7)
+    source = train_source(cfg, seq, batch, seed=7)
     first, losses = None, []
     for _ in range(2):
         state = train_step.init_state(model, ocfg, 0, device="cuda")
@@ -3649,17 +3734,22 @@ def repeat_check(arch, n_layers=None, opt="adamw", microbatches=1):
         if first is None:
             first = {k: v.cpu() for k, v in params.items()}
         else:
+            # each kept leaf back on the card, compared there
             worst, bitwise = 0.0, True
-            for key, want in first.items():
-                got = params[key].cpu()
+            for key, kept in first.items():
+                got = params[key]
+                want = kept.to(got.device)
                 bitwise = bitwise and torch.equal(got, want)
                 worst = max(worst, float((got - want).abs().max()))
+                del want
         del state, params
         free_card()
     print(f"repeat {arch}" + (f" ({n_layers} of {configs.get(arch).n_layers}"
                                f" layers)" if n_layers else "")
           + (f", {opt}" if opt != "adamw" else "")
           + (f", {microbatches} microbatches" if microbatches > 1 else "")
+          + (f", {batch or TRAIN_BATCH}x{seq or TRAIN_SEQ}" if batch or seq
+             else "")
           + f": {REPEAT_STEPS} steps twice from seed 0: max |diff| "
           f"{worst:.3g} (atol {REPEAT_ATOL}); bitwise equal: {bitwise}; "
           f"losses {losses}")
@@ -3730,10 +3820,11 @@ def ssm_train_path():
     return recorder, ckrec
 
 
-def train_over_rpc(model, n_steps, ocfg=None):
+def train_over_rpc(model, n_steps, ocfg=None, batch=None, seq=None):
     """``n_steps`` of ``make_train_step`` from ``init_state`` (``ocfg``,
-    default AdamW warming up over 5 steps; TRAIN_BATCH x TRAIN_SEQ, remat
-    "none"), batches pulled over RPC from a ``DataFeedServer``, a
+    default AdamW warming up over 5 steps; ``batch`` x ``seq``, default
+    TRAIN_BATCH x TRAIN_SEQ; remat "none"), batches pulled over RPC from
+    a ``DataFeedServer``, a
     ``MembershipClient`` joined and left as the launcher's, no save;
     under a ``TrainRecorder``, the launch counts set to 0 first.  Returns
     (recorder, each step's metrics as floats, step seconds, the parameter
@@ -3749,7 +3840,7 @@ def train_over_rpc(model, n_steps, ocfg=None):
     try:
         with Engine(None) as trainer, Engine(None) as feeder, \
                 Engine(None) as coord:
-            DataFeedServer(feeder, train_source(model.cfg))
+            DataFeedServer(feeder, train_source(model.cfg, seq, batch))
             feed = DataFeedClient(trainer, [feeder.uri], depth=2)
             MembershipServer(coord)
             member = MembershipClient(trainer, coord.uri, "trainer-0")
@@ -3826,6 +3917,69 @@ def hybrid_train_path():
           f"{per_step[7]}; attention forward {per_step[0]}, backward "
           f"{per_step[1]}")
     free_card()
+    return recorder
+
+
+def train_breadth_path(row):
+    """Phases 3s-3u: one row of TRAIN_BREADTH (phase, arch, layers,
+    optimizer, learning rate, batch, seq, steps) at full width through
+    ``train_over_rpc``, in the config's bf16 compute on f32 weights.
+    Prints the reckoned bytes of the parameters, gradients and optimizer
+    state before they are made and the card's peak over the steps beside
+    them; the loss must fall, and every kernel of the model's layers
+    launch on every step (``check_train_launches``); prints the kernels'
+    shapes (attention's masks: the local layers' window at 2 x 1536; the
+    router's (T, E), k and capacity).  Then the repeat check at the same
+    cut and shape.  Returns the training recorder."""
+    phase, arch, layers, opt, lr, batch, seq, steps = row
+    full = configs.get(arch)
+    model = Model(full.replace(n_layers=layers))
+    tag = (f"train {arch} ({layers} of {full.n_layers} layers, {opt} at "
+           f"lr {lr}, {batch}x{seq})")
+    reckoned = train_state_bytes(arch, layers, opt)
+    print(f"{tag}: reckoned bytes (parameters, gradients, optimizer "
+          f"state) {json.dumps(reckoned)} ({reckoned['total'] / 1e9:.2f} "
+          f"GB)", flush=True)
+    ocfg = optim.OptConfig(name=opt, lr=lr, warmup=5, decay_steps=steps)
+    recorder, mets, step_seconds, n_params, peak = train_over_rpc(
+        model, steps, ocfg, batch=batch, seq=seq)
+    report_losses(tag, [m["loss"] for m in mets], step_seconds, batch * seq)
+    peak_bytes = int(peak * 2 ** 30)
+    print(f"{tag}: {n_params} parameters, {model.cfg.param_dtype} weights, "
+          f"{model.cfg.compute_dtype} compute; card peak over the steps "
+          f"{peak_bytes} bytes ({peak_bytes / 1e9:.2f} GB) beside the "
+          f"reckoned state {reckoned['total']} bytes "
+          f"({reckoned['total'] / 1e9:.2f} GB): "
+          f"{peak_bytes / reckoned['total']:.3f}x")
+    if model.cfg.moe.num_experts:
+        aux = [(m["moe_lb"], m["moe_z"]) for m in mets]
+        print(f"{tag}: (moe_lb, moe_z) by step {aux}")
+        check(all(math.isfinite(a) and math.isfinite(b) and a > 0 and b > 0
+                  for a, b in aux), f"{tag}: aux losses {aux}")
+    per_step = check_train_launches(tag, model, recorder, steps, "none")
+    shapes = sorted({key[:1] + key[2:] for key in recorder.seen
+                     if key[0] in ("flash_attention", "moe_router")},
+                    key=lambda k: tuple(map(str, k)))
+    print(f"{tag}: launches a step "
+          f"{dict(zip(TrainRecorder.KERNELS, per_step))}; attention and "
+          f"router shapes {[tuple(map(str, k)) for k in shapes]}")
+    if "local" in model.kinds:
+        # the local layers' forward and backward at a sequence longer
+        # than their window
+        windowed = {k[0] for k in recorder.seen
+                    if k[-1] == mask_tag({"window": full.window})}
+        check(seq > full.window and windowed == {"flash_attention",
+                                                 "flash_attention_bwd"},
+              f"{tag}: the window of {full.window} did not bind: "
+              f"{windowed}")
+    if model.cfg.moe.num_experts:
+        routed = [k for k in recorder.seen if k[0] == "moe_router"]
+        want = (batch * seq, full.moe.num_experts, full.moe.top_k)
+        check(routed and all(k[2:5] == want for k in routed),
+              f"{tag}: the router ran at {routed}, expected (T, E, k) "
+              f"{want}")
+    free_card()
+    repeat_check(arch, n_layers=layers, opt=opt, batch=batch, seq=seq)
     return recorder
 
 
@@ -5899,13 +6053,26 @@ def breadth_phases(clock=None) -> list:
     each with its phase 4 rows, each timed by ``clock``."""
     clock = clock or PhaseClock()
     rows = []
-    for phase, arch, param_dtype in BREADTH:
+    for phase, arch, param_dtype, n_layers in BREADTH:
         with clock(phase):
-            rows += phase_main_shapes(arch, breadth_path(arch, param_dtype))
+            rows += phase_main_shapes(arch, breadth_path(arch, param_dtype,
+                                                         n_layers))
     with clock("3r"):
         adafactor, micro = optimizer_path()
         rows += phase_main_shapes(f"{ARCH} adafactor train", adafactor)
         rows += phase_main_shapes(f"{ARCH} microbatch train", micro)
+    return rows
+
+
+def train_breadth_phases(clock=None) -> list:
+    """Phases 3s, 3t and 3u (``TRAIN_BREADTH``), each with its phase 4
+    rows, each timed by ``clock``."""
+    clock = clock or PhaseClock()
+    rows = []
+    for row in TRAIN_BREADTH:
+        with clock(row[0]):
+            rows += phase_main_shapes(f"{row[1]} train",
+                                      train_breadth_path(row))
     return rows
 
 
@@ -5926,6 +6093,8 @@ def parity_phases(clock=None) -> None:
         ssm_train_parity()
         for n in (HYBRID_PARITY_LAYERS, HYBRID_TRAIN_LAYERS):
             phase_train_parity(HYBRID_ARCH, n_layers=n)
+        for arch, n_layers, B, S in TRAIN_BREADTH_PARITY:
+            phase_train_parity(arch, B, S, n_layers)
 
 
 def frontend_phases(arch) -> list:
@@ -6011,6 +6180,7 @@ def main(argv=None) -> int:
         with clock(phase):
             rows += frontend_phases(arch)
     rows += breadth_phases(clock)
+    rows += train_breadth_phases(clock)
     parity_phases(clock)
     # one set of rank processes for 3m and then 3n: one start-up
     with RankProcs(("--distrib-rank", "--serve-rank"),

@@ -257,17 +257,22 @@ def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
     means = _Means(mesh)
 
     def apply(i, g, vhat):
-        step = g / torch.sqrt(vhat + cfg.eps)
+        # in place on g and vhat, this update's own temporaries: a tied
+        # table's further copies (8.4 GB each for command-r-35b's in f32)
+        # would set the card's peak
+        step = g.div_(vhat.add_(cfg.eps).sqrt_())
         if cfg.weight_decay > 0 and nds[i] >= 2:
-            step = step + cfg.weight_decay * ps[i].float()
-        ps[i].copy_(ps[i].float() - lr * step)
+            step.add_(ps[i].float(), alpha=cfg.weight_decay)
+        ps[i].copy_(ps[i].float().sub_(step.mul_(lr)))
 
     def grad(ids, stacked):
         """The clipped gradient of a leaf or of a stacked group (its
-        leaves along a new dim 0) and its square."""
-        g = (torch.stack([gs[i].float() for i in ids]) if stacked
-             else gs[ids[0]].float()) * clip
-        return g, torch.square(g) + 1e-30
+        leaves along a new dim 0), a tensor of its own."""
+        return (torch.stack([gs[i].float() for i in ids]) if stacked
+                else gs[ids[0]].float()) * clip
+
+    def square(g):
+        return torch.square(g).add_(1e-30)
 
     # the factored items: a stacked group of 1-D leaves (one (layers, d)
     # tensor in the reference: its column is a mean over the group's
@@ -278,14 +283,14 @@ def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
         if ps[group[0]].ndim != 1:
             continue
         grouped.update(group)
-        _, g2 = grad(group, True)
+        g2 = square(grad(group, True))
         axes = _entry_axes(specs[group[0]], -1, 1)
         items.append((list(group), True, means.mean(g2, -1, axes),
                       means.mean(g2, -2, ()), ()))
     for i, p in enumerate(ps):
         if i in grouped or nds[i] < 2:
             continue
-        _, g2 = grad([i], False)
+        g2 = square(grad([i], False))
         a1, a2 = (_entry_axes(specs[i], d, p.ndim) for d in (-1, -2))
         items.append(([i], False, means.mean(g2, -1, a1),
                       means.mean(g2, -2, a2), a2))
@@ -303,7 +308,7 @@ def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
     for (ids, stacked, *_), (row, col, rmean) in zip(items, rows):
         vhat = (row / torch.clamp(rmean().unsqueeze(-1), min=1e-30))[
             ..., None] * col[..., None, :]
-        g, _ = grad(ids, stacked)
+        g = grad(ids, stacked)
         if not stacked:
             sts[ids[0]]["row"].copy_(row)
             sts[ids[0]]["col"].copy_(col)
@@ -317,7 +322,7 @@ def adafactor_update(cfg: OptConfig, params, grads, fstate, count,
         if i in grouped or nds[i] >= 2:
             continue
         g = g.float() * clip
-        vhat = decay * st["v"] + (1 - decay) * (torch.square(g) + 1e-30)
+        vhat = decay * st["v"] + (1 - decay) * square(g)
         st["v"].copy_(vhat)
         apply(i, g, vhat)
     return params, fstate, count, {"grad_norm": gn, "lr": lr}

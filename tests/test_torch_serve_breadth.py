@@ -1,11 +1,12 @@
-"""The port's ServeEngine on three more configurations, against the JAX
+"""The port's ServeEngine on four more configurations, against the JAX
 reference's ServeEngine on the same weights (the reference's
 ``Model.init``, carried over through numpy).
 
 Reduced gemma3-12b (local and global layers, a window of 32, qk-norm, a
 second RoPE base), deepseek-moe-16b (a dense first layer, shared and
-routed experts) and command-r-35b (the parallel attention/MLP block)
-through the scenarios of ``tests/test_torch_serve.py``: monolithic
+routed experts), command-r-35b (the parallel attention/MLP block) and
+nemotron-4-340b (the squared-ReLU MLP, GQA, untied tables) through the
+scenarios of ``tests/test_torch_serve.py``: monolithic
 prefill, ``chunk_tokens=8``, continuous batching over 2 slots, session
 resume and a stale prefix.  gemma3 also takes one window-crossing
 request: a 60-token prompt in chunks of 8, whose local layers' chunks at
@@ -13,11 +14,11 @@ offsets past 32 drop the keys that fall out of the window while the
 global layers read them all.  Greedy token streams equal; the whole
 slot cache afterwards within 1e-4 (f32 compute and cache on both sides).
 
-Then the dtype those configs are served in on the card: deepseek-moe-16b
-and command-r-35b with ``param_dtype="bfloat16"`` and f32 compute on both
-sides (the reference's bf16 leaves carried over as bf16): prefill and 4
-greedy decode steps, the logits within 1e-4 of their largest entry and
-the greedy tokens equal."""
+Then the dtype those configs are served in on the card: deepseek-moe-16b,
+command-r-35b and nemotron-4-340b with ``param_dtype="bfloat16"`` and f32
+compute on both sides (the reference's bf16 leaves carried over as
+bf16): prefill and 4 greedy decode steps, the logits within 1e-4 of
+their largest entry and the greedy tokens equal."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,9 +34,10 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import Model, params_from_numpy  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-ARCHS = ["gemma3-12b", "deepseek-moe-16b", "command-r-35b"]
+ARCHS = ["gemma3-12b", "deepseek-moe-16b", "command-r-35b",
+         "nemotron-4-340b"]
 WINDOW_ARCH = "gemma3-12b"
-BF16_ARCHS = ["deepseek-moe-16b", "command-r-35b"]
+BF16_ARCHS = ["deepseek-moe-16b", "command-r-35b", "nemotron-4-340b"]
 TOL = 1e-4
 
 

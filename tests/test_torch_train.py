@@ -180,7 +180,10 @@ ARCH_WD = [pytest.param(ARCH, wd, id=str(wd)) for wd in (0.1, 0.0)] + [
 # recurrentgemma's associative scan (``ops._rglru_assoc``) agrees with
 # its sequential oracle to 1.4e-6 of each gradient leaf's largest entry.
 JIMPL = {ARCH: "xla", MOE_ARCH: "xla", SSM_ARCH: "ref", HYBRID_ARCH: "xla",
-         VLM_ARCH: "xla", ENCDEC_ARCH: "xla"}
+         VLM_ARCH: "xla", ENCDEC_ARCH: "xla",
+         # tests/test_torch_train_breadth.py's models
+         "gemma3-12b": "xla", "deepseek-moe-16b": "xla",
+         "command-r-35b": "xla", "nemotron-4-340b": "xla"}
 # The trajectories' gradient norm at each step.  AdamW's step is about
 # lr whatever the gradient's size, so an element whose gradient lies near
 # eps parts by up to lr between the two sides after one step; from then
@@ -394,11 +397,14 @@ def test_state_dtype_policy():
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
-def _run_both(pair, ocfg, steps, microbatches=1, b=B):
+def _run_both(pair, ocfg, steps, microbatches=1, b=B, grads=False):
     """``steps`` steps of the jitted reference step and of the port's
     from the same weights on the same batches.  Yields, after each step,
     (port state, port metrics, reference state as the port's trees,
-    reference metrics)."""
+    reference metrics); with ``grads`` also each side's gradients of the
+    step's batch at the weights that side started the step from (the
+    port's ``loss_and_grads``, ``jax.grad`` of the reference's
+    ``loss_fn``; both as the port's trees)."""
     jm, jp, tm, tp = pair
     par = dict(remat="none", microbatches=microbatches)
     jstep = jax.jit(jmake_train_step(jm, joptim.OptConfig(**ocfg),
@@ -414,15 +420,22 @@ def _run_both(pair, ocfg, steps, microbatches=1, b=B):
     state = {"params": params, "opt": opt}
     step = make_train_step(tm, optim.OptConfig(**ocfg),
                            ParallelConfig(**par))
+    jgrad = jax.jit(jax.grad(lambda p, bt: jm.loss_fn(
+        p, bt, impl=JIMPL[tm.cfg.name], remat="none")[0]))
     for i in range(steps):
         batch = _batch(100 + i, tm.cfg.vocab, b=b, cfg=tm.cfg)
-        jstate, jmet = jstep(jstate, {k: jnp.asarray(v)
-                                      for k, v in batch.items()})
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        seen = ()
+        if grads:
+            seen = (loss_and_grads(tm, state["params"], _tbatch(batch),
+                                   remat="none")[2],
+                    _port(jgrad(jstate["params"], jbatch)))
+        jstate, jmet = jstep(jstate, jbatch)
         state, met = step(state, _tbatch(batch))
         jport = {"params": _port(jstate["params"])}
         if "m" in jstate["opt"]:
             jport["m"] = _port(jstate["opt"]["m"])
-        yield state, met, jport, jmet
+        yield (state, met, jport, jmet) + seen
 
 
 def _params_close(got, want, lr):

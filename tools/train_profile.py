@@ -4,12 +4,21 @@
     python3 tools/train_profile.py            # 8 x 128, then 4 x 1024
     python3 tools/train_profile.py --arch mamba2-1.3b --arch granite-moe-3b-a800m
     python3 tools/train_profile.py --arch recurrentgemma-9b
+    python3 tools/train_profile.py --arch gemma3-12b --arch deepseek-moe-16b
+    python3 tools/train_profile.py --arch recurrentgemma-9b --layers 38 \
+        --opt adafactor --remat block
 
 Full-width models (bf16 compute, f32 state, AdamW; remat "none" at the
 launcher's 8 x 128, and for qwen1.5-0.5b, the default, also "block" at
 4 x 1024), seeded weights and batches, no services.  Full depth, but
-recurrentgemma-9b at ``chip_smoke.py``'s cut (``HYBRID_TRAIN_LAYERS``,
-printed): its 38 layers' state does not fit one 80 GB card with AdamW.  After two warm-up steps, 5 steps of
+recurrentgemma-9b at ``chip_smoke.py``'s cut (``HYBRID_TRAIN_LAYERS``):
+its 38 layers' state does not fit one 80 GB card with AdamW; and
+gemma3-12b, deepseek-moe-16b and command-r-35b at the cut, optimizer and
+shape of their rows of ``chip_smoke.py``'s ``TRAIN_BREADTH``.
+``--layers``, ``--opt`` and ``--remat`` override a model's (every model
+profiled).  The reckoned bytes of the parameters, gradients and
+optimizer state (``chip_smoke.train_state_bytes``) are printed before
+the state is made.  After two warm-up steps, 5 steps of
 ``train.step``'s own step run with its parts timed on the host clock,
 the card synchronised around each: ``Model.loss_fn`` (the forward), the
 step's ``loss_and_grads`` (the forward and autograd's backward; the
@@ -20,7 +29,10 @@ device memory allocated over those steps (``peak_gib``).  Then
 over wall-clock; kernels do not overlap on one stream) and the kernel
 launches a step.
 
-Each measurement is one line ``PROFILE {json}`` on stdout.
+Each measurement is one line ``PROFILE {json}`` on stdout; a model
+whose step runs out of the card's memory gives one with
+``out_of_memory`` and the peak up to the failed allocation, and the
+tool exits 1 after the others.
 """
 from __future__ import annotations
 
@@ -37,7 +49,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import HYBRID_ARCH, HYBRID_TRAIN_LAYERS  # noqa: E402
+from chip_smoke import (HYBRID_ARCH, HYBRID_TRAIN_LAYERS,  # noqa: E402
+                        TRAIN_BREADTH, train_state_bytes)
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import ParallelConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticSource  # noqa: E402
@@ -50,8 +63,13 @@ ARCH = "qwen1.5-0.5b"
 # long step of chip_smoke.py phase 3g
 SHAPES = {ARCH: ((8, 128, "none"), (4, 1024, "block"))}
 LAUNCHER_SHAPE = ((8, 128, "none"),)
-# the depth a model is cut to, where its state does not fit one card
+# the depth a model is cut to, where its state does not fit one card,
+# and its optimizer where AdamW's state does not fit at that depth
 LAYERS = {HYBRID_ARCH: HYBRID_TRAIN_LAYERS}
+OPT = {}
+for _, _arch, _layers, _opt, _, _batch, _seq, _ in TRAIN_BREADTH:
+    LAYERS[_arch], OPT[_arch] = _layers, _opt
+    SHAPES[_arch] = ((_batch, _seq, "none"),)
 WARM, TIMED, PROFILED = 2, 5, 3
 
 
@@ -101,23 +119,43 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", action="append",
                     help=f"model to profile (repeat for several; default "
                          f"{ARCH})")
+    ap.add_argument("--layers", type=int, help="cut every model to this "
+                    "depth")
+    ap.add_argument("--opt", choices=("adamw", "adafactor"),
+                    help="the optimizer of every model")
+    ap.add_argument("--remat", choices=("none", "block"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device", file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0))
+    rc = 0
     for arch in args.arch or [ARCH]:
-        profile_arch(arch)
-    return 0
+        try:
+            profile_arch(arch, args)
+        except torch.cuda.OutOfMemoryError as e:
+            # the state did not fit: its peak up to the failed allocation
+            emit(arch=arch, out_of_memory=True,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 error=str(e).splitlines()[0][:300])
+            rc = 1
+        torch.cuda.empty_cache()
+    return rc
 
 
-def profile_arch(arch: str) -> None:
+def profile_arch(arch: str, args) -> None:
     cfg = configs.get(arch)
-    if arch in LAYERS:
-        cfg = cfg.replace(n_layers=LAYERS[arch])
+    layers = args.layers or LAYERS.get(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     model = Model(cfg)
-    ocfg = optim.OptConfig(warmup=5, decay_steps=100)
+    opt = args.opt or OPT.get(arch, "adamw")
+    ocfg = optim.OptConfig(name=opt, warmup=5, decay_steps=100)
     for B, S, remat in SHAPES.get(arch, LAUNCHER_SHAPE):
+        remat = args.remat or remat
+        reckoned = train_state_bytes(arch, cfg.n_layers, opt)
+        emit(arch=arch, shape=f"{B}x{S}", layers=cfg.n_layers, opt=opt,
+             reckoned_bytes=reckoned)
         state = train_step.init_state(model, ocfg, 0, device="cuda")
         step = train_step.make_train_step(model, ocfg,
                                           ParallelConfig(remat=remat))
@@ -132,7 +170,7 @@ def profile_arch(arch: str) -> None:
         with StepTimer() as timer:
             for i in range(TIMED):
                 state, metrics = step(state, batches[WARM + i])
-        fwd, both, opt = (statistics.median(timer.seconds[part]) for part
+        fwd, both, upd = (statistics.median(timer.seconds[part]) for part
                           in ("forward", "forward+backward", "optimizer"))
         bwd = both - fwd
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -149,11 +187,11 @@ def profile_arch(arch: str) -> None:
         busy_us = sum(e.self_device_time_total for e in kernels)
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-        emit(arch=arch, shape=f"{B}x{S}", remat=remat,
+        emit(arch=arch, shape=f"{B}x{S}", remat=remat, opt=opt,
              layers=cfg.n_layers, forward_ms=fwd * 1e3,
-             backward_ms=bwd * 1e3, optimizer_ms=opt * 1e3,
-             step_ms=(fwd + bwd + opt) * 1e3, peak_gib=peak,
-             tokens_per_s=B * S / (fwd + bwd + opt),
+             backward_ms=bwd * 1e3, optimizer_ms=upd * 1e3,
+             step_ms=(fwd + bwd + upd) * 1e3, peak_gib=peak,
+             tokens_per_s=B * S / (fwd + bwd + upd),
              profiled_window_ms=window * 1e3,
              device_busy_ms_per_step=busy_us / 1e3 / PROFILED,
              device_busy_share=busy_us / 1e6 / window,

@@ -11,20 +11,31 @@ The client keeps ``depth`` requests outstanding (async prefetch), so one
 slow feeder response never stalls the training step; combined with
 ``replicated_call`` over several feeders it is the datapath side of
 straggler mitigation.
+
+A ``get`` is a ``datafeed.get`` region for ``torch.profiler``
+(``telemetry.trace.region``), holding its block on the RPC
+(``datafeed.wait``, with the step) and a bulk batch's one-sided pull
+(``datafeed.pull``); the block's milliseconds also go to the registry's
+``service.datafeed.wait_ms`` histogram, which ``fab.metrics`` exports.
 """
 from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..core.bulk import BulkDescriptor
 from ..core.executor import Engine
+from ..telemetry import metrics as _metrics
+from ..telemetry import trace as _trace
 from .base import alloc_from_manifest, manifest_of
 
 EAGER_LIMIT = 256 * 1024
+
+_M_WAIT_MS = _metrics.histogram("service.datafeed.wait_ms")
 
 
 class DataFeedServer:
@@ -99,25 +110,31 @@ class DataFeedClient:
             feeder, "feed.get", {"step": step}, timeout=60.0)
 
     def get(self, step: int) -> Dict[str, np.ndarray]:
-        # keep the window [step, step+depth) outstanding
-        for s in range(step, step + self.depth):
-            if s not in self._pending and s >= self._next_issue:
-                self._issue(s)
-                self._next_issue = max(self._next_issue, s + 1)
-        fut = self._pending.pop(step, None)
-        if fut is None:
-            self._issue(step)
-            fut = self._pending.pop(step)
-        rsp = fut.result(timeout=120.0)
-        if rsp["mode"] == "eager":
-            return {k: np.asarray(v) for k, v in rsp["batch"].items()}
-        man = rsp["manifest"]
-        named = alloc_from_manifest(man)
-        local = self.engine.expose(list(named.values()), read=False,
-                                   write=True)
-        try:
-            self.engine.pull(rsp["origin"],
-                             BulkDescriptor.from_bytes(rsp["desc"]), local)
-        finally:
-            local.free()
-        return named
+        with _trace.region("datafeed.get"):
+            # keep the window [step, step+depth) outstanding
+            for s in range(step, step + self.depth):
+                if s not in self._pending and s >= self._next_issue:
+                    self._issue(s)
+                    self._next_issue = max(self._next_issue, s + 1)
+            fut = self._pending.pop(step, None)
+            if fut is None:
+                self._issue(step)
+                fut = self._pending.pop(step)
+            t0 = time.monotonic()
+            with _trace.region("datafeed.wait", step=step):
+                rsp = fut.result(timeout=120.0)
+            _M_WAIT_MS.observe((time.monotonic() - t0) * 1e3)
+            if rsp["mode"] == "eager":
+                return {k: np.asarray(v) for k, v in rsp["batch"].items()}
+            man = rsp["manifest"]
+            named = alloc_from_manifest(man)
+            with _trace.region("datafeed.pull", step=step):
+                local = self.engine.expose(list(named.values()), read=False,
+                                           write=True)
+                try:
+                    self.engine.pull(rsp["origin"],
+                                     BulkDescriptor.from_bytes(rsp["desc"]),
+                                     local)
+                finally:
+                    local.free()
+            return named

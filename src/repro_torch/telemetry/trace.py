@@ -20,6 +20,10 @@ Finished spans land in a bounded per-process ring buffer served by the
 exposes; a client reassembles the cross-process span tree by unioning
 ``dbg.trace`` responses and joining on parent span ids (clocks are never
 compared across processes).
+
+Inside one process, :func:`region` names a stretch of the host's work
+(a training step, its forward, a data-feed wait) for ``torch.profiler``:
+a host-only event on the profiler's clock, beside the device's events.
 """
 from __future__ import annotations
 
@@ -233,6 +237,32 @@ def start_span(name: str, parent: Optional[TraceContext], **tags: Any):
     ctx = TraceContext(parent.trace_id, _new_span_id(), parent.flags)
     return Span(ctx, name, parent.span_id, True,
                 dict(tags) if tags else None)
+
+
+# -- profiler regions ---------------------------------------------------------
+_Region = None
+
+
+def region(name: str, **args: Any):
+    """``with trace.region("train.forward"): ...`` — a named host region
+    for ``torch.profiler``.
+
+    While a profiler session collects, the block is one op-scope event
+    ``name`` on the calling thread and the profiler's clock, nested in
+    whatever region or op encloses it; ``args`` (host values such as a
+    step index) ride on it where the session records inputs
+    (``record_shapes``).  Op scope, unlike ``record_function``'s user
+    scope, leaves no mirror among the device's events, so a region never
+    counts as device time.  Without a profiler it reads no clock, records
+    nothing and never synchronises the card: it costs one object.  torch
+    is imported at the first call, not with this module."""
+    global _Region
+    if _Region is None:
+        from torch._C._profiler import _RecordFunctionFast
+        _Region = _RecordFunctionFast
+    if args:
+        return _Region(name, keyword_values=args)
+    return _Region(name)
 
 
 # -- ring export / reassembly ------------------------------------------------

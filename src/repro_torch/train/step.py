@@ -67,6 +67,12 @@ over all axes, and sequence parallelism is off.
 
 Every collective runs in the forward or in an autograd node's backward,
 so every rank issues them in the same order.
+
+Each step is a ``train.step`` region for ``torch.profiler``
+(``telemetry.trace.region``: host-only, nothing synchronised), holding a
+``train.forward`` and a ``train.backward`` a microbatch and one
+``train.optimizer`` (the clip's norm, on a mesh its all-reduce, and the
+update).
 """
 from __future__ import annotations
 
@@ -83,6 +89,7 @@ from ..distrib.tensor_parallel import TensorParallel
 from ..models import Model
 from ..models.common import dtype_of
 from ..models.moe import MoESpmd
+from ..telemetry import trace
 from . import optim
 from .optim import leaves, tree_map
 
@@ -246,8 +253,10 @@ def loss_and_grads(model: Model, params, batch, *, remat: str, spmd=None):
     rank's stored blocks and each gradient is its block's, summed over
     the token shards."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = model.loss_fn(live, batch, remat=remat, spmd=spmd)
-    got = iter(torch.autograd.grad(loss, leaves(live)))
+    with trace.region("train.forward"):
+        loss, metrics = model.loss_fn(live, batch, remat=remat, spmd=spmd)
+    with trace.region("train.backward"):
+        got = iter(torch.autograd.grad(loss, leaves(live)))
     grads = tree_map(lambda _: next(got), live)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -281,23 +290,26 @@ def make_train_step(model: Model, opt_cfg: optim.OptConfig,
     n_micro = max(par.microbatches, 1)
 
     def train_step(state, batch):
-        params = state["params"]
-        loss, metrics, grads = _accumulate(model, params, batch, par,
-                                           n_micro)
-        opt = state["opt"]
-        stacks = stack_groups(model, params)
-        if opt_cfg.name == "adafactor":
-            _, _, count, stats = optim.adafactor_update(
-                opt_cfg, params, grads, opt["f"], opt["count"], stacks)
-        else:
-            _, _, _, count, stats = optim.adamw_update(
-                opt_cfg, params, grads, opt["m"], opt["v"], opt["count"],
-                stacks)
-        opt["count"] = count
-        metrics = dict(metrics)
-        metrics.update(stats)
-        metrics["loss"] = loss
-        return state, metrics
+        with trace.region("train.step"):
+            params = state["params"]
+            loss, metrics, grads = _accumulate(model, params, batch, par,
+                                               n_micro)
+            opt = state["opt"]
+            with trace.region("train.optimizer"):
+                stacks = stack_groups(model, params)
+                if opt_cfg.name == "adafactor":
+                    _, _, count, stats = optim.adafactor_update(
+                        opt_cfg, params, grads, opt["f"], opt["count"],
+                        stacks)
+                else:
+                    _, _, _, count, stats = optim.adamw_update(
+                        opt_cfg, params, grads, opt["m"], opt["v"],
+                        opt["count"], stacks)
+            opt["count"] = count
+            metrics = dict(metrics)
+            metrics.update(stats)
+            metrics["loss"] = loss
+            return state, metrics
 
     return train_step
 
@@ -340,26 +352,28 @@ def _sharded_step(model: Model, opt_cfg: optim.OptConfig,
               for s in flat_specs]
 
     def train_step(state, batch):
-        blocks = state["params"]
-        loss, metrics, grads = grads_of(blocks, batch)
-        sq = sum(torch.sum(torch.square(g.float())) / c
-                 for g, c in zip(leaves(grads), copies))
-        gn = torch.sqrt(all_reduce(sq, mesh, every))
-        opt = state["opt"]
-        stacks = stack_groups(model, blocks)
-        if opt_cfg.name == "adafactor":
-            _, _, count, stats = optim.adafactor_update(
-                opt_cfg, blocks, grads, opt["f"], opt["count"], stacks,
-                grad_norm=gn, mesh=mesh, specs=flat_specs)
-        else:
-            _, _, _, count, stats = optim.adamw_update(
-                opt_cfg, blocks, grads, opt["m"], opt["v"], opt["count"],
-                stacks, grad_norm=gn)
-        opt["count"] = count
-        metrics = dict(metrics)
-        metrics.update(stats)
-        metrics["loss"] = loss
-        return state, metrics
+        with trace.region("train.step"):
+            blocks = state["params"]
+            loss, metrics, grads = grads_of(blocks, batch)
+            opt = state["opt"]
+            with trace.region("train.optimizer"):
+                sq = sum(torch.sum(torch.square(g.float())) / c
+                         for g, c in zip(leaves(grads), copies))
+                gn = torch.sqrt(all_reduce(sq, mesh, every))
+                stacks = stack_groups(model, blocks)
+                if opt_cfg.name == "adafactor":
+                    _, _, count, stats = optim.adafactor_update(
+                        opt_cfg, blocks, grads, opt["f"], opt["count"],
+                        stacks, grad_norm=gn, mesh=mesh, specs=flat_specs)
+                else:
+                    _, _, _, count, stats = optim.adamw_update(
+                        opt_cfg, blocks, grads, opt["m"], opt["v"],
+                        opt["count"], stacks, grad_norm=gn)
+            opt["count"] = count
+            metrics = dict(metrics)
+            metrics.update(stats)
+            metrics["loss"] = loss
+            return state, metrics
 
     return train_step
 

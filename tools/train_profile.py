@@ -18,16 +18,22 @@ shape of their rows of ``chip_smoke.py``'s ``TRAIN_BREADTH``.
 ``--layers``, ``--opt`` and ``--remat`` override a model's (every model
 profiled).  The reckoned bytes of the parameters, gradients and
 optimizer state (``chip_smoke.train_state_bytes``) are printed before
-the state is made.  After two warm-up steps, 5 steps of
-``train.step``'s own step run with its parts timed on the host clock,
-the card synchronised around each: ``Model.loss_fn`` (the forward), the
-step's ``loss_and_grads`` (the forward and autograd's backward; the
-backward is the difference) and the optimizer update, and the peak of
-device memory allocated over those steps (``peak_gib``).  Then
-``torch.profiler`` over 3 more steps, unwrapped: device time by kernel
-(self CUDA time), the device's busy share of the window (kernel time
-over wall-clock; kernels do not overlap on one stream) and the kernel
-launches a step.
+the state is made.  After two warm-up steps, 3 steps of ``train.step``'s
+own step run as a trainer runs them, nothing wrapped, the card
+synchronised once after the last: ``step_ms`` is their wall-clock a
+step, ``tokens_per_s`` a step's tokens over it and ``peak_gib`` the peak
+of device memory allocated over them.  Then ``torch.profiler`` over 3
+more, every thread and the card as the benchmark's traced runs take
+them, read by the benchmark's reader (``bench/benchlib/probes.py``,
+``regions.py``): ``forward_ms``, ``backward_ms`` and ``optimizer_ms``
+are the device time a step of the operations launched inside the
+program's ``train.forward``, ``train.backward`` and ``train.optimizer``
+regions (``telemetry.trace.region``), by their launch's host time, as
+the benchmark's ``train.optimizer_share.program`` reckons them (the
+backward's include remat's recompute); beside them, device time by
+kernel (self CUDA time), the device's busy share of the profiled window
+(the union of its operations' intervals over wall-clock; the profiler's
+own cost slows a host-paced step) and the kernel launches a step.
 
 Each measurement is one line ``PROFILE {json}`` on stdout; a model
 whose step runs out of the card's memory gives one with
@@ -38,17 +44,16 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "bench")]
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from benchlib import probes, regions  # noqa: E402
 from chip_smoke import (HYBRID_ARCH, HYBRID_TRAIN_LAYERS,  # noqa: E402
                         TRAIN_BREADTH, train_state_bytes)
 from repro_torch import configs  # noqa: E402
@@ -70,48 +75,12 @@ OPT = {}
 for _, _arch, _layers, _opt, _, _batch, _seq, _ in TRAIN_BREADTH:
     LAYERS[_arch], OPT[_arch] = _layers, _opt
     SHAPES[_arch] = ((_batch, _seq, "none"),)
-WARM, TIMED, PROFILED = 2, 5, 3
+WARM, TIMED, PROFILED = 2, 3, 3
+PARTS = ("forward", "backward", "optimizer")
 
 
 def emit(**row):
     print("PROFILE", json.dumps(row), flush=True)
-
-
-class StepTimer:
-    """Wraps the step's parts where ``train.step`` looks them up; each
-    call's host seconds, the card synchronised before and after, go to
-    ``self.seconds[part]``."""
-
-    PARTS = ((Model, "loss_fn", "forward"),
-             (train_step, "loss_and_grads", "forward+backward"),
-             (optim, "adamw_update", "optimizer"),
-             (optim, "adafactor_update", "optimizer"))
-
-    def __init__(self):
-        self.seconds = {}
-        self._orig = []
-
-    def __enter__(self):
-        for owner, attr, part in self.PARTS:
-            fn = getattr(owner, attr)
-            self._orig.append((owner, attr, fn))
-            setattr(owner, attr, self._timed(fn, part))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, fn in self._orig:
-            setattr(owner, attr, fn)
-        self._orig = []
-
-    def _timed(self, fn, part):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            self.seconds.setdefault(part, []).append(time.monotonic() - t0)
-            return out
-        return run
 
 
 def main(argv=None) -> int:
@@ -166,35 +135,35 @@ def profile_arch(arch: str, args) -> None:
         for i in range(WARM):
             state, metrics = step(state, batches[i])
         float(metrics["loss"])
+        probes.warm_profiler("cuda")
         torch.cuda.reset_peak_memory_stats()
-        with StepTimer() as timer:
-            for i in range(TIMED):
-                state, metrics = step(state, batches[WARM + i])
-        fwd, both, upd = (statistics.median(timer.seconds[part]) for part
-                          in ("forward", "forward+backward", "optimizer"))
-        bwd = both - fwd
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        torch.cuda.synchronize()
         t0 = time.monotonic()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        for i in range(TIMED):
+            state, metrics = step(state, batches[WARM + i])
+        torch.cuda.synchronize()
+        step_s = (time.monotonic() - t0) / TIMED
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.monotonic()
+        with probes.profile() as prof:
             for i in range(PROFILED):
                 state, metrics = step(state, batches[WARM + TIMED + i])
             torch.cuda.synchronize()
         window = time.monotonic() - t0
+        tr = probes.read_trace(prof)
+        part_ms = {part: regions.launched(tr, f"train.{part}") * 1e3
+                   / PROFILED for part in PARTS}
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
         launches = sum(e.count for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
         emit(arch=arch, shape=f"{B}x{S}", remat=remat, opt=opt,
-             layers=cfg.n_layers, forward_ms=fwd * 1e3,
-             backward_ms=bwd * 1e3, optimizer_ms=upd * 1e3,
-             step_ms=(fwd + bwd + upd) * 1e3, peak_gib=peak,
-             tokens_per_s=B * S / (fwd + bwd + upd),
+             layers=cfg.n_layers,
+             **{f"{part}_ms": ms for part, ms in part_ms.items()},
+             step_ms=step_s * 1e3, peak_gib=peak,
+             tokens_per_s=B * S / step_s,
              profiled_window_ms=window * 1e3,
-             device_busy_ms_per_step=busy_us / 1e3 / PROFILED,
-             device_busy_share=busy_us / 1e6 / window,
+             device_busy_ms_per_step=tr.busy_ns() / 1e6 / PROFILED,
+             device_busy_share=tr.busy_ns() / 1e9 / window,
              kernel_launches_per_step=launches / PROFILED)
         for e in top:
             emit(arch=arch, shape=f"{B}x{S}", kernel=e.key[:120],

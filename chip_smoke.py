@@ -440,6 +440,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.executor import Engine  # noqa: E402
@@ -449,8 +450,10 @@ from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.cost import (  # noqa: E402
     attn_bwd_bound, bound_ms, combine_bound, combine_bwd_bound,
-    combine_kept, fletcher_bound, rglru_bound, rglru_bwd_bound, router_bound,
-    router_bwd_bound, ssd_bound, ssd_bwd_bound, visible)
+    combine_kept, cross_entropy_bound, fletcher_bound, rglru_bound,
+    rglru_bwd_bound, router_bound, router_bwd_bound, ssd_bound,
+    ssd_bwd_bound, visible)
+from repro_torch.kernels import cross_entropy as kce  # noqa: E402
 from repro_torch.kernels import fletcher as fl  # noqa: E402
 from repro_torch.kernels import moe_combine as kc  # noqa: E402
 from repro_torch.kernels import moe_router as kr  # noqa: E402
@@ -465,6 +468,7 @@ from repro_torch.models import attention as attn_layer  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import rglru_block, ssd_block  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.services import base as svc_base  # noqa: E402
@@ -1752,6 +1756,299 @@ def combine_rows(flush):
 
 
 # ---------------------------------------------------------------------------
+# the LM head's cross entropy
+# ---------------------------------------------------------------------------
+# the outputs' largest error over their largest |entry|: lse, nll and lse²
+# (f32 on both sides; the kernel's exps are ex2.approx's, the plain
+# version's expf's) and the gradient (the logits' dtype; f32 as the sums)
+CE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+CE_ROWS_TOL = 1e-5
+QWEN_VOCAB, QWEN_CE_ROWS = 151936, 8 * 512    # the cell's chunk: B 8, c 512
+RG_VOCAB, RG_CE_ROWS, RG_SOFTCAP = 256000, 8 * 128, 30.0
+
+
+def ce_inputs(R, V, dtype, seed):
+    """Seeded logits (R, V) in ``dtype`` (scale 4), targets (every 7th row
+    ignored, -1; columns 0 and V - 1 among the rest) and the count of the
+    targets, as the loss gives the kernel."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = (torch.randn((R, V), generator=gen, device="cuda") * 4).to(dtype)
+    t = torch.randint(0, V, (R,), generator=gen, device="cuda")
+    t[::7] = -1
+    t[1], t[2] = 0, V - 1
+    return x, t, (t != -1).sum().clamp_min(1)
+
+
+def check_cross_entropy(name, x, t, n, *, softcap=0.0, z_coef=1e-4,
+                        ignore_id=-1, grad=True, flush=None):
+    """``cross_entropy`` on the card against ``cross_entropy_plain`` on
+    logits ``x`` (R, V), targets ``t`` and token count ``n``: lse, nll and
+    lse² within CE_ROWS_TOL of their largest entry, the gradient written
+    over the logits, compared in their dtype, within CE_TOL and, in bf16,
+    the share of entries that differ within COMBINE_DIFFER_SHARE; ignored
+    rows' gradient zero; a second call bitwise equal; with ``flush`` the
+    times (the kernel's in place over its own output) and the bound."""
+    R, V = x.shape
+    dtype = x.dtype
+    kw = dict(softcap=softcap, z_coef=z_coef, ignore_id=ignore_id, grad=grad)
+
+    def kernel(buf):
+        return kce.cross_entropy(buf, t, n, **kw)
+    before = kce.cross_entropy.launches
+    got_x, again_x, want_x = x.clone(), x.clone(), x.clone()
+    got, again = kernel(got_x), kernel(again_x)
+    torch.cuda.synchronize()
+    launches = kce.cross_entropy.launches - before
+    want = kce.cross_entropy_plain(want_x, t, n, **kw)
+    scaled, errs, tops = grad_errors(got, want)
+    row = {"kernel": "cross_entropy", "case": name,
+           "shape": f"R{R} V{V} softcap{softcap:g} "
+                    f"{'grad' if grad else 'lse'}",
+           "dtype": str(dtype).replace("torch.", ""),
+           "rows_err": errs, "rows_max": tops, "rows_scaled_err": scaled,
+           "rows_tol": CE_ROWS_TOL, "launches": launches,
+           "bitwise_repeat": bool(torch.equal(got_x, again_x) and all(
+               torch.equal(a, b) for a, b in zip(got, again)))}
+    ok = scaled <= CE_ROWS_TOL and row["bitwise_repeat"] and launches == 2
+    row["max_abs_err"] = max(errs)
+    if grad:
+        g_scaled, g_err, g_top = grad_errors([got_x], [want_x])
+        row["max_abs_err"] = max(errs + g_err)
+        row.update(grad_scaled_err=g_scaled, grad_max=g_top[0],
+                   grad_tol=CE_TOL[dtype],
+                   differ_share=differ_share([got_x], [want_x]),
+                   ignored_zero=not bool(got_x[t == ignore_id].any()))
+        ok = (ok and g_scaled <= CE_TOL[dtype] and row["ignored_zero"]
+              and row["differ_share"] <= COMBINE_DIFFER_SHARE)
+    else:
+        ok = ok and torch.equal(got_x, x)
+    row["ok"] = ok
+    del got_x, again_x, want_x
+    if flush is not None:
+        buf = x.clone()
+        row["ms"] = device_ms(lambda: kernel(buf), flush)
+        row["plain_ms"] = device_ms(
+            lambda: kce.cross_entropy_plain(buf, t, n, **kw), flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = cross_entropy_bound(
+            R, V, dtype, grad, softcap > 0.0)
+        del buf
+    free_card()
+    print("kernel-check", json.dumps(row))
+    return row
+
+
+def cross_entropy_rows(flush):
+    """Phase 2's cross entropy rows: the benchmark cell's chunk (qwen1.5-
+    0.5b, R 4096 x V 151,936, bf16) with and without the gradient,
+    recurrentgemma-9b's training chunk at softcap 30 (R 1024 x V 256,000),
+    timed; then rows of V 37, 1001 and 32,000 (no multiple of 8, or small)
+    in bf16 and f32, and the cell's chunk in f32."""
+    rows = []
+    for grad in (True, False):
+        tag = "" if grad else "-lse"
+        rows.append(check_cross_entropy(
+            f"{ARCH}-chunk{tag}", *ce_inputs(QWEN_CE_ROWS, QWEN_VOCAB,
+                                             torch.bfloat16, seed=1),
+            grad=grad, flush=flush))
+        rows.append(check_cross_entropy(
+            f"{HYBRID_ARCH}-chunk{tag}", *ce_inputs(RG_CE_ROWS, RG_VOCAB,
+                                                    torch.bfloat16, seed=2),
+            softcap=RG_SOFTCAP, grad=grad, flush=flush))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "" if dtype == torch.bfloat16 else "-f32"
+        for i, (R, V) in enumerate(((5, 37), (64, 1001), (300, 32000))):
+            for cap in (0.0, RG_SOFTCAP):
+                rows.append(check_cross_entropy(
+                    f"V{V}-cap{cap:g}{tag}",
+                    *ce_inputs(R, V, dtype, seed=10 + i), softcap=cap))
+    rows.append(check_cross_entropy(
+        f"{ARCH}-chunk-f32", *ce_inputs(QWEN_CE_ROWS, QWEN_VOCAB,
+                                        torch.float32, seed=3)))
+    return rows
+
+
+def chain_ce_loss(cfg, table, h, targets, chunk, z_coef):
+    """The head's loss as the port computed it before the kernel: each
+    chunk's (B, c, V) f32 logits (``.float()`` of the bf16 product),
+    ``logsumexp`` and a ``gather``, under ``checkpoint``.  The yardstick
+    of ``loss_head_path``."""
+    from torch.utils.checkpoint import checkpoint
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def body(hc, tc):
+        logits = (hc.to(cdt) @ table.T.to(cdt)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc.clamp_min(0).long()[..., None])[..., 0]
+        valid = tc != -1
+        return (torch.where(valid, lse - tgt, 0.0).sum(),
+                torch.where(valid, lse * lse, 0.0).sum())
+    loss_sum = z_sum = 0.0
+    for i in range(0, h.shape[1], chunk):
+        nll, zl = checkpoint(body, h[:, i:i + chunk], targets[:, i:i + chunk],
+                             use_reentrant=False)
+        loss_sum, z_sum = loss_sum + nll, z_sum + zl
+    n = (targets != -1).sum().clamp_min(1)
+    return loss_sum / n + z_coef * (z_sum / n)
+
+
+class HeadOps(TorchDispatchMode):
+    """Every op's outputs under it, for phase 3w: the matrix products that
+    read or write a V-wide operand, the f32 tensors with V-wide rows, and
+    the names of the ops seen."""
+
+    def __init__(self, V):
+        super().__init__()
+        self.V, self.products, self.f32_wide, self.ops = V, 0, [], set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.add(str(func))
+        out = func(*args, **(kwargs or {}))
+        outs = [o for o in (out if isinstance(out, (tuple, list)) else (out,))
+                if isinstance(o, torch.Tensor)]
+        ins = [a for a in args if isinstance(a, torch.Tensor)]
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.mm.out,
+                    torch.ops.aten.bmm.default, torch.ops.aten.matmul.default,
+                    torch.ops.aten.addmm.default) and any(
+                        self.V in t.shape for t in ins + outs):
+            self.products += 1
+        self.f32_wide += [(str(func), tuple(o.shape)) for o in outs
+                          if o.dtype == torch.float32 and o.ndim >= 2
+                          and o.shape[-1] == self.V and o.numel() > self.V]
+        return out
+
+
+CELL_TRAIN = dict(batch=8, seq=4096, steps=2)   # the benchmark cell's step
+
+
+def cell_step_path() -> TrainRecorder:
+    """Phase 3w, first: the benchmark cell's training step on the card,
+    full-width qwen1.5-0.5b at B 8 x S 4096, AdamW, remat "none", through
+    ``make_train_step``, ``CELL_TRAIN["steps"]`` steps under a
+    ``TrainRecorder`` with the launch counts set to 0 first: every
+    kernel's launches a step (``check_train_launches``: the cross entropy
+    once a chunk of 512, 8), and under ``HeadOps`` the last step forms 3
+    head products a chunk (24: logits, dh, dW; the checkpointed chain
+    formed 4), no f32 tensor with V-wide rows, backward included.
+    Returns the recorder with its cross entropy launches alone, for phase
+    4: attention's rows at this shape would hold the plain version's
+    (8, 16, 4096, 4096) f32 scores, and phase 3g checks it on the same
+    path at 8 x 128 and 4 x 1024."""
+    cfg = configs.get(ARCH)
+    model = Model(cfg)
+    B, S, steps = CELL_TRAIN["batch"], CELL_TRAIN["seq"], CELL_TRAIN["steps"]
+    recorder = TrainRecorder()
+    ops = HeadOps(cfg.vocab)
+    ocfg = optim.OptConfig(warmup=5, decay_steps=TRAIN_STEPS)
+    state = train_step.init_state(model, ocfg, 0, device="cuda")
+    step = train_step.make_train_step(model, ocfg,
+                                      ParallelConfig(remat="none"))
+    source = SyntheticSource(cfg.vocab, S, B)
+    recorder.install()
+    for fn in TRAIN_COUNTED:
+        fn.launches = 0
+    try:
+        losses = []
+        for i in range(steps):
+            batch = train_batch(source, i)
+            with ops if i == steps - 1 else contextlib.nullcontext():
+                state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+    finally:
+        recorder.uninstall()
+    tag = f"{ARCH} cell train {B}x{S}"
+    print(f"{tag}: losses {losses}; head products in a step "
+          f"{ops.products}, f32 V-wide tensors {ops.f32_wide[:4]}; "
+          f"cross_entropy launches {kce.cross_entropy.launches} in "
+          f"{steps} steps")
+    check(all(map(math.isfinite, losses)), f"{tag}: losses {losses}")
+    per_step = check_train_launches(tag, model, recorder, steps, "none")
+    n_chunks = S // CE_CHUNK
+    check(per_step[-1] == n_chunks, f"{tag}: {per_step[-1]} cross_entropy "
+          f"launches a step, expected {n_chunks}")
+    # the MLP's SiLU backward: the mode saw autograd's backward too
+    check("aten.silu_backward.default" in ops.ops,
+          f"{tag}: HeadOps saw no backward op")
+    check(ops.products == 3 * n_chunks, f"{tag}: {ops.products} head "
+          f"products a step, expected {3 * n_chunks}")
+    check(not ops.f32_wide, f"{tag}: f32 V-wide tensors {ops.f32_wide[:4]}")
+    del state, step, batch
+    free_card()
+    recorder.seen = {k: rec for k, rec in recorder.seen.items()
+                     if k[0] == "cross_entropy"}
+    return recorder
+
+
+def loss_head_path() -> None:
+    """Phase 3w, then: the benchmark cell's loss head on the card,
+    qwen1.5-0.5b's tied 151,936 x 1024 table (f32) and B 8 x S 4096 bf16
+    final states, chunks of 512, z-loss 1e-4, some targets ignored.
+    Through ``chunked_ce_loss`` (``HeadLossFunction``) against
+    ``chain_ce_loss`` by autograd: the loss within 1e-5, dh and d(table)
+    within 2e-2 of their largest entry; then both timed, forward and
+    backward (CUDA events, the mean of 5 after a warm-up), with the peak
+    memory each adds.  Prints its row."""
+    cfg = configs.get(ARCH)
+    B, S, c, z = CELL_TRAIN["batch"], CELL_TRAIN["seq"], CE_CHUNK, 1e-4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    table = (torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                         device="cuda") / math.sqrt(cfg.d_model))
+    table.requires_grad_()
+    h = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_()
+    targets = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device="cuda")
+    targets[:, ::11] = -1
+
+    def kernel_path():
+        loss, met = model_common.chunked_ce_loss(
+            cfg, {"embedding": table}, h, targets, chunk=c, z_coef=z)
+        return (loss,) + torch.autograd.grad(loss, (h, table))
+
+    def chain_path():
+        loss = chain_ce_loss(cfg, table, h, targets, c, z)
+        return (loss,) + torch.autograd.grad(loss, (h, table))
+
+    got = kernel_path()
+    want = chain_path()
+    torch.cuda.synchronize()
+    loss, chain = float(got[0].detach()), float(want[0].detach())
+    loss_err = abs(loss - chain) / abs(chain)
+    scaled, errs, tops = grad_errors(got[1:], want[1:])
+    row = {"phase": "3w", "case": f"{ARCH} loss head B{B} S{S} c{c}",
+           "loss": loss, "chain_loss": chain, "loss_rel_err": loss_err,
+           "dh_dtable_err": errs, "dh_dtable_max": tops,
+           "grad_scaled_err": scaled}
+    del got, want
+    ms = {}
+    for tag, fn in (("kernel", kernel_path), ("chain", chain_path),
+                    ("kernel2", kernel_path), ("chain2", chain_path)):
+        fn()
+        free_card()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            out = fn()
+        end.record()
+        end.synchronize()
+        del out
+        ms[tag] = start.elapsed_time(end) / 5
+        row[f"{tag}_peak_add_gb"] = (torch.cuda.max_memory_allocated()
+                                     - base) / 1e9
+    row.update({f"{k}_ms": v for k, v in ms.items()})
+    print("loss-head", json.dumps(row))
+    check(loss_err <= 1e-5 and scaled <= 2e-2,
+          f"3w: against the chain: loss {loss_err}, grads {scaled}")
+    free_card()
+
+
+# ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
 def backward_rows(flush):
@@ -2023,6 +2320,7 @@ def phase_kernels():
     for (T, E), k in ROUTER_GRID:
         rows.append(router_case(f"grid-T{T}-E{E}-k{k}", T, E, k, seed=1))
     rows += backward_rows(flush)
+    rows += cross_entropy_rows(flush)
 
     # Fletcher-64: the CPU test's lengths, odd byte counts (a view at an
     # odd offset too), and qwen1.5-0.5b's embedding shard
@@ -3297,18 +3595,21 @@ class TrainRecorder:
     under remat, kind "backward"), the attention, router, SSD and RG-LRU
     the layers call, the MoE combine's raw launches (its forward inside
     ``CombineFunction``) and the raw backward launches the autograd
-    Functions reach; keeps the launches the wrappers counted per (kernel, kind,
-    shape), the inputs of the last launch, and each step's launches of
-    every kernel (``KERNELS`` order)."""
+    Functions reach, and the loss head's cross entropy launches; keeps the
+    launches the wrappers counted per (kernel, kind, shape), the inputs of
+    the last launch, each step's launches of every kernel (``KERNELS``
+    order) and the cross entropy launches each step's loss should make
+    (``ce_launches``)."""
 
     KERNELS = ("flash_attention", "flash_attention_bwd", "moe_router",
                "moe_router_bwd", "ssd", "ssd_bwd", "rglru", "rglru_bwd",
-               "moe_combine", "moe_combine_bwd")
+               "moe_combine", "moe_combine_bwd", "cross_entropy")
 
     def __init__(self):
         self.kind = "outside the train step"
         self.seen = {}
         self.per_step = []              # launches a step, KERNELS order
+        self.ce_want = []               # ce_launches of each step's loss
         self._orig = {}
 
     @staticmethod
@@ -3317,7 +3618,8 @@ class TrainRecorder:
                 kr.router_dispatch.launches, kr.router_bwd.launches,
                 kssd.ssd.launches, kssd.ssd_bwd.launches,
                 krg.rglru.launches, krg.rglru_bwd.launches,
-                kc.moe_combine.launches, kc.moe_combine_bwd.launches)
+                kc.moe_combine.launches, kc.moe_combine_bwd.launches,
+                kce.cross_entropy.launches)
 
     def install(self):
         self._orig = {"loss_fn": Model.loss_fn,
@@ -3334,9 +3636,11 @@ class TrainRecorder:
 
         step = within("backward", self._orig["loss_and_grads"])
 
-        def counted_step(*a, **kw):
+        def counted_step(model, params, batch, **kw):
+            self.ce_want.append(ce_launches(batch["targets"].shape[1],
+                                            kw.get("spmd")))
             before = self.counts()
-            out = step(*a, **kw)
+            out = step(model, params, batch, **kw)
             self.per_step.append(tuple(
                 n - b for n, b in zip(self.counts(), before)))
             return out
@@ -3352,6 +3656,7 @@ class TrainRecorder:
         kssd._ssd_bwd_cuda = self._ssd_bwd
         rglru_block.rglru = self._rglru
         krg._rglru_bwd_cuda = self._rglru_bwd
+        kce._cross_entropy_cuda = self._cross_entropy
 
     def uninstall(self):
         Model.loss_fn = self._orig["loss_fn"]
@@ -3366,6 +3671,7 @@ class TrainRecorder:
         kssd._ssd_bwd_cuda = _SSD_BWD_CUDA
         rglru_block.rglru = krg.rglru
         krg._rglru_bwd_cuda = _RGLRU_BWD_CUDA
+        kce._cross_entropy_cuda = _CROSS_ENTROPY_CUDA
 
     def _record(self, key, launches, inputs):
         rec = self.seen.setdefault(key, {"launches": 0})
@@ -3485,6 +3791,19 @@ class TrainRecorder:
                                        decay))))
         return out
 
+    def _cross_entropy(self, logits, targets, n_tok, **kw):
+        # the logits before the kernel writes their gradient over them, on
+        # the host: the largest input any recorder keeps (1.2 GB at the
+        # benchmark cell's chunk), which the card's peak, the optimizer's
+        # after the loss, should not hold
+        inputs = (logits.detach().cpu(), targets.cpu(), n_tok.cpu(), kw)
+        before = kce.cross_entropy.launches
+        out = _CROSS_ENTROPY_CUDA(logits, targets, n_tok, **kw)
+        self._record(("cross_entropy", self.kind) + tuple(logits.shape)
+                     + (logits.dtype, kw["softcap"], kw["grad"]),
+                     kce.cross_entropy.launches - before, inputs)
+        return out
+
     def by_kind(self, kernel):
         n = {"forward": 0, "backward": 0}
         for key, rec in self.seen.items():
@@ -3501,9 +3820,21 @@ _COMBINE_BWD_CUDA = kc._moe_combine_bwd_cuda
 _SSD_BWD_CUDA = kssd._ssd_bwd_cuda
 _SSD_CUDA = kssd._ssd_cuda
 _RGLRU_BWD_CUDA = krg._rglru_bwd_cuda
+_CROSS_ENTROPY_CUDA = kce._cross_entropy_cuda
 TRAIN_COUNTED = (fa.attention, fa.attention_bwd, kr.router_dispatch,
                  kr.router_bwd, kssd.ssd, kssd.ssd_bwd, krg.rglru,
-                 krg.rglru_bwd, kc.moe_combine, kc.moe_combine_bwd)
+                 krg.rglru_bwd, kc.moe_combine, kc.moe_combine_bwd,
+                 kce.cross_entropy)
+CE_CHUNK = 512          # Model.loss_fn's ce_chunk
+
+
+def ce_launches(seq, spmd=None) -> int:
+    """The cross entropy launches of one loss over ``seq`` target
+    positions: one a chunk of CE_CHUNK where the vocabulary is whole, none
+    where ``spmd`` splits it (the vocabulary-parallel loss)."""
+    if spmd is not None and spmd.split(("embed",)) is not None:
+        return 0
+    return -(-seq // min(CE_CHUNK, seq))
 
 
 def layer_counts(model) -> dict:
@@ -3527,22 +3858,29 @@ def check_train_launches(tag, model, recorder, n_steps, remat):
     backward once a layer and step in the step's autograd; a kernel of
     no layer never.  A MoE layer's router gradient comes from the
     combine's backward, so ``moe_router_bwd`` never launches in
-    training.  Returns the launches a step (``TrainRecorder.KERNELS``)."""
+    training.  The loss head's cross entropy launches ``ce_launches`` a
+    step, all in ``loss_fn`` (the head is no block: remat forms it once).
+    Returns the launches a step (``TrainRecorder.KERNELS``)."""
     n = layer_counts(model)
+    ce = set(recorder.ce_want)
+    check(len(ce) == 1, f"{tag}: steps of differing losses {ce}")
     per_layer = {"flash_attention": n["attn"], "flash_attention_bwd":
                  n["attn"], "moe_router": n["moe"], "moe_router_bwd": 0,
                  "ssd": n["ssd"], "ssd_bwd": n["ssd"],
                  "rglru": n["rglru"], "rglru_bwd": n["rglru"],
-                 "moe_combine": n["moe"], "moe_combine_bwd": n["moe"]}
+                 "moe_combine": n["moe"], "moe_combine_bwd": n["moe"],
+                 "cross_entropy": ce.pop()}
     again = remat == "block"
-    want_step = tuple(per_layer[k] * (2 if again and not k.endswith("_bwd")
-                                      else 1)
+
+    def twice(k):
+        return again and not k.endswith("_bwd") and k != "cross_entropy"
+    want_step = tuple(per_layer[k] * (2 if twice(k) else 1)
                       for k in TrainRecorder.KERNELS)
     for kernel in TrainRecorder.KERNELS:
         got = recorder.by_kind(kernel)
         m = per_layer[kernel] * n_steps
         want = ({"forward": 0, "backward": m} if kernel.endswith("_bwd")
-                else {"forward": m, "backward": m if again else 0})
+                else {"forward": m, "backward": m if twice(kernel) else 0})
         print(f"{tag}: {kernel} launches {got}")
         check(got == want, f"{tag}: {kernel} launches {got}, expected "
               f"{want}")
@@ -4130,6 +4468,10 @@ def phase_main_shapes(arch, recorder):
                               keep=isinstance(recorder, TrainRecorder))
         elif key[0] == "rglru_bwd":
             row = check_rglru_bwd(name, *inputs, flush=flush)
+        elif key[0] == "cross_entropy":
+            *tensors, kw = inputs
+            row = check_cross_entropy(name, *(v.cuda() for v in tensors),
+                                      flush=flush, **kw)
         else:
             row = check_fletcher(name, inputs, flush=flush)
         row["launches"] = rec["launches"]
@@ -4295,8 +4637,10 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
                        ssd_forward: str = "kernel", enforce: bool = True):
     """``arch``'s loss and every gradient leaf at B x S in f32 with TF32
     off, through the kernels (attention's, the router's, the SSD's and
-    the RG-LRU's forwards and backwards) against autograd through their
-    plain versions, on the same weights and batch; the MoE layer's plain
+    the RG-LRU's forwards and backwards, the loss head's cross entropy)
+    against autograd through their plain versions (the cross entropy's
+    plain version inside the same ``HeadLossFunction``), on the same
+    weights and batch; the MoE layer's plain
     side is ``autograd_moe_local``, whose router gradient is autograd's.  ``n_layers`` cuts the depth
     (printed); ``ssd_forward="plain"`` runs the SSD's forward as its
     plain version inside ``SSDFunction`` (the backward kernels alone);
@@ -4328,6 +4672,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
             moe_layer._moe_local = autograd_moe_local
             ssd_block.ssd = kssd.ssd_plain
             rglru_block.rglru = krg.rglru_plain
+            model_common.cross_entropy = kce.cross_entropy_plain
         elif ssd_forward == "plain":
             kssd._ssd_cuda = _plain_ssd_forward
         try:
@@ -4340,6 +4685,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
             ssd_block.ssd = kssd.ssd
             kssd._ssd_cuda = _SSD_CUDA
             rglru_block.rglru = krg.rglru
+            model_common.cross_entropy = kce.cross_entropy
         launched = tuple(n - b for n, b in zip(TrainRecorder.counts(),
                                                before))
         return float(loss), metrics, svc_base.flatten_named(grads), launched
@@ -4349,8 +4695,10 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
     n = layer_counts(model)
     want_launched = (n["attn"], n["attn"], n["moe"], 0,
                      n["ssd"] if ssd_forward == "kernel" else 0, n["ssd"],
-                     n["rglru"], n["rglru"], n["moe"], n["moe"])
-    check(launched == want_launched and plain_launched == (0,) * 10,
+                     n["rglru"], n["rglru"], n["moe"], n["moe"],
+                     ce_launches(batch["targets"].shape[1]))
+    check(launched == want_launched
+          and plain_launched == (0,) * len(TrainRecorder.KERNELS),
           f"train parity {arch}: launches {launched} / {plain_launched}, "
           f"expected {want_launched}")
     flips = sum(len(router_ties(ia.cpu(), ib.cpu(), pb.cpu()))
@@ -4393,7 +4741,7 @@ def phase_train_parity(arch, B: int = 2, S: int = 128, n_layers=None,
              f"{zero_err:.3g}" if zero else "")
           + f"; launches (attention fwd, bwd, "
           f"router fwd, bwd, ssd fwd, bwd, rglru fwd, bwd, combine fwd, "
-          f"bwd) {launched}; "
+          f"bwd, cross entropy) {launched}; "
           f"routing differences {flips}")
     del params, grads, want
     free_card()
@@ -5979,7 +6327,10 @@ SOURCE = {"flash_attention": ("src/repro_torch/kernels/csrc/"
           # no Pallas backward: the reference differentiates ops.rglru
           # with XLA's autodiff
           "rglru_bwd": ("src/repro_torch/kernels/csrc/rglru_bwd.cu",
-                        "src/repro/kernels/ops.py:326")}
+                        "src/repro/kernels/ops.py:326"),
+          # no Pallas kernel: the reference's loss is jnp that XLA fuses
+          "cross_entropy": ("src/repro_torch/kernels/csrc/cross_entropy.cu",
+                            "src/repro/models/common.py:203")}
 
 
 def summary_row(r):
@@ -6172,6 +6523,9 @@ def main(argv=None) -> int:
         rows += phase_main_shapes(f"{ARCH} train", train_rec)
         rows += phase_main_shapes(f"{ARCH} train", train_ckpt)
         del train_rec, train_ckpt
+    with clock("3w"):
+        rows += phase_main_shapes(f"{ARCH} cell train", cell_step_path())
+        loss_head_path()
     rows += train_phases(clock)
     for phase, arch in (("3d", SSM_ARCH), ("3e", HYBRID_ARCH)):
         with clock(phase):

@@ -16,8 +16,12 @@ batch of checkpoint shards, in one launch pair.
 prefill; (``csrc/ssd_bwd.cu``) its backward, for training.
 ``rglru`` (``csrc/rglru_scan.cu``) — the RG-LRU recurrence of every
 RG-LRU layer's prefill and training forward; (``csrc/rglru_bwd.cu``) its
-backward, for training."""
+backward, for training.
+``cross_entropy`` (``csrc/cross_entropy.cu``) — the LM head's cross
+entropy over a chunk of rows: each row's lse and loss terms and, for
+training, the logits' gradient over them, in one launch."""
 
 # every CUDA source under csrc/, by the name build.build() takes
 SOURCES = ("flash_attention", "flash_attention_bwd", "moe_router",
-           "moe_combine", "fletcher64", "ssd", "ssd_bwd", "rglru_scan", "rglru_bwd")
+           "moe_combine", "fletcher64", "ssd", "ssd_bwd", "rglru_scan", "rglru_bwd",
+           "cross_entropy")

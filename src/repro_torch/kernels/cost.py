@@ -367,6 +367,30 @@ def rglru_bwd_bound(x, has_h0, has_dh, nc):
 
 
 # ---------------------------------------------------------------------------
+# the LM head's cross entropy
+# ---------------------------------------------------------------------------
+def cross_entropy_work(R: int, V: int, elt: int, grad, softcap
+                       ) -> Tuple[float, float]:
+    """Bytes (the (R, V) logits read once, with ``grad`` the gradient
+    written once over them; the int64 targets and token count read, the
+    f32 lse, nll and lse² written) and operations: per logit 4 for the lse
+    (a max, a subtract, an exp, an add), 4 more for the gradient (a
+    subtract, an exp, a multiply-add, the one-hot's compare), and under a
+    softcap 3 (a divide, a tanh, a multiply) and 2 for its derivative."""
+    n = R * V
+    nbytes = n * elt * (1 + bool(grad)) + 8 * R + 8 + 12 * R
+    per = 4 + 4 * bool(grad) + bool(softcap) * (3 + 2 * bool(grad))
+    return nbytes, per * n
+
+
+def cross_entropy_bound(R: int, V: int, dtype, grad, softcap):
+    """``cross_entropy_work`` at the CUDA cores' f32 rate."""
+    return bound_of(*cross_entropy_work(
+        R, V, torch.empty((), dtype=dtype).element_size(), grad, softcap),
+        torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # Fletcher-64 (B2)
 # ---------------------------------------------------------------------------
 def fletcher_bound(xs: Iterable[torch.Tensor]):

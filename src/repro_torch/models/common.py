@@ -4,8 +4,8 @@ embeddings and the chunked cross-entropy, as
 
 Parameters are plain dicts of tensors.  The numerics follow the
 reference: weights are kept in ``cfg.param_dtype`` and cast to
-``cfg.compute_dtype`` where they are used; norms, RoPE and logits are
-computed in f32.
+``cfg.compute_dtype`` where they are used; norms, RoPE and serving's
+logits are computed in f32, and the loss's logits are reduced in f32.
 
 The MLP, the embedding lookup and the loss take a ``tp``
 (``distrib.tensor_parallel.Split``) in the sharded training step: the
@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..distrib.collectives import all_reduce
+from ..kernels.cross_entropy import cross_entropy
 
 
 def resolve_device(device) -> torch.device:
@@ -225,19 +226,114 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
     reference's ``chunked_ce_loss``.
 
     h: (B,S,d) final hidden states; targets: (B,S) integers, ``ignore_id``
-    where a position has no target.  Each sequence chunk's (B,c,V) f32
-    logits are formed, reduced and dropped: the chunk runs under
-    ``torch.utils.checkpoint``, so autograd keeps only its (B,c,d) input
-    and recomputes the logits in the backward.  Returns (loss, {"ce",
-    "z_loss", "tokens"}).
+    where a position has no target.  Returns (loss, {"ce", "z_loss",
+    "tokens"}).  Over the whole vocabulary (``tp`` None) the head runs in
+    ``head_loss``: each sequence chunk's (B·c, V) logits in the compute
+    dtype, reduced by the ``cross_entropy`` kernel, which with a gradient
+    to form writes the logits' gradient over them; the gradients of h and
+    the table are formed there, in the forward (``HeadLossFunction``), and
+    ``ce`` and ``z_loss`` carry none.  Under ``tp`` (vocabulary-parallel)
+    ``_vocab_parallel_ce`` runs."""
+    if tp is not None:
+        return _vocab_parallel_ce(cfg, p, h, targets, chunk=chunk,
+                                  z_coef=z_coef, ignore_id=ignore_id, tp=tp)
+    table = p["embedding"] if cfg.tie_embeddings else p["head"]
+    n = (targets != ignore_id).sum().clamp_min(1)
+    args = (cfg, chunk, z_coef, ignore_id)
+    if torch.is_grad_enabled() and (h.requires_grad or table.requires_grad):
+        loss, ce, z = HeadLossFunction.apply(h, table, targets, n, *args)
+    else:
+        ce, z, _, _ = head_loss(h, table, targets, n, *args)
+        loss = ce + z_coef * z
+    return loss, {"ce": ce, "z_loss": z, "tokens": n}
 
-    Under ``tp`` (vocabulary-parallel) each rank forms its (B,c,V/n)
-    chunk of logits, softcap applied; the lse takes the max over the
+
+def head_loss(h, table, targets, n, cfg: ModelConfig, chunk: int,
+              z_coef: float, ignore_id: int, need_dh: bool = False,
+              need_dw: bool = False):
+    """(ce, z, dh, dw) of the head over the whole vocabulary: the table
+    (the tied (V,d) embedding, used transposed, or the (d,V) head) cast to
+    the compute dtype once; each chunk of c positions forms its (B·c, V)
+    logits in one reused buffer and ``cross_entropy`` reduces them.  With
+    ``need_dh`` or ``need_dw`` the kernel leaves the logits' gradient in
+    the buffer (``n`` tokens counted, the upstream gradient taken as 1),
+    and the chunk's dh = dlogits·W (h's dtype) and dW += its product with
+    the chunk's rows (in the compute dtype, summed in f32; the table's
+    dtype at the end) are formed at once; otherwise they are None."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S, d = h.shape
+    tied = cfg.tie_embeddings
+    w = table.to(cdt)
+    V = w.shape[0] if tied else w.shape[1]
+    c = min(chunk, S)
+    buf = torch.empty((B * c, V), dtype=cdt, device=h.device)
+    grad = need_dh or need_dw
+    dh = torch.empty_like(h) if need_dh else None
+    dw = torch.zeros(table.shape, dtype=torch.float32,
+                     device=table.device) if need_dw else None
+    dw_c = torch.empty_like(w) if need_dw else None
+    nll, zsq = [], []
+    for i in range(0, S, c):
+        cc = min(c, S - i)
+        rows = h[:, i:i + cc].reshape(B * cc, d).to(cdt)
+        logits = buf[:B * cc]
+        torch.mm(rows, w.t() if tied else w, out=logits)
+        _, nll_c, zsq_c = cross_entropy(
+            logits, targets[:, i:i + cc].reshape(B * cc).long(), n,
+            softcap=cfg.logit_softcap, z_coef=z_coef, ignore_id=ignore_id,
+            grad=grad)
+        nll.append(nll_c)
+        zsq.append(zsq_c)
+        if need_dh:
+            dh[:, i:i + cc] = torch.mm(logits, w if tied else w.t()).view(
+                B, cc, d)
+        if need_dw:
+            if tied:
+                torch.mm(logits.t(), rows, out=dw_c)
+            else:
+                torch.mm(rows.t(), logits, out=dw_c)
+            dw.add_(dw_c)
+    ce = torch.cat(nll).sum() / n
+    z = torch.cat(zsq).sum() / n
+    return ce, z, dh, None if dw is None else dw.to(table.dtype)
+
+
+class HeadLossFunction(torch.autograd.Function):
+    """The head's loss over the whole vocabulary with its gradient formed
+    in the forward: ``head_loss`` runs once, keeps dh and dW, and returns
+    (ce + z_coef·z, ce, z), the last two without a gradient.  The backward
+    scales the kept gradients by the loss's upstream one (1 in a training
+    step) in place; no head product is formed again."""
+
+    @staticmethod
+    def forward(ctx, h, table, targets, n, cfg, chunk, z_coef, ignore_id):
+        ce, z, dh, dw = head_loss(h, table, targets, n, cfg, chunk, z_coef,
+                                  ignore_id,
+                                  need_dh=ctx.needs_input_grad[0],
+                                  need_dw=ctx.needs_input_grad[1])
+        ctx.grads = (dh, dw)
+        ctx.mark_non_differentiable(ce, z)
+        return ce + z_coef * z, ce, z
+
+    @staticmethod
+    def backward(ctx, g, _ce, _z):
+        dh, dw = ctx.grads
+        ctx.grads = None
+        return ((None if dh is None else dh.mul_(g)),
+                (None if dw is None else dw.mul_(g))) + (None,) * 6
+
+
+def _vocab_parallel_ce(cfg: ModelConfig, p: dict, h, targets, *,
+                       chunk: int, z_coef: float, ignore_id: int, tp):
+    """``chunked_ce_loss`` under ``tp``: each rank forms its (B,c,V/n)
+    chunk of f32 logits, softcap applied; the lse takes the max over the
     ranks (an all-reduce MAX, no gradient) and the sum of their
     exponentials (``tp.sum``); the target logit comes from the rank
     whose slice holds it (``tp.sum`` of one nonzero term).  The chunk's
     input, whole on every rank, passes ``tp.shared``, which sums its
-    partial gradients.  Every rank then holds the same loss."""
+    partial gradients.  Each chunk runs under ``torch.utils.checkpoint``,
+    so autograd keeps only its (B,c,d) input and recomputes the logits in
+    the backward.  Every rank then holds the same loss."""
     B, S, _ = h.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -246,10 +342,6 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
         targets = F.pad(targets, (0, pad), value=ignore_id)
 
     def lse_and_target(logits, tc):
-        if tp is None:
-            return (torch.logsumexp(logits, dim=-1),
-                    logits.gather(-1, tc.clamp_min(0).long()[..., None])
-                    [..., 0])
         m = all_reduce(logits.detach().amax(dim=-1), tp.mesh, tp.axis,
                        "max")
         lse = m + torch.log(tp.sum(torch.exp(logits - m[..., None])
@@ -259,8 +351,7 @@ def chunked_ce_loss(cfg: ModelConfig, p: dict, h, targets, *,
         return lse, tp.sum(tgt.masked_fill(~mine, 0.0))
 
     def body(hc, tc):
-        if tp is not None:
-            hc = tp.shared(hc)
+        hc = tp.shared(hc)
         logits = unembed(cfg, p, hc)                      # (B,c,V) f32
         lse, tgt = lse_and_target(logits, tc)             # (B,c)
         valid = tc != ignore_id

@@ -233,6 +233,7 @@ def _kernel_calls():
     """name -> (wrapper call on inputs, inputs): small shapes of one
     chunk (the backward wrappers then need no kept states)."""
     from repro_torch.kernels import attention as fa
+    from repro_torch.kernels import cross_entropy as kce
     from repro_torch.kernels import moe_combine as kc
     from repro_torch.kernels import moe_router as kr
     from repro_torch.kernels import rglru as kg
@@ -252,7 +253,11 @@ def _kernel_calls():
     A, Bm, Cm, Dv = -torch.rand(H, generator=g), r(B, S, 1, 4), \
         r(B, S, 1, 4), torch.ones(H)
     xr, rg, ig, ll = r(B, S, 8), r(B, S, 8), r(B, S, 8), r(8)
+    tgt = torch.randint(-1, 37, (16,), generator=g)
     return {
+        "cross_entropy": (lambda *a: kce.cross_entropy(*a, z_coef=1e-4,
+                                                       grad=True),
+                          (r(16, 37), tgt, torch.tensor(12))),
         "attention": (lambda *a: fa.attention(*a), (q, k, v)),
         "attention_fwd": (lambda *a: fa.attention_fwd(*a), (q, k, v)),
         "attention_bwd": (lambda *a: fa.attention_bwd(*a),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a training step's time goes, on one NVIDIA card.
 
-    python3 tools/train_profile.py            # 8 x 128, then 4 x 1024
+    python3 tools/train_profile.py    # 8 x 128, 4 x 1024, then 8 x 4096
     python3 tools/train_profile.py --arch mamba2-1.3b --arch granite-moe-3b-a800m
     python3 tools/train_profile.py --arch recurrentgemma-9b
     python3 tools/train_profile.py --arch gemma3-12b --arch deepseek-moe-16b
@@ -10,7 +10,7 @@
 
 Full-width models (bf16 compute, f32 state, AdamW; remat "none" at the
 launcher's 8 x 128, and for qwen1.5-0.5b, the default, also "block" at
-4 x 1024), seeded weights and batches, no services.  Full depth, but
+4 x 1024 and "none" at the benchmark cell's 8 x 4096), seeded weights and batches, no services.  Full depth, but
 recurrentgemma-9b at ``chip_smoke.py``'s cut (``HYBRID_TRAIN_LAYERS``):
 its 38 layers' state does not fit one 80 GB card with AdamW; and
 gemma3-12b, deepseek-moe-16b and command-r-35b at the cut, optimizer and
@@ -65,8 +65,8 @@ from repro_torch.train import step as train_step  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 # (batch, seq, remat) by model: the launcher's shape for each, and qwen's
-# long step of chip_smoke.py phase 3g
-SHAPES = {ARCH: ((8, 128, "none"), (4, 1024, "block"))}
+# long step of chip_smoke.py phase 3g and the benchmark cell's step
+SHAPES = {ARCH: ((8, 128, "none"), (4, 1024, "block"), (8, 4096, "none"))}
 LAUNCHER_SHAPE = ((8, 128, "none"),)
 # the depth a model is cut to, where its state does not fit one card,
 # and its optimizer where AdamW's state does not fit at that depth

@@ -37,6 +37,8 @@ def limits(cell) -> Dict[str, float]:
 
 
 def reference_module(cfg: dict):
+    """The plain reference of the file's family,
+    ``bench/reference/<family>.py``."""
     import importlib
     return importlib.import_module(f"reference.{cfg['reference']}")
 

@@ -24,6 +24,9 @@ from typing import Dict
 
 import torch
 
+import families
+from reference.common import AdamW, f32_exact
+
 from . import check, portcfg, probes, traffic, weights
 from .result import Run, note
 
@@ -95,6 +98,7 @@ def run(cell, seed: int, seconds: float, trace: bool, t_start: float,
     t = time.monotonic()
     ref = reference_steps(cell.config, cell.traffic, seed, device)
     out.notes["reference_s"] = time.monotonic() - t
+    out.notes["reference_losses"] = ref["losses"]
     check.trained(out, cell, prog, ref)
     return out
 
@@ -249,23 +253,16 @@ def reference_steps(cfg, mix, seed, device, quant=None,
     w = weights.stacked(cfg, seed, device, torch.float32)
     for t in w.values():
         t.requires_grad_(True)
-
-    def decays(name):
-        # the port's AdamW decays a tensor of two or more dimensions, and
-        # the layers' norm scales, which the reference scans as one stack
-        return 1.0 if name in ("norm1", "norm2") or w[name].ndim > 1 \
-            else 0.0
-
     opt = dict(mix["optimizer"])
     for key, default in (("b1", 0.9), ("b2", 0.95), ("eps", 1e-8),
                          ("weight_decay", 0.1), ("grad_clip", 1.0),
                          ("warmup", 100), ("decay_steps", 10_000),
                          ("min_lr_frac", 0.1), ("lr", 3e-4)):
         opt.setdefault(key, default)
-    adam = ref.AdamW(opt, w, decays)
-    dec = ref.Decoder(cfg, w, quant)
+    adam = AdamW(opt, w, families.of(cfg).decays(cfg, w))
+    dec = ref.Model(cfg, w, quant)
     out = {"losses": []}
-    with ref.f32_exact():
+    with f32_exact():
         for s in range(3):
             b = traffic.train_batch(mix, cfg["vocab_size"], seed, s)
             toks = torch.from_numpy(b["tokens"]).to(device)

@@ -1,34 +1,17 @@
-"""A decoder's useful operations, from its configuration file's keys.
+"""A model's useful operations in a training step, from its
+configuration file.
 
 Useful means what the model's mathematics needs, at 2 operations a
-multiply-add: each linear layer once a token (a bias's adds are not
-counted); attention's Q·Kᵀ and P·V over the (query, key) pairs a causal
-mask leaves visible; the head once a token.  Recomputation and padding
-are not counted.
+multiply-add: each linear layer a token multiplies, once (a bias's adds
+are not counted; of a mixture of experts, the experts the token is sent
+to); attention's Q·Kᵀ and P·V over the (query, key) pairs a causal mask
+leaves visible; the head once a token.  Recomputation and padding are
+not counted.  The configuration's family (``families.of``) counts the
+parameters a token multiplies and a visible pair's operations.
 """
 from __future__ import annotations
 
-
-def body_params(cfg: dict) -> float:
-    """The parameters a token multiplies in the layers (not the head):
-    the attention projections and the SwiGLU MLP."""
-    d, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    Hkv, L = cfg["num_key_value_heads"], cfg["num_hidden_layers"]
-    D = cfg.get("head_dim") or d // H
-    attn = d * (H + 2 * Hkv) * D + H * D * d
-    return float(L * (attn + 3 * d * cfg["intermediate_size"]))
-
-
-def head_params(cfg: dict) -> float:
-    return float(cfg["hidden_size"] * cfg["vocab_size"])
-
-
-def attn_pair_flops(cfg: dict) -> float:
-    """Operations of one visible (query, key) pair over every layer's
-    heads (Q·Kᵀ and P·V)."""
-    d, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    D = cfg.get("head_dim") or d // H
-    return 4.0 * H * D * cfg["num_hidden_layers"]
+import families
 
 
 def pairs(n: int, offset: int) -> int:
@@ -38,8 +21,9 @@ def pairs(n: int, offset: int) -> int:
 
 def train_flops(cfg: dict, batch: int, seq: int) -> float:
     """A training step: 6 operations a parameter a token (forward and
-    backward) over the layers and the head, and 3x the forward's
-    attention pairs."""
+    backward), the head included, and 3x the forward's attention
+    pairs."""
+    fam = families.of(cfg)
     tokens = batch * seq
-    return (6 * tokens * (body_params(cfg) + head_params(cfg))
-            + 3 * attn_pair_flops(cfg) * batch * pairs(seq, 0))
+    return (6 * tokens * fam.multiplied_params(cfg)
+            + 3 * fam.attn_pair_flops(cfg) * batch * pairs(seq, 0))

@@ -1,9 +1,10 @@
 """The frozen counts against cases worked by hand."""
 import math
 
-import benchtiny  # noqa: F401  (paths)
+import benchtiny
 from counts import kernels as kc
 from counts import model as cm
+from families import decoder as dense
 from counts.peaks import HBM_BYTES_PER_S, PEAK_BF16_FLOPS, least_seconds
 
 
@@ -37,17 +38,17 @@ def test_least_time_is_the_longer_bound():
     assert kc.least((0, 67e12), "float32") == 1.0
 
 
-DENSE = {"hidden_size": 8, "num_attention_heads": 2,
+DENSE = {"reference": "decoder", "hidden_size": 8, "num_attention_heads": 2,
          "num_key_value_heads": 1, "num_hidden_layers": 3,
          "intermediate_size": 16, "vocab_size": 100}
 
 
 def test_model_operations_by_hand():
     attn = 8 * (2 + 2) * 4 + 2 * 4 * 8           # q, k, v; o
-    assert cm.body_params(DENSE) == 3 * (attn + 3 * 8 * 16)
-    assert cm.head_params(DENSE) == 800
-    assert cm.attn_pair_flops(DENSE) == 4 * 2 * 4 * 3
-    body, head = cm.body_params(DENSE), cm.head_params(DENSE)
+    assert dense.body_params(DENSE) == 3 * (attn + 3 * 8 * 16)
+    assert dense.head_params(DENSE) == 800
+    assert dense.attn_pair_flops(DENSE) == 4 * 2 * 4 * 3
+    body, head = dense.body_params(DENSE), dense.head_params(DENSE)
     # 2 rows of 4: 6 a parameter a token, 3x the 10 pairs of a row
     assert math.isclose(cm.train_flops(DENSE, 2, 4),
                         6 * 8 * (body + head) + 3 * 96 * 2 * 10)
@@ -56,11 +57,16 @@ def test_model_operations_by_hand():
 def test_qwen_step_by_hand():
     """qwen1.5-0.5b at B 8 x S 4096: 24 layers of 4 x 1024^2 attention
     and 3 x 1024 x 2816 MLP weights, the 151936 x 1024 head."""
-    cfg = {"hidden_size": 1024, "num_attention_heads": 16,
-           "num_key_value_heads": 16, "num_hidden_layers": 24,
-           "intermediate_size": 2816, "vocab_size": 151936}
+    cfg = {"reference": "decoder", "hidden_size": 1024,
+           "num_attention_heads": 16, "num_key_value_heads": 16,
+           "num_hidden_layers": 24, "intermediate_size": 2816,
+           "vocab_size": 151936}
     body = 24 * (4 * 1024 ** 2 + 3 * 1024 * 2816)
-    assert cm.body_params(cfg) == body == 308_281_344
+    assert dense.body_params(cfg) == body == 308_281_344
     flops = cm.train_flops(cfg, 8, 4096)
     assert math.isclose(flops, 6 * 32768 * (body + 151936 * 1024)
                         + 3 * 4 * 1024 * 24 * 8 * 4096 * 4097 // 2)
+    # the cell's own file, through its family, to the last bit
+    assert cm.train_flops(benchtiny.config_file("qwen1.5-0.5b"), 8, 4096) \
+        == 6 * 32768 * (body + 151936 * 1024) \
+        + 3 * 4 * 1024 * 24 * 8 * 4096 * 4097 // 2

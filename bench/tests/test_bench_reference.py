@@ -8,7 +8,7 @@ import torch
 
 import benchtiny
 from benchlib import check, portcfg, spec, traffic, train, weights
-from reference import decoder
+from reference import common
 
 
 def f32(cfg):
@@ -18,9 +18,12 @@ def f32(cfg):
 
 
 CELLS = [(w["config"], w["traffic"]) for w in spec.load_spec()["workloads"]]
+# the tests' own DeepSeekMoE file (``bench/tests/fixtures``), of the
+# family ``moe_decoder``
+FIXTURES = [("moe-port-rules", "pretrain_4k")]
 
 
-@pytest.mark.parametrize("config,mix_name", CELLS)
+@pytest.mark.parametrize("config,mix_name", CELLS + FIXTURES)
 def test_reference_training_matches_the_port(config, mix_name):
     """Three steps' losses, every leaf of the first gradient and every
     leaf's change, the reduced model in f32 on both sides."""
@@ -78,7 +81,7 @@ def test_adamw_matches_the_port():
                                          "weight_decay", "grad_clip",
                                          "warmup", "decay_steps",
                                          "min_lr_frac")}
-    decoder.AdamW(opt, ref, lambda n: 1.0 if ref[n].ndim > 1 else 0.0
+    common.AdamW(opt, ref, lambda n: 1.0 if ref[n].ndim > 1 else 0.0
                   ).step(grads)
     for k in p:
         assert torch.allclose(port[k], ref[k], atol=1e-6), k

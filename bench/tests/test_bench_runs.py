@@ -1,7 +1,10 @@
 """The cell driven whole on the CPU at the port's reduced sizes: set-up,
 the window, the reference's comparison; the control (the reference in
 float8 in the program's place) and the faults a training cell can have,
-planted in the timed path, each come out as not correct."""
+planted in the timed path, each come out as not correct.  The same for
+the tests' own DeepSeekMoE file (``bench/tests/fixtures``), as a cell of
+a copy of ``BENCHMARK.json``, and a reference given the other
+``norm_topk_prob`` than the program runs."""
 import json
 
 import pytest
@@ -14,10 +17,25 @@ CELLS = [w["name"] for w in spec.load_spec()["workloads"]]
 CELL = CELLS[0]
 
 
+def moe_cell():
+    """The fixture's cell, through the path every cell of
+    ``BENCHMARK.json`` takes, held to its family's limits."""
+    return benchtiny.tiny_cell(benchtiny.FIXTURE_CELLS[0]["name"],
+                               benchtiny.with_fixture_cells())
+
+
 @pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_runs_correct(workload, trace):
-    cell = benchtiny.tiny_cell(workload)
+    runs_correct(benchtiny.tiny_cell(workload), trace)
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_moe_cell_runs_correct(trace):
+    runs_correct(moe_cell(), trace)
+
+
+def runs_correct(cell, trace):
     run = benchtiny.run_tiny(cell, trace=trace)
     assert run.correct, run.checks
     assert run.attempted > 0 and run.failed == 0
@@ -78,13 +96,40 @@ def test_a_training_fault_is_not_correct(plant):
     assert not run.correct, run.checks
 
 
-def test_the_float8_control_fails_training():
-    cell = benchtiny.tiny_cell(CELL)
+@pytest.mark.parametrize("plant", [_unchanged, _half_batch, _wrong_token])
+def test_a_moe_training_fault_is_not_correct(plant):
+    run = benchtiny.run_tiny(moe_cell(), plant=plant)
+    assert not run.correct, run.checks
+
+
+def test_a_reference_renormalising_otherwise_is_not_correct(monkeypatch):
+    """A reference given the other ``norm_topk_prob`` than the program
+    runs refuses its run."""
+    steps = train.reference_steps
+
+    def flipped(cfg, *args, **kw):
+        return steps(dict(cfg, norm_topk_prob=not cfg["norm_topk_prob"]),
+                     *args, **kw)
+    monkeypatch.setattr(train, "reference_steps", flipped)
+    run = benchtiny.run_tiny(moe_cell())
+    assert not run.correct, run.checks
+
+
+def control_fails(cell):
+    limits = check.limits(cell)
     seed = 3141592653
     ref = train.reference_steps(cell.config, cell.traffic, seed, "cpu")
     got = train.reference_steps(cell.config, cell.traffic, seed, "cpu",
                                 quant="fp8")
     nums = check.training_numbers(got, ref)
-    assert any(nums[k] > lim for k, lim in benchtiny.LIMITS.items()), nums
+    assert any(nums[k] > lim for k, lim in limits.items()), nums
     same = check.training_numbers(ref, ref)
     assert all(v == 0 for v in same.values())
+
+
+def test_the_float8_control_fails_training():
+    control_fails(benchtiny.tiny_cell(CELL))
+
+
+def test_the_float8_control_fails_moe_training():
+    control_fails(moe_cell())

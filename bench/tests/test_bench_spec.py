@@ -100,8 +100,8 @@ def test_what_a_run_loads_holds_no_jax():
     code = f"""
 import sys, glob, os, importlib
 sys.path[:0] = [{BENCH!r}, {os.path.join(ROOT, 'src')!r}]
-for m in ["reference.decoder"]:
-    importlib.import_module(m)
+for p in glob.glob(os.path.join({BENCH!r}, "reference", "*.py")):
+    importlib.import_module("reference." + os.path.basename(p)[:-3])
 assert not any(k.split(".")[0] == "repro_torch" for k in sys.modules), "ref"
 from benchlib import harness, train, check, probes
 
@@ -157,7 +157,7 @@ def test_a_new_cell_needs_only_new_files(tmp_path):
     assert {m["name"] for m in cell.end_to_end} == {"train_tok_per_s",
                                                     "setup_s"}
     assert cell.traffic == mix and cell.config == cfg
-    cell.entry["limits"] = dict(benchtiny.LIMITS)
+    cell.entry["limits"] = benchtiny.tiny_limits(cell.name, cfg)
     run = benchtiny.run_tiny(cell, seconds=1.0, trace=True)
     assert run.correct and run.e2e["train_tok_per_s"] > 0
     value = harness.read_metric("tiny.plain_s", run,
